@@ -1,0 +1,72 @@
+"""Parameters from the JAX package's layout, as numpy, into the port's.
+
+``params_from_numpy(tree, device)`` takes the JAX model's parameter
+pytree with its leaves already converted to numpy (``np.asarray`` on
+each ``jax.Array``; bfloat16 leaves arrive as ``ml_dtypes.bfloat16``)
+and returns the port's parameter dict:
+
+* layer-stacked ``blocks`` (a leading ``n_layers`` axis on every leaf,
+  the JAX package's ``scan_layers`` layout) or a list of per-layer dicts
+  become a list of per-layer dicts;
+* every other leaf converts as is;
+* leaves that are one numpy object (a tied embedding / LM head) become
+  ONE tensor, so the tie survives into Phase-1 capture.
+
+The port imports no JAX: callers hand over numpy, never jax arrays.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+
+def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device)
+
+
+def params_from_numpy(tree: Dict[str, Any],
+                      device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    device = resolve_device(device)
+    memo: Dict[int, torch.Tensor] = {}
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        t = memo.get(id(x))
+        if t is None:
+            t = memo[id(x)] = _to_tensor(x, device)
+        return t
+
+    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
+    blocks = tree["blocks"]
+    if isinstance(blocks, dict):  # layer-stacked leaves
+        stacked = conv(blocks)
+        n = len(next(iter(_leaves(stacked))))
+        out["blocks"] = [_index(stacked, i) for i in range(n)]
+    else:
+        out["blocks"] = [conv(b) for b in blocks]
+    return out
+
+
+def _leaves(d):
+    for v in d.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _index(d, i):
+    return {k: (_index(v, i) if isinstance(v, dict) else v[i].contiguous())
+            for k, v in d.items()}

@@ -1,0 +1,27 @@
+"""Forge-UGC core: the four-phase compiler (capture, passes, RGIR
+lowering, Phase-4 scheduling/liveness/allocation/executors)."""
+from .backends import available_backends, get_backend
+from .capture import CaptureResult, trace_to_graph
+from .compiler import CompilationResult, CompiledModule, ForgeCompiler, forge_compile
+from .executor import CompiledExecutor, ExecutorStats, analyze_program
+from .graph import Graph
+from .lowering import RGIRProgram, lower_to_rgir
+from .passes import run_forge_passes
+
+__all__ = [
+    "available_backends",
+    "get_backend",
+    "CaptureResult",
+    "trace_to_graph",
+    "CompilationResult",
+    "CompiledModule",
+    "ForgeCompiler",
+    "forge_compile",
+    "CompiledExecutor",
+    "ExecutorStats",
+    "analyze_program",
+    "Graph",
+    "RGIRProgram",
+    "lower_to_rgir",
+    "run_forge_passes",
+]

@@ -1,0 +1,70 @@
+"""Backend protocol + registry (the paper's pluggable Phase-4 seam).
+
+A *backend* owns everything after lowering: it consumes the typed RGIR
+stream and produces an executor object.  The contract (``ExecutorLike``)
+is small so backends can range from the per-op interpreted loop to
+segment-at-a-time programs:
+
+* ``execute(*flat_inputs) -> List[Any]`` — run on concrete flat inputs,
+* ``as_fn() -> Callable`` — the same program as a plain callable,
+* ``stats: ExecutorStats`` — the transparency counters.
+
+Backends register themselves by name; ``get_backend`` resolves the name
+given as ``ForgeCompiler(backend=...)``.
+"""
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import Any, Callable, Dict, List, Protocol, Type, runtime_checkable
+
+from ..lowering import RGIRProgram
+
+
+@runtime_checkable
+class ExecutorLike(Protocol):
+    """What the compiler needs back from a backend."""
+
+    stats: Any
+
+    def execute(self, *flat_inputs: Any) -> List[Any]:
+        ...
+
+    def as_fn(self) -> Callable:
+        ...
+
+
+class Backend(ABC):
+    """One Phase-4 code generator.  Subclasses set ``name``."""
+
+    #: registry key; also recorded in ``CompilationResult.backend``
+    name: str = "?"
+
+    @abstractmethod
+    def build(self, prog: RGIRProgram) -> ExecutorLike:
+        """Compile an RGIR program into an executor."""
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"<backend {self.name!r}>"
+
+
+_REGISTRY: Dict[str, Backend] = {}
+
+
+def register_backend(backend_cls: Type[Backend]) -> Type[Backend]:
+    """Class decorator: instantiate + register under ``backend_cls.name``."""
+    inst = backend_cls()
+    if inst.name in _REGISTRY:
+        raise ValueError(f"backend {inst.name!r} already registered")
+    _REGISTRY[inst.name] = inst
+    return backend_cls
+
+
+def get_backend(name: str) -> Backend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown backend {name!r}; available: {available_backends()}") from None
+
+
+def available_backends() -> List[str]:
+    return sorted(_REGISTRY)

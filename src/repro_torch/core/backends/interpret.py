@@ -1,0 +1,19 @@
+"""The ``interpret`` backend — per-instruction Python dispatch.
+
+Wraps :class:`~repro_torch.core.executor.CompiledExecutor`: one
+Python-level dispatch per RGIR instruction over the physical buffer file
+(paper Listing 9).
+"""
+from __future__ import annotations
+
+from ..executor import CompiledExecutor, analyze_program
+from ..lowering import RGIRProgram
+from .base import Backend, register_backend
+
+
+@register_backend
+class InterpretBackend(Backend):
+    name = "interpret"
+
+    def build(self, prog: RGIRProgram) -> CompiledExecutor:
+        return CompiledExecutor(analyze_program(prog))

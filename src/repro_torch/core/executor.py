@@ -1,0 +1,168 @@
+"""Phase 4d — code generation: the ``CompiledExecutor``.
+
+The port's form of the paper's ``CompiledNPUExecutor`` (Listing 9): a
+flat, pre-scheduled instruction stream executed with
+
+* **no attribute lookup** — callables pre-resolved at lowering time,
+* **no graph traversal** — straight loop over the scheduled ops,
+* **physical-buffer register file** — values are stored under the buffer
+  slot assigned by linear-scan allocation, so the executor *exercises*
+  the allocation (a double-booked buffer corrupts results and is caught
+  by the tests),
+* **eager GC** — ``dead_after`` drops a buffer's reference the moment its
+  register's last reader retires, so PyTorch's caching allocator can
+  reuse the device memory for the next op (paper: "eager GC").
+
+Values are tensors on the caller's device; host- and accel-tagged ops
+run on the same CUDA tensors.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, List, Tuple
+
+from .bufalloc import AllocationResult, allocate_from_liveness
+from .liveness import LivenessInfo, analyze_liveness
+from .lowering import RGIRProgram
+from .scheduler import ScheduleResult, schedule, verify_topological
+
+
+@dataclass
+class ExecutorStats:
+    n_instructions: int = 0
+    n_accel: int = 0
+    n_host: int = 0
+    n_vregs: int = 0
+    n_buffers: int = 0
+    rho_buf: float = 0.0
+    delta_before: int = 0
+    delta_after: int = 0
+    #: all-time high-water mark of the physical buffer file (max over calls)
+    peak_live_buffers: int = 0
+    #: high-water mark of the most recent ``execute()`` call only
+    last_peak_live_buffers: int = 0
+    #: total ``execute()`` calls on this executor
+    total_calls: int = 0
+    #: maximal device-affine runs of the scheduled stream (δ_after + 1)
+    n_segments: int = 0
+
+    def __post_init__(self) -> None:
+        # per-call counters are folded in under a lock so a shared stats
+        # object stays consistent under concurrent calls
+        self._lock = threading.Lock()
+
+    def note_call(self, peak: int) -> None:
+        """Record one ``execute()`` call's counters (thread-safe)."""
+        with self._lock:
+            self.total_calls += 1
+            self.last_peak_live_buffers = peak
+            self.peak_live_buffers = max(self.peak_live_buffers, peak)
+
+    @property
+    def transition_reduction(self) -> float:
+        if self.delta_before == 0:
+            return 0.0
+        return 1.0 - self.delta_after / self.delta_before
+
+
+@dataclass
+class AnalyzedProgram:
+    """Phase-4 analysis product shared by every backend.
+
+    Scheduling runs *first*, then liveness and linear-scan allocation are
+    recomputed on the scheduled order (see DESIGN.md for the soundness
+    argument) — ``prog`` is already renumbered into schedule order.
+    """
+
+    prog: RGIRProgram
+    sched: ScheduleResult
+    live: LivenessInfo
+    alloc: AllocationResult
+
+
+def analyze_program(prog: RGIRProgram) -> AnalyzedProgram:
+    """Run Phase 4a-c: schedule, then liveness + allocation on that order."""
+    sched = schedule(prog)
+    verify_topological(prog, sched.order)
+    scheduled = prog.renumber(sched.order)
+    live = analyze_liveness(scheduled)
+    alloc = allocate_from_liveness(live)
+    return AnalyzedProgram(prog=scheduled, sched=sched, live=live, alloc=alloc)
+
+
+class CompiledExecutor:
+    """Flat instruction-stream executor over a physical buffer file."""
+
+    def __init__(self, analyzed: AnalyzedProgram):
+        self.prog = analyzed.prog
+        self.sched = analyzed.sched
+        # liveness + allocation on the *scheduled* stream (soundness)
+        self.live: LivenessInfo = analyzed.live
+        self.alloc: AllocationResult = analyzed.alloc
+        self._r2b = self.alloc.reg_to_buf
+        self.dead_after = self.live.dead_after
+
+        r2b = self._r2b
+        self._const_items: Tuple[Tuple[int, Any], ...] = tuple(
+            (r2b[r], v) for r, v in self.prog.constants.items()
+        )
+        self._input_bufs = [r2b[r] for r in self.prog.input_regs]
+        self._output_bufs = [r2b[r] for r in self.prog.output_regs]
+        const_slots = {b for b, _ in self._const_items}
+        # precompiled dispatch plan: per-op output/free slot indices, so
+        # the hot loop does no reg->slot dict walking
+        self._op_plans = tuple(
+            (
+                op,
+                tuple(r2b[r] for r in op.output_regs),
+                tuple(b for b in (r2b[r] for r in self.dead_after.get(idx, ()))
+                      if b not in const_slots),
+            )
+            for idx, op in enumerate(self.prog.ops)
+        )
+        occupied = set(const_slots) | set(self._input_bufs)
+        peak = len(occupied)
+        for idx, op in enumerate(self.prog.ops):
+            occupied.update(r2b[r] for r in op.output_regs)
+            peak = max(peak, len(occupied))
+            occupied.difference_update(r2b[r] for r in self.dead_after.get(idx, ()))
+        self._static_peak = peak
+
+        self.stats = ExecutorStats(
+            n_instructions=len(self.prog.ops),
+            n_accel=sum(1 for op in self.prog.ops if op.device == "accel"),
+            n_host=sum(1 for op in self.prog.ops if op.device == "host"),
+            n_vregs=self.alloc.n_vregs,
+            n_buffers=self.alloc.n_buffers,
+            rho_buf=self.alloc.rho_buf,
+            delta_before=self.sched.delta_before,
+            delta_after=self.sched.delta_after,
+            n_segments=self.sched.n_segments,
+        )
+
+    def execute(self, *flat_inputs: Any) -> List[Any]:
+        """Run the compiled program (paper Listing 9's ``execute``)."""
+        if len(flat_inputs) != len(self._input_bufs):
+            raise TypeError(f"executor expects {len(self._input_bufs)} inputs, "
+                            f"got {len(flat_inputs)}")
+        file: List[Any] = [None] * self.alloc.n_buffers
+        for b, v in self._const_items:
+            file[b] = v
+        for b, v in zip(self._input_bufs, flat_inputs):
+            file[b] = v
+        r2b = self._r2b
+        read = lambda r: file[r2b[r]]  # noqa: E731
+        for op, out_slots, free_slots in self._op_plans:
+            results = op.execute(read)
+            for b, v in zip(out_slots, results):
+                file[b] = v
+            for b in free_slots:  # eager GC
+                file[b] = None
+        outs = [file[b] for b in self._output_bufs]
+        self.stats.note_call(self._static_peak)
+        return outs
+
+    def as_fn(self) -> Callable:
+        """The executor as a plain callable on flat inputs."""
+        return self.execute

@@ -1,0 +1,150 @@
+"""Flash attention (forward): the ``forge.sdpa`` dispatch target for the
+unmasked full-sequence forward.
+
+Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``flash_attention``) to a hand-written CUDA kernel for Hopper,
+``csrc/flash_attention.cu``; the source says what bounds it on the H100
+and what its design does about that.
+
+* :func:`flash_attention_cuda` — the wrapper: checks, allocates the
+  output, launches, counts the launch in :data:`LAUNCHES`.
+* :func:`flash_attention_plain` — the plain PyTorch version
+  (:func:`~repro_torch.kernels.ref.sdpa_ref` with the same scale).
+* :func:`flash_attention` — the ``torch.autograd.Function`` front,
+  selected by device; backward through the plain version, as the Pallas
+  ``custom_vjp`` does.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from . import _build
+from . import ref as _ref
+
+#: launches of the CUDA kernel since the last ``LAUNCHES.reset()``
+LAUNCHES = _build.LaunchCount()
+
+#: head dims the kernels are instantiated for (the f32 kernel keeps 2*D
+#: fp32 accumulators per thread in registers; bf16 tiles D by 16)
+HEAD_DIMS = (16, 32, 64)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib():
+    fn = _build.load("flash_attention").forge_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _eff_scale(scale: float, scale_mode: str) -> float:
+    if scale_mode == "mul":
+        return scale
+    if scale_mode == "div":
+        return 1.0 / scale
+    raise ValueError(f"bad scale_mode {scale_mode!r}")
+
+
+def flash_attention_plain(q, k, v, *, scale, scale_mode="mul", causal=False):
+    return _ref.sdpa_ref(q, k, v, None, scale=_eff_scale(scale, scale_mode),
+                         causal=causal)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    scale_mode: str = "mul",
+    causal: bool = False,
+) -> torch.Tensor:
+    """Attention on the card.  q: (B, H, Sq, D); k, v: (B, KVH, Sk, D).
+
+    The views may be strided; only the head dimension must be contiguous.
+    The output is a fresh contiguous (B, H, Sq, D) tensor in q's dtype.
+    """
+    _eff_scale(scale, scale_mode)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    KVH, Sk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or KVH == 0 or H % KVH:
+        raise ValueError(f"flash_attention: q{tuple(q.shape)} does not match "
+                         f"k{tuple(k.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    for t in (q, k, v):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("flash_attention: q, k, v must be on one CUDA device")
+        if t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: dtype mismatch {t.dtype} vs {q.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError("flash_attention: the head dim must be contiguous")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError("flash_attention: operands must be on the current CUDA device")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention: unsupported dtype {q.dtype}")
+    o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, o) for s in (t.stride(0), t.stride(1), t.stride(2))
+    ))
+    fn = _lib()
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), B, H, KVH, Sq, Sk, D,
+            float(scale), int(scale_mode == "div"), int(bool(causal)),
+            DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, "flash_attention")
+    LAUNCHES.n += 1
+    return o
+
+
+def _forward(q, k, v, scale, scale_mode, causal):
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, scale=scale, scale_mode=scale_mode,
+                                    causal=causal)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, scale_mode=scale_mode,
+                                     causal=causal)
+    raise ValueError(f"flash_attention: no implementation for device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, scale_mode, causal):
+        ctx.cfg = (scale, scale_mode, causal)
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, scale, scale_mode, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, scale_mode, causal = ctx.cfg
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_plain(*inputs, scale=scale,
+                                        scale_mode=scale_mode, causal=causal)
+        return tuple(torch.autograd.grad(out, inputs, g)) + (None, None, None)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    scale_mode: str = "mul",
+    causal: bool = False,
+) -> torch.Tensor:
+    """Blockwise online-softmax attention; GQA when H is a multiple of KVH."""
+    if scale is None:
+        scale, scale_mode = 1.0 / (q.shape[-1] ** 0.5), "mul"
+    return _FlashAttention.apply(q, k, v, float(scale), scale_mode, bool(causal))

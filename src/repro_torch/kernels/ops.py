@@ -1,0 +1,153 @@
+"""Dispatch for the fused graph nodes (``forge.sdpa``, ``forge.linear_act``).
+
+Every fused node the Phase-2 passes create bottoms out here.  The
+implementation follows the tensors' device:
+
+* a CUDA tensor launches the hand-written kernel, or raises — there is
+  no fallback to the plain version on the card;
+* a CPU tensor takes the kernel's plain PyTorch version;
+* ``impl="ref"`` runs the plain version on any device (the oracle that
+  ``chip_smoke.py`` and the tests hold the kernels against).
+
+Routing mirrors the JAX package's ``kernels/ops.py``: flash attention
+only for unmasked attention with Sq > 1; masked or single-query
+attention is plain masked-softmax attention in torch (XLA in the JAX
+package, never a Pallas kernel there either).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import ref as _ref
+from .flash_attention import flash_attention
+from .fused_linear import fused_linear as _fused_linear_kernel
+
+_VALID_IMPLS = (None, "ref")
+
+# sequences with Sq*Sk beyond this use the q-chunked softmax path
+_CHUNK_THRESHOLD = 4096 * 4096
+_DEFAULT_Q_CHUNK = 1024
+
+
+def _check_impl(impl: Optional[str]) -> None:
+    if impl not in _VALID_IMPLS:
+        raise ValueError(f"impl must be one of {_VALID_IMPLS}, got {impl!r}")
+
+
+def _apply_scale(s, scale, scale_mode):
+    if scale is None or scale_mode == "none":
+        return s
+    if scale_mode == "div":
+        return s / scale
+    if scale_mode == "mul":
+        return s * scale
+    raise ValueError(f"bad scale_mode {scale_mode!r}")
+
+
+def _sdpa_direct(q, k, v, mask, *, scale, scale_mode, causal, out_dtype,
+                 row0: int = 0, sq_total: Optional[int] = None):
+    """Masked-softmax attention with fp32 scores, one downcast at the end.
+
+    ``row0``/``sq_total`` place a query chunk inside the full query range
+    so the causal alignment stays ``Sk - Sq`` of the whole sequence.
+    """
+    s = torch.matmul(q.float(), k.float().transpose(-2, -1))
+    s = _apply_scale(s, scale, scale_mode)
+    Sq, Sk = s.shape[-2], s.shape[-1]
+    if causal:
+        total = Sq if sq_total is None else sq_total
+        row = torch.arange(Sq, device=s.device)[:, None] + row0 + (Sk - total)
+        col = torch.arange(Sk, device=s.device)[None, :]
+        s = torch.where(row >= col, s, torch.finfo(s.dtype).min)
+    if mask is not None:
+        s = s + mask.to(s.dtype)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(out_dtype)
+
+
+def _sdpa_chunked(q, k, v, mask, *, scale, scale_mode, causal, q_chunk,
+                  out_dtype):
+    """q-chunked softmax attention: O(c·Sk) live scores instead of O(Sq·Sk)."""
+    Sq, Sk = q.shape[-2], k.shape[-2]
+    c = min(q_chunk, Sq)
+    while Sq % c:
+        c //= 2
+    c = max(c, 1)
+    if mask is not None:
+        mask = mask.expand(*mask.shape[:-2], Sq, Sk)
+    outs = []
+    for i in range(0, Sq, c):
+        m_i = mask[..., i:i + c, :] if mask is not None else None
+        outs.append(_sdpa_direct(
+            q[:, :, i:i + c], k, v, m_i, scale=scale, scale_mode=scale_mode,
+            causal=causal, out_dtype=out_dtype, row0=i, sq_total=Sq,
+        ))
+    return torch.cat(outs, dim=2)
+
+
+def sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    scale_mode: str = "mul",
+    causal: bool = False,
+    groups: int = 1,
+    impl: Optional[str] = None,
+    q_chunk: int = _DEFAULT_Q_CHUNK,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Fused scaled-dot-product attention dispatch.
+
+    q: (B, H, Sq, D);  k, v: (B, H/groups, Sk, D).  ``mask`` is additive.
+    ``out_dtype`` defaults to v.dtype.
+    """
+    _check_impl(impl)
+    out_dtype = out_dtype or v.dtype
+    if q.shape[1] != k.shape[1] * groups:
+        raise ValueError(f"sdpa: H={q.shape[1]} != KVH={k.shape[1]} * groups={groups}")
+    if scale is None:
+        scale, scale_mode = 1.0 / (q.shape[-1] ** 0.5), "mul"
+    if impl is None and mask is None and q.shape[-2] > 1:
+        return flash_attention(q, k, v, scale=scale, scale_mode=scale_mode,
+                               causal=causal).to(out_dtype)
+    kx, vx = _ref._expand_kv(k, groups), _ref._expand_kv(v, groups)
+    if q.shape[-2] * kx.shape[-2] > _CHUNK_THRESHOLD and q.shape[-2] > 1:
+        return _sdpa_chunked(q, kx, vx, mask, scale=scale, scale_mode=scale_mode,
+                             causal=causal, q_chunk=q_chunk, out_dtype=out_dtype)
+    return _sdpa_direct(q, kx, vx, mask, scale=scale, scale_mode=scale_mode,
+                        causal=causal, out_dtype=out_dtype)
+
+
+def fused_linear(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    *,
+    act: Optional[str] = None,
+    residual: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """y = act(x·w + b) (+ residual).  x: (..., K), w: (K, N).
+
+    The residual is added after the kernel, in x's dtype.
+    """
+    _check_impl(impl)
+    if impl is None:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        y = _fused_linear_kernel(x2, w.contiguous(),
+                                 b.contiguous() if b is not None else None,
+                                 act=act).reshape(*lead, w.shape[-1])
+    else:
+        y = _ref.fused_linear_ref(x, w, b, act=act)
+    if residual is not None:
+        y = y + residual
+    return y
+
+
+__all__ = ["sdpa", "fused_linear"]

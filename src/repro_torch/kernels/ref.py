@@ -1,0 +1,91 @@
+"""Plain PyTorch versions of the fused kernels.
+
+They compute what the CUDA kernels compute, in the JAX package's
+layouts (q ``(B, H, Sq, D)``, k/v ``(B, KVH, Sk, D)``; x ``(M, K)``,
+w ``(K, N)``).  They are the CPU path, the oracle the kernels are held
+against on the card, and the backward of every kernel's
+``torch.autograd.Function``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _expand_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, KVH, S, D) -> (B, KVH*groups, S, D), head h reading KV head h // groups."""
+    if groups == 1:
+        return x
+    B, KVH, S, D = x.shape
+    return x[:, :, None].expand(B, KVH, groups, S, D).reshape(B, KVH * groups, S, D)
+
+
+def sdpa_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Reference scaled-dot-product attention.
+
+    q: (B, H, Sq, D); k, v: (B, KVH, Sk, D) with H % KVH == 0 (GQA).
+    ``mask`` is additive, broadcastable to (B, H, Sq, Sk).  Scores and
+    softmax in fp32; the probabilities are cast to v's dtype before the
+    second product, as the JAX oracle does.
+    """
+    B, H, Sq, D = q.shape
+    KVH, Sk = k.shape[1], k.shape[2]
+    k = _expand_kv(k, H // KVH)
+    v = _expand_kv(v, H // KVH)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    s = torch.matmul(q.float(), k.float().transpose(-2, -1)) * scale
+    if causal:
+        row = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        col = torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(row >= col, s, torch.finfo(s.dtype).min)
+    if mask is not None:
+        s = s + mask.to(s.dtype)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def fused_linear_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    *,
+    act: Optional[str] = None,
+) -> torch.Tensor:
+    """Reference linear (+bias) (+activation). x: (..., K), w: (K, N).
+
+    Product accumulated in fp32 and rounded to x's dtype before the
+    bias and the activation, as the JAX oracle does.
+    """
+    y = torch.matmul(x.float(), w.float()).to(x.dtype)
+    if b is not None:
+        y = y + b
+    return apply_act(y, act)
+
+
+def apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    """The five epilogue activations.  ``gelu`` is the tanh approximation
+    (``jax.nn.gelu``'s default); ``gelu_exact`` is the erf form."""
+    if act is None or act == "none":
+        return y
+    if act == "relu":
+        return torch.relu(y)
+    if act == "silu":
+        return F.silu(y)
+    if act == "gelu":
+        return F.gelu(y, approximate="tanh")
+    if act == "gelu_exact":
+        return F.gelu(y)
+    if act == "tanh":
+        return torch.tanh(y)
+    raise ValueError(f"unknown activation {act!r}")

@@ -1,0 +1,60 @@
+"""Forge-pipeline integration glue shared by every model family.
+
+``forge_body(raw_fn, key, example_args)`` captures the block body through
+the full four-phase compiler ONCE per (config, mode, kernel impl, input
+structure, shapes, dtypes, devices) and returns the compiled module's
+callable; families call it when ``cfg.fuse == 'forge'``.  ``torch.export``
+specialises on shapes, so a new shape is a new compile.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+_CACHE: Dict[str, Any] = {}  # key -> CompiledModule
+
+
+def _shape_key(tree) -> str:
+    flat, spec = pytree.tree_flatten(tree)
+    leaves = tuple(
+        (tuple(a.shape), str(a.dtype), str(a.device)) if isinstance(a, torch.Tensor)
+        else repr(a)
+        for a in flat
+    )
+    return f"{spec}|{leaves}"
+
+
+def forge_body(
+    raw_fn: Callable,
+    key_prefix: str,
+    example_args: Tuple[Any, ...],
+    *,
+    enabled: bool = True,
+    impl: Optional[str] = None,
+) -> Callable:
+    """Return the Forge-compiled body (or ``raw_fn`` when disabled).
+
+    ``impl`` is forwarded into the fused nodes: None dispatches by device
+    (kernels on the card), ``"ref"`` runs their plain versions.
+    """
+    if not enabled:
+        return raw_fn
+    key = f"{key_prefix}/{impl}/{_shape_key(example_args)}"
+    hit = _CACHE.get(key)
+    if hit is None:
+        from ..core import ForgeCompiler
+
+        hit = ForgeCompiler(impl=impl).compile(raw_fn, *example_args)
+        _CACHE[key] = hit
+    return hit.as_fn()
+
+
+def compiled_bodies() -> List[Any]:
+    """The CompilationResult of every body compiled so far (transparency)."""
+    return [mod.result for mod in _CACHE.values()]
+
+
+def clear_cache() -> None:
+    _CACHE.clear()

@@ -1,0 +1,210 @@
+"""Decoder-only transformer LM (dense).
+
+The block body is written unfused; when ``cfg.fuse == 'forge'`` it is
+captured and optimized by the Forge pipeline once per (config, shape)
+and the compiled body runs once per layer in a Python loop over the
+per-layer parameters (the JAX package scans it over layer-stacked
+parameters instead).
+
+Entry points:
+
+* ``init(cfg, generator, device)``                — parameter dict
+* ``apply(params, tokens, cfg)``                  — full-sequence logits
+* ``init_cache(cfg, batch, max_len, device)``     — stacked KV cache
+* ``decode_step(params, cache, tok, pos, cfg)``   — one-token serve step
+
+Every entry point that creates tensors runs on the CUDA device unless the
+caller passes ``device="cpu"``; the others follow their inputs' device.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from . import attention as A
+from . import layers as L
+from ._forge import forge_body
+
+Params = Dict[str, Any]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r}: the port carries the dense "
+                                  f"decoder so far")
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+
+def block_init(generator: Optional[torch.Generator], cfg: ModelConfig,
+               device: torch.device) -> Params:
+    dt = _dtype(cfg)
+    return {
+        "norm1": L.norm_init(cfg.d_model, cfg.norm, device=device),
+        "attn": A.attn_init(
+            generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+            qkv_bias=cfg.qkv_bias, dtype=dt, device=device,
+        ),
+        "norm2": L.norm_init(cfg.d_model, cfg.norm, device=device),
+        "ffn": L.ffn_init(generator, cfg.d_model, cfg.d_ff, cfg.ffn,
+                          bias=cfg.ffn_bias, dtype=dt, device=device),
+    }
+
+
+def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+         device: Union[str, torch.device] = "cuda") -> Params:
+    """Random parameters with the JAX package's distributions.
+
+    ``generator`` must live on ``device`` (a CUDA generator for CUDA).
+    Tied configs store ONE embedding tensor, read again by the LM head."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    dt = _dtype(cfg)
+    params: Params = {
+        "embed": L.embed_init(generator, cfg.vocab, cfg.d_model, dt, device),
+        "blocks": [block_init(generator, cfg, device) for _ in range(cfg.n_layers)],
+        "final_norm": L.norm_init(cfg.d_model, cfg.norm, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab, dt, device)
+    return params
+
+
+# --------------------------------------------------------------------------
+# block bodies (the Forge capture targets)
+# --------------------------------------------------------------------------
+
+
+def block_apply(p: Params, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    h = L.apply_norm(x, p["norm1"], cfg.norm)
+    attn_out, _ = A.attention(
+        h, p["attn"], n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        rope_cos=cos, rope_sin=sin, causal=True,
+    )
+    x = x + attn_out
+    h = L.apply_norm(x, p["norm2"], cfg.norm)
+    return x + L.apply_ffn(h, p["ffn"], cfg.ffn)
+
+
+def block_decode(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, pos: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    h = L.apply_norm(x, p["norm1"], cfg.norm)
+    attn_out, new_cache = A.attention(
+        h, p["attn"], n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        rope_cos=cos, rope_sin=sin,
+        cache={"k": k_cache, "v": v_cache}, cache_pos=pos,
+    )
+    x = x + attn_out
+    h = L.apply_norm(x, p["norm2"], cfg.norm)
+    return x + L.apply_ffn(h, p["ffn"], cfg.ffn), new_cache["k"], new_cache["v"]
+
+
+def _body_fn(cfg: ModelConfig, mode: str, example_args, impl: Optional[str] = None):
+    base = block_apply if mode == "apply" else block_decode
+
+    def raw(*args):
+        return base(*args, cfg=cfg)
+
+    # the whole config keys the body: two configs can share a name and
+    # every parameter shape yet split heads differently
+    return forge_body(raw, f"{cfg!r}/{mode}", example_args,
+                      enabled=cfg.fuse == "forge", impl=impl)
+
+
+# --------------------------------------------------------------------------
+# forward paths
+# --------------------------------------------------------------------------
+
+
+def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
+    return L.rope_tables(positions, cfg.head_dim_, cfg.rope_theta)
+
+
+def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+          impl: Optional[str] = None) -> torch.Tensor:
+    """Full-sequence forward: (B, S) tokens → (B, S, vocab) fp32 logits."""
+    _check_family(cfg)
+    x = L.embed(tokens, params["embed"])
+    B, S, _ = x.shape
+    cos, sin = _rope_for(cfg, torch.arange(S, device=x.device))
+    blocks = params["blocks"]
+    body = _body_fn(cfg, "apply", (blocks[0], x, cos, sin), impl)
+    for p_layer in blocks:
+        x = body(p_layer, x, cos, sin)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    return L.lm_head(x, params.get("lm_head", params["embed"]),
+                     transpose=cfg.tie_embeddings)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Union[str, torch.device] = "cuda") -> Dict[str, torch.Tensor]:
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+
+
+def _cached_forward(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # (B, S, D) embedded inputs
+    pos: torch.Tensor,  # int64 cache write position, 0-d or per-row (B,)
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    cfg: ModelConfig,
+    mode: str,
+    slot_mask: Optional[torch.Tensor] = None,  # bool (B,) — active decode slots
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Layer loop over the block-decode body against the KV cache, final
+    norm, LM head.  ``slot_mask`` gates the cache update per batch row
+    outside the compiled body (the body graph is mask-free): inactive
+    rows keep their previous KV bitwise."""
+    blocks = params["blocks"]
+    body = _body_fn(cfg, mode, (blocks[0], x, cache["k"][0], cache["v"][0], pos, cos, sin),
+                    impl)
+    ks, vs = [], []
+    for i, p_layer in enumerate(blocks):
+        x, nk, nv = body(p_layer, x, cache["k"][i], cache["v"][i], pos, cos, sin)
+        ks.append(L.slot_gate(slot_mask, nk, cache["k"][i]))
+        vs.append(L.slot_gate(slot_mask, nv, cache["v"][i]))
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = L.lm_head(x, params.get("lm_head", params["embed"]),
+                       transpose=cfg.tie_embeddings)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def decode_step(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    token: torch.Tensor,  # (B, 1) int
+    pos: Union[int, torch.Tensor],  # write position — scalar or per-row (B,)
+    cfg: ModelConfig,
+    *,
+    slot_mask: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One serve step: logits for the next token + updated cache.
+
+    With ``pos`` a per-row vector every batch row decodes at its own
+    position (per-row RoPE rotation, KV write and length mask);
+    ``slot_mask`` additionally freezes inactive rows' cache updates."""
+    _check_family(cfg)
+    x = L.embed(token, params["embed"])
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    cos, sin = _rope_for(cfg, L.decode_positions(pos))
+    return _cached_forward(params, cache, x, pos, cos, sin, cfg, "decode",
+                           slot_mask=slot_mask, impl=impl)

@@ -1,0 +1,122 @@
+"""The port on the card: CUDA kernels against their plain versions, and
+the smoke model and server going through them.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports no JAX, so it runs on a machine that has only the port's
+dependencies:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import fused_linear as FL
+from repro_torch.kernels import ops
+from repro_torch.launch.serve import BatchedServer
+from repro_torch.models import get_model
+
+from torch_port_support import TOL_BF16, TOL_F32, cuda_device  # noqa: F401
+
+ACTS = [None, "relu", "silu", "gelu", "gelu_exact", "tanh"]
+#: bf16's unit roundoff: the kernel and the plain version each round
+#: every p_j*v_j term and the output once, so a bf16 flash result is held
+#: within 3u*(sum_j p_j|v_j| + |out|) of its plain version
+BF16_U = 2.0 ** -8
+
+
+def _qkv(seed, B, H, KVH, Sq, Sk, D, dtype=np.float32):
+    """q and k of std 1.5 give scores of std 2.25 after the 1/sqrt(D)
+    scale: a peaky softmax and O(1) output rows, so an error in the
+    online-softmax rescale is far above the tolerance."""
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, H, Sq, D)) * 1.5).astype(dtype)
+    k = (rng.standard_normal((B, KVH, Sk, D)) * 1.5).astype(dtype)
+    v = rng.standard_normal((B, KVH, Sk, D)).astype(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+class TestKernelsOnCard:
+    """CUDA kernels against their plain versions (tolerances of the JAX
+    package's kernel tests)."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("M,K,N", [(4, 768, 3072), (4, 3072, 768), (300, 768, 768),
+                                       (7, 33, 45), (40, 33, 45)])
+    @pytest.mark.parametrize("act", ACTS)
+    def test_fused_linear(self, cuda_device, dtype, M, K, N, act):
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        x = (torch.randn(M, K, generator=g, device=cuda_device) * 0.5).to(dtype)
+        w = (torch.randn(K, N, generator=g, device=cuda_device) / K ** 0.5).to(dtype)
+        b = torch.randn(N, generator=g, device=cuda_device).to(dtype)
+        got = FL.fused_linear_cuda(x, w, b, act=act)
+        want = FL.fused_linear_plain(x, w, b, act=act)
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("B,H,KVH,Sq,Sk,D", [(2, 12, 12, 256, 256, 64),
+                                                 (2, 12, 4, 100, 100, 64),
+                                                 (1, 4, 4, 64, 200, 32),
+                                                 (1, 4, 2, 33, 33, 16),
+                                                 (1, 2, 2, 1, 70, 64)])
+    def test_flash(self, cuda_device, dtype, causal, B, H, KVH, Sq, Sk, D):
+        q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+                   for a in _qkv(11, B, H, KVH, Sq, Sk, D))
+        got = FA.flash_attention_cuda(q, k, v, scale=D ** -0.5, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, scale=D ** -0.5, causal=causal)
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if dtype == torch.bfloat16:
+            mass = FA.flash_attention_plain(q, k, v.abs(), scale=D ** -0.5, causal=causal)
+            err = (got.float() - want.float()).abs()
+            bound = 3 * BF16_U * (mass.float() + want.float().abs())
+            assert bool((err <= bound).all()), (err / bound).max()
+
+    def test_unsupported_head_dim_raises(self, cuda_device):
+        q = torch.ones(1, 2, 8, 48, device=cuda_device)
+        with pytest.raises(ValueError):
+            FA.flash_attention_cuda(q, q, q, scale=1.0)
+
+    def test_dispatch_launches_kernels(self, cuda_device):
+        FL.LAUNCHES.reset()
+        FA.LAUNCHES.reset()
+        x = torch.randn(3, 5, 64, device=cuda_device)
+        ops.fused_linear(x, torch.randn(64, 32, device=cuda_device), act="gelu")
+        q = torch.randn(1, 2, 16, 64, device=cuda_device)
+        ops.sdpa(q, q, q, causal=True)
+        ops.sdpa(q, q, q, causal=True, impl="ref")
+        assert FL.LAUNCHES.n == 1 and FA.LAUNCHES.n == 1
+
+
+@pytest.mark.cuda
+def test_model_on_card_matches_plain_path(cuda_device):
+    """Smoke model with D=64 heads on the card: kernels vs impl='ref'."""
+    cfg = get_config("forge-125m", smoke=True).with_(n_heads=1, n_kv_heads=1,
+                                                     dtype="float32")
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=cuda_device)
+    FL.LAUNCHES.reset()
+    FA.LAUNCHES.reset()
+    got = m.apply(p, toks, cfg)
+    assert FA.LAUNCHES.n == cfg.n_layers and FL.LAUNCHES.n == 3 * cfg.n_layers
+    want = m.apply(p, toks, cfg, impl="ref")
+    torch.testing.assert_close(got, want, **TOL_F32)
+
+
+@pytest.mark.cuda
+def test_serve_on_card_launches_kernels(cuda_device):
+    cfg = get_config("forge-125m", smoke=True).with_(n_heads=1, n_kv_heads=1)
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 4)).astype(np.int32)
+    FL.LAUNCHES.reset()
+    FA.LAUNCHES.reset()
+    r = BatchedServer(cfg, p, max_len=16).generate(prompts, 3)
+    assert r["tokens"].shape == (2, 3)
+    assert FL.LAUNCHES.n == 3 * cfg.n_layers * (4 + 3 - 1) and FA.LAUNCHES.n == 0

@@ -8,10 +8,12 @@ Run from the repository root, with one CUDA card:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Device and build: the card's name and power limit, then both CUDA
-   kernels built with nvcc for sm_90a from ``src/repro_torch/kernels/csrc``.
+1. Device and build: the card's name and power limit, then the three
+   CUDA kernels built with nvcc for sm_90a from
+   ``src/repro_torch/kernels/csrc``, one nvcc per source, all started
+   together.
 2. Each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (f32: rtol 2e-4, atol 2e-5; bf16: 3e-2,
+   shapes the main paths give it (fused linear at M = 1 to 4096 rows; f32: rtol 2e-4, atol 2e-5; bf16: 3e-2,
    the JAX package's kernel tolerances; bf16 flash attention also within
    a bound from bf16 rounding, on inputs whose softmax is peaky;
    whole-model bf16 logits 6e-2), with its time, the plain version's
@@ -24,6 +26,23 @@ Phases (any failure raises and the script exits non-zero):
    server with ``impl="ref"``.
 4. The full-sequence forward ``apply`` at B=4, S=1024: 12 flash-attention
    and 36 fused-linear launches, logits against the plain path.
+5. Paged continuous batching at full width: ``SlotScheduler`` over
+   ``BatchedServer(mode="forge", paged=True)`` with the paged-attention
+   kernel (``kv_kernel="pallas"``), 12 requests with a shared prefix; the
+   whole decode step and prefill are Phase 1-4 programs per bucket.
+   Launches: paged attention = 12 x decode dispatches, fused linear = the
+   programs' linear nodes x their dispatches, flash 0; no compile after
+   warmup; the pool accounting clean; two served prefill programs
+   (M = 32 and 256 fused-linear rows; cold, prefix-hit and masked rows)
+   and one decode tick against ``impl="ref"``, each on its own copy of
+   the page store; tok/s, tick p50/p99, TTFT, compile seconds per
+   program and the device busy share of steady ticks.
+
+Phase 2 also holds the paged-attention kernel against its plain version
+(f32 rtol 2e-4 / atol 2e-5; bf16 3e-2 and the bf16 rounding bound) on
+random non-contiguous page tables with positions at -1 and page edges:
+forge-125m's shapes (B 1/2/4, 12 heads, D 64, page 16, 16 pages a row,
+129 pages), GQA 12/4, a window, and head dims 16, 32 and 128.
 
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is one JSON object with a row per kernel (its
@@ -57,6 +76,11 @@ QK_STD = 1.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 ACTS = (None, "relu", "silu", "gelu", "gelu_exact", "tanh")
+# fused-linear rows M the main paths give the kernel: decode at the eager
+# batch (4) and the paged rungs (1, 2, 4); the paged prefill cells B x S
+# of {2, 4} x {16, 32, 64} (32 .. 256, partial row tiles included); the
+# full-sequence forward (4 x 1024)
+FL_ROWS = (1, 2, 4, 32, 64, 128, 256, 4096)
 
 
 def log(msg):
@@ -173,7 +197,7 @@ def phase_fused_linear(dev, timer):
     g = torch.Generator(device=dev).manual_seed(1)
     n_checks = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for M in (4, 4096):
+        for M in FL_ROWS:
             for K, N in ((768, 3072), (3072, 768), (768, 768)):
                 x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dtype)
                 w = (torch.randn(K, N, generator=g, device=dev) / K ** 0.5).to(dtype)
@@ -291,6 +315,107 @@ def phase_flash(dev, timer):
                 bytes=nbytes, err=err)
 
 
+def paged_inputs(seed, dev, dtype, B, H, KVH, D, ps, MP, NP, pos=None):
+    """q, k, v std 1.5/1.5/1 (a peaky softmax); each row's table is a
+    random non-contiguous choice of pages 1..NP-1; positions default to
+    -1 (no key), page edges and the table's last slot."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy((rng.standard_normal((B, H, D)) * QK_STD).astype(np.float32))
+    k = torch.from_numpy((rng.standard_normal((NP, ps, KVH, D)) * QK_STD).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((NP, ps, KVH, D)).astype(np.float32))
+    pt = np.stack([1 + rng.choice(NP - 1, MP, replace=False) for _ in range(B)])
+    if pos is None:
+        edges = [-1, ps - 1, ps, MP * ps - 1, 2 * ps + 3]
+        pos = [edges[(seed + b) % len(edges)] for b in range(B)]
+    return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
+            torch.from_numpy(pt.astype(np.int32)).to(dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev))
+
+
+def assert_paged_rounding(got, want, q, k, v, pt, pos, window, what):
+    """bf16 paged attention within 3u*(sum_j p_j|v_j| + |out|) of its plain
+    version: the plain version rounds the probabilities to bf16 and both
+    round the output once.  Returns the largest error-to-bound ratio."""
+    from repro_torch.kernels import paged_attention as PA
+
+    mass = PA.paged_attention_plain(q, k, v.abs(), pt, pos, window=window).float()
+    err = (got.float() - want.float()).abs()
+    bound = 3 * BF16_U * (mass + want.float().abs())
+    worst = (err / bound.clamp_min(1e-30)).max().item()
+    check(not (err > bound).any().item(),
+          f"{what}: {int((err > bound).sum())} elements beyond 3u(sum p|v| + |out|) "
+          f"(worst err/bound {worst:.3e})")
+    return worst
+
+
+def phase_paged(dev, timer):
+    """The paged-attention kernel against its plain version, then its time
+    at the served decode shape beside the plain version, two library
+    calls (gather_pages + F.scaled_dot_product_attention) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels.ref import gather_pages
+
+    cases = []  # (B, H, KVH, D, ps, MP, NP, window)
+    for B in (1, 2, 4):
+        cases.append((B, 12, 12, 64, 16, 16, 129, None))
+    cases += [(4, 12, 4, 64, 16, 16, 129, None), (4, 12, 12, 64, 16, 16, 129, 20),
+              (2, 8, 8, 16, 16, 6, 20, 9), (2, 8, 4, 32, 16, 6, 20, None),
+              (2, 4, 4, 128, 16, 6, 20, None)]
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (B, H, KVH, D, ps, MP, NP, window) in enumerate(cases):
+            q, k, v, pt, pos = paged_inputs(i, dev, dtype, B, H, KVH, D, ps, MP, NP)
+            got = PA.paged_attention_cuda(q, k, v, pt, pos, window=window)
+            want = PA.paged_attention_plain(q, k, v, pt, pos, window=window)
+            what = (f"paged {dtype} B={B} H={H} KVH={KVH} D={D} ps={ps} MP={MP} "
+                    f"window={window} pos={pos.tolist()}")
+            assert_close(got, want, dtype, what)
+            check(bool((got[pos < 0] == 0).all()), f"{what}: pos=-1 rows not zero")
+            if dtype == torch.bfloat16:
+                worst = max(worst, assert_paged_rounding(got, want, q, k, v, pt, pos, window,
+                                                         what))
+            n += 1
+    torch.cuda.synchronize()
+    log(f"paged_attention: {n} cases within tolerance of the plain version (bf16: worst "
+        f"error / rounding bound {worst:.3e}, limit 1)")
+
+    # timing at the served decode shape: B=4, H=KVH=12, D=64, page 16,
+    # 16 pages a row, 129 pages, bf16, positions of a mid-run tick
+    B, H, KVH, D, ps, MP, NP = 4, 12, 12, 64, 16, 16, 129
+    dt = torch.bfloat16
+    pos_list = [44, 52, 60, 71]
+    q, k, v, pt, pos = paged_inputs(7, dev, dt, B, H, KVH, D, ps, MP, NP, pos=pos_list)
+    got = PA.paged_attention_cuda(q, k, v, pt, pos)
+    want = PA.paged_attention_plain(q, k, v, pt, pos)
+    err = assert_close(got, want, dt, "paged timing input")
+    assert_paged_rounding(got, want, q, k, v, pt, pos, None, "paged timing input")
+    L = MP * ps
+    keep = torch.arange(L, device=dev)[None, :] <= pos.long()[:, None]
+    mask = keep[:, None, None, :]  # boolean keep-mask for F.sdpa
+    ms = timer.ms(lambda: PA.paged_attention_cuda(q, k, v, pt, pos))
+    plain = timer.ms(lambda: PA.paged_attention_plain(q, k, v, pt, pos))
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], gather_pages(k, pt), gather_pages(v, pt), attn_mask=mask))
+    live_pages = sum(p // ps + 1 for p in pos_list)
+    nbytes = (live_pages * ps * KVH * D * 2 * 2  # K and V of the live pages, bf16
+              + 2 * 2 * B * H * D  # q read, out written
+              + 4 * (B * MP + B))  # table and pos
+    flops = 4.0 * H * D * sum(p + 1 for p in pos_list)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    log(f"paged_attention bf16 B={B} H={H} D={D} ps={ps} pos={pos_list} ({live_pages} live "
+        f"pages): kernel {ms:.4f} ms, plain {plain:.4f} ms, library (2 calls: gather_pages + "
+        f"F.scaled_dot_product_attention) {lib:.4f} ms, bound {bound:.5f} ms "
+        f"({'bytes' if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else 'operations'}), "
+        f"max abs err {err:.3e}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, flops=flops,
+                bytes=nbytes, err=err)
+
+
 def phase_main_path(dev):
     """Serve, then ``apply``: each path's counts are zeroed just before it
     and read just after; the comparisons with the plain path come
@@ -300,6 +425,7 @@ def phase_main_path(dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_linear as FL
+    from repro_torch.kernels import paged_attention as PA
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import get_model
 
@@ -315,14 +441,13 @@ def phase_main_path(dev):
     server = BatchedServer(cfg, params, max_len=max_len, mode="eager")
 
     def counts():
-        return {"fused_linear": FL.LAUNCHES.n, "flash_attention": FA.LAUNCHES.n}
+        return {"fused_linear": FL.LAUNCHES.n, "flash_attention": FA.LAUNCHES.n,
+                "paged_attention": PA.LAUNCHES.n}
 
-    FL.LAUNCHES.reset()
-    FA.LAUNCHES.reset()
+    reset_counts()
     res = server.generate(prompts, n_new)
     serve = counts()
-    FL.LAUNCHES.reset()
-    FA.LAUNCHES.reset()
+    reset_counts()
     with torch.no_grad():
         t0 = time.perf_counter()
         logits_apply = model.apply(params, tokens, cfg)
@@ -334,8 +459,9 @@ def phase_main_path(dev):
     check(res["tokens"].shape == (B, n_new), f"token shape {res['tokens'].shape}")
     check(serve["fused_linear"] == 3 * cfg.n_layers * steps,
           f"fused_linear launches {serve['fused_linear']} != 36 per decode step x {steps} steps")
-    check(serve["flash_attention"] == 0,
-          f"masked decode attention launched flash {serve['flash_attention']} times")
+    check(serve["flash_attention"] == 0 and serve["paged_attention"] == 0,
+          f"masked contiguous decode attention launched flash {serve['flash_attention']} "
+          f"and paged {serve['paged_attention']} times")
     check(applied["flash_attention"] == cfg.n_layers,
           f"apply: flash launches {applied['flash_attention']} != {cfg.n_layers}")
     check(applied["fused_linear"] == 3 * cfg.n_layers,
@@ -373,11 +499,9 @@ def phase_main_path(dev):
         model.apply(params, tokens, cfg)
         torch.cuda.synchronize()
         apply_ms = (time.perf_counter() - t0) * 1e3
-        FL.LAUNCHES.reset()
-        FA.LAUNCHES.reset()
+        reset_counts()
         logits_apply_ref = model.apply(params, tokens, cfg, impl="ref")
-        check(counts() == {"fused_linear": 0, "flash_attention": 0},
-              "the impl='ref' apply launched a kernel")
+        check(not any(counts().values()), "the impl='ref' apply launched a kernel")
         err = assert_close(logits_apply, logits_apply_ref, torch.bfloat16, "apply logits",
                            TOL_MODEL_BF16)
         log(f"apply logits within bf16 tolerance of the plain path (max abs err "
@@ -385,6 +509,15 @@ def phase_main_path(dev):
             f"steady call {apply_ms:.1f} ms host wall")
     busy_share(dev, server, prompts)
     return {"serve": serve, "apply": applied}
+
+
+def reset_counts():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_linear as FL
+    from repro_torch.kernels import paged_attention as PA
+
+    for k in (FL, FA, PA):
+        k.LAUNCHES.reset()
 
 
 def rel_l2(got, want):
@@ -406,8 +539,7 @@ def compare_served_step(model, cfg, server, prompts, server_cls):
                             impl="ref")
     with torch.no_grad():
         cache, tok, pos, _ = server.prefill(prompts)
-        FL.LAUNCHES.reset()
-        FA.LAUNCHES.reset()
+        reset_counts()
         cache_ref, tok_ref, _, _ = ref_server.prefill(prompts)
         logits_ref, _ = model.decode_step(server.params, cache_ref, tok, pos, cfg, impl="ref")
         check(FL.LAUNCHES.n == 0 and FA.LAUNCHES.n == 0,
@@ -437,6 +569,278 @@ def compare_served_step(model, cfg, server, prompts, server_cls):
         f"{rel_l2(logits, logits_ref):.3e} relative L2); greedy tokens equal in "
         f"{same}/{len(pick)} rows at pos {pos} and {same_prefill}/{len(pick)} after the "
         f"prefill")
+
+
+def linear_nodes(mod):
+    """fused-linear launches one call of a compiled program makes: its
+    ``forge.linear_act`` nodes plus the fused-linear kernel calls the
+    capture met inside Forge-compiled block bodies."""
+    return sum(n.op in ("forge.linear_act", "repro_torch.fused_linear.default")
+               for n in mod.graph.nodes.values())
+
+
+def paged_workload(vocab):
+    """12 requests, 4 arriving per tick: prompts of 12, 24 or 40 tokens,
+    the four 40-token prompts sharing their first 32 tokens (2 pages), so
+    later admissions hit the prefix tree; budgets of 8 to 32 tokens."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, (32,)).astype(np.int32)
+    reqs = []
+    for i in range(12):
+        kind = i % 3
+        if kind == 0:
+            prompt = np.concatenate([shared, rng.integers(0, vocab, (8,)).astype(np.int32)])
+        else:
+            prompt = rng.integers(0, vocab, (12 if kind == 1 else 24,)).astype(np.int32)
+        reqs.append(Request(rid=i, prompt=prompt, max_new=8 + (5 * i) % 25, arrival=i // 4))
+    return reqs
+
+
+def phase_paged_serve(dev):
+    """Slot-level continuous batching over the paged KV pool at full width
+    with the paged-attention kernel; returns this path's launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import ForgeCompiler
+    from repro_torch.core.paging import build_row_table
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_linear as FL
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch.serve import BatchedServer, SlotScheduler
+    from repro_torch.models import get_model
+
+    cfg = get_config("forge-125m").with_(kv_kernel="pallas")
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    server = BatchedServer(cfg, params, max_len=256, mode="forge", paged=True,
+                           kv_page_size=16, seq_bucket_policy="ladder:16,32,64,128,256")
+    sched = SlotScheduler(server, max_slots=4)
+    reqs = paged_workload(cfg.vocab)
+    t0 = time.perf_counter()
+    warm_s = sched.warmup(prompt_lens=sorted({len(r.prompt) for r in reqs}))
+    for front, name in ((server.bucketed, "decode"), (server.prefill_bucketed, "prefill")):
+        for key, mod in front.programs.items():
+            r = mod.result
+            log(f"  {name} program {key}: Phases 1-4 {r.total_ms:.0f} ms (capture "
+                f"{r.capture_ms:.0f} ms), {front.stats.per_bucket_compile_s[str(key)]:.2f} s "
+                f"in all; nodes {r.nodes_before} -> {r.nodes_after}, "
+                f"{r.executor_stats.n_instructions} RGIR ops, {linear_nodes(mod)} fused-linear "
+                f"and {sum(n.op == 'repro_torch.paged_attention.default' for n in mod.graph.nodes.values())} "
+                f"paged-attention nodes")
+    log(f"paged warmup: {len(server.bucketed.programs)} decode + "
+        f"{len(server.prefill_bucketed.programs)} prefill programs in {warm_s:.1f} s "
+        f"(wall {time.perf_counter() - t0:.1f} s)")
+    calls0 = {f: dict(f.stats.per_bucket_calls) for f in (server.bucketed,
+                                                          server.prefill_bucketed)}
+    reset_counts()
+    res = sched.run(reqs)
+    torch.cuda.synchronize()
+    launched = {"fused_linear": FL.LAUNCHES.n, "flash_attention": FA.LAUNCHES.n,
+                "paged_attention": PA.LAUNCHES.n}
+
+    pool, tree = server.page_pool, server.prefix_tree
+    for r in reqs:
+        got = res["results"][r.rid]
+        check("error" not in got, f"request {r.rid} failed: {got.get('error')}")
+        check(len(got["tokens"]) == r.max_new,
+              f"request {r.rid}: {len(got['tokens'])} tokens, budget {r.max_new}")
+    check(res["swaps"] >= 1 and res["prefix_hits"] >= 1,
+          f"swaps {res['swaps']}, prefix hits {res['prefix_hits']}")
+    pool.check()
+    check(pool.pages_in_use == 1 + tree.cached_pages,
+          f"pages in use {pool.pages_in_use} != 1 + {tree.cached_pages} cached")
+    check(res["compiles"] == 0, f"{res['compiles']} compiles after warmup")
+    check(launched["paged_attention"] == cfg.n_layers * res["decode_dispatches"],
+          f"paged launches {launched['paged_attention']} != {cfg.n_layers} x "
+          f"{res['decode_dispatches']} decode dispatches")
+    want_fl = 0
+    for front in (server.bucketed, server.prefill_bucketed):
+        for key, mod in front.programs.items():
+            k = str(key)
+            want_fl += linear_nodes(mod) * (front.stats.per_bucket_calls.get(k, 0)
+                                            - calls0[front].get(k, 0))
+    check(launched["fused_linear"] == want_fl,
+          f"fused_linear launches {launched['fused_linear']} != {want_fl} predicted from "
+          f"the programs' linear nodes x dispatches")
+    check(launched["flash_attention"] == 0, f"flash launched {launched['flash_attention']}")
+    log(f"paged serve {cfg.name} (bf16, kv_kernel=pallas, max_slots 4, page 16, "
+        f"{pool.num_pages} pages): {len(reqs)} requests, {res['real_tokens']} tokens, "
+        f"{res['tok_per_s']:.1f} tok/s, tick p50 {res['tick_ms_p50']:.2f} ms p99 "
+        f"{res['tick_ms_p99']:.2f} ms, TTFT p50 {res['ttft_p50_ticks']:.1f} ticks "
+        f"{res['ttft_p50_s'] * 1e3:.2f} ms; decode dispatches {res['decode_dispatches']}, "
+        f"prefill dispatches {res['prefill_dispatches']}, swaps {res['swaps']}, resizes "
+        f"{res['resizes']}, deferrals {res['deferrals']}, prefix hits {res['prefix_hits']} "
+        f"({res['tokens_reused']} tokens reused), peak pages {res['kv_peak_pages_in_use']}, "
+        f"occupancy {res['occupancy']:.3f}; launches {launched}")
+
+    check_served_prefill(model, cfg, params, server, reqs[0].prompt, dev)
+
+    # one decode tick from the server's page store, held against impl="ref":
+    # four rows on the shared prompt prefix's cached pages plus a fresh page
+    # each, writing at positions 32..35
+    chain, n_tok = tree.match(reqs[0].prompt, max_tokens=32)
+    check(n_tok == 32, f"the shared prefix is not cached ({n_tok} tokens)")
+    B, MP = 4, server.max_pages_per_slot
+    own = [pool.alloc(1) for _ in range(B)]
+    pt = torch.from_numpy(np.stack([build_row_table(chain + o, MP) for o in own])).to(dev)
+    pos = torch.tensor([32, 33, 34, 35], dtype=torch.int32, device=dev)
+    tok = torch.tensor([[t % cfg.vocab] for t in (11, 222, 3333, 44444)], dtype=torch.int32,
+                       device=dev)
+    mask = torch.ones(B, dtype=torch.bool, device=dev)
+    store = server.page_store
+
+    def logits_step(p, st, pt_, tok_, pos_, mask_):
+        cache = dict(st, page_table=pt_)
+        return model.paged_decode_step(p, cache, tok_, pos_, cfg, slot_mask=mask_)[0]
+
+    with torch.no_grad():
+        logits_prog = ForgeCompiler().compile(logits_step, params, store, pt, tok, pos, mask)
+        logits = logits_prog(params, store, pt, tok, pos, mask)
+        reset_counts()
+        logits_ref, _ = model.paged_decode_step(params, dict(store, page_table=pt), tok, pos,
+                                                cfg, slot_mask=mask, impl="ref")
+        check(FL.LAUNCHES.n == 0 and PA.LAUNCHES.n == 0 and FA.LAUNCHES.n == 0,
+              "the impl='ref' paged step launched a kernel")
+        mod = server.bucketed.lookup_program(server.bucketed.key_for_extents(B))
+        served_tok, _ = mod(params, store, pt, tok, pos, mask)
+    check(torch.isfinite(logits).all().item(), "non-finite paged decode logits")
+    err = assert_close(logits, logits_ref, torch.bfloat16, "paged decode tick logits",
+                       TOL_MODEL_BF16)
+    last, last_ref = logits[:, -1].float(), logits_ref[:, -1].float()
+    best = last_ref.max(-1).values
+    slack = 2 * (TOL_MODEL_BF16["atol"] + TOL_MODEL_BF16["rtol"] * best.abs())
+    for name, pick in (("compiled logits", last.argmax(-1)),
+                       ("served program", served_tok[:, 0].long())):
+        check(bool((last_ref.gather(-1, pick[:, None])[:, 0] >= best - slack).all()),
+              f"a greedy token of the {name} is no top choice of the impl='ref' step")
+    same = int((served_tok[:, 0].long() == last_ref.argmax(-1)).sum())
+    log(f"paged decode tick at pos 32..35 on the cached prefix pages within bf16 tolerance "
+        f"of impl='ref' (max abs err {err:.3e}, {rel_l2(logits, logits_ref):.3e} relative "
+        f"L2); served greedy tokens equal to the plain path's in {same}/{B} rows")
+
+    # device busy share of steady decode ticks: the served program fed its
+    # own output, as the scheduler's device-resident fast path does
+    steps = 8
+    with torch.no_grad():
+        t_tok, t_pos, st = tok, pos, store
+        for _ in range(2):
+            t_tok, st = mod(params, st, pt, t_tok, t_pos, mask)
+            t_pos = t_pos + 1
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t1 = time.perf_counter()
+            for _ in range(steps):
+                t_tok, st = mod(params, st, pt, t_tok, t_pos, mask)
+                t_pos = t_pos + 1
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+    for o in own:
+        pool.free(o)
+    pool.check()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if device_ms <= 0:
+        log("paged decode busy share: not measured (the profiler recorded no device time)")
+    else:
+        log(f"paged decode busy share over {steps} steady ticks (B=4) under the profiler: "
+            f"device kernels {device_ms / steps:.3f} ms per tick of {wall_ms / steps:.3f} ms "
+            f"host wall ({100 * device_ms / wall_ms:.1f}% busy)")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/tick, {e.count // steps} "
+                f"launches/tick: {e.key[:90]}")
+    return launched
+
+
+def check_served_prefill(model, cfg, params, server, shared_prompt, dev):
+    """One dispatch of two served prefill programs against impl="ref", each
+    side on its own copy of the page store taken before it.  Rows: cold
+    prompts (edge-padded and full), a row on the cached shared prefix
+    (anchored at position 32) and a masked row.  The admitted rows'
+    logits and the pages they wrote must agree within TOL_MODEL_BF16;
+    the cached prefix pages and the masked row's pages stay bitwise
+    untouched."""
+    import numpy as np
+    import torch
+    from repro_torch.core.paging import build_row_table, pages_for
+    from repro_torch.kernels import fused_linear as FL
+    from repro_torch.kernels import paged_attention as PA
+
+    pool, tree = server.page_pool, server.prefix_tree
+    ps, MP = pool.page_size, server.max_pages_per_slot
+    chain, n_tok = tree.match(shared_prompt, max_tokens=32)
+    check(n_tok == 32, f"the shared prefix is not cached ({n_tok} tokens)")
+    rng = np.random.default_rng(5)
+    # (B, S) cell -> rows (kind, real length): M = B*S is 32 (a partial
+    # row tile of the fused-linear kernel) and 256
+    cells = {(2, 16): [("cold", 13), ("hit", 16)],
+             (4, 64): [("cold", 40), ("hit", 8), ("cold", 64), ("masked", 0)]}
+    for (B, S), rows in cells.items():
+        key = server.prefill_bucketed.key_for_extents((B, S))
+        pmod = server.prefill_bucketed.lookup_program(key)
+        check(pmod is not None, f"prefill cell {key} was not compiled in warmup")
+        pt = np.zeros((B, MP), np.int32)
+        tokens = np.zeros((B, S), np.int32)
+        pos = np.zeros((B,), np.int32)
+        mask = np.zeros((B,), bool)
+        own = []
+        for i, (kind, L) in enumerate(rows):
+            start = 32 if kind == "hit" else 0
+            shared = list(chain) if kind == "hit" else []
+            # fresh pages cover every position the row's chunk writes
+            own.append(pool.alloc(pages_for(start + S, ps) - len(shared)))
+            pt[i] = build_row_table(shared + own[-1], MP)
+            if kind != "masked":
+                suffix = rng.integers(0, cfg.vocab, (L,))
+                tokens[i, :L], tokens[i, L:] = suffix, suffix[-1]
+                mask[i], pos[i] = True, start
+        args = [torch.from_numpy(a).to(dev) for a in (pt, tokens, pos, mask)]
+        before = {k: v.clone() for k, v in server.page_store.items()}
+        with torch.no_grad():
+            logits, store = pmod(params, {k: v.clone() for k, v in before.items()}, *args)
+            reset_counts()
+            cache = dict({k: v.clone() for k, v in before.items()}, page_table=args[0])
+            logits_ref, cache_ref = model.paged_prefill_step(
+                params, cache, args[1], args[2], cfg, slot_mask=args[3], impl="ref")
+            check(FL.LAUNCHES.n == 0 and PA.LAUNCHES.n == 0,
+                  "the impl='ref' paged prefill launched a kernel")
+        torch.cuda.synchronize()
+        errs = {"logits": 0.0, "pages": 0.0}
+        for i, (kind, L) in enumerate(rows):
+            for name in ("k_pages", "v_pages"):
+                keep = own[i] if kind == "masked" else list(chain) if kind == "hit" else []
+                for side, got in (("served", store), ("impl='ref'", cache_ref)):
+                    check(torch.equal(got[name][:, keep], before[name][:, keep]),
+                          f"prefill {key} row {i} ({kind}): {side} wrote {name} it must not")
+                if kind != "masked":
+                    errs["pages"] = max(errs["pages"], assert_close(
+                        store[name][:, own[i]], cache_ref[name][:, own[i]], torch.bfloat16,
+                        f"prefill {key} row {i} ({kind}) {name}", TOL_MODEL_BF16))
+            if kind == "masked":
+                continue
+            errs["logits"] = max(errs["logits"], assert_close(
+                logits[i, :L], logits_ref[i, :L], torch.bfloat16,
+                f"prefill {key} row {i} ({kind}) logits", TOL_MODEL_BF16))
+            # the first token: a top choice of the plain path
+            last, last_ref = logits[i, L - 1].float(), logits_ref[i, L - 1].float()
+            best = last_ref.max()
+            slack = 2 * (TOL_MODEL_BF16["atol"] + TOL_MODEL_BF16["rtol"] * best.abs())
+            check(bool(last_ref[last.argmax()] >= best - slack),
+                  f"prefill {key} row {i}: the served first token is no top choice of "
+                  f"impl='ref'")
+        for pages in own:
+            pool.free(pages)
+        pool.check()
+        log(f"served prefill {key} (M={B * S} fused-linear rows; rows "
+            f"{[k for k, _ in rows]}) within bf16 tolerance of impl='ref': logits max abs "
+            f"err {errs['logits']:.3e}, written K/V pages {errs['pages']:.3e}; prefix and "
+            f"masked pages untouched")
 
 
 def busy_share(dev, server, prompts, steps=8):
@@ -496,7 +900,9 @@ def main():
     timer = Timer(dev)
     fl_rows = phase_fused_linear(dev, timer)
     fa_row = phase_flash(dev, timer)
+    pa_row = phase_paged(dev, timer)
     launches = phase_main_path(dev)
+    launches["paged"] = phase_paged_serve(dev)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     def timing(t):
@@ -507,7 +913,7 @@ def main():
                 "library_ms": t["library_ms"]}
 
     def row(name, replaces, head, per_path):
-        """The kernel's row: ``launches`` sums the two paths' counted runs;
+        """The kernel's row: ``launches`` sums the paths' counted runs;
         the top-level times are those of ``per_path[head]``; ``per_path``
         keeps each path's launches beside the times taken at its shapes."""
         n = {path: launches[path][name] for path in launches}
@@ -521,12 +927,15 @@ def main():
         return out
 
     # fused_linear times are one layer's three launches at the path's M
-    # (4 at decode, B*S = 4096 in apply); flash runs in apply only
+    # (4 at decode, B*S = 4096 in apply; the paged path's decode M is 4);
+    # flash runs in apply only, paged attention in the paged path only
     kernels = [
         row("fused_linear", "src/repro/kernels/fused_linear.py:134", "serve",
-            {"serve": fl_rows[4], "apply": fl_rows[4096]}),
+            {"serve": fl_rows[4], "apply": fl_rows[4096], "paged": fl_rows[4]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
             {"apply": fa_row}),
+        row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
+            {"paged": pa_row}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -60,9 +60,11 @@ class ModelConfig:
     scan_layers: bool = True
     fuse: str = "forge"  # none | forge  (Phase-2 pipeline on block bodies)
     # paged-KV attend implementation: "ref" gathers pages and reuses the
-    # unfused sdpa (bitwise vs the contiguous cache; the CPU/CI path),
-    # "pallas" dispatches kernels/paged_attention.py (TPU; auto-interprets
-    # off-TPU).  Only consulted by the paged decode/prefill entry points.
+    # unfused sdpa (bitwise vs the contiguous cache), "pallas" (the JAX
+    # package's name, kept so the field matches it) calls the port's
+    # hand-written paged-attention kernel, kernels/paged_attention.py: the
+    # CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
+    # Only consulted by the paged decode/prefill entry points.
     kv_kernel: str = "ref"  # ref | pallas
 
     # provenance

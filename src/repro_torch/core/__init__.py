@@ -1,15 +1,27 @@
 """Forge-UGC core: the four-phase compiler (capture, passes, RGIR
-lowering, Phase-4 scheduling/liveness/allocation/executors)."""
+lowering, Phase-4 scheduling/liveness/allocation/executors), its
+bucketed multi-program front, and the paged-KV page pool."""
 from .backends import available_backends, get_backend
 from .capture import CaptureResult, trace_to_graph
-from .compiler import CompilationResult, CompiledModule, ForgeCompiler, forge_compile
+from .compiler import (
+    BucketedModule,
+    CompilationResult,
+    CompiledModule,
+    ForgeCompiler,
+    forge_compile,
+)
 from .executor import CompiledExecutor, ExecutorStats, analyze_program
 from .graph import Graph
 from .lowering import RGIRProgram, lower_to_rgir
 from .passes import run_forge_passes
+from .shapekey import PolyAxis, ShapeKey, get_bucket_policy
 
 __all__ = [
     "available_backends",
+    "BucketedModule",
+    "PolyAxis",
+    "ShapeKey",
+    "get_bucket_policy",
     "get_backend",
     "CaptureResult",
     "trace_to_graph",

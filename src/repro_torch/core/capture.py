@@ -11,6 +11,16 @@ nodes, which keeps the Phase-2 matchers small.  Export's own
 ``operator.getitem`` projections of multi-output ops resolve to the
 producing node's outputs.
 
+Kernel calls: every kernel wrapper of the port is a
+``torch.library.custom_op`` (``repro_torch::<kernel>``) with a fake
+implementation, so export records a traced kernel call as ONE node whose
+output shape comes from the fake, and no fake tensor ever reaches a
+``ctypes`` launch.  Such a node enters the graph like any ATen node (its
+target is the op overload, its literal arguments frozen); the passes
+match no pattern through it, Phase 3 routes it to the accelerator
+(``lowering.KERNEL_OP_PREFIX``) and the executor calls the op, which
+launches the kernel on a CUDA tensor.
+
 Tied-weight resolution (paper §4.2.1): when the example inputs contain
 the *same tensor object* at several pytree leaves (e.g. tied embedding /
 LM head), the duplicates are merged onto one canonical graph input —

@@ -12,13 +12,18 @@ and returns a :class:`CompiledModule` — callable on the same pytree
 signature as ``fn`` — plus the transparent :class:`CompilationResult`
 (nodes before/after, fused-op counts, per-pass profile, buffer and
 transition statistics, phase timings).
+
+``ForgeCompiler.compile_bucketed`` builds a :class:`BucketedModule`: one
+compiled program per :class:`~repro_torch.core.shapekey.ShapeKey` cell,
+resolved by the call's extents (the serve fronts' shape generalization).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import torch
 from torch.utils import _pytree as pytree
 
 from .backends import ExecutorLike, get_backend
@@ -27,6 +32,16 @@ from .executor import ExecutorStats
 from .graph import Graph
 from .lowering import lower_to_rgir
 from .passes import PassRecord, run_forge_passes
+from .shapekey import (
+    AxisKey,
+    AxisSpec,
+    BucketPolicy,
+    BucketStats,
+    PolyAxis,
+    ShapeKey,
+    flatten_axes,
+    infer_extent,
+)
 
 
 @dataclass
@@ -48,6 +63,8 @@ class CompilationResult:
     tied_weights: int = 0
     impl: Optional[str] = None
     backend: str = "interpret"
+    #: the bucket cell this program serves (BucketedModule), else None
+    shape_key: Optional[str] = None
 
     @property
     def node_reduction(self) -> float:
@@ -145,9 +162,11 @@ class ForgeCompiler:
         self.backend_name = backend
         get_backend(backend)  # fail fast on unknown names
 
-    def compile(self, fn: Callable, *example_args: Any) -> CompiledModule:
+    def compile(self, fn: Callable, *example_args: Any,
+                shape_key: Optional[ShapeKey] = None) -> CompiledModule:
         """Compile ``fn`` specialised to ``example_args``' shapes, dtypes
-        and device."""
+        and device.  ``shape_key`` names the bucket cell when a
+        :class:`BucketedModule` compiles (transparency only)."""
         t_total = time.perf_counter()
 
         cap = trace_to_graph(fn, *example_args)  # Phase 1
@@ -182,8 +201,115 @@ class ForgeCompiler:
             tied_weights=len(cap.tied_map),
             impl=self.impl,
             backend=self.backend_name,
+            shape_key=str(shape_key) if shape_key is not None else None,
         )
         return CompiledModule(executor, cap, result, g)
+
+    def compile_bucketed(
+        self,
+        fn: Callable,
+        *example_args: Any,
+        axes: Optional[Sequence[PolyAxis]] = None,
+        in_axes: AxisSpec = 0,
+        policy: Union[str, BucketPolicy] = "pow2",
+        prime: bool = False,
+    ) -> "BucketedModule":
+        """A shape-generalized multi-program front over ``fn``.
+
+        ``axes`` holds one :class:`PolyAxis` per polymorphic dimension
+        (e.g. batch × sequence for whole-prompt prefill); the 1-D short
+        form ``in_axes``/``policy`` marks one batch axis.  With
+        ``example_args`` their cell compiles now; otherwise the first
+        call per cell pays the compile.  ``prime`` runs ``fn`` once
+        eagerly before each capture (see :class:`BucketedModule`).
+        """
+        mod = BucketedModule(self, fn, axes=axes, in_axes=in_axes, policy=policy, prime=prime)
+        if example_args:
+            mod.program_for(*example_args)
+        return mod
+
+
+class BucketedModule:
+    """Shape-generalized multi-program front.
+
+    Holds a per-bucket program table over N polymorphic axes: arguments
+    with concrete extents ``(n_1, …, n_N)`` go by their :class:`ShapeKey`
+    (per-axis ``policy.bucket(n_i)``) to the cell's compiled program —
+    Phases 1-4 run on the first miss only.  The caller holds state that
+    is already bucket-shaped (the serve fronts pad their slot tables and
+    masks themselves), so a program runs the arguments as given.  The
+    table is bounded by the product of the per-axis policies.
+
+    ``prime=True`` calls ``fn`` once eagerly on a cell's arguments
+    before capturing it: a step that calls Forge-compiled block bodies
+    (``models/_forge.py``) compiles them at their first call, and one
+    ``torch.export`` cannot run inside another, so they must compile
+    before the capture traces through their executors.
+
+    The JAX package's pad-and-mask ``__call__``, async compile service,
+    cold-bucket eviction, ladder re-fit and per-bucket buffer pool are
+    not ported: the paged serve path uses none of them.
+    """
+
+    def __init__(self, compiler: ForgeCompiler, fn: Callable, *,
+                 axes: Optional[Sequence[PolyAxis]] = None, in_axes: AxisSpec = 0,
+                 policy: Union[str, BucketPolicy] = "pow2", prime: bool = False):
+        self.compiler = compiler
+        self.fn = fn
+        self.prime = prime
+        if axes is None:
+            axes = (PolyAxis(in_axes=in_axes, policy=policy),)
+        self.axes: Tuple[PolyAxis, ...] = tuple(axes)
+        if not self.axes:
+            raise ValueError("BucketedModule needs at least one PolyAxis")
+        self.policy = self.axes[0].policy
+        self.programs: Dict[ShapeKey, CompiledModule] = {}
+        self.stats = BucketStats()
+
+    def shape_key_for(self, *args: Any) -> Tuple[ShapeKey, Any]:
+        """(ShapeKey, concrete extent(s)) of an argument tuple: the extent
+        is an int for 1-D fronts, a per-axis tuple for N-D fronts."""
+        flat = pytree.tree_leaves(args)
+        ns: List[int] = []
+        keys: List[AxisKey] = []
+        for pa in self.axes:
+            n = infer_extent(flat, flatten_axes(pa.in_axes, args))
+            ns.append(n)
+            keys.append(AxisKey(pa.policy.name, pa.policy.bucket(n), pa.label))
+        return ShapeKey(tuple(keys)), (ns[0] if len(ns) == 1 else tuple(ns))
+
+    def program_for(self, *args: Any) -> Tuple[CompiledModule, ShapeKey, Any]:
+        """Resolve the bucket program of bucket-shaped ``args``; compile
+        Phases 1-4 on the first miss."""
+        key, n = self.shape_key_for(*args)
+        if (n if isinstance(n, tuple) else (n,)) != key.extents:
+            raise ValueError(f"extents {n} are not the bucket extents {key.extents} of "
+                             f"{key}: pad the arguments to the bucket first")
+        mod = self.programs.get(key)
+        if mod is not None:
+            self.stats.note_lookup(hit=True)
+            return mod, key, n
+        t0 = time.perf_counter()
+        if self.prime:
+            with torch.no_grad():
+                self.fn(*args)
+        mod = self.compiler.compile(self.fn, *args, shape_key=key)
+        self.programs[key] = mod
+        self.stats.note_lookup(hit=False, key=key, compile_s=time.perf_counter() - t0)
+        return mod, key, n
+
+    def lookup_program(self, key: ShapeKey) -> Optional[CompiledModule]:
+        """Table read without stats side effects (scheduler probes)."""
+        return self.programs.get(key)
+
+    def key_for_extents(self, extents: Union[int, Sequence[int]]) -> ShapeKey:
+        """The ShapeKey of a given per-axis bucket-extent assignment."""
+        if isinstance(extents, int):
+            extents = (extents,)
+        if len(extents) != len(self.axes):
+            raise ValueError(f"expected {len(self.axes)} extents, got {len(extents)}")
+        return ShapeKey(tuple(AxisKey(pa.policy.name, int(e), pa.label)
+                              for pa, e in zip(self.axes, extents)))
 
 
 def forge_compile(fn: Callable, *example_args: Any, impl: Optional[str] = None,

@@ -4,8 +4,10 @@ The port's form of the paper's NPUIR (§4.4): every graph node becomes one
 :class:`RGIROp` instruction carrying
 
 * an **opcode** — ``accel.<op>`` for tensor-core-bound dispatches (all
-  ``forge.*`` fused nodes plus raw matmuls), ``host.<op>`` for glue ops
-  (the paper's ``npu.module`` / ``cpu.aten.*`` split),
+  ``forge.*`` fused nodes, the kernel custom ops ``repro_torch.*`` that
+  capture met inside a traced kernel wrapper, plus raw matmuls),
+  ``host.<op>`` for glue ops (the paper's ``npu.module`` /
+  ``cpu.aten.*`` split),
 * **typed virtual registers** — integer IDs for inputs/outputs with
   shape/dtype metadata,
 * a **device** tag consumed by the Phase-4 scheduler.  On the card both
@@ -42,8 +44,16 @@ ACCEL_OPS = (
 )
 
 
+#: namespace of the port's kernel custom ops (``torch.library.custom_op``
+#: ``repro_torch::<kernel>``).  A traced call of a kernel wrapper is one
+#: opaque node of this namespace; it is an accelerator dispatch unit and
+#: the executor calls the op itself, which launches the kernel (or takes
+#: the plain version on the CPU).
+KERNEL_OP_PREFIX = "repro_torch."
+
+
 def route_device(op: str) -> str:
-    if op.startswith("forge."):
+    if op.startswith("forge.") or op.startswith(KERNEL_OP_PREFIX):
         return "accel"
     if op in ACCEL_OPS:
         return "accel"

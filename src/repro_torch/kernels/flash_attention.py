@@ -10,9 +10,11 @@ and what its design does about that.
   output, launches, counts the launch in :data:`LAUNCHES`.
 * :func:`flash_attention_plain` — the plain PyTorch version
   (:func:`~repro_torch.kernels.ref.sdpa_ref` with the same scale).
-* :func:`flash_attention` — the ``torch.autograd.Function`` front,
-  selected by device; backward through the plain version, as the Pallas
-  ``custom_vjp`` does.
+* :func:`flash_attention` — the front, the custom op
+  ``repro_torch::flash_attention``, selected by device; its registered
+  backward goes through the plain version, as the Pallas ``custom_vjp``
+  does.  ``torch.export`` keeps the custom op as one node (its fake
+  implementation gives the output's shape).
 """
 from __future__ import annotations
 
@@ -118,21 +120,33 @@ def _forward(q, k, v, scale, scale_mode, causal):
     raise ValueError(f"flash_attention: no implementation for device {q.device}")
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale, scale_mode, causal):
-        ctx.cfg = (scale, scale_mode, causal)
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, scale, scale_mode, causal)
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              scale_mode: str, causal: bool) -> torch.Tensor:
+    return _forward(q, k, v, scale, scale_mode, causal)
 
-    @staticmethod
-    def backward(ctx, g):
-        scale, scale_mode, causal = ctx.cfg
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = flash_attention_plain(*inputs, scale=scale,
-                                        scale_mode=scale_mode, causal=causal)
-        return tuple(torch.autograd.grad(out, inputs, g)) + (None, None, None)
+
+@_flash_op.register_fake
+def _(q, k, v, scale, scale_mode, causal):
+    return q.new_empty(q.shape).contiguous()
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, scale, scale_mode, causal = inputs
+    ctx.cfg = (scale, scale_mode, causal)
+    ctx.save_for_backward(q, k, v)
+
+
+def _backward(ctx, g):
+    scale, scale_mode, causal = ctx.cfg
+    inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+    with torch.enable_grad():
+        out = flash_attention_plain(*inputs, scale=scale, scale_mode=scale_mode,
+                                    causal=causal)
+    return tuple(torch.autograd.grad(out, inputs, g)) + (None, None, None)
+
+
+_flash_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(
@@ -147,4 +161,4 @@ def flash_attention(
     """Blockwise online-softmax attention; GQA when H is a multiple of KVH."""
     if scale is None:
         scale, scale_mode = 1.0 / (q.shape[-1] ** 0.5), "mul"
-    return _FlashAttention.apply(q, k, v, float(scale), scale_mode, bool(causal))
+    return _flash_op(q, k, v, float(scale), scale_mode, bool(causal))

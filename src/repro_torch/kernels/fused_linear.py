@@ -11,10 +11,13 @@ what its design does about that.
   stream and counts the launch in :data:`LAUNCHES`.
 * :func:`fused_linear_plain` — the plain PyTorch version of the same
   function (:func:`~repro_torch.kernels.ref.fused_linear_ref`).
-* :func:`fused_linear` — the ``torch.autograd.Function`` front: a CUDA
-  tensor launches the kernel (or raises), a CPU tensor takes the plain
-  version; the backward recomputes through the plain version, as the
-  Pallas ``custom_vjp`` does.
+* :func:`fused_linear` — the front, the custom op
+  ``repro_torch::fused_linear``: a CUDA tensor launches the kernel (or
+  raises), a CPU tensor takes the plain version; its registered backward
+  recomputes through the plain version, as the Pallas ``custom_vjp``
+  does.  Being a custom op with a fake implementation, it stays one
+  opaque node when ``torch.export`` traces a caller (a fake tensor never
+  reaches the ``ctypes`` launch).
 """
 from __future__ import annotations
 
@@ -101,25 +104,37 @@ def _forward(x, w, b, act):
     raise ValueError(f"fused_linear: no implementation for device {x.device}")
 
 
-class _FusedLinear(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, b, act):
-        ctx.act = act
-        ctx.save_for_backward(x, w, b)
-        return _forward(x, w, b, act)
+@torch.library.custom_op("repro_torch::fused_linear", mutates_args=())
+def _fused_linear_op(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                     act: Optional[str]) -> torch.Tensor:
+    return _forward(x, w, b, act)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w, b = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(True) if t is not None else None
-                  for t in (x, w, b)]
-        with torch.enable_grad():
-            y = _ref.fused_linear_ref(*inputs, act=ctx.act)
-        live = [t for t in inputs if t is not None]
-        grads = iter(torch.autograd.grad(y, live, g))
-        return tuple(next(grads) if t is not None else None for t in inputs) + (None,)
+
+@_fused_linear_op.register_fake
+def _(x, w, b, act):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+def _setup_context(ctx, inputs, output):
+    x, w, b, act = inputs
+    ctx.act = act
+    ctx.save_for_backward(x, w, b)
+
+
+def _backward(ctx, g):
+    x, w, b = ctx.saved_tensors
+    inputs = [t.detach().requires_grad_(True) if t is not None else None
+              for t in (x, w, b)]
+    with torch.enable_grad():
+        y = _ref.fused_linear_ref(*inputs, act=ctx.act)
+    live = [t for t in inputs if t is not None]
+    grads = iter(torch.autograd.grad(y, live, g))
+    return tuple(next(grads) if t is not None else None for t in inputs) + (None,)
+
+
+_fused_linear_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def fused_linear(x, w, b=None, *, act: Optional[str] = None) -> torch.Tensor:
     """y = act(x·w + b).  x: (M, K); w: (K, N); b: (N,) or None."""
-    return _FusedLinear.apply(x, w, b, act)
+    return _fused_linear_op(x, w, b, act)

@@ -55,6 +55,56 @@ def sdpa_ref(
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
 
 
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Gather a contiguous per-row KV view out of a paged store.
+
+    pages: (num_pages, page_size, KVH, D) — the flat page pool.
+    page_table: (B, max_pages) int — per-row page indices; unallocated
+    entries point at the trash page (0) and are masked out by the caller.
+
+    Returns (B, KVH, max_pages * page_size, D), the layout a contiguous
+    cache row has.
+    """
+    NP, ps, KVH, D = pages.shape
+    B, MP = page_table.shape
+    flat = pages.reshape(NP * ps, KVH, D)
+    sl = torch.arange(MP * ps, device=pages.device)
+    rows = page_table.long()[:, sl // ps] * ps + sl % ps  # (B, L)
+    view = flat[rows]  # (B, L, KVH, D)
+    return view.transpose(1, 2)
+
+
+def paged_sdpa_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Reference paged-attention decode step (the kernel's oracle).
+
+    q: (B, H, D) — one query token per row; k_pages/v_pages:
+    (num_pages, page_size, KVH, D); page_table: (B, max_pages) int;
+    pos: (B,) int — the query's position (keys at indices <= pos are
+    live; with ``window``, also > pos - window).  Returns (B, H, D) in
+    v's dtype.
+    """
+    ps = k_pages.shape[1]
+    L = page_table.shape[1] * ps
+    k = gather_pages(k_pages, page_table)
+    v = gather_pages(v_pages, page_table)
+    idx = torch.arange(L, device=q.device)[None, None, None, :]
+    p = pos.long()[:, None, None, None]
+    keep = idx <= p
+    if window is not None:
+        keep = keep & (idx > p - window)
+    mask = torch.where(keep, 0.0, torch.finfo(torch.float32).min)
+    return sdpa_ref(q[:, :, None, :], k, v, mask, scale=scale)[:, :, 0, :]
+
+
 def fused_linear_ref(
     x: torch.Tensor,
     w: torch.Tensor,

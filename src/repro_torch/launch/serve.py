@@ -8,23 +8,40 @@ is Forge-compiled once per shape through all four phases — so the fused
 The prompt is prefilled token by token through the decode step, as the
 JAX server does in jit mode.
 
+``BatchedServer(mode="forge", paged=True)`` with :class:`SlotScheduler`
+is slot-level continuous batching over a paged KV pool: the whole decode
+step (embedding, every layer, LM head, greedy argmax) is compiled through
+Phases 1-4 once per batch bucket, the whole-prompt prefill once per
+(batch × sequence) grid cell, and every tick advances each active slot
+at its own position.  The KV cache is a shared page pool with per-slot
+page tables, a refcounted allocator and a shared-prefix tree
+(``core/paging.py``); with ``cfg.kv_kernel == "pallas"`` decode attention
+runs the hand-written paged-attention kernel.  The contiguous forge
+fronts of the JAX package come in a later slice.
+
 CLI (runs on the CUDA device unless ``--device cpu``)::
 
     python -m repro_torch.launch.serve --arch forge-125m [--smoke]
+    python -m repro_torch.launch.serve --arch forge-125m --mode forge \\
+        --continuous 12 --max-slots 4 --paged --kv-kernel pallas
 """
 from __future__ import annotations
 
 import argparse
 import time
+from collections import deque
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..configs import ARCH_IDS, get_config
+from ..core.paging import TRASH_PAGE, build_row_table, pages_for
+from ..core.shapekey import get_bucket_policy
 from ..device import resolve_device
 from ..models import get_model
-from .steps import make_serve_step
+from .steps import POISON_TOKEN, guarded_argmax, make_serve_step, supports_slot_decode
 
 
 class RequestError(ValueError):
@@ -37,20 +54,43 @@ def _sync(device: torch.device) -> None:
 
 
 class BatchedServer:
-    """Group-admission batch server with greedy decoding.
+    """Batch server with greedy decoding.
 
-    ``impl`` is forwarded into the compiled block bodies' fused nodes:
-    None dispatches by device (the CUDA kernels on the card), ``"ref"``
-    runs the kernels' plain versions — the oracle a kernel run is held
-    against.
+    ``impl`` is forwarded into every fused node and kernel call: None
+    dispatches by device (the CUDA kernels on the card), ``"ref"`` runs
+    the kernels' plain versions — the oracle a kernel run is held against.
+
+    ``mode="eager"``: group admission, sequential prefill through the
+    decode step (:meth:`generate`).
+
+    ``mode="forge", paged=True``: the paged-KV fronts for
+    :class:`SlotScheduler` — the decode step compiled through Phases 1-4
+    behind a :class:`~repro_torch.core.compiler.BucketedModule` (one
+    program per ``bucket_policy`` batch bucket), and the whole-prompt
+    prefill behind a 2-D (batch × ``seq_bucket_policy`` sequence) one.
+    Every program reads and returns the one server-resident page store
+    (``kv_pages`` pages of ``kv_page_size`` tokens, page 0 the trash
+    page; default eight full-length slots' worth); only the page table,
+    tokens, positions and slot mask are bucket-shaped.
     """
 
-    MODES = ("eager",)
+    MODES = ("eager", "forge")
 
     def __init__(self, cfg, params, max_len: int = 256, mode: str = "eager",
-                 impl: Optional[str] = None):
+                 impl: Optional[str] = None, *, backend: str = "interpret",
+                 bucket_policy: str = "pow2",
+                 seq_bucket_policy: str = "ladder:16,32,64,128,256",
+                 paged: bool = False, kv_page_size: int = 16,
+                 kv_pages: Optional[int] = None):
         if mode not in self.MODES:
             raise ValueError(f"mode {mode!r} not supported; the port serves {self.MODES}")
+        if mode == "forge" and not paged:
+            raise NotImplementedError(
+                "mode='forge' serves the paged KV pool so far (pass paged=True and "
+                "drive it with SlotScheduler); the contiguous forge fronts come in a "
+                "later slice")
+        if paged and mode != "forge":
+            raise ValueError("paged KV serving needs mode='forge'")
         self.cfg = cfg
         self.params = params
         self.model = get_model(cfg)
@@ -61,6 +101,35 @@ class BatchedServer:
         self.serve_step = make_serve_step(cfg, impl=impl)
         #: how the most recent prefill ran (the port prefills sequentially)
         self.last_prefill_mode = None
+        self.backend = backend
+        self.bucket_policy = bucket_policy
+        self.seq_bucket_policy = seq_bucket_policy
+        self.slot_capable = supports_slot_decode(cfg)
+        self.paged = bool(paged)
+        self.kv_page_size = int(kv_page_size)
+        self.kv_pages = kv_pages
+        #: the decode and prefill multi-program fronts (mode="forge")
+        self.bucketed = None
+        self.prefill_bucketed = None
+        self.page_pool = None
+        self.prefix_tree = None
+        #: server-resident {k_pages, v_pages} store (no batch axis)
+        self.page_store = None
+        self.max_pages_per_slot = 0
+        #: most recently resolved bucket program (transparency)
+        self.forge_module = None
+        if self.paged:
+            from ..core.backends import get_backend
+            from .steps import supports_paged_decode
+
+            get_backend(backend)  # fail fast on unknown names
+            get_bucket_policy(bucket_policy)
+            get_bucket_policy(seq_bucket_policy)
+            if not supports_paged_decode(cfg):
+                raise ValueError(f"family {cfg.family!r} has no paged decode path")
+            if max_len % self.kv_page_size:
+                raise ValueError(f"max_len={max_len} must be a multiple of "
+                                 f"kv_page_size={self.kv_page_size}")
 
     def _build_cache(self, batch: int):
         return self.model.init_cache(self.cfg, batch, self.max_len, device=self.device)
@@ -72,11 +141,138 @@ class BatchedServer:
         if prompts.min() < 0 or prompts.max() >= self.cfg.vocab:
             raise RequestError("prompt token ids out of vocabulary range")
 
+    # -- paged fronts (mode="forge") --------------------------------------
+
+    def _ensure_bucketed(self) -> None:
+        """Build the paged fronts and the pool state once."""
+        if self.bucketed is not None:
+            return
+        if not self.paged:
+            raise NotImplementedError("the contiguous forge fronts come in a later slice")
+        self._build_paged_front()
+
+    def _build_paged_front(self) -> None:
+        """The paged-KV fronts + pool state.
+
+        The KV store carries no batch axis — ``in_axes`` marks it None on
+        both sides, so every bucket program reads and returns the one
+        server-resident page store.  Only the page table, tokens, pos and
+        mask are bucket-shaped, which makes swap-in and rung resizes
+        O(table): the pages never move.
+        """
+        from ..core import ForgeCompiler, PolyAxis
+        from ..core.paging import PagePool, PrefixTree
+        from ..models.transformer import paged_body_compiled
+        from .steps import dealias_tree, make_paged_prefill_step, make_paged_serve_step
+
+        ps = self.kv_page_size
+        self.max_pages_per_slot = self.max_len // ps
+        num_pages = int(self.kv_pages or 8 * self.max_pages_per_slot + 1)
+        self.page_pool = PagePool(num_pages, ps)
+        self.prefix_tree = PrefixTree(self.page_pool)
+        full = self.model.init_paged_cache(self.cfg, 1, self.max_len, num_pages=num_pages,
+                                           page_size=ps, device=self.device)
+        self.page_store = dealias_tree({"k_pages": full["k_pages"],
+                                        "v_pages": full["v_pages"]})
+        compiler = ForgeCompiler(impl=self.impl, backend=self.backend)
+        # Forge-compiled block bodies compile at their first call, which
+        # cannot happen inside the front's capture: prime each cell first
+        prime = paged_body_compiled(self.cfg)
+        # (params, store, page_table(B,MP), tokens(B,S), pos(B,), mask(B,)):
+        # per-row pos lets prefix-hit rows anchor their chunk at the skip
+        # offset in the same dispatch as cold rows
+        self.prefill_bucketed = compiler.compile_bucketed(
+            make_paged_prefill_step(self.cfg, impl=self.impl),
+            axes=(
+                PolyAxis(in_axes=(None, None, 0, 0, 0, 0), policy=self.bucket_policy,
+                         label="B"),
+                PolyAxis(in_axes=(None, None, None, 1, None, None),
+                         policy=self.seq_bucket_policy, label="S"),
+            ),
+            prime=prime,
+        )
+        self.bucketed = compiler.compile_bucketed(
+            make_paged_serve_step(self.cfg, impl=self.impl),
+            in_axes=(None, None, 0, 0, 0, 0), policy=self.bucket_policy, prime=prime,
+        )
+
+    def _seq_bucket_extent(self, P: int) -> Optional[int]:
+        """Sequence bucket of a prompt length, or None when the ladder
+        rejects it or the bucket would not fit ``max_len``."""
+        if self.prefill_bucketed is None:
+            return None
+        try:
+            s = self.prefill_bucketed.axes[1].policy.bucket(P)
+        except ValueError:
+            return None
+        return s if s <= self.max_len else None
+
+    def _paged_args(self, extent: int, width: int):
+        """All-trash page table, zero tokens (width columns), zero pos and
+        an all-false mask at a bucket extent: every write of a dispatch
+        with these goes to the trash page."""
+        dev = self.device
+        return (torch.zeros((extent, self.max_pages_per_slot), dtype=torch.int32, device=dev),
+                torch.zeros((extent, width), dtype=torch.int32, device=dev),
+                torch.zeros((extent,), dtype=torch.int32, device=dev),
+                torch.zeros((extent,), dtype=torch.bool, device=dev))
+
+    @torch.no_grad()
+    def warmup(self, batch_sizes: Sequence[int],
+               prompt_lens: Optional[Sequence[int]] = None) -> float:
+        """Precompile the decode buckets of ``batch_sizes`` and the prefill
+        grid cells of ``batch_sizes`` × ``prompt_lens``; returns the
+        seconds spent.  Each program's compile time is in
+        ``stats.per_bucket_compile_s`` of its front.
+
+        All-false slot masks and trash-only page tables route every
+        throwaway write to the trash page, so the warmed store and the
+        pool state are untouched.
+        """
+        if self.mode != "forge":
+            return 0.0
+        self._ensure_bucketed()
+        t0 = time.perf_counter()
+        store = self.page_store
+        done = set()
+        for B in batch_sizes:
+            extent = self.bucketed.policy.bucket(int(B))
+            if extent in done:
+                continue
+            done.add(extent)
+            args = self._paged_args(extent, 1)
+            mod, key, _ = self.bucketed.program_for(self.params, store, *args)
+            _, store = mod(self.params, store, *args)
+            self.bucketed.stats.note_dispatch(key, 0, extent)
+            self.forge_module = mod
+        if prompt_lens:
+            cells = set()
+            for B in batch_sizes:
+                extent = self.bucketed.policy.bucket(int(B))
+                for P in prompt_lens:
+                    s_ext = self._seq_bucket_extent(int(P))
+                    if s_ext is None or (extent, s_ext) in cells:
+                        continue
+                    cells.add((extent, s_ext))
+                    pargs = self._paged_args(extent, s_ext)
+                    pmod, pkey, _ = self.prefill_bucketed.program_for(self.params, store,
+                                                                      *pargs)
+                    _, store = pmod(self.params, store, *pargs)
+                    self.prefill_bucketed.stats.note_dispatch(pkey, (0, 0), pkey.extents)
+        self.page_store = store
+        _sync(self.device)
+        return time.perf_counter() - t0
+
+    # -- group serving (mode="eager") -------------------------------------
+
     @torch.no_grad()
     def prefill(self, prompts: np.ndarray):
         """Token-at-a-time prefill through the decode step.
 
         Returns ``(cache, next_tok, pos, step_fn)``."""
+        if self.paged:
+            raise NotImplementedError("paged KV serving is slot-scheduled: drive it "
+                                      "through SlotScheduler.run")
         self._check_prompts(prompts)
         B, P = prompts.shape
         tokens = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
@@ -139,6 +335,550 @@ class BatchedServer:
         return out
 
 
+# --------------------------------------------------------------------------
+# slot-level continuous batching over the paged KV pool
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class Request:
+    """One generation request (the slot scheduler's admission unit)."""
+
+    rid: int
+    prompt: np.ndarray  # (P,) int32
+    max_new: int  # tokens to emit (the first comes from the prompt's last logits)
+    arrival: int = 0  # decode-step tick at which the request may be admitted
+
+
+@dataclass
+class _Slot:
+    """Mutable per-slot serving state (one bucket row)."""
+
+    req: Request
+    pos: int = 0  # next cache write position == tokens consumed so far
+    remaining: int = 0  # decode steps left after the first emitted token
+    cur_tok: int = 0  # last emitted token (next decode input)
+    tokens: List[int] = field(default_factory=list)
+    admitted_tick: int = 0
+    swapped_in: bool = False  # admitted while other slots were mid-generation
+    #: page-pool pages this slot references (freed at retire; shared
+    #: prefix pages survive on the prefix tree's own references)
+    pages: List[int] = field(default_factory=list)
+    #: prompt tokens whose prefill was skipped via shared-prefix pages
+    skip: int = 0
+    #: the row emitted POISON_TOKEN (non-finite logits): quarantined at the
+    #: next boundary with a typed error
+    poisoned: bool = False
+    arrival_wall: float = 0.0
+    first_wall: Optional[float] = None
+
+
+class SlotScheduler:
+    """Slot-level continuous batching over a paged :class:`BatchedServer`.
+
+    A request queue, per-slot state (position, remaining budget, page
+    chain) and one decode dispatch per tick advancing every active slot
+    at its own position (``pos: int32[B]`` + ``slot_mask: bool[B]``
+    through the bucket program).  When a slot finishes, the next queued
+    request is swapped in mid-generation: its prompt is matched against
+    the prefix tree, pages are allocated, its page-table row is written
+    and its (suffix) prompt prefilled through the slot-masked prefill
+    grid in one dispatch; every other slot's pages stay untouched.
+
+    Admission is pad-waste-aware: queued requests fill the bucket exactly,
+    and the bucket is resized — by editing the page table, no KV moves —
+    only when the active-slot count crosses a rung.  With every rung
+    warmed, scheduling runs zero Phase 1-4 compiles.  The clock is the
+    decode-dispatch counter (``tick``); ``Request.arrival`` is in ticks.
+
+    The JAX scheduler's SLO deadlines and preemption, fault injection,
+    watchdog, dispatch retries, async compile and ladder re-fit are not
+    ported; with no budgets set its EDF order is arrival order, which
+    this scheduler keeps, so both give the same schedule.
+    """
+
+    def __init__(self, server: BatchedServer, max_slots: int = 16):
+        if server.mode != "forge" or not server.paged:
+            raise ValueError("SlotScheduler needs BatchedServer(mode='forge', paged=True)")
+        if not server.slot_capable:
+            raise ValueError(f"family {server.cfg.family!r} has no slot-level decode")
+        server._ensure_bucketed()
+        self.server = server
+        self.max_slots = int(max_slots)
+        server.bucketed.policy.bucket(self.max_slots)  # raises if the ladder cannot admit it
+        self.metrics: Dict[str, Any] = {}
+        self._reset_metrics()
+
+    def _reset_metrics(self) -> None:
+        self.metrics = {
+            "decode_dispatches": 0,
+            "occupied_row_steps": 0,
+            "capacity_row_steps": 0,
+            "prefill_dispatches": 0,
+            "swaps": 0,
+            "resizes": 0,
+            "idle_ticks": 0,
+            #: admissions bounced back to the queue because the page pool
+            #: was exhausted even after LRU prefix-tree reclaim
+            "deferrals": 0,
+            #: requests rejected at validation with a typed RequestError
+            "requests_rejected": 0,
+            #: requests that ended with any typed error outcome
+            "requests_failed": 0,
+            #: slot rows quarantined by the non-finite logits tripwire
+            "rows_quarantined": 0,
+        }
+
+    def rungs(self) -> List[int]:
+        """Every bucket extent the scheduler can resize through."""
+        policy = self.server.bucketed.policy
+        return sorted({policy.bucket(n) for n in range(1, self.max_slots + 1)})
+
+    def warmup(self, prompt_lens: Optional[Sequence[int]] = None) -> float:
+        """Precompile every reachable rung (and prefill grid cells)."""
+        return self.server.warmup(self.rungs(), prompt_lens=prompt_lens)
+
+    def _validate(self, r: Request) -> Optional[str]:
+        """Admission-time validation; a non-None return rejects the request
+        with a typed RequestError outcome instead of failing the run."""
+        srv = self.server
+        try:
+            plen = len(r.prompt)
+        except TypeError:
+            return "prompt must be an array of token ids"
+        if plen < 1:
+            return "prompt must be non-empty"
+        if r.max_new < 1:
+            return "max_new must be >= 1"
+        if plen + r.max_new > srv.max_len:
+            return f"prompt {plen} + budget {r.max_new} exceeds max_len={srv.max_len}"
+        need = pages_for(plen + r.max_new, srv.page_pool.page_size)
+        if need > srv.page_pool.capacity:
+            return f"needs {need} KV pages, pool capacity is {srv.page_pool.capacity}"
+        if srv._seq_bucket_extent(plen) is None:
+            # the JAX scheduler would replay such a prompt through the
+            # decode loop (the fill path); the port prefills by grid only
+            return (f"prompt {plen} is beyond the prefill grid "
+                    f"({srv.seq_bucket_policy}, max_len={srv.max_len})")
+        if np.min(r.prompt) < 0 or np.max(r.prompt) >= srv.cfg.vocab:
+            return "prompt token ids out of vocabulary range"
+        return None
+
+    @torch.no_grad()
+    def run(self, requests: Sequence[Request]) -> Dict[str, Any]:
+        """Serve ``requests`` to completion; returns results + metrics.
+
+        A tick with no runnable slot fast-forwards to the next arrival.
+        """
+        srv = self.server
+        params = srv.params
+        dev = srv.device
+        stats = srv.bucketed.stats
+        self._reset_metrics()
+        compiles0 = stats.compiles + srv.prefill_bucketed.stats.compiles
+        results: Dict[int, Dict[str, Any]] = {}
+
+        def fail_request(req: Request, why: str) -> None:
+            results[req.rid] = {"tokens": np.zeros((0,), np.int32), "admitted_tick": -1,
+                                "finished_tick": -1, "swapped_in": False, "error": why,
+                                "error_type": "RequestError"}
+            self.metrics["requests_failed"] += 1
+
+        valid: List[Request] = []
+        for r in requests:
+            why = self._validate(r)
+            if why is not None:
+                fail_request(r, why)
+                self.metrics["requests_rejected"] += 1
+            else:
+                valid.append(r)
+
+        pool = srv.page_pool
+        MP = srv.max_pages_per_slot
+        #: host-side page table (extent, MP); the device copy is refreshed
+        #: at resize/admission boundaries — retired rows go stale on the
+        #: device, which is inert (their mask is False, writes go to trash)
+        pt_host = np.full((0, MP), TRASH_PAGE, np.int32)
+        pt_dev = None
+        pendreq = deque(sorted(valid, key=lambda r: (r.arrival, r.rid)))
+        queue: deque = deque()
+        slots: List[Optional[_Slot]] = []
+        extent = 0
+        cache = srv.page_store
+        mod = key = None
+        cur_tok = np.zeros((0, 1), np.int32)
+        cur_pos = np.zeros((0,), np.int32)
+        tick = 0
+        #: device-resident (tok, pos, mask) for the steady-state fast path;
+        #: None whenever host state changed since the last dispatch
+        dev_args = None
+        #: token columns not yet copied to the host: steady-state ticks
+        #: defer the device-to-host sync to the next boundary (harvest)
+        pending: List[torch.Tensor] = []
+        #: per-tick host wall seconds (admission + resize + dispatch)
+        tick_s: List[float] = []
+        t0 = time.perf_counter()
+
+        def to_dev(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        def resolve_program():
+            nonlocal mod, key
+            args = (to_dev(pt_host), to_dev(cur_tok), to_dev(cur_pos),
+                    torch.zeros((extent,), dtype=torch.bool, device=dev))
+            mod, key, _ = srv.bucketed.program_for(params, cache, *args)
+            srv.forge_module = mod
+
+        def retire(i: int, s: _Slot, error: Optional[str] = None) -> None:
+            entry = {
+                "tokens": np.asarray(s.tokens, np.int32),
+                "admitted_tick": s.admitted_tick,
+                "finished_tick": tick,
+                "swapped_in": s.swapped_in,
+                # the first token comes out of the admission prefill
+                "ttft_ticks": s.admitted_tick - s.req.arrival,
+                "ttft_s": (s.first_wall - s.arrival_wall
+                           if s.first_wall is not None else None),
+                "latency_s": time.perf_counter() - s.arrival_wall,
+            }
+            if error is not None:
+                entry["error"] = error
+                entry["error_type"] = "RequestError"
+                self.metrics["requests_failed"] += 1
+            results[s.req.rid] = entry
+            slots[i] = None
+            if s.pages:
+                # the slot's refs drop; pages shared through the prefix
+                # tree stay live on the tree's own refs
+                pool.free(s.pages)
+                s.pages = []
+                pt_host[i, :] = TRASH_PAGE
+
+        def quarantine(i: int, s: _Slot) -> None:
+            self.metrics["rows_quarantined"] += 1
+            retire(i, s, error="non-finite logits in decode row (quarantined)")
+
+        def harvest() -> None:
+            """Copy the deferred token columns to the host, in tick order
+            (one sync).  The active set cannot have changed while ticks
+            were pending (any change is a boundary that harvests first).
+            A row that emitted POISON_TOKEN stops there and is
+            quarantined."""
+            nonlocal dev_args
+            if not pending:
+                return
+            cols = torch.cat(pending, dim=1).cpu().numpy()
+            pending.clear()
+            rows = [i for i, s in enumerate(slots) if s is not None]
+            for c in range(cols.shape[1]):
+                for i in rows:
+                    s = slots[i]
+                    if s.poisoned:
+                        continue
+                    t = int(cols[i, c])
+                    if t == POISON_TOKEN:
+                        s.poisoned = True
+                        continue
+                    s.cur_tok = t
+                    s.tokens.append(t)
+                    if s.first_wall is None:
+                        s.first_wall = time.perf_counter()
+            for i in rows:
+                s = slots[i]
+                if s is not None and s.poisoned:
+                    quarantine(i, s)
+                    dev_args = None
+
+        while pendreq or queue or any(s is not None for s in slots):
+            now = time.perf_counter()
+            while pendreq and pendreq[0].arrival <= tick:
+                req = pendreq.popleft()
+                req_wall = now
+                queue.append((req, req_wall))
+            # arrival order (the JAX scheduler's EDF order with no budgets)
+            ordered = sorted(queue, key=lambda rw: (rw[0].arrival, rw[0].rid))
+            queue.clear()
+            queue.extend(ordered)
+
+            # ---- pad-waste-aware admission + rung resize ----------------
+            active = sum(s is not None for s in slots)
+            want = min(active + len(queue), self.max_slots)
+            t_tick = time.perf_counter()
+            if want > 0:
+                target = srv.bucketed.policy.bucket(want)
+                if target != extent or (queue and any(s is None for s in slots)):
+                    # a boundary: sync the pending token columns before
+                    # slot rows move or dev_args is rebuilt from host state
+                    harvest()
+                if target != extent:
+                    keep = [(i, s) for i, s in enumerate(slots) if s is not None]
+                    # O(table) resize: surviving rows' page-table entries
+                    # move; the KV pages themselves do not
+                    new_pt = np.full((target, MP), TRASH_PAGE, np.int32)
+                    new_tok = np.zeros((target, 1), np.int32)
+                    new_pos = np.zeros((target,), np.int32)
+                    new_slots: List[Optional[_Slot]] = [None] * target
+                    for dst, (i, s) in enumerate(keep):
+                        new_pt[dst] = pt_host[i]
+                        new_slots[dst] = s
+                        new_tok[dst] = cur_tok[i]
+                        new_pos[dst] = cur_pos[i]
+                    if extent > 0:
+                        self.metrics["resizes"] += 1
+                    pt_host, slots, cur_tok, cur_pos = new_pt, new_slots, new_tok, new_pos
+                    extent = target
+                    dev_args = None
+                    pt_dev = to_dev(pt_host)
+                    resolve_program()
+                # pack queued requests into every free slot
+                mid_generation = active > 0
+                admitted: List[int] = []
+                for i in range(extent):
+                    if not queue:
+                        break
+                    if slots[i] is not None:
+                        continue
+                    req, req_wall = queue.popleft()
+                    slots[i] = _Slot(req=req, admitted_tick=tick, swapped_in=mid_generation,
+                                     arrival_wall=req_wall)
+                    if mid_generation:
+                        self.metrics["swaps"] += 1
+                    admitted.append(i)
+                if admitted:
+                    cache = self._admit_paged(admitted, slots, cache, extent, cur_tok,
+                                              cur_pos, pt_host, queue)
+                    pt_dev = to_dev(pt_host)
+                    dev_args = None
+                    # 1-token budgets finish at admission (a deferral leaves
+                    # slots[i] None); a poisoned first token quarantines
+                    for i in admitted:
+                        s = slots[i]
+                        if s is None:
+                            continue
+                        if s.poisoned:
+                            quarantine(i, s)
+                        elif s.remaining <= 0:
+                            retire(i, s)
+
+            if not any(s is not None for s in slots):
+                if pendreq:
+                    # nothing runnable until the next arrival
+                    self.metrics["idle_ticks"] += 1
+                    tick = max(tick + 1, pendreq[0].arrival)
+                    continue
+                if queue:
+                    # with nothing active every page not in the tree is
+                    # free and reclaim can take the tree's, so a validated
+                    # request always fits: this would be an accounting bug
+                    raise RuntimeError("paged admission made no progress with no "
+                                       "active slot")
+                break
+
+            # ---- one decode dispatch advances every active slot ---------
+            if dev_args is None:
+                mask_np = np.array([s is not None for s in slots])
+                for i, s in enumerate(slots):
+                    if s is not None:
+                        cur_pos[i] = s.pos
+                        cur_tok[i, 0] = s.cur_tok
+                tok_dev, pos_dev, mask_dev = to_dev(cur_tok), to_dev(cur_pos), to_dev(mask_np)
+            else:
+                # steady state (same active set): the previous dispatch's
+                # output is this dispatch's input, no host round trip
+                tok_dev, pos_dev, mask_dev = dev_args
+            out_tok, cache = mod(params, cache, pt_dev, tok_dev, pos_dev, mask_dev)
+            # pool invariant after every tick: every page is referenced or
+            # free, never both
+            pool.check()
+            n_act = sum(s is not None for s in slots)
+            stats.note_dispatch(key, n_act, extent)
+            self.metrics["decode_dispatches"] += 1
+            self.metrics["occupied_row_steps"] += n_act
+            self.metrics["capacity_row_steps"] += extent
+            tick += 1
+            arrival_due = bool(pendreq) and pendreq[0].arrival <= tick
+            # budgets are host-side counters, so retirement needs no token
+            # values: defer the sync until a boundary (a retire, or an
+            # arrival that may admit)
+            pending.append(out_tok)
+            boundary = arrival_due
+            for s in slots:
+                if s is None:
+                    continue
+                s.pos += 1
+                s.remaining -= 1
+                if s.remaining <= 0:
+                    boundary = True
+            if boundary:
+                harvest()
+                for i, s in enumerate(slots):
+                    if s is not None and s.remaining <= 0:
+                        retire(i, s)
+                dev_args = None
+            else:
+                dev_args = (out_tok, pos_dev + 1, mask_dev)
+            tick_s.append(time.perf_counter() - t_tick)
+
+        harvest()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        # the store is server-resident: the next run (and the prefix
+        # tree's cached pages) continue from it
+        srv.page_store = cache
+        compiles = stats.compiles + srv.prefill_bucketed.stats.compiles - compiles0
+        m = self.metrics
+        cap = max(m["capacity_row_steps"], 1)
+        real_tokens = sum(len(r["tokens"]) for r in results.values())
+        tick_ms = np.asarray(tick_s) * 1e3
+        ttfts = [r["ttft_s"] for r in results.values() if r.get("ttft_s") is not None]
+        ttft_ticks = [r["ttft_ticks"] for r in results.values() if "ttft_ticks" in r]
+        ps_ = pool.stats
+        page_bytes = sum(v.numel() * v.element_size() for v in cache.values()) // pool.num_pages
+        out = {
+            "results": results,
+            "wall_s": wall,
+            "tok_per_s": real_tokens / max(wall, 1e-9),
+            "real_tokens": real_tokens,
+            "occupancy": m["occupied_row_steps"] / cap,
+            "pad_decode_fraction": 1.0 - m["occupied_row_steps"] / cap,
+            "compiles": compiles,  # 0 after a warmup covering the rungs
+            "tick_ms_p50": float(np.percentile(tick_ms, 50)) if len(tick_ms) else 0.0,
+            "tick_ms_p99": float(np.percentile(tick_ms, 99)) if len(tick_ms) else 0.0,
+            "tick_ms_max": float(tick_ms.max()) if len(tick_ms) else 0.0,
+            "ttft_p50_s": float(np.percentile(ttfts, 50)) if ttfts else 0.0,
+            "ttft_p50_ticks": float(np.percentile(ttft_ticks, 50)) if ttft_ticks else 0.0,
+            **m,
+            "kv_pages_in_use": pool.pages_in_use,
+            "kv_pages_capacity": pool.capacity,
+            "kv_peak_pages_in_use": ps_.peak_pages_in_use,
+            "kv_page_bytes": page_bytes,
+            "kv_bytes_resident_peak": ps_.peak_pages_in_use * page_bytes,
+            "prefix_hits": ps_.prefix_hits,
+            "prefix_misses": ps_.prefix_misses,
+            "prefix_hit_rate": ps_.prefix_hit_rate,
+            "prefill_skip_rate": ps_.prefill_skip_rate,
+            "tokens_reused": ps_.tokens_reused,
+            "pages_allocated": ps_.pages_allocated,
+            "pages_reused": ps_.pages_reused,
+            "pages_reclaimed": ps_.pages_reclaimed,
+        }
+        return out
+
+    def _admit_paged(self, admitted: List[int], slots: List[Optional[_Slot]], store,
+                     extent: int, cur_tok: np.ndarray, cur_pos: np.ndarray,
+                     pt_host: np.ndarray, queue: deque):
+        """Admit into the page pool: prefix match, alloc, masked prefill.
+
+        Per admitted slot: match the prompt's leading full-page blocks in
+        the prefix tree (matched pages are forked — a refcount bump, no
+        prefill, no copy), allocate fresh pages for the rest of the prompt
+        and the generation budget, and write the slot's page-table row.
+        Pool exhaustion first reclaims LRU tree-only pages; if the pool is
+        still short the request goes back to the queue (the missing pages
+        are held by mid-generation slots and free at their retirement).
+
+        The prefill dispatch is anchored per row: a prefix-hit row's chunk
+        starts at its skip offset, so hit and cold rows share one dispatch
+        and the sequence bucket covers only the longest suffix.  After
+        prefill each prompt's full pages go into the tree.
+        """
+        srv = self.server
+        pool = srv.page_pool
+        tree = srv.prefix_tree
+        ps = pool.page_size
+        MP = srv.max_pages_per_slot
+        dev = srv.device
+        live: List[int] = []
+        deferred = []
+        for i in list(admitted):
+            s = slots[i]
+            prompt = np.asarray(s.req.prompt, np.int32)
+            P = len(prompt)
+            total = pages_for(P + s.req.max_new, ps)
+            # the last real prompt token must prefill — its logits emit
+            # the first token — so the match stops one token short
+            shared, skip = tree.match(prompt, max_tokens=((P - 1) // ps) * ps)
+            try:
+                if shared:
+                    pool.fork(shared)  # the slot's own refs on the chain
+                try:
+                    fresh = pool.alloc(total - len(shared))
+                except MemoryError:
+                    tree.reclaim(total - len(shared) - pool.pages_free)
+                    fresh = pool.alloc(total - len(shared))
+            except MemoryError:
+                if shared:
+                    pool.free(shared)
+                slots[i] = None
+                deferred.append((s.req, s.arrival_wall))
+                self.metrics["deferrals"] += 1
+                if s.swapped_in:
+                    self.metrics["swaps"] -= 1
+                continue
+            s.pages = list(shared) + list(fresh)
+            s.skip = skip
+            pt_host[i] = build_row_table(s.pages, MP)
+            live.append(i)
+        if deferred:
+            queue.extendleft(reversed(deferred))
+        if not live:
+            return store
+        Ls = [len(slots[i].req.prompt) - slots[i].skip for i in live]
+        s_ext = srv._seq_bucket_extent(max(Ls))
+        tokens = np.zeros((extent, s_ext), np.int32)
+        mask = np.zeros((extent,), bool)
+        pos_np = np.zeros((extent,), np.int32)
+        for i, L in zip(live, Ls):
+            s = slots[i]
+            suffix = np.asarray(s.req.prompt[s.skip:], np.int32)
+            tokens[i, :L] = suffix
+            tokens[i, L:] = suffix[-1]  # edge pad
+            mask[i] = True
+            pos_np[i] = s.skip
+        pargs = tuple(torch.from_numpy(a).to(dev) for a in (pt_host, tokens, pos_np, mask))
+        pmod, pkey, _ = srv.prefill_bucketed.program_for(srv.params, store, *pargs)
+        logits, store = pmod(srv.params, store, *pargs)
+        srv.prefill_bucketed.stats.note_dispatch(pkey, (len(live), max(Ls)), pkey.extents)
+        self.metrics["prefill_dispatches"] += 1
+        pool.stats.tokens_prefilled += sum(Ls)
+        # gather each row's last real suffix column on the device: only
+        # the admitted rows' argmax crosses to the host
+        rows_t = torch.as_tensor(live, device=dev)
+        cols_t = torch.as_tensor([L - 1 for L in Ls], device=dev)
+        firsts = guarded_argmax(logits[rows_t, cols_t]).cpu().numpy()
+        for i, first in zip(live, firsts):
+            s = slots[i]
+            P = len(s.req.prompt)
+            s.pos = P
+            cur_pos[i] = P
+            if int(first) == POISON_TOKEN:
+                # non-finite prefill logits: quarantined at the admission
+                # boundary, and its pages stay out of the prefix tree
+                s.poisoned = True
+                continue
+            s.cur_tok = int(first)
+            s.tokens.append(s.cur_tok)
+            if s.first_wall is None:
+                s.first_wall = time.perf_counter()
+            s.remaining = s.req.max_new - 1
+            cur_tok[i, 0] = s.cur_tok
+            # register the prompt's full pages; decode writes start at P,
+            # past every registered page, so cached pages never change
+            nfull = P // ps
+            if nfull:
+                tree.insert(s.req.prompt[:nfull * ps], s.pages[:nfull])
+        return store
+
+    def report(self) -> str:
+        m = self.metrics
+        cap = max(m["capacity_row_steps"], 1)
+        return (f"slots: dispatches={m['decode_dispatches']} "
+                f"occupancy={m['occupied_row_steps'] / cap:.1%} "
+                f"pad_decode={1 - m['occupied_row_steps'] / cap:.1%} "
+                f"swaps={m['swaps']} resizes={m['resizes']} "
+                f"prefills={m['prefill_dispatches']} deferrals={m['deferrals']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="forge-125m", choices=ARCH_IDS)
@@ -148,17 +888,100 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--mode", choices=list(BatchedServer.MODES), default="eager")
+    ap.add_argument("--backend", default="interpret",
+                    help="Phase-4 backend of the --mode forge programs "
+                         "(interpret | reference)")
+    ap.add_argument("--bucket-policy", default="pow2",
+                    help="batch-axis bucket policy for --mode forge "
+                         "(exact | pow2 | ladder:<r1,r2,...>)")
+    ap.add_argument("--seq-bucket-policy", default="ladder:16,32,64,128,256",
+                    help="sequence-axis bucket policy of the whole-prompt prefill grid")
+    ap.add_argument("--continuous", type=int, default=0, metavar="N",
+                    help="serve N mixed-length requests through the slot scheduler "
+                         "(--mode forge --paged)")
+    ap.add_argument("--max-slots", type=int, default=8,
+                    help="slot-scheduler bucket cap (--continuous)")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve the KV cache from a shared page pool with prefix reuse "
+                         "(--mode forge --continuous)")
+    ap.add_argument("--kv-page-size", type=int, default=16,
+                    help="tokens per KV page (--paged; must divide --max-len)")
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="page-pool size incl. the reserved trash page "
+                         "(--paged; 0 = eight full-length slots' worth)")
+    ap.add_argument("--kv-kernel", default="ref", choices=["ref", "pallas"],
+                    help="paged attend implementation (--paged): ref = page gather + "
+                         "unfused sdpa, pallas = the hand-written paged-attention "
+                         "kernel (its plain version on the CPU)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a CUDA device) or cpu")
     args = ap.parse_args(argv)
 
+    if args.mode == "forge" and not (args.paged and args.continuous):
+        ap.error("--mode forge serves the paged KV pool through the slot scheduler so "
+                 "far: add --paged --continuous N (the contiguous forge fronts come in "
+                 "a later slice)")
+    if (args.paged or args.continuous) and args.mode != "forge":
+        ap.error("--paged / --continuous need --mode forge")
+    if args.mode == "forge":
+        from ..core.backends import get_backend
+
+        try:  # fail fast, before paying model init
+            get_backend(args.backend)
+            get_bucket_policy(args.bucket_policy).bucket(args.max_slots)
+            get_bucket_policy(args.seq_bucket_policy)
+        except ValueError as e:
+            ap.error(str(e))
+
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.paged:
+        cfg = cfg.with_(kv_kernel=args.kv_kernel)
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(cfg, gen, device)
     rng = np.random.default_rng(args.seed)
+
+    if args.continuous:
+        server = BatchedServer(cfg, params, max_len=args.max_len, mode="forge",
+                               backend=args.backend, bucket_policy=args.bucket_policy,
+                               seq_bucket_policy=args.seq_bucket_policy, paged=True,
+                               kv_page_size=args.kv_page_size,
+                               kv_pages=args.kv_pages or None)
+        lens = sorted({max(2, args.prompt_len // (2 ** k)) for k in range(2)})
+        reqs = [
+            Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab,
+                                        (int(rng.choice(lens)),)).astype(np.int32),
+                    max_new=int(rng.integers(2, args.gen + 1)),
+                    arrival=int(i // args.max_slots))
+            for i in range(args.continuous)
+        ]
+        sched = SlotScheduler(server, max_slots=args.max_slots)
+        warmup_s = sched.warmup(lens)
+        res = sched.run(reqs)
+        print(f"[serve] {cfg.name} continuous n={args.continuous} "
+              f"tok/s={res['tok_per_s']:.0f} occupancy={res['occupancy']:.1%} "
+              f"pad_decode={res['pad_decode_fraction']:.1%} swaps={res['swaps']} "
+              f"resizes={res['resizes']} compiles_post_warmup={res['compiles']} "
+              f"(warmup={warmup_s:.2f}s) device={device}")
+        print(f"[serve] {sched.report()}")
+        print(f"[serve] pages: in_use={res['kv_pages_in_use']}/{res['kv_pages_capacity']} "
+              f"peak={res['kv_peak_pages_in_use']} (page={args.kv_page_size}tok) "
+              f"prefix hit_rate={res['prefix_hit_rate']:.1%} "
+              f"skip_rate={res['prefill_skip_rate']:.1%} "
+              f"tokens_reused={res['tokens_reused']} reclaimed={res['pages_reclaimed']}")
+        bs = server.bucketed.stats
+        print(f"[serve] decode programs={len(server.bucketed.programs)} "
+              f"prefill programs={len(server.prefill_bucketed.programs)} "
+              f"compile_s={bs.compile_s + server.prefill_bucketed.stats.compile_s:.2f} "
+              f"tick p50={res['tick_ms_p50']:.1f}ms p99={res['tick_ms_p99']:.1f}ms "
+              f"kv_kernel={cfg.kv_kernel}")
+        bad = [rid for rid, r in res["results"].items() if "error" in r]
+        if bad:
+            raise SystemExit(f"requests failed: {bad}")
+        return 0
 
     server = BatchedServer(cfg, params, max_len=args.max_len, mode=args.mode)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)

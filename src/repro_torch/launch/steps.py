@@ -1,15 +1,27 @@
-"""Step-function builders shared by the serve front.
+"""Step-function builders shared by the serve fronts.
 
-``make_serve_step(cfg)`` -> one-token greedy decode against the KV cache.
+* ``make_serve_step(cfg)`` -> one-token greedy decode against the KV cache.
+* ``make_paged_serve_step(cfg)`` / ``make_paged_prefill_step(cfg)`` ->
+  slot-level decode and slot-masked whole-prompt prefill against the
+  paged KV pool (the continuous-batching fronts).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
 from ..models import get_model
+
+
+def dealias_tree(tree):
+    """Give every tensor leaf its own storage (a ``clone`` per leaf), so
+    no two leaves of a state tree share one buffer whatever built them
+    (the JAX package needs it against XLA's aliasing of equal constants;
+    the paged server keeps it for its store)."""
+    return pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
 
 
 def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None) -> Callable:
@@ -26,3 +38,85 @@ def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None) -> Callable:
         return next_tok[:, None], new_cache
 
     return serve_step
+
+
+#: sentinel emitted instead of an argmax over non-finite logits; never a
+#: real token (vocab ids are >= 0), so the scheduler can quarantine the
+#: row while its neighbours decode on untouched
+POISON_TOKEN = -1
+
+
+def guarded_argmax(last_logits: torch.Tensor) -> torch.Tensor:
+    """Greedy int32 token with a non-finite tripwire: a row whose logits
+    hold NaN/+Inf emits :data:`POISON_TOKEN`; rows with finite logits are
+    a plain argmax (``-Inf`` entries keep the row max finite and do not
+    trip it)."""
+    tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
+    row_max = torch.amax(last_logits, dim=-1)
+    return torch.where(torch.isfinite(row_max), tok, POISON_TOKEN).to(torch.int32)
+
+
+#: families whose decode step takes per-row positions and slot masks —
+#: the slot-level continuous-batching contract (the port has the dense
+#: decoder so far; the JAX package adds moe, hybrid and ssm)
+SLOT_FAMILIES = ("dense",)
+
+
+def supports_slot_decode(cfg: ModelConfig) -> bool:
+    return cfg.family in SLOT_FAMILIES
+
+
+def supports_paged_decode(cfg: ModelConfig) -> bool:
+    """Paged KV needs a purely positional KV cache: families whose decode
+    state folds past tokens into non-positional state cannot page it."""
+    model = get_model(cfg)
+    return (model.paged_decode_step is not None and supports_slot_decode(cfg)
+            and not model.stateful_decode)
+
+
+def make_paged_serve_step(cfg: ModelConfig, impl: Optional[str] = None) -> Callable:
+    """Slot-level greedy decode against the paged KV pool.
+
+    ``(params, store, page_table(B, MP), token(B, 1), pos(B,),
+    slot_mask(B,)) -> (next_tok(B, 1) int32, new_store)``: every row
+    writes its K/V and masks attention at its own position; rows with
+    ``slot_mask[b] == False`` write to the trash page (their token is
+    garbage).  ``store`` is ``{k_pages, v_pages}``; the table is read
+    only — allocation is host-side, so swap-in and resize are table
+    edits, never KV copies."""
+    if not supports_paged_decode(cfg):
+        raise ValueError(f"family {cfg.family!r} has no paged decode path")
+    model = get_model(cfg)
+
+    def paged_step(params, store, page_table, token, pos, slot_mask):
+        cache = dict(store, page_table=page_table)
+        logits, new_cache = model.paged_decode_step(params, cache, token, pos, cfg,
+                                                    slot_mask=slot_mask, impl=impl)
+        new_store = {"k_pages": new_cache["k_pages"], "v_pages": new_cache["v_pages"]}
+        return guarded_argmax(logits[:, -1, :])[:, None], new_store
+
+    return paged_step
+
+
+def make_paged_prefill_step(cfg: ModelConfig, impl: Optional[str] = None
+                            ) -> Optional[Callable]:
+    """Slot-masked whole-prompt prefill into the paged KV pool.
+
+    ``(params, store, page_table(B, MP), tokens(B, S), pos(B,),
+    slot_mask(B,)) -> ((B, S, vocab) logits, new_store)``.  ``pos`` is
+    per row: a row whose leading pages matched in the prefix tree
+    anchors its chunk at the skip offset, so prefix-hit and cold rows
+    prefill in one dispatch."""
+    if not supports_paged_decode(cfg):
+        return None
+    model = get_model(cfg)
+    if model.paged_prefill_step is None:
+        return None
+
+    def paged_prefill(params, store, page_table, tokens, pos, slot_mask):
+        cache = dict(store, page_table=page_table)
+        logits, new_cache = model.paged_prefill_step(params, cache, tokens, pos, cfg,
+                                                     slot_mask=slot_mask, impl=impl)
+        return logits, {"k_pages": new_cache["k_pages"], "v_pages": new_cache["v_pages"]}
+
+    return paged_prefill

@@ -6,9 +6,10 @@ what the Forge attention-fusion pass matches; after Phase 2 the middle
 collapses into one ``forge.sdpa`` dispatch.
 
 Carries the no-cache branch (full causal self-attention: the
-full-sequence forward) and the contiguous-cache branch (single-token
-decode at a scalar or per-row position).  The paged-cache branch comes
-with the paged KV slice.
+full-sequence forward), the contiguous-cache branch (single-token decode
+at a scalar or per-row position, optionally windowed) and the paged-cache
+branch (decode and chunked prefill against a flat page pool through a
+per-row page table, :func:`_paged_update_attend`).
 """
 from __future__ import annotations
 
@@ -92,6 +93,78 @@ def sdpa_unfused(
     return torch.matmul(p.to(v.dtype), v)
 
 
+def _paged_update_attend(
+    q: torch.Tensor,  # (B, H, sq, D) post-RoPE queries
+    k: torch.Tensor,  # (B, KVH, sq, D) post-RoPE keys of this step
+    v: torch.Tensor,
+    cache: Dict[str, torch.Tensor],  # k_pages / v_pages / page_table
+    cache_pos: torch.Tensor,  # 0-d or per-row (B,) write position
+    *,
+    window: Optional[int],
+    write_mask: Optional[torch.Tensor],  # bool (B,) — rows allowed to write
+    kv_kernel: str,  # "ref" (gather + unfused sdpa) | "pallas" (the kernel)
+    impl: Optional[str],
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Paged-cache decode/prefill: scatter this step's K/V into the flat
+    page pool through the page table, then attend over the row's pages.
+
+    The write is a per-token scatter ``flat[table[b, pos//ps]*ps +
+    pos%ps] = k``; rows outside ``write_mask`` (inactive slots) and
+    positions past the table (prefill pad) go to the trash page 0, so the
+    store needs no batch axis and no slot gate afterwards.  The scatter
+    is out of place (``index_put``), as JAX's ``.at[].set`` is: a step
+    returns new page pools.  Trash-routed writes may collide, and which
+    one lands is unspecified; trash content is never unmasked.
+
+    The "ref" attend gathers the row's pages back into the contiguous
+    cache layout and takes the same masks and ``sdpa_unfused`` as the
+    contiguous branch, so the paged path is bitwise the contiguous one on
+    live rows.  "pallas" (the config value the JAX package uses) with one
+    token per row calls the hand-written paged-attention kernel
+    (:mod:`repro_torch.kernels.paged_attention`); ``impl="ref"`` makes
+    that call take the kernel's plain version.
+    """
+    from ..kernels.paged_attention import paged_attention as _paged_kernel
+    from ..kernels.ref import gather_pages
+
+    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
+    pt = cache["page_table"]
+    NP, ps, KVH, D = k_pages.shape
+    B, MP = pt.shape
+    max_len = MP * ps
+    sq = q.shape[2]
+
+    pos_row = cache_pos.expand(B) if cache_pos.dim() == 0 else cache_pos
+    abs_pos = pos_row.long()[:, None] + torch.arange(sq, device=q.device)[None, :]
+    page_idx = torch.clamp(abs_pos // ps, 0, MP - 1)
+    slot = torch.gather(pt.long(), 1, page_idx) * ps + abs_pos % ps
+    ok = abs_pos < max_len
+    if write_mask is not None:
+        ok = ok & write_mask[:, None]
+    dest = torch.where(ok, slot, abs_pos % ps).reshape(-1)
+    k_tok = k.transpose(1, 2).reshape(B * sq, KVH, D)
+    v_tok = v.transpose(1, 2).reshape(B * sq, KVH, D)
+    new_k = k_pages.reshape(NP * ps, KVH, D).index_put((dest,), k_tok).reshape(k_pages.shape)
+    new_v = v_pages.reshape(NP * ps, KVH, D).index_put((dest,), v_tok).reshape(v_pages.shape)
+
+    if kv_kernel == "pallas" and sq == 1:
+        out = _paged_kernel(q[:, :, 0, :], new_k, new_v, pt, pos_row, window=window,
+                            impl=impl)[:, :, None, :].to(v.dtype)
+    else:
+        # mirrors the contiguous cache branch exactly (same masks, same
+        # sdpa, contiguous views): the bitwise-equality contract
+        k_view = gather_pages(new_k, pt).contiguous()
+        v_view = gather_pages(new_v, pt).contiguous()
+        if sq > 1:
+            mask = L.prefill_length_mask(cache_pos, sq, max_len, window=window)
+        elif window is not None:
+            mask = L.window_decode_mask(cache_pos, max_len, window)
+        else:
+            mask = L.decode_length_mask(cache_pos, max_len)
+        out = sdpa_unfused(q, k_view, v_view, causal=False, extra_mask=mask)
+    return out, {"k_pages": new_k, "v_pages": new_v}
+
+
 def attention(
     x: torch.Tensor,
     p: Params,
@@ -101,14 +174,21 @@ def attention(
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
     causal: bool = True,
+    window: Optional[int] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_pos: Optional[torch.Tensor] = None,
+    write_mask: Optional[torch.Tensor] = None,
+    kv_kernel: str = "ref",
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full attention sub-layer.  Returns (out, updated_cache).
 
     With a cache, the step's keys and values are written at
     ``cache_pos`` — a 0-d or per-row ``(B,)`` integer tensor — and the
-    queries attend to every cache entry at or before their position.
+    queries attend to every cache entry at or before their position
+    (with ``window``, only the last ``window`` of them).  A cache holding
+    ``k_pages`` is paged: ``write_mask``, ``kv_kernel`` and ``impl``
+    apply to it (see :func:`_paged_update_attend`).
     """
     q = L.linear(x, p["wq"], p.get("bq"))
     k = L.linear(x, p["wk"], p.get("bk"))
@@ -122,7 +202,12 @@ def attention(
         k = L.apply_rope(k, rope_cos, rope_sin)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and "k_pages" in cache:
+        out, new_cache = _paged_update_attend(
+            q, k, v, cache, cache_pos, window=window, write_mask=write_mask,
+            kv_kernel=kv_kernel, impl=impl,
+        )
+    elif cache is not None:
         # one-token decode: write at cache_pos, attend to all keys <= pos.
         # A per-row (B,) position writes and masks each row at its own
         # position (slot-level continuous batching); the write is a select
@@ -138,9 +223,15 @@ def attention(
         k_cache = torch.where(write, k, cache["k"])
         v_cache = torch.where(write, v, cache["v"])
         new_cache = {"k": k_cache, "v": v_cache}
-        mask = L.decode_length_mask(cache_pos, max_len)
+        if window is not None:
+            mask = L.window_decode_mask(cache_pos, max_len, window)
+        else:
+            mask = L.decode_length_mask(cache_pos, max_len)
         out = sdpa_unfused(q, k_cache, v_cache, causal=False, extra_mask=mask)
     else:
+        if window is not None:
+            raise NotImplementedError("local (banded) full-sequence attention comes "
+                                      "with the hybrid family")
         out = sdpa_unfused(q, k, v, causal=causal)
     out = L.linear(_merge_heads(out), p["wo"])
     return out, new_cache

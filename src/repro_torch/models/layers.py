@@ -163,6 +163,37 @@ def decode_length_mask(pos: torch.Tensor, max_len: int,
                        torch.finfo(dtype).min).to(dtype)
 
 
+def window_decode_mask(pos: torch.Tensor, max_len: int, window: int,
+                       dtype=torch.float32) -> torch.Tensor:
+    """Additive sliding-window mask for one decode step: 0 for
+    ``pos - window < idx <= pos`` else the dtype's minimum; scalar or
+    per-row ``pos`` as in :func:`decode_length_mask`."""
+    idx = torch.arange(max_len, device=pos.device).view(1, 1, 1, max_len)
+    p = per_row_pos(pos)
+    keep = (idx <= p) & (idx > p - window)
+    return torch.where(keep, 0.0, torch.finfo(dtype).min).to(dtype)
+
+
+def prefill_length_mask(pos: torch.Tensor, sq: int, max_len: int,
+                        window: Optional[int] = None,
+                        dtype=torch.float32) -> torch.Tensor:
+    """Causal length mask (1|B, 1, sq, max_len) for chunked prefill.
+
+    Query row i sits at cache position ``pos + i`` and sees keys
+    ``idx <= pos + i`` (with ``window``, also ``idx > pos + i - window``)
+    — causal *within* the chunk, so a whole prompt block is written
+    through the cache path in one forward pass.  ``pos`` may be per-row
+    (B,): each row then anchors its chunk at its own start position.
+    Reduces to :func:`decode_length_mask` at ``sq == 1``.
+    """
+    idx = torch.arange(max_len, device=pos.device).view(1, 1, 1, max_len)
+    qpos = per_row_pos(pos) + torch.arange(sq, device=pos.device).view(1, 1, sq, 1)
+    keep = idx <= qpos
+    if window is not None:
+        keep = keep & (idx > qpos - window)
+    return torch.where(keep, 0.0, torch.finfo(dtype).min).to(dtype)
+
+
 def slot_gate(slot_mask: Optional[torch.Tensor], new: torch.Tensor,
               old: torch.Tensor) -> torch.Tensor:
     """Per-row select between updated and previous decode state.

@@ -12,12 +12,16 @@ Entry points:
 * ``apply(params, tokens, cfg)``                  — full-sequence logits
 * ``init_cache(cfg, batch, max_len, device)``     — stacked KV cache
 * ``decode_step(params, cache, tok, pos, cfg)``   — one-token serve step
+* ``init_paged_cache(cfg, batch, max_len, num_pages=, page_size=)``,
+  ``paged_decode_step``, ``paged_prefill_step``   — the same against a
+  flat page pool and a per-row page table (continuous batching)
 
 Every entry point that creates tensors runs on the CUDA device unless the
 caller passes ``device="cpu"``; the others follow their inputs' device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -112,16 +116,55 @@ def block_decode(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     return x + L.apply_ffn(h, p["ffn"], cfg.ffn), new_cache["k"], new_cache["v"]
 
 
+def block_paged_decode(p: Params, x: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_table: torch.Tensor,
+                       pos: torch.Tensor, write_mask: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor, cfg: ModelConfig,
+                       impl: Optional[str] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Block body against the paged KV pool (decode and chunked prefill).
+
+    ``k_pages``/``v_pages``: this layer's pool (num_pages, page_size,
+    KVH, D); ``page_table`` (B, max_pages), shared by all layers.  Unlike
+    :func:`block_decode` the slot mask rides *inside* the body: the page
+    store has no batch axis to gate afterwards, so inactive rows' writes
+    go to the trash page in the scatter itself."""
+    h = L.apply_norm(x, p["norm1"], cfg.norm)
+    attn_out, new_cache = A.attention(
+        h, p["attn"], n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        rope_cos=cos, rope_sin=sin,
+        cache={"k_pages": k_pages, "v_pages": v_pages, "page_table": page_table},
+        cache_pos=pos, write_mask=write_mask, kv_kernel=cfg.kv_kernel, impl=impl,
+    )
+    x = x + attn_out
+    h = L.apply_norm(x, p["norm2"], cfg.norm)
+    return (x + L.apply_ffn(h, p["ffn"], cfg.ffn), new_cache["k_pages"],
+            new_cache["v_pages"])
+
+
+def paged_body_compiled(cfg: ModelConfig) -> bool:
+    """Whether the paged steps call a Forge-compiled block body.  The
+    paged kernel is itself the fused dispatch: as in the JAX package the
+    body runs raw with ``kv_kernel == "pallas"``, and a caller that
+    captures the whole step (the serve fronts) meets the kernel as one
+    custom-op node."""
+    return cfg.fuse == "forge" and cfg.kv_kernel != "pallas"
+
+
 def _body_fn(cfg: ModelConfig, mode: str, example_args, impl: Optional[str] = None):
-    base = block_apply if mode == "apply" else block_decode
+    if mode.startswith("paged_"):
+        base = functools.partial(block_paged_decode, impl=impl)
+        enabled = paged_body_compiled(cfg)
+    else:
+        base = block_apply if mode == "apply" else block_decode
+        enabled = cfg.fuse == "forge"
 
     def raw(*args):
         return base(*args, cfg=cfg)
 
     # the whole config keys the body: two configs can share a name and
     # every parameter shape yet split heads differently
-    return forge_body(raw, f"{cfg!r}/{mode}", example_args,
-                      enabled=cfg.fuse == "forge", impl=impl)
+    return forge_body(raw, f"{cfg!r}/{mode}", example_args, enabled=enabled, impl=impl)
 
 
 # --------------------------------------------------------------------------
@@ -208,3 +251,111 @@ def decode_step(
     cos, sin = _rope_for(cfg, L.decode_positions(pos))
     return _cached_forward(params, cache, x, pos, cos, sin, cfg, "decode",
                            slot_mask=slot_mask, impl=impl)
+
+
+# --------------------------------------------------------------------------
+# paged KV pool (continuous batching)
+# --------------------------------------------------------------------------
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *, num_pages: int,
+                     page_size: int,
+                     device: Union[str, torch.device] = "cuda") -> Dict[str, torch.Tensor]:
+    """Paged decode state: one flat page pool per layer plus one page
+    table shared by every layer (a logical page holds all layers' K/V of
+    its token block, so the allocator hands out one index per block).
+
+    Page 0 is the reserved trash page (see ``core/paging.py``): a
+    zero-filled table points every slot there, masked and pad writes
+    land there, and the length masks keep it out of the softmax.
+    """
+    if max_len % page_size:
+        raise ValueError(f"max_len {max_len} not a multiple of page_size {page_size}")
+    device = resolve_device(device)
+    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim_)
+    return {
+        "k_pages": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        "v_pages": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        "page_table": torch.zeros((batch, max_len // page_size), dtype=torch.int32,
+                                  device=device),
+    }
+
+
+def _paged_cached_forward(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # (B, S, D) embedded inputs
+    pos: torch.Tensor,  # integer write position, 0-d or per-row (B,)
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    cfg: ModelConfig,
+    mode: str,
+    slot_mask: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`_cached_forward` against the paged KV pool.  The page table
+    is read-only inside the model (allocation is host-side, in the serve
+    layer); the slot mask rides inside the body."""
+    B = x.shape[0]
+    mask = (torch.ones((B,), dtype=torch.bool, device=x.device) if slot_mask is None
+            else slot_mask.to(torch.bool))
+    pt = cache["page_table"]
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    blocks = params["blocks"]
+    body = _body_fn(cfg, mode, (blocks[0], x, kp[0], vp[0], pt, pos, mask, cos, sin), impl)
+    ks, vs = [], []
+    for i, p_layer in enumerate(blocks):
+        x, nk, nv = body(p_layer, x, kp[i], vp[i], pt, pos, mask, cos, sin)
+        ks.append(nk)
+        vs.append(nv)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = L.lm_head(x, params.get("lm_head", params["embed"]),
+                       transpose=cfg.tie_embeddings)
+    return logits, {"k_pages": torch.stack(ks), "v_pages": torch.stack(vs),
+                    "page_table": pt}
+
+
+def paged_decode_step(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    token: torch.Tensor,  # (B, 1) int
+    pos: Union[int, torch.Tensor],  # write position — scalar or per-row (B,)
+    cfg: ModelConfig,
+    *,
+    slot_mask: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`decode_step` against the paged KV pool: the same logits,
+    bitwise, on active rows with ``cfg.kv_kernel == "ref"``."""
+    _check_family(cfg)
+    x = L.embed(token, params["embed"])
+    pos = torch.as_tensor(pos, device=x.device)
+    cos, sin = _rope_for(cfg, L.decode_positions(pos))
+    return _paged_cached_forward(params, cache, x, pos, cos, sin, cfg, "paged_decode",
+                                 slot_mask=slot_mask, impl=impl)
+
+
+def paged_prefill_step(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,  # (B, S) int — a whole (padded) prompt block
+    pos: Union[int, torch.Tensor],  # first write position — scalar or per-row (B,)
+    cfg: ModelConfig,
+    *,
+    slot_mask: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Whole-prompt prefill into the paged KV pool: one forward pass
+    writes the S-token block at ``[pos, pos + S)`` of every masked row,
+    causal within the chunk.  A per-row ``pos`` anchors each row's chunk
+    at its own start: a row whose leading pages came from the prefix
+    tree prefills only its suffix, in the same dispatch as rows starting
+    from zero.  Returns the (B, S, vocab) logits and the new pools."""
+    _check_family(cfg)
+    x = L.embed(tokens, params["embed"])
+    pos = torch.as_tensor(pos, device=x.device)
+    offs = torch.arange(x.shape[1], device=x.device)
+    positions = pos[:, None] + offs if pos.dim() == 1 else pos + offs
+    cos, sin = _rope_for(cfg, positions)
+    return _paged_cached_forward(params, cache, x, pos, cos, sin, cfg, "paged_prefill",
+                                 slot_mask=slot_mask, impl=impl)

@@ -1,5 +1,5 @@
 """The port on the card: CUDA kernels against their plain versions, and
-the smoke model and server going through them.
+the smoke model, server and paged slot scheduler going through them.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so it runs on a machine that has only the port's
@@ -15,10 +15,16 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_linear as FL
 from repro_torch.kernels import ops
-from repro_torch.launch.serve import BatchedServer
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.launch.serve import BatchedServer, Request, SlotScheduler
 from repro_torch.models import get_model
 
-from torch_port_support import TOL_BF16, TOL_F32, cuda_device  # noqa: F401
+from torch_port_support import (  # noqa: F401
+    TOL_BF16,
+    TOL_F32,
+    cuda_device,
+    paged_workload,
+)
 
 ACTS = [None, "relu", "silu", "gelu", "gelu_exact", "tanh"]
 #: bf16's unit roundoff: the kernel and the plain version each round
@@ -45,7 +51,8 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("M,K,N", [(4, 768, 3072), (4, 3072, 768), (300, 768, 768),
-                                       (7, 33, 45), (40, 33, 45)])
+                                       (7, 33, 45), (40, 33, 45), (2, 768, 3072),
+                                       (32, 3072, 768), (64, 768, 768), (256, 768, 3072)])
     @pytest.mark.parametrize("act", ACTS)
     def test_fused_linear(self, cuda_device, dtype, M, K, N, act):
         g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -120,3 +127,100 @@ def test_serve_on_card_launches_kernels(cuda_device):
     r = BatchedServer(cfg, p, max_len=16).generate(prompts, 3)
     assert r["tokens"].shape == (2, 3)
     assert FL.LAUNCHES.n == 3 * cfg.n_layers * (4 + 3 - 1) and FA.LAUNCHES.n == 0
+
+
+def paged_case(seed, B, H, KVH, D, ps, MP, NP, dtype, device):
+    """Random non-contiguous page tables (page 0 never used), positions
+    that include -1 (no key), a page's last slot, a page's first slot and
+    the table's last slot."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy((rng.standard_normal((B, H, D)) * 1.5).astype(np.float32))
+    k = torch.from_numpy((rng.standard_normal((NP, ps, KVH, D)) * 1.5).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((NP, ps, KVH, D)).astype(np.float32))
+    pt = np.stack([1 + rng.choice(NP - 1, MP, replace=False) for _ in range(B)])
+    edges = [-1, ps - 1, ps, MP * ps - 1, 2 * ps + 3]
+    pos = np.asarray([edges[(seed + b) % len(edges)] for b in range(B)], np.int32)
+    return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
+            torch.from_numpy(pt.astype(np.int32)).to(device),
+            torch.from_numpy(pos).to(device))
+
+
+#: (B, H, KVH, D, ps, MP, NP, window): forge-125m's served shapes, GQA,
+#: a window, and the other head dims
+PAGED_CASES = [(1, 12, 12, 64, 16, 16, 129, None), (2, 12, 12, 64, 16, 16, 129, None),
+               (4, 12, 12, 64, 16, 16, 129, None), (4, 12, 4, 64, 16, 16, 129, None),
+               (4, 12, 12, 64, 16, 16, 129, 20), (3, 4, 2, 8, 8, 4, 13, None),
+               (2, 8, 8, 16, 16, 6, 20, 9), (2, 8, 4, 32, 16, 6, 20, None),
+               (2, 4, 4, 128, 16, 6, 20, None)]
+
+
+@pytest.mark.cuda
+class TestPagedAttentionOnCard:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,H,KVH,D,ps,MP,NP,window", PAGED_CASES)
+    def test_kernel_matches_plain(self, cuda_device, dtype, B, H, KVH, D, ps, MP, NP, window):
+        q, k, v, pt, pos = paged_case(B + D, B, H, KVH, D, ps, MP, NP, dtype, cuda_device)
+        got = PA.paged_attention_cuda(q, k, v, pt, pos, window=window)
+        want = PA.paged_attention_plain(q, k, v, pt, pos, window=window)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert bool((got[pos < 0] == 0).all())
+        if dtype == torch.bfloat16:
+            mass = PA.paged_attention_plain(q, k, v.abs(), pt, pos, window=window)
+            err = (got.float() - want.float()).abs()
+            bound = 3 * BF16_U * (mass.float() + want.float().abs())
+            assert bool((err <= bound).all()), (err / bound).max()
+
+    def test_front_launches_and_ref_does_not(self, cuda_device):
+        q, k, v, pt, pos = paged_case(0, 2, 4, 4, 16, 8, 4, 9, torch.float32, cuda_device)
+        PA.LAUNCHES.reset()
+        PA.paged_attention(q, k, v, pt.long(), pos.long())
+        PA.paged_attention(q, k, v, pt, pos, impl="ref")
+        assert PA.LAUNCHES.n == 1
+
+    def test_bad_inputs_raise(self, cuda_device):
+        q, k, v, pt, pos = paged_case(0, 2, 4, 4, 16, 8, 4, 9, torch.float32, cuda_device)
+        with pytest.raises(ValueError, match="head dim"):
+            x = torch.ones(2, 4, 48, device=cuda_device)
+            PA.paged_attention_cuda(x, torch.ones(9, 8, 4, 48, device=cuda_device),
+                                    torch.ones(9, 8, 4, 48, device=cuda_device), pt, pos)
+        with pytest.raises(ValueError, match="int32"):
+            PA.paged_attention_cuda(q, k, v, pt.long(), pos)
+
+
+def _paged_sched_run(cfg, p, **kw):
+    srv = BatchedServer(cfg, p, max_len=32, mode="forge", seq_bucket_policy="ladder:8,16,32",
+                        paged=True, kv_page_size=8, **kw)
+    sched = SlotScheduler(srv, max_slots=4)
+    sched.warmup(prompt_lens=[4, 8, 16, 24])
+    FL.LAUNCHES.reset()
+    FA.LAUNCHES.reset()
+    PA.LAUNCHES.reset()
+    res = sched.run(paged_workload(Request, cfg.vocab))
+    counts = (FL.LAUNCHES.n, FA.LAUNCHES.n, PA.LAUNCHES.n)
+    srv.page_pool.check()
+    assert srv.page_pool.pages_in_use == 1 + srv.prefix_tree.cached_pages
+    assert res["compiles"] == 0
+    return res, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_kernel", ["pallas", "ref"])
+def test_paged_scheduler_on_card(cuda_device, kv_kernel):
+    """The whole paged step captured on the card through both routes: the
+    paged kernel inside the capture ("pallas"), and Forge-compiled block
+    bodies whose fused-linear kernel calls the capture meets ("ref").
+    Tokens equal the impl="ref" run's; the kernels were launched."""
+    cfg = get_config("forge-125m", smoke=True).with_(dtype="float32", kv_kernel=kv_kernel)
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    got, (fl, fa, pa) = _paged_sched_run(cfg, p)
+    want, ref_counts = _paged_sched_run(cfg, p, impl="ref")
+    assert ref_counts == (0, 0, 0)
+    for rid, r in want["results"].items():
+        np.testing.assert_array_equal(got["results"][rid]["tokens"], r["tokens"])
+    assert fa == 0
+    assert pa == (cfg.n_layers * got["decode_dispatches"] if kv_kernel == "pallas" else 0)
+    assert fl == 3 * cfg.n_layers * (got["decode_dispatches"] + got["prefill_dispatches"])

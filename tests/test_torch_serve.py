@@ -87,7 +87,30 @@ def test_max_len_guard(setup, prompts):
 def test_unknown_mode_rejected(setup):
     cfg, _, _, p = setup
     with pytest.raises(ValueError):
+        BatchedServer(cfg, p, mode="bogus")
+
+
+def test_forge_mode_needs_paged(setup):
+    """The contiguous forge fronts are not ported yet: mode="forge"
+    without paged=True says so."""
+    cfg, _, _, p = setup
+    with pytest.raises(NotImplementedError, match="paged"):
         BatchedServer(cfg, p, mode="forge")
+
+
+def test_cli_paged_continuous_on_cpu(capsys):
+    assert serve.main(["--mode", "forge", "--continuous", "6", "--paged", "--smoke",
+                       "--device", "cpu", "--max-slots", "2", "--prompt-len", "8",
+                       "--gen", "4", "--max-len", "32", "--kv-page-size", "8"]) == 0
+    out = capsys.readouterr().out
+    assert "forge-125m-smoke continuous n=6" in out
+    assert "compiles_post_warmup=0" in out
+    assert "[serve] pages: in_use=" in out
+
+
+def test_cli_forge_needs_paged_continuous():
+    with pytest.raises(SystemExit):
+        serve.main(["--mode", "forge", "--smoke", "--device", "cpu"])
 
 
 def test_cli_on_cpu(capsys):

@@ -53,3 +53,63 @@ def cuda_device():
                     "tests/test_torch_cuda.py`")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+# --------------------------------------------------------------------------
+# the paged slot-scheduler fidelity workload (the JAX package's
+# tests/test_paged_kv.py::TestPagedSchedulerFidelity)
+# --------------------------------------------------------------------------
+
+PAGED_MAX_LEN, PAGED_PS = 32, 8
+#: scheduler metrics that must be equal between the port and the JAX package
+PAGED_METRICS = ("swaps", "resizes", "prefix_hits", "tokens_reused", "deferrals",
+                 "decode_dispatches", "prefill_dispatches", "kv_pages_in_use",
+                 "kv_peak_pages_in_use", "occupied_row_steps", "capacity_row_steps")
+
+
+def _paged_tokens(n, seed, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, (n,)).astype(np.int32)
+
+
+def paged_workload(request_cls, vocab):
+    """8 requests arriving 3 per tick: every third shares a 16-token
+    (2-page) prefix, so the prefix tree hits; ragged budgets force
+    mid-generation swap-ins and a rung resize."""
+    shared = _paged_tokens(16, 20, vocab)
+    reqs = []
+    for i in range(8):
+        if i % 3 == 0:
+            p = np.concatenate([shared, _paged_tokens(4, 30 + i, vocab)])
+        else:
+            p = _paged_tokens(3 + 2 * (i % 5), 40 + i, vocab)
+        reqs.append(request_cls(rid=i, prompt=p, max_new=2 + (3 * i) % 5, arrival=i // 3))
+    return reqs
+
+
+def run_paged_scheduler(server_cls, sched_cls, request_cls, cfg, params, *, warmup=True,
+                        **server_kw):
+    """One paged SlotScheduler run on the workload (max_slots 4, page 8,
+    max_len 32, sequence ladder 8/16/32); returns (result, server)."""
+    srv = server_cls(cfg, params, max_len=PAGED_MAX_LEN, mode="forge", backend="interpret",
+                     seq_bucket_policy="ladder:8,16,32", paged=True, kv_page_size=PAGED_PS,
+                     **server_kw)
+    sched = sched_cls(srv, max_slots=4)
+    if warmup:
+        sched.warmup(prompt_lens=[4, 8, 16, 24])
+    return sched.run(paged_workload(request_cls, cfg.vocab)), srv
+
+
+def jax_paged_run(jcfg, jparams, **server_kw):
+    """The JAX package's paged scheduler (kv_kernel "ref", interpret
+    backend) on the workload."""
+    from repro.launch.serve import BatchedServer, Request, SlotScheduler
+
+    res, _ = run_paged_scheduler(BatchedServer, SlotScheduler, Request, jcfg, jparams,
+                                 **server_kw)
+    return res
+
+
+def port_paged_run(cfg, params, **kw):
+    from repro_torch.launch.serve import BatchedServer, Request, SlotScheduler
+
+    return run_paged_scheduler(BatchedServer, SlotScheduler, Request, cfg, params, **kw)

@@ -1,16 +1,19 @@
 """Architecture registry — the ``--arch <id>`` lookup.
 
 The port carries ``forge-125m`` (a GPT-2-class dense decoder, the serve
-CLI's default) and its smoke variant; the other architectures of the
-JAX package follow in later slices.
+CLI's default), ``recurrentgemma-2b`` (the RG-LRU / local-attention
+hybrid) and their smoke variants; the other architectures of the JAX
+package follow in later slices.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
+from . import recurrentgemma_2b
 from .base import ModelConfig
 
-ARCH_IDS: List[str] = ["forge-125m"]
+REGISTRY: Dict[str, object] = {m.ARCH_ID: m for m in (recurrentgemma_2b,)}
+ARCH_IDS: List[str] = ["forge-125m"] + list(REGISTRY)
 
 
 def forge_125m() -> ModelConfig:
@@ -33,13 +36,16 @@ def forge_125m() -> ModelConfig:
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
-    if arch_id != "forge-125m":
+    if arch_id == "forge-125m":
+        cfg = forge_125m()
+        return cfg.with_(
+            name=cfg.name + "-smoke", n_layers=2, d_model=64, n_heads=4,
+            n_kv_heads=4, d_ff=128, vocab=512, remat=False,
+        ) if smoke else cfg
+    mod = REGISTRY.get(arch_id)
+    if mod is None:
         raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
-    cfg = forge_125m()
-    return cfg.with_(
-        name=cfg.name + "-smoke", n_layers=2, d_model=64, n_heads=4,
-        n_kv_heads=4, d_ff=128, vocab=512, remat=False,
-    ) if smoke else cfg
+    return mod.smoke_config() if smoke else mod.config()
 
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "forge_125m"]
+__all__ = ["ModelConfig", "REGISTRY", "ARCH_IDS", "get_config", "forge_125m"]

@@ -246,9 +246,11 @@ class BucketedModule:
     ``torch.export`` cannot run inside another, so they must compile
     before the capture traces through their executors.
 
-    The JAX package's pad-and-mask ``__call__``, async compile service,
+    Axis specs may be per-leaf trees (the contiguous fronts mark each
+    cache leaf's batch axis, from ``shapekey.infer_poly_axes``).  The JAX
+    package's pad-and-mask ``__call__``, async compile service,
     cold-bucket eviction, ladder re-fit and per-bucket buffer pool are
-    not ported: the paged serve path uses none of them.
+    not ported: the serve fronts use none of them.
     """
 
     def __init__(self, compiler: ForgeCompiler, fn: Callable, *,

@@ -16,15 +16,17 @@ makes that specialisation an explicit, bounded compilation axis:
   :class:`~repro_torch.core.compiler.BucketedModule`'s program table: one
   cell's program serves every call whose state is padded into it.
 
+``infer_poly_axes`` derives a state tree's per-leaf batch axes by
+differencing two instantiations (the contiguous fronts' cache axes).
 The JAX module's pad-and-mask plans (``PadPlan``, ``pad_args``) are not
-ported: the paged fronts hold bucket-shaped state themselves.  Axis
+ported: the serve fronts hold bucket-shaped state themselves.  Axis
 specs follow ``torch.utils._pytree``'s flatten order: a dict's leaves
 come in insertion order (JAX sorts the keys).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 from torch.utils import _pytree as pytree
@@ -238,6 +240,38 @@ def infer_extent(flat_leaves: Sequence[Any], flat_axes: Sequence[Optional[int]])
     if extent is None:
         raise ValueError("no batch-polymorphic inputs: the axis spec marks no leaf")
     return extent
+
+
+def infer_poly_axes(builder: Callable[[int], Any], n1: int = 2, n2: int = 3) -> Any:
+    """Infer per-leaf batch axes of a pytree by differencing two builds.
+
+    ``builder(n)`` must return the pytree instantiated for batch ``n``
+    (e.g. ``lambda b: model.init_cache(cfg, b, max_len, device="meta")``;
+    on the ``meta`` device, the analogue of ``jax.eval_shape``, nothing is
+    allocated).  A leaf whose shape differs between the two builds in
+    exactly one dimension — with extents ``n1`` / ``n2`` — is
+    batch-polymorphic on that axis; a leaf with identical shapes is
+    batch-free.  Returns an axes pytree of the same structure, usable as
+    an ``in_axes`` spec.
+    """
+    t1, t2 = builder(n1), builder(n2)
+    l1, td1 = pytree.tree_flatten(t1)
+    l2, td2 = pytree.tree_flatten(t2)
+    if td1 != td2:
+        raise ValueError("builder returns different tree structures")
+    axes: List[Optional[int]] = []
+    for a, b in zip(l1, l2):
+        s1, s2 = tuple(a.shape), tuple(b.shape)
+        if len(s1) != len(s2):
+            raise ValueError(f"leaf rank changed with batch: {s1} vs {s2}")
+        diff = [i for i, (x, y) in enumerate(zip(s1, s2)) if x != y]
+        if not diff:
+            axes.append(None)
+        elif len(diff) == 1 and s1[diff[0]] == n1 and s2[diff[0]] == n2:
+            axes.append(diff[0])
+        else:
+            raise ValueError(f"cannot infer batch axis from shapes {s1} vs {s2}")
+    return pytree.tree_unflatten(axes, td1)
 
 
 # --------------------------------------------------------------------------

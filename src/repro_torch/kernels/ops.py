@@ -1,4 +1,5 @@
-"""Dispatch for the fused graph nodes (``forge.sdpa``, ``forge.linear_act``).
+"""Dispatch for the fused graph nodes (``forge.sdpa``, ``forge.linear_act``)
+and the recurrent block's RG-LRU scan (``rg_lru``, ``rg_lru_scan``).
 
 Every fused node the Phase-2 passes create bottoms out here.  The
 implementation follows the tensors' device:
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 
 from . import ref as _ref
+from . import rg_lru as _rg_lru_kernel
 from .flash_attention import flash_attention
 from .fused_linear import fused_linear as _fused_linear_kernel
 
@@ -150,4 +152,42 @@ def fused_linear(
     return y
 
 
-__all__ = ["sdpa", "fused_linear"]
+# --------------------------------------------------------------------------
+# RG-LRU linear recurrence (the recurrent block's pre-fused dispatch)
+# --------------------------------------------------------------------------
+
+
+def rg_lru(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    *,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t-1} + x_t over axis 1.  x, a: (B, T, D)."""
+    _check_impl(impl)
+    if impl is None:
+        return _rg_lru_kernel.rg_lru(x, a, h0)
+    return _ref.rg_lru_ref(x, a, h0)
+
+
+def rg_lru_scan(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    *,
+    impl: Optional[str] = None,
+) -> tuple:
+    """Chunked-prefill RG-LRU scan: ``(h, h_last)`` for one chunk.
+
+    Same recurrence as :func:`rg_lru` plus the ``h[:, -1]`` carry as a
+    second output, so a caller chaining prompt chunks folds state
+    between them without slicing the full sequence (the kernel writes
+    it in the same launch)."""
+    _check_impl(impl)
+    if impl is None:
+        return _rg_lru_kernel.rg_lru_chunked(x, a, h0)
+    return _ref.rg_lru_chunk_ref(x, a, h0)
+
+
+__all__ = ["sdpa", "fused_linear", "rg_lru", "rg_lru_scan"]

@@ -139,3 +139,42 @@ def apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     if act == "tanh":
         return torch.tanh(y)
     raise ValueError(f"unknown activation {act!r}")
+
+
+def rg_lru_ref(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Reference RG-LRU linear recurrence  h_t = a_t ⊙ h_{t-1} + x_t.
+
+    x, a: (B, T, D); h0: (B, D) or None (zeros).  Returns h: (B, T, D) in
+    x's dtype.  Computed in fp32 as a log-step (Hillis–Steele) doubling
+    scan: after the step of span s, element t holds (A_t, X_t) with
+    ``h_t = A_t · h_{t-s'} + X_t`` over the last 2s elements, so
+    ceil(log2 T) steps of whole-tensor ops give ``h_t = A_t · h0 + X_t``
+    — no Python loop over T (the JAX oracle's ``associative_scan``
+    reassociates the same way).
+    """
+    A, X = a.float(), x.float()
+    T = X.shape[1]
+    s = 1
+    while s < T:
+        X = torch.cat([X[:, :s], A[:, s:] * X[:, :-s] + X[:, s:]], dim=1)
+        A = torch.cat([A[:, :s], A[:, s:] * A[:, :-s]], dim=1)
+        s *= 2
+    if h0 is not None:
+        X = X + A * h0.float()[:, None, :]
+    return X.to(x.dtype)
+
+
+def rg_lru_chunk_ref(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+) -> tuple:
+    """Chunked-prefill RG-LRU oracle: ``(h, h_last)`` for one chunk, with
+    ``h_last == h[:, -1]`` — the carry a caller folds into the next
+    chunk's ``h0``; chaining chunks with it is the unchunked scan."""
+    h = rg_lru_ref(x, a, h0)
+    return h, h[:, -1, :].clone()

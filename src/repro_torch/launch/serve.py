@@ -8,20 +8,30 @@ is Forge-compiled once per shape through all four phases — so the fused
 The prompt is prefilled token by token through the decode step, as the
 JAX server does in jit mode.
 
+``BatchedServer(mode="forge")`` with the contiguous cache serves groups
+through two multi-program fronts: the whole decode step (embedding,
+every layer, LM head, greedy argmax) compiled through Phases 1-4 once
+per batch bucket with the slot signature (per-row ``pos`` and
+``slot_mask``), and the whole-prompt prefill once per (batch × sequence)
+grid cell.  The recurrent family prefills through the chunked state
+scan, one dispatch per prompt block (``last_prefill_mode ==
+"chunked"``; its RG-LRU recurrence launches the hand-written scan
+kernel); ``prefill="sequential"`` replays the prompt through the decode
+program instead.  The dense decoder is refused there until the port has
+its ``transformer.prefill_step``.
+
 ``BatchedServer(mode="forge", paged=True)`` with :class:`SlotScheduler`
-is slot-level continuous batching over a paged KV pool: the whole decode
-step (embedding, every layer, LM head, greedy argmax) is compiled through
-Phases 1-4 once per batch bucket, the whole-prompt prefill once per
-(batch × sequence) grid cell, and every tick advances each active slot
-at its own position.  The KV cache is a shared page pool with per-slot
-page tables, a refcounted allocator and a shared-prefix tree
-(``core/paging.py``); with ``cfg.kv_kernel == "pallas"`` decode attention
-runs the hand-written paged-attention kernel.  The contiguous forge
-fronts of the JAX package come in a later slice.
+is slot-level continuous batching over a paged KV pool: every tick
+advances each active slot at its own position.  The KV cache is a shared
+page pool with per-slot page tables, a refcounted allocator and a
+shared-prefix tree (``core/paging.py``); with ``cfg.kv_kernel ==
+"pallas"`` decode attention runs the hand-written paged-attention kernel.
 
 CLI (runs on the CUDA device unless ``--device cpu``)::
 
     python -m repro_torch.launch.serve --arch forge-125m [--smoke]
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --mode forge \\
+        [--prefill auto|batched|sequential]
     python -m repro_torch.launch.serve --arch forge-125m --mode forge \\
         --continuous 12 --max-slots 4 --paged --kv-kernel pallas
 """
@@ -43,6 +53,8 @@ from ..device import resolve_device
 from ..models import get_model
 from .steps import POISON_TOKEN, guarded_argmax, make_serve_step, supports_slot_decode
 
+PREFILL_POLICIES = ("auto", "batched", "sequential")
+
 
 class RequestError(ValueError):
     """A request-level failure (malformed prompt array)."""
@@ -63,15 +75,24 @@ class BatchedServer:
     ``mode="eager"``: group admission, sequential prefill through the
     decode step (:meth:`generate`).
 
-    ``mode="forge", paged=True``: the paged-KV fronts for
-    :class:`SlotScheduler` — the decode step compiled through Phases 1-4
-    behind a :class:`~repro_torch.core.compiler.BucketedModule` (one
-    program per ``bucket_policy`` batch bucket), and the whole-prompt
-    prefill behind a 2-D (batch × ``seq_bucket_policy`` sequence) one.
-    Every program reads and returns the one server-resident page store
-    (``kv_pages`` pages of ``kv_page_size`` tokens, page 0 the trash
-    page; default eight full-length slots' worth); only the page table,
-    tokens, positions and slot mask are bucket-shaped.
+    ``mode="forge"``: the decode step compiled through Phases 1-4 behind
+    a :class:`~repro_torch.core.compiler.BucketedModule` (one program per
+    ``bucket_policy`` batch bucket), and the whole-prompt prefill behind a
+    2-D (batch × ``seq_bucket_policy`` sequence) one.
+
+    * contiguous cache (default): :meth:`generate` edge-pads a prompt
+      group to its buckets and runs the slot-signature decode program in
+      lockstep; the cache (per-leaf batch axes from
+      :func:`~repro_torch.core.shapekey.infer_poly_axes`) is allocated
+      fresh per generation.  ``prefill``: ``"auto"``/``"batched"`` take
+      the prefill grid when the prompt fits it, ``"sequential"`` replays
+      it through the decode program (read at each call, so one server
+      can time both on the same warmed decode program).
+    * ``paged=True``: the fronts for :class:`SlotScheduler` — every
+      program reads and returns the one server-resident page store
+      (``kv_pages`` pages of ``kv_page_size`` tokens, page 0 the trash
+      page; default eight full-length slots' worth); only the page table,
+      tokens, positions and slot mask are bucket-shaped.
     """
 
     MODES = ("eager", "forge")
@@ -80,26 +101,33 @@ class BatchedServer:
                  impl: Optional[str] = None, *, backend: str = "interpret",
                  bucket_policy: str = "pow2",
                  seq_bucket_policy: str = "ladder:16,32,64,128,256",
-                 paged: bool = False, kv_page_size: int = 16,
+                 prefill: str = "auto", paged: bool = False, kv_page_size: int = 16,
                  kv_pages: Optional[int] = None):
         if mode not in self.MODES:
             raise ValueError(f"mode {mode!r} not supported; the port serves {self.MODES}")
-        if mode == "forge" and not paged:
-            raise NotImplementedError(
-                "mode='forge' serves the paged KV pool so far (pass paged=True and "
-                "drive it with SlotScheduler); the contiguous forge fronts come in a "
-                "later slice")
+        if prefill not in PREFILL_POLICIES:
+            raise ValueError(f"prefill {prefill!r} not in {PREFILL_POLICIES}")
         if paged and mode != "forge":
             raise ValueError("paged KV serving needs mode='forge'")
         self.cfg = cfg
         self.params = params
         self.model = get_model(cfg)
+        if mode == "forge" and not paged and self.model.prefill_step is None:
+            raise NotImplementedError(
+                f"mode='forge' with the contiguous cache needs the family's prefill_step; "
+                f"the {cfg.family} decoder's (transformer.prefill_step) comes in a later "
+                f"slice of the port — serve it with paged=True through SlotScheduler")
         self.max_len = max_len
         self.mode = mode
         self.impl = impl
         self.device = params["embed"].device
         self.serve_step = make_serve_step(cfg, impl=impl)
-        #: how the most recent prefill ran (the port prefills sequentially)
+        #: "auto" | "batched" (the prefill grid when the prompt fits it) |
+        #: "sequential" (replay through the decode program: the TTFT
+        #: baseline); read at each prefill
+        self.prefill_policy = prefill
+        #: how the most recent prefill ran: "chunked" (recurrent state
+        #: scan) | "batched" (KV chunk write) | "sequential" (decode loop)
         self.last_prefill_mode = None
         self.backend = backend
         self.bucket_policy = bucket_policy
@@ -111,6 +139,8 @@ class BatchedServer:
         #: the decode and prefill multi-program fronts (mode="forge")
         self.bucketed = None
         self.prefill_bucketed = None
+        #: per-leaf batch axes of the contiguous cache (None when paged)
+        self.cache_axes = None
         self.page_pool = None
         self.prefix_tree = None
         #: server-resident {k_pages, v_pages} store (no batch axis)
@@ -118,13 +148,15 @@ class BatchedServer:
         self.max_pages_per_slot = 0
         #: most recently resolved bucket program (transparency)
         self.forge_module = None
-        if self.paged:
+        if mode == "forge":
             from ..core.backends import get_backend
-            from .steps import supports_paged_decode
 
             get_backend(backend)  # fail fast on unknown names
             get_bucket_policy(bucket_policy)
             get_bucket_policy(seq_bucket_policy)
+        if self.paged:
+            from .steps import supports_paged_decode
+
             if not supports_paged_decode(cfg):
                 raise ValueError(f"family {cfg.family!r} has no paged decode path")
             if max_len % self.kv_page_size:
@@ -141,15 +173,47 @@ class BatchedServer:
         if prompts.min() < 0 or prompts.max() >= self.cfg.vocab:
             raise RequestError("prompt token ids out of vocabulary range")
 
-    # -- paged fronts (mode="forge") --------------------------------------
+    # -- bucketed fronts (mode="forge") ----------------------------------
 
     def _ensure_bucketed(self) -> None:
-        """Build the paged fronts and the pool state once."""
+        """Build the fronts (and the pool state when paged) once."""
         if self.bucketed is not None:
             return
-        if not self.paged:
-            raise NotImplementedError("the contiguous forge fronts come in a later slice")
-        self._build_paged_front()
+        if self.paged:
+            self._build_paged_front()
+        else:
+            self._build_contiguous_front()
+
+    def _build_contiguous_front(self) -> None:
+        """The decode front (one program per batch bucket, slot signature
+        ``(params, cache, token, pos(B,), mask(B,))``) and the 2-D prefill
+        front ``(params, cache, tokens(B,S), pos, mask(B,)[, length(B,)])``
+        with a scalar start position; only tokens carry the sequence
+        axis — the cache is ``max_len``-resident on both sides."""
+        from ..core import ForgeCompiler, PolyAxis
+        from ..core.shapekey import infer_poly_axes
+        from .steps import make_slot_prefill_step, make_slot_serve_step
+
+        # per-leaf cache batch axes differ across families (transformer:
+        # axis 1 under the layer dim; recurrent states: axis 0): infer
+        # them from two cache builds on the meta device (no allocation)
+        cache_axes = infer_poly_axes(
+            lambda b: self.model.init_cache(self.cfg, b, self.max_len, device="meta"))
+        self.cache_axes = cache_axes
+        compiler = ForgeCompiler(impl=self.impl, backend=self.backend)
+        pstep = make_slot_prefill_step(self.cfg, impl=self.impl)
+        b_in, s_in = (None, cache_axes, 0, None, 0), (None, None, 1, None, None)
+        if self.model.prefill_takes_length:
+            b_in, s_in = b_in + (0,), s_in + (None,)
+        self.prefill_bucketed = compiler.compile_bucketed(
+            pstep,
+            axes=(PolyAxis(in_axes=b_in, policy=self.bucket_policy, label="B"),
+                  PolyAxis(in_axes=s_in, policy=self.seq_bucket_policy, label="S")),
+        )
+        self.bucketed = compiler.compile_bucketed(
+            make_slot_serve_step(self.cfg, impl=self.impl),
+            in_axes=(None, cache_axes, 0, 0, 0), policy=self.bucket_policy,
+        )
 
     def _build_paged_front(self) -> None:
         """The paged-KV fronts + pool state.
@@ -196,6 +260,12 @@ class BatchedServer:
             in_axes=(None, None, 0, 0, 0, 0), policy=self.bucket_policy, prime=prime,
         )
 
+    def _bucket_extent(self, B: int) -> int:
+        """Decode bucket extent of a batch size (its program compiles at
+        the first dispatch)."""
+        self._ensure_bucketed()
+        return self.bucketed.policy.bucket(B)
+
     def _seq_bucket_extent(self, P: int) -> Optional[int]:
         """Sequence bucket of a prompt length, or None when the ladder
         rejects it or the bucket would not fit ``max_len``."""
@@ -206,6 +276,29 @@ class BatchedServer:
         except ValueError:
             return None
         return s if s <= self.max_len else None
+
+    def _decode_args(self, extent: int, tok: torch.Tensor, pos: int):
+        """The decode program's argument tail for group admission: the
+        token column, the position broadcast to a per-row int32 vector and
+        an all-true slot mask."""
+        dev = self.device
+        return (tok, torch.full((extent,), int(pos), dtype=torch.int32, device=dev),
+                torch.ones((extent,), dtype=torch.bool, device=dev))
+
+    def _prefill_args(self, extent: int, tokens: torch.Tensor, pos: int,
+                      lengths: Optional[np.ndarray] = None):
+        """The prefill program's argument tail for group admission:
+        tokens, the 0-d int32 start position and an all-true slot mask;
+        recurrent fronts append per-row ``lengths`` (default: the full
+        chunk width — every token real) bounding each row's state scan."""
+        dev = self.device
+        tail = (tokens, torch.tensor(int(pos), dtype=torch.int32, device=dev),
+                torch.ones((extent,), dtype=torch.bool, device=dev))
+        if self.model.prefill_takes_length:
+            if lengths is None:
+                lengths = np.full((extent,), tokens.shape[1], np.int32)
+            tail = tail + (torch.as_tensor(lengths, dtype=torch.int32, device=dev),)
+        return tail
 
     def _paged_args(self, extent: int, width: int):
         """All-trash page table, zero tokens (width columns), zero pos and
@@ -225,63 +318,139 @@ class BatchedServer:
         seconds spent.  Each program's compile time is in
         ``stats.per_bucket_compile_s`` of its front.
 
-        All-false slot masks and trash-only page tables route every
-        throwaway write to the trash page, so the warmed store and the
-        pool state are untouched.
+        Contiguous fronts run each program once on a throwaway cache.
+        Paged fronts use all-false slot masks and trash-only page tables,
+        which route every throwaway write to the trash page, so the
+        warmed store and the pool state are untouched.
         """
         if self.mode != "forge":
             return 0.0
         self._ensure_bucketed()
         t0 = time.perf_counter()
         store = self.page_store
-        done = set()
-        for B in batch_sizes:
-            extent = self.bucketed.policy.bucket(int(B))
-            if extent in done:
-                continue
-            done.add(extent)
-            args = self._paged_args(extent, 1)
-            mod, key, _ = self.bucketed.program_for(self.params, store, *args)
-            _, store = mod(self.params, store, *args)
+        extents = sorted({self.bucketed.policy.bucket(int(B)) for B in batch_sizes})
+        for extent in extents:
+            if self.paged:
+                args = (store,) + self._paged_args(extent, 1)
+            else:
+                tok = torch.zeros((extent, 1), dtype=torch.int32, device=self.device)
+                args = (self._build_cache(extent),) + self._decode_args(extent, tok, 0)
+            mod, key, _ = self.bucketed.program_for(self.params, *args)
+            _, out_state = mod(self.params, *args)
+            if self.paged:
+                store = out_state
+            # throwaway rows are all padding: none are served requests
             self.bucketed.stats.note_dispatch(key, 0, extent)
             self.forge_module = mod
-        if prompt_lens:
-            cells = set()
-            for B in batch_sizes:
-                extent = self.bucketed.policy.bucket(int(B))
-                for P in prompt_lens:
-                    s_ext = self._seq_bucket_extent(int(P))
-                    if s_ext is None or (extent, s_ext) in cells:
-                        continue
-                    cells.add((extent, s_ext))
-                    pargs = self._paged_args(extent, s_ext)
-                    pmod, pkey, _ = self.prefill_bucketed.program_for(self.params, store,
-                                                                      *pargs)
-                    _, store = pmod(self.params, store, *pargs)
-                    self.prefill_bucketed.stats.note_dispatch(pkey, (0, 0), pkey.extents)
+        cells = sorted({(e, s) for e in extents for s in map(self._seq_bucket_extent,
+                                                             prompt_lens or ())
+                        if s is not None})
+        for extent, s_ext in cells:
+            if self.paged:
+                pargs = (store,) + self._paged_args(extent, s_ext)
+            else:
+                tokens = torch.zeros((extent, s_ext), dtype=torch.int32, device=self.device)
+                pargs = (self._build_cache(extent),) + self._prefill_args(extent, tokens, 0)
+            pmod, pkey, _ = self.prefill_bucketed.program_for(self.params, *pargs)
+            _, out_state = pmod(self.params, *pargs)
+            if self.paged:
+                store = out_state
+            self.prefill_bucketed.stats.note_dispatch(pkey, (0, 0), pkey.extents)
         self.page_store = store
         _sync(self.device)
         return time.perf_counter() - t0
 
-    # -- group serving (mode="eager") -------------------------------------
+    # -- group serving (mode="eager" and the contiguous forge fronts) -----
 
     @torch.no_grad()
     def prefill(self, prompts: np.ndarray):
-        """Token-at-a-time prefill through the decode step.
+        """Prefill the cache for a prompt group.
 
-        Returns ``(cache, next_tok, pos, step_fn)``."""
+        Forge mode: the whole-prompt program of the group's grid cell
+        when the policy and the ladder allow it, else the decode program
+        replayed token by token; the state is bucket-shaped (the first
+        ``B`` rows are the real requests).  Eager mode: token by token
+        through the decode step.  Returns ``(cache, next_tok, pos,
+        step_fn, key)``, ``key`` the decode program's ShapeKey (None in
+        eager mode)."""
         if self.paged:
             raise NotImplementedError("paged KV serving is slot-scheduled: drive it "
                                       "through SlotScheduler.run")
         self._check_prompts(prompts)
         B, P = prompts.shape
+        if self.mode == "forge":
+            extent = self._bucket_extent(B)
+            s_ext = (None if self.prefill_policy == "sequential"
+                     else self._seq_bucket_extent(P))
+            if s_ext is not None:
+                return self._prefill_batched(prompts, s_ext, extent)
+            return self._prefill_sequential(prompts, extent)
         tokens = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
         cache = self._build_cache(B)
         next_tok = None
         for i in range(P):
             next_tok, cache = self.serve_step(self.params, cache, tokens[:, i:i + 1], i)
         self.last_prefill_mode = "sequential"
-        return cache, next_tok, P, self.serve_step
+        return cache, next_tok, P, self.serve_step, None
+
+    def _group_step(self, mod, extent: int):
+        """Adapt a slot-signature bucket program to the lockstep loop of
+        :meth:`generate`: one scalar position broadcast to every row and
+        an all-true slot mask (group admission is the slot schedule where
+        every slot shares one request lifetime)."""
+        ones = torch.ones((extent,), dtype=torch.bool, device=self.device)
+
+        def step(params, cache, tok, pos):
+            pos_vec = torch.full((extent,), int(pos), dtype=torch.int32, device=self.device)
+            return mod(params, cache, tok, pos_vec, ones)
+
+        return step
+
+    def _prefill_batched(self, prompts: np.ndarray, s_ext: int, extent: int):
+        """Whole-prompt prefill on the (batch × sequence) grid cell.
+
+        The prompt block is edge-padded on both axes; the cell's program
+        folds it into a fresh cache in one dispatch (recurrent rows stop
+        their scan at ``P`` through ``lengths``; padded rows are edge
+        replicas), and the first token is read from the last real
+        column's logits."""
+        B, P = prompts.shape
+        prompts_b = np.pad(prompts, ((0, extent - B), (0, s_ext - P)), mode="edge")
+        cache = self._build_cache(extent)
+        tokens = torch.as_tensor(prompts_b, dtype=torch.int32, device=self.device)
+        pargs = self._prefill_args(extent, tokens, 0,
+                                   lengths=np.full((extent,), P, np.int32))
+        pmod, pkey, _ = self.prefill_bucketed.program_for(self.params, cache, *pargs)
+        logits, cache = pmod(self.params, cache, *pargs)
+        self.prefill_bucketed.stats.note_dispatch(pkey, (B, P), pkey.extents)
+        tok = torch.argmax(logits[:, P - 1, :], dim=-1).to(torch.int32)[:, None]
+        mod, key, _ = self.bucketed.program_for(self.params, cache,
+                                                *self._decode_args(extent, tok, P))
+        self.forge_module = mod
+        self.last_prefill_mode = "chunked" if self.model.stateful_decode else "batched"
+        return cache, tok, P, self._group_step(mod, extent), key
+
+    def _prefill_sequential(self, prompts: np.ndarray, extent: int):
+        """Token-at-a-time prefill through the decode bucket program."""
+        B, P = prompts.shape
+        prompts_b = np.pad(prompts, ((0, extent - B), (0, 0)), mode="edge")
+        tokens = torch.as_tensor(prompts_b, dtype=torch.int32, device=self.device)
+        cache = self._build_cache(extent)
+        mod, key, _ = self.bucketed.program_for(self.params, cache,
+                                                *self._decode_args(extent, tokens[:, :1], 0))
+        self.forge_module = mod
+        step = self._group_step(mod, extent)
+        next_tok = None
+        for i in range(P):
+            next_tok, cache = step(self.params, cache, tokens[:, i:i + 1], i)
+            self.bucketed.stats.note_dispatch(key, B, extent)
+        self.last_prefill_mode = "sequential"
+        return cache, next_tok, P, step, key
+
+    def _compile_s_total(self) -> float:
+        """Phase 1-4 seconds accumulated across both forge fronts."""
+        return sum(f.stats.compile_s for f in (self.bucketed, self.prefill_bucketed)
+                   if f is not None)
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, n_new: int) -> Dict[str, Any]:
@@ -289,8 +458,9 @@ class BatchedServer:
         if P + n_new - 1 > self.max_len:
             raise RequestError(f"prompt {P} + {n_new} new tokens exceed max_len "
                                f"{self.max_len}")
+        compile_s0 = self._compile_s_total()
         t0 = time.perf_counter()
-        cache, tok, pos0, step = self.prefill(prompts)
+        cache, tok, pos0, step, key = self.prefill(prompts)
         _sync(self.device)  # TTFT: the first token is real here
         t_prefill = time.perf_counter() - t0
         out: List[torch.Tensor] = [tok]
@@ -301,13 +471,17 @@ class BatchedServer:
             _sync(self.device)
             lat.append(time.perf_counter() - t1)
             out.append(tok)
-        toks = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+            if key is not None:
+                self.bucketed.stats.note_dispatch(key, B, tok.shape[0])
+        # slice the bucket's padded rows off the emitted token stream
+        toks = torch.cat(out, dim=1)[:B].cpu().numpy().astype(np.int32)
         lat_ms = np.asarray(lat) * 1e3
         return {
             "tokens": toks,
             "prefill_s": t_prefill,
             "ttft_s": t_prefill,  # time to first token (prefill wall)
             "prefill_mode": self.last_prefill_mode,
+            "compile_s": self._compile_s_total() - compile_s0,  # Phase 1-4 in this call
             "decode_ms_mean": float(lat_ms.mean()) if len(lat_ms) else 0.0,
             "decode_ms_p50": float(np.percentile(lat_ms, 50)) if len(lat_ms) else 0.0,
             "decode_ms_p99": float(np.percentile(lat_ms, 99)) if len(lat_ms) else 0.0,
@@ -333,6 +507,7 @@ class BatchedServer:
                 out.append({"tokens": np.zeros((0, 0), np.int32), "error": str(e),
                             "error_type": kind})
         return out
+
 
 
 # --------------------------------------------------------------------------
@@ -896,6 +1071,10 @@ def main(argv=None) -> int:
                          "(exact | pow2 | ladder:<r1,r2,...>)")
     ap.add_argument("--seq-bucket-policy", default="ladder:16,32,64,128,256",
                     help="sequence-axis bucket policy of the whole-prompt prefill grid")
+    ap.add_argument("--prefill", default="auto", choices=list(PREFILL_POLICIES),
+                    help="prefill strategy of the contiguous --mode forge fronts: auto / "
+                         "batched = whole-prompt (the chunked state scan for the "
+                         "recurrent family), sequential = token-at-a-time baseline")
     ap.add_argument("--continuous", type=int, default=0, metavar="N",
                     help="serve N mixed-length requests through the slot scheduler "
                          "(--mode forge --paged)")
@@ -918,24 +1097,28 @@ def main(argv=None) -> int:
                     help="cuda (default; fails without a CUDA device) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mode == "forge" and not (args.paged and args.continuous):
-        ap.error("--mode forge serves the paged KV pool through the slot scheduler so "
-                 "far: add --paged --continuous N (the contiguous forge fronts come in "
-                 "a later slice)")
     if (args.paged or args.continuous) and args.mode != "forge":
         ap.error("--paged / --continuous need --mode forge")
+    if bool(args.paged) != bool(args.continuous):
+        ap.error("--paged and --continuous go together: the paged KV pool is served "
+                 "through the slot scheduler (the contiguous fronts serve groups)")
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.mode == "forge" and not args.paged and get_model(cfg).prefill_step is None:
+        ap.error(f"--mode forge with the contiguous cache needs the family's prefill_step; "
+                 f"the {cfg.family} decoder's comes in a later slice: serve {args.arch} "
+                 f"with --paged --continuous N")
     if args.mode == "forge":
         from ..core.backends import get_backend
 
         try:  # fail fast, before paying model init
             get_backend(args.backend)
-            get_bucket_policy(args.bucket_policy).bucket(args.max_slots)
+            get_bucket_policy(args.bucket_policy).bucket(
+                args.max_slots if args.continuous else args.batch)
             get_bucket_policy(args.seq_bucket_policy)
         except ValueError as e:
             ap.error(str(e))
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
     if args.paged:
         cfg = cfg.with_(kv_kernel=args.kv_kernel)
     model = get_model(cfg)
@@ -983,7 +1166,10 @@ def main(argv=None) -> int:
             raise SystemExit(f"requests failed: {bad}")
         return 0
 
-    server = BatchedServer(cfg, params, max_len=args.max_len, mode=args.mode)
+    server = BatchedServer(cfg, params, max_len=args.max_len, mode=args.mode,
+                           backend=args.backend, bucket_policy=args.bucket_policy,
+                           seq_bucket_policy=args.seq_bucket_policy, prefill=args.prefill)
+    warmup_s = server.warmup([args.batch], [args.prompt_len])
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
     res = server.generate(prompts, args.gen)
     print(f"[serve] {cfg.name} batch={args.batch} prompt={args.prompt_len} "
@@ -991,6 +1177,10 @@ def main(argv=None) -> int:
           f"decode mean={res['decode_ms_mean']:.1f}ms p50={res['decode_ms_p50']:.1f} "
           f"p99={res['decode_ms_p99']:.1f} ({res['tok_per_s']:.0f} tok/s steady-state) "
           f"device={device}")
+    if args.mode == "forge":
+        print(f"[serve] decode programs={len(server.bucketed.programs)} "
+              f"prefill programs={len(server.prefill_bucketed.programs)} "
+              f"warmup={warmup_s:.2f}s compile_s_after_warmup={res['compile_s']:.2f}")
     if res["tokens"].shape != (args.batch, args.gen):
         raise SystemExit(f"unexpected token shape {res['tokens'].shape}")
     return 0

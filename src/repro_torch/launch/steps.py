@@ -1,6 +1,9 @@
 """Step-function builders shared by the serve fronts.
 
 * ``make_serve_step(cfg)`` -> one-token greedy decode against the KV cache.
+* ``make_slot_serve_step(cfg)`` / ``make_slot_prefill_step(cfg)`` /
+  ``make_batched_prefill_step(cfg)`` -> slot-level decode and whole-prompt
+  prefill against the contiguous cache (the contiguous forge fronts).
 * ``make_paged_serve_step(cfg)`` / ``make_paged_prefill_step(cfg)`` ->
   slot-level decode and slot-masked whole-prompt prefill against the
   paged KV pool (the continuous-batching fronts).
@@ -58,12 +61,83 @@ def guarded_argmax(last_logits: torch.Tensor) -> torch.Tensor:
 
 #: families whose decode step takes per-row positions and slot masks —
 #: the slot-level continuous-batching contract (the port has the dense
-#: decoder so far; the JAX package adds moe, hybrid and ssm)
-SLOT_FAMILIES = ("dense",)
+#: and hybrid families so far; the JAX package adds moe and ssm)
+SLOT_FAMILIES = ("dense", "hybrid")
 
 
 def supports_slot_decode(cfg: ModelConfig) -> bool:
     return cfg.family in SLOT_FAMILIES
+
+
+def make_slot_serve_step(cfg: ModelConfig, impl: Optional[str] = None) -> Callable:
+    """Slot-level greedy decode step.
+
+    ``(params, cache, token(B, 1), pos(B,), slot_mask(B,)) ->
+    (next_tok(B, 1) int32, new_cache)``: each batch row writes its
+    KV/state and masks attention at its OWN position, and rows with
+    ``slot_mask[b] == False`` leave their cache rows bitwise untouched
+    (their emitted token is garbage and must be ignored)."""
+    if not supports_slot_decode(cfg):
+        raise ValueError(f"family {cfg.family!r} has no slot-level decode "
+                         f"(supported: {', '.join(SLOT_FAMILIES)})")
+    model = get_model(cfg)
+
+    def slot_step(params, cache, token, pos, slot_mask):
+        logits, new_cache = model.decode_step(params, cache, token, pos, cfg,
+                                              slot_mask=slot_mask, impl=impl)
+        return guarded_argmax(logits[:, -1, :])[:, None], new_cache
+
+    return slot_step
+
+
+def supports_batched_prefill(cfg: ModelConfig) -> bool:
+    """Can this family prefill a whole (B, S) prompt block in one
+    dispatch?  The one predicate every serve front consults: True when
+    the family exposes a ``prefill_step`` whose one-pass result
+    reproduces sequential decode (the recurrent family through the
+    chunked state scan)."""
+    return get_model(cfg).prefill_step is not None
+
+
+def make_slot_prefill_step(cfg: ModelConfig, impl: Optional[str] = None
+                           ) -> Optional[Callable]:
+    """Slot-masked whole-prompt prefill against the contiguous cache.
+
+    ``(params, cache, tokens(B, S), pos, slot_mask(B,)) -> (logits,
+    cache)`` — plus a trailing ``length(B,)`` when the model declares
+    ``prefill_takes_length`` (recurrent state consumes every chunk token,
+    so the scan must know where each row's real prompt ends).  The
+    masked-out rows' cache survives bitwise.  None for families without
+    a batched prefill."""
+    model = get_model(cfg)
+    if not supports_batched_prefill(cfg) or not supports_slot_decode(cfg):
+        return None
+
+    if model.prefill_takes_length:
+        def slot_prefill(params, cache, tokens, pos, slot_mask, length):
+            return model.prefill_step(params, cache, tokens, pos, cfg, slot_mask=slot_mask,
+                                      length=length, impl=impl)
+    else:
+        def slot_prefill(params, cache, tokens, pos, slot_mask):
+            return model.prefill_step(params, cache, tokens, pos, cfg, slot_mask=slot_mask,
+                                      impl=impl)
+
+    return slot_prefill
+
+
+def make_batched_prefill_step(cfg: ModelConfig, impl: Optional[str] = None
+                              ) -> Optional[Callable]:
+    """Whole-prompt prefill step: ``(params, cache, tokens(B, S), pos) ->
+    ((B, S, vocab) logits, cache)``, one forward pass folding the block
+    into the cache.  None where the family has no batched prefill."""
+    model = get_model(cfg)
+    if not supports_batched_prefill(cfg):
+        return None
+
+    def prefill_step(params, cache, tokens, pos):
+        return model.prefill_step(params, cache, tokens, pos, cfg, impl=impl)
+
+    return prefill_step
 
 
 def supports_paged_decode(cfg: ModelConfig) -> bool:

@@ -6,10 +6,13 @@
 * ``apply(params, tokens, cfg)``                full-sequence logits
 * ``init_cache(cfg, batch, max_len, device)``   decode state
 * ``decode_step(params, cache, tok, pos, cfg)`` one-token serve step
+* ``prefill_step(params, cache, tokens, pos, cfg)`` whole-prompt prefill
+  (None where the port has none yet)
 * ``paged_decode_step`` / ``paged_prefill_step`` / ``init_paged_cache``
   the same against a flat page pool (continuous batching)
 
-The port carries the dense family so far.
+The port carries the dense family (``transformer``) and the RG-LRU
+hybrid (``rglru``) so far.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from ..configs.base import ModelConfig
-from . import attention, layers, transformer
+from . import attention, layers, rglru, transformer
 
 
 @dataclass(frozen=True)
@@ -26,6 +29,12 @@ class ModelAPI:
     init: Callable
     apply: Callable
     decode_step: Callable
+    #: whole-prompt batched prefill — (params, cache, tokens(B,S), pos)
+    #: -> ((B,S,V) logits, cache); the recurrent family folds the chunk
+    #: into state through the RG-LRU scan (see prefill_takes_length).
+    #: None for the dense decoder so far (transformer.prefill_step comes
+    #: in a later slice of the port)
+    prefill_step: Optional[Callable]
     init_cache: Callable
     module: Any
     #: True when the decode cache carries non-positional state (recurrent
@@ -38,18 +47,45 @@ class ModelAPI:
     paged_decode_step: Optional[Callable] = None
     paged_prefill_step: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
+    #: True when ``prefill_step`` accepts a per-row ``length=`` kwarg:
+    #: recurrent state consumes every chunk token (no positional mask
+    #: can hide padding afterwards), so the serve fronts must tell the
+    #: scan where each row's real prompt ends
+    prefill_takes_length: bool = False
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family == "dense":
+        m = transformer
+    elif cfg.family == "hybrid":
+        m = rglru
+    else:
         raise NotImplementedError(f"family {cfg.family!r}: the port carries the dense "
-                                  f"decoder so far")
-    m = transformer
-    return ModelAPI(family=cfg.family, init=m.init, apply=m.apply,
-                    decode_step=m.decode_step, init_cache=m.init_cache, module=m,
-                    paged_decode_step=m.paged_decode_step,
-                    paged_prefill_step=m.paged_prefill_step,
-                    init_paged_cache=m.init_paged_cache)
+                                  f"and hybrid families so far")
+    # a family module owns the knowledge of when a whole-block prefill
+    # pass reproduces sequential decode; the registry stays family-agnostic
+    prefill = getattr(m, "prefill_step", None)
+    supports = getattr(m, "supports_batched_prefill", None)
+    if prefill is not None and supports is not None and not supports(cfg):
+        prefill = None
+    paged_prefill = getattr(m, "paged_prefill_step", None)
+    if paged_prefill is not None and supports is not None and not supports(cfg):
+        paged_prefill = None
+    return ModelAPI(
+        family=cfg.family,
+        init=m.init,
+        apply=m.apply,
+        decode_step=m.decode_step,
+        prefill_step=prefill,
+        init_cache=m.init_cache,
+        module=m,
+        stateful_decode=getattr(m, "STATEFUL_DECODE", False),
+        paged_decode_step=getattr(m, "paged_decode_step", None),
+        paged_prefill_step=paged_prefill,
+        init_paged_cache=getattr(m, "init_paged_cache", None),
+        prefill_takes_length=(prefill is not None
+                              and getattr(m, "PREFILL_TAKES_LENGTH", False)),
+    )
 
 
-__all__ = ["ModelAPI", "get_model", "attention", "layers", "transformer"]
+__all__ = ["ModelAPI", "get_model", "attention", "layers", "rglru", "transformer"]

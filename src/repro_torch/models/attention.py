@@ -6,10 +6,12 @@ what the Forge attention-fusion pass matches; after Phase 2 the middle
 collapses into one ``forge.sdpa`` dispatch.
 
 Carries the no-cache branch (full causal self-attention: the
-full-sequence forward), the contiguous-cache branch (single-token decode
-at a scalar or per-row position, optionally windowed) and the paged-cache
-branch (decode and chunked prefill against a flat page pool through a
-per-row page table, :func:`_paged_update_attend`).
+full-sequence forward, optionally banded to a local window), the
+contiguous-cache branch (single-token decode at a scalar or per-row
+position, optionally windowed, or over a rotating window buffer masked
+by ``cache_valid_len``) and the paged-cache branch (decode and chunked
+prefill against a flat page pool through a per-row page table,
+:func:`_paged_update_attend`).
 """
 from __future__ import annotations
 
@@ -72,12 +74,15 @@ def sdpa_unfused(
     v: torch.Tensor,
     *,
     causal: bool = False,
+    window: Optional[int] = None,
     extra_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decomposed attention: the fusion pass's input pattern.
 
     Scores and softmax in fp32, probabilities cast to v's dtype for the
-    second product, as the JAX package's ``sdpa_unfused`` does."""
+    second product, as the JAX package's ``sdpa_unfused`` does.  A
+    ``window`` bands the causal mask (:func:`layers.local_causal_where`),
+    which the fusion pass keeps as a mask operand."""
     B, H, Sq, D = q.shape
     KVH, Sk = k.shape[1], k.shape[2]
     groups = H // KVH
@@ -85,7 +90,9 @@ def sdpa_unfused(
     v = _expand_kv(v, groups)
     s = torch.matmul(q.float(), k.float().transpose(-2, -1))
     s = s * (1.0 / math.sqrt(D))
-    if causal:
+    if window is not None:
+        s = L.local_causal_where(s, Sq, Sk, window)
+    elif causal:
         s = L.causal_where(s, Sq, Sk)
     if extra_mask is not None:
         s = s + (extra_mask if extra_mask.dtype == s.dtype else extra_mask.to(s.dtype))
@@ -177,6 +184,7 @@ def attention(
     window: Optional[int] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_pos: Optional[torch.Tensor] = None,
+    cache_valid_len: Optional[torch.Tensor] = None,
     write_mask: Optional[torch.Tensor] = None,
     kv_kernel: str = "ref",
     impl: Optional[str] = None,
@@ -186,9 +194,15 @@ def attention(
     With a cache, the step's keys and values are written at
     ``cache_pos`` — a 0-d or per-row ``(B,)`` integer tensor — and the
     queries attend to every cache entry at or before their position
-    (with ``window``, only the last ``window`` of them).  A cache holding
-    ``k_pages`` is paged: ``write_mask``, ``kv_kernel`` and ``impl``
-    apply to it (see :func:`_paged_update_attend`).
+    (with ``window``, only the last ``window`` of them).  With
+    ``cache_valid_len`` (0-d or per-row) the cache is a rotating window
+    buffer instead: the write slot is ``cache_pos`` and the slots below
+    ``cache_valid_len`` are live, whatever their order (softmax attention
+    is permutation-invariant over keys, and RoPE was applied before the
+    write).  A cache holding ``k_pages`` is paged: ``write_mask``,
+    ``kv_kernel`` and ``impl`` apply to it (see
+    :func:`_paged_update_attend`).  Without a cache, ``window`` bands the
+    causal full-sequence attention.
     """
     q = L.linear(x, p["wq"], p.get("bq"))
     k = L.linear(x, p["wk"], p.get("bk"))
@@ -203,6 +217,10 @@ def attention(
 
     new_cache = None
     if cache is not None and "k_pages" in cache:
+        if cache_valid_len is not None:
+            raise NotImplementedError("rotating-buffer valid_len masks are a "
+                                      "contiguous-cache feature; paged rows are "
+                                      "length-masked through pos")
         out, new_cache = _paged_update_attend(
             q, k, v, cache, cache_pos, window=window, write_mask=write_mask,
             kv_kernel=kv_kernel, impl=impl,
@@ -223,15 +241,23 @@ def attention(
         k_cache = torch.where(write, k, cache["k"])
         v_cache = torch.where(write, v, cache["v"])
         new_cache = {"k": k_cache, "v": v_cache}
-        if window is not None:
+        if cache_valid_len is not None:
+            idx = torch.arange(max_len, device=x.device).view(1, 1, 1, max_len)
+            mask = torch.where(idx < L.per_row_pos(cache_valid_len), 0.0,
+                               torch.finfo(torch.float32).min)
+        elif window is not None:
             mask = L.window_decode_mask(cache_pos, max_len, window)
         else:
             mask = L.decode_length_mask(cache_pos, max_len)
         out = sdpa_unfused(q, k_cache, v_cache, causal=False, extra_mask=mask)
     else:
-        if window is not None:
-            raise NotImplementedError("local (banded) full-sequence attention comes "
-                                      "with the hybrid family")
-        out = sdpa_unfused(q, k, v, causal=causal)
+        out = sdpa_unfused(q, k, v, causal=causal, window=window)
     out = L.linear(_merge_heads(out), p["wo"])
     return out, new_cache
+
+
+def make_cache(batch: int, n_kv_heads: int, max_len: int, head_dim: int,
+               dtype=torch.bfloat16, device="cpu") -> Dict[str, torch.Tensor]:
+    shape = (batch, n_kv_heads, max_len, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

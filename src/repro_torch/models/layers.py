@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
 Params = Dict[str, Any]
 
@@ -48,6 +49,13 @@ def embed_init(generator: Optional[torch.Generator], vocab: int, d: int,
 # --------------------------------------------------------------------------
 
 
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.float()).to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
@@ -57,17 +65,17 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y * w.float() + b.float()).to(x.dtype)
 
 
-def apply_norm(x: torch.Tensor, p: Params, kind: str = "layernorm") -> torch.Tensor:
-    if kind != "layernorm":
-        raise NotImplementedError(f"norm {kind!r}: the port carries LayerNorm so far")
+def apply_norm(x: torch.Tensor, p: Params, kind: str = "rmsnorm") -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
     return layer_norm(x, p["scale"], p["bias"])
 
 
-def norm_init(d: int, kind: str = "layernorm", dtype=torch.float32, device="cpu") -> Params:
-    if kind != "layernorm":
-        raise NotImplementedError(f"norm {kind!r}: the port carries LayerNorm so far")
-    return {"scale": torch.ones((d,), dtype=dtype, device=device),
-            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32, device="cpu") -> Params:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -135,6 +143,15 @@ def causal_where(s: torch.Tensor, sq: int, sk: int) -> torch.Tensor:
     return torch.where(row >= col, s, torch.finfo(s.dtype).min)
 
 
+def local_causal_where(s: torch.Tensor, sq: int, sk: int, window: int) -> torch.Tensor:
+    """Banded causal mask (RecurrentGemma local attention): query row i
+    (aligned at ``sk - sq``) sees keys ``row - window < col <= row``."""
+    row = torch.arange(sq, device=s.device).view(sq, 1) + (sk - sq)
+    col = torch.arange(sk, device=s.device).view(1, sk)
+    keep = (row >= col) & (row - col < window)
+    return torch.where(keep, s, torch.finfo(s.dtype).min)
+
+
 def decode_positions(pos: torch.Tensor) -> torch.Tensor:
     """RoPE position stream for one decode step: scalar -> (1,) shared
     across rows; per-row (B,) -> (B, 1) so row b rotates by its own
@@ -194,24 +211,112 @@ def prefill_length_mask(pos: torch.Tensor, sq: int, max_len: int,
     return torch.where(keep, 0.0, torch.finfo(dtype).min).to(dtype)
 
 
-def slot_gate(slot_mask: Optional[torch.Tensor], new: torch.Tensor,
-              old: torch.Tensor) -> torch.Tensor:
+def window_chunk_mask(pos: torch.Tensor, sq: int, slots: int, window: int,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Additive mask for chunked prefill over a ROTATING window cache.
+
+    The key axis is ``[slots rotating-cache entries ; sq chunk keys]``.
+    Cache slot s holds the key of absolute position
+    ``pos - 1 - ((pos - 1 - s) mod window)`` — the latest pre-chunk
+    position congruent to s — and is live only while that position is
+    >= 0 (the slot was ever written) AND inside query i's band
+    (``> pos + i - window``; beyond it the slot would already have been
+    overwritten by the time sequential decode reached ``pos + i``).
+    Chunk key j (absolute position pos + j) follows the plain banded
+    causal rule.  ``pos`` is per-row (B,); returns (B, 1, sq,
+    slots + sq) — attending over the concatenated keys with this mask
+    reproduces sequential rotating-window decode exactly.
+    """
+    p = pos.view(-1, 1, 1, 1)
+    i = torch.arange(sq, device=pos.device).view(1, 1, sq, 1)
+    s = torch.arange(slots, device=pos.device).view(1, 1, 1, slots)
+    cs = p - 1 - torch.remainder(p - 1 - s, window)  # slot s's absolute position
+    keep_cache = (cs >= 0) & (cs > p + i - window)
+    j = torch.arange(sq, device=pos.device).view(1, 1, 1, sq)
+    keep_chunk = (j <= i) & (j > i - window)
+    B = p.shape[0]
+    keep = torch.cat([keep_cache.expand(B, 1, sq, slots),
+                      keep_chunk.expand(B, 1, sq, sq)], dim=3)
+    return torch.where(keep, 0.0, torch.finfo(dtype).min).to(dtype)
+
+
+def window_writeback_index(pos: torch.Tensor, length: torch.Tensor, sq: int,
+                           slots: int, window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Which chunk column lands in each rotating-cache slot after prefill.
+
+    After sequential decode of chunk positions ``pos .. pos+length-1``,
+    slot s holds the chunk's LAST write to it: chunk index
+    ``length - 1 - ((pos + length - 1 - s) mod window)``, or its
+    previous contents when that index is negative (the chunk never
+    reached the slot).  ``pos``/``length`` are per-row (B,).  Returns
+    ``(idx, valid)``: idx (B, slots) int64 clipped into [0, sq-1] (safe
+    to gather with), valid (B, slots) bool — False slots must keep
+    their old value.
+    """
+    p = pos.long()[:, None]
+    n = length.long()[:, None]
+    s = torch.arange(slots, device=pos.device)[None, :]
+    idx = n - 1 - torch.remainder(p + n - 1 - s, window)
+    return torch.clamp(idx, 0, sq - 1), idx >= 0
+
+
+def gather_last_valid(x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """Per-row element at time index ``length - 1``: (B, S, ...) -> (B, ...).
+
+    The chunked-prefill state extractor: row b's post-prefill recurrent
+    state is the scan output at its OWN last real token, not at the
+    padded chunk tail.
+    """
+    idx = (length.long() - 1).view((-1,) + (1,) * (x.dim() - 1))
+    return torch.gather(x, 1, idx.expand((x.shape[0], 1) + tuple(x.shape[2:])))[:, 0]
+
+
+def conv_state_slice(state: torch.Tensor, seq: torch.Tensor,
+                     length: torch.Tensor) -> torch.Tensor:
+    """Trailing causal-conv inputs after consuming ``length`` chunk tokens.
+
+    ``state``: (B, W-1, D) pre-chunk conv state (the W-1 inputs before
+    position ``pos``); ``seq``: (B, S, D) the chunk's raw conv inputs.
+    Returns (B, W-1, D) — per-row inputs ``length-W+1 .. length-1`` of
+    the concatenated stream, exactly the state sequential decode leaves
+    behind after its ``length``-th token.
+    """
+    full = torch.cat([state, seq], dim=1)
+    cw = state.shape[1]
+    idx = length.long()[:, None] + torch.arange(cw, device=state.device)[None, :]
+    return torch.gather(full, 1, idx[:, :, None].expand(-1, -1, full.shape[2]))
+
+
+def slot_gate(slot_mask: Optional[torch.Tensor], new: Any, old: Any) -> Any:
     """Per-row select between updated and previous decode state.
 
-    ``slot_mask: bool[B]`` gates a state update (batch axis 0): active
-    rows take the new value, inactive rows keep the old one **bitwise** —
-    a select, not a multiply, so an inactive slot stays inert even when
-    its inputs are NaN.  ``None`` passes the update through.
+    ``slot_mask: bool[B]`` gates every tensor leaf (batch axis 0) of a
+    state update — one tensor or a tree of them, e.g. a layer's
+    ``{h, conv}`` or ``{k, v}`` dict: active rows take the new value,
+    inactive rows keep the old one **bitwise** — a ``torch.where``
+    select, not a multiply, so an inactive slot stays inert even when its
+    inputs are NaN.  ``None`` passes the update through.
     """
     if slot_mask is None:
         return new
-    m = slot_mask.view(slot_mask.shape + (1,) * (new.dim() - 1))
-    return torch.where(m, new, old)
+
+    def blend(n: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        m = slot_mask.view(slot_mask.shape + (1,) * (n.dim() - 1))
+        return torch.where(m, n, o)
+
+    return pytree.tree_map(blend, new, old)
 
 
 # --------------------------------------------------------------------------
 # FFN (unfused: the operator-fusion pass matches it)
 # --------------------------------------------------------------------------
+
+
+def geglu_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
+    g = linear(x, p["w_gate"])
+    u = linear(x, p["w_up"])
+    h = F.gelu(g, approximate="tanh") * u
+    return linear(h, p["w_down"])
 
 
 def gelu_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -222,8 +327,15 @@ def gelu_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
 def ffn_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
              kind: str = "gelu", bias: bool = False, dtype=torch.bfloat16,
              device="cpu") -> Params:
+    if kind == "geglu":
+        return {
+            "w_gate": dense_init(generator, d_model, d_ff, dtype, device),
+            "w_up": dense_init(generator, d_model, d_ff, dtype, device),
+            "w_down": dense_init(generator, d_ff, d_model, dtype, device),
+        }
     if kind != "gelu":
-        raise NotImplementedError(f"ffn {kind!r}: the port carries the GELU FFN so far")
+        raise NotImplementedError(f"ffn {kind!r}: the port carries the GELU and GeGLU "
+                                  f"FFNs so far")
     p = {
         "w_fc": dense_init(generator, d_model, d_ff, dtype, device),
         "w_out": dense_init(generator, d_ff, d_model, dtype, device),
@@ -235,6 +347,9 @@ def ffn_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
 
 
 def apply_ffn(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
+    if kind == "geglu":
+        return geglu_ffn(x, p)
     if kind != "gelu":
-        raise NotImplementedError(f"ffn {kind!r}: the port carries the GELU FFN so far")
+        raise NotImplementedError(f"ffn {kind!r}: the port carries the GELU and GeGLU "
+                                  f"FFNs so far")
     return gelu_ffn(x, p)

@@ -1,5 +1,5 @@
 """The port on the card: CUDA kernels against their plain versions, and
-the smoke model, server and paged slot scheduler going through them.
+the smoke models, servers and paged slot scheduler going through them.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so it runs on a machine that has only the port's
@@ -16,6 +16,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_linear as FL
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import rg_lru as RG
 from repro_torch.launch.serve import BatchedServer, Request, SlotScheduler
 from repro_torch.models import get_model
 
@@ -224,3 +225,93 @@ def test_paged_scheduler_on_card(cuda_device, kv_kernel):
     assert fa == 0
     assert pa == (cfg.n_layers * got["decode_dispatches"] if kv_kernel == "pallas" else 0)
     assert fl == 3 * cfg.n_layers * (got["decode_dispatches"] + got["prefill_dispatches"])
+
+
+# --------------------------------------------------------------------------
+# the RG-LRU scan and the recurrentgemma hybrid on the card
+# --------------------------------------------------------------------------
+
+#: (B, T, D, nonzero h0): the served prefill cells of recurrentgemma-2b,
+#: its full-sequence forward, and a ragged T and D
+RG_SHAPES = [(4, 32, 2560, True), (4, 64, 2560, True), (2, 1024, 2560, False),
+             (3, 37, 100, True)]
+
+
+def _rg_inputs(device, dtype, B, T, D, with_h0, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, T, D, generator=g, device=device).to(dtype)
+    a = (0.3 + 0.699 * torch.rand(B, T, D, generator=g, device=device)).to(dtype)
+    h0 = (torch.randn(B, D, generator=g, device=device) if with_h0
+          else torch.zeros(B, D, device=device))
+    return x, a, h0
+
+
+@pytest.mark.cuda
+class TestRgLruOnCard:
+    """The RG-LRU kernel against its plain version: f32 rtol 2e-4 / atol
+    2e-5, bf16 3e-2; the chunked entry point's ``last`` is ``h[:, -1]``
+    bitwise."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,T,D,with_h0", RG_SHAPES)
+    def test_rg_lru(self, cuda_device, dtype, B, T, D, with_h0):
+        x, a, h0 = _rg_inputs(cuda_device, dtype, B, T, D, with_h0)
+        want = RG.rg_lru_plain(x, a, h0)
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        torch.testing.assert_close(RG.rg_lru_cuda(x, a, h0).float(), want.float(), **tol)
+        h, last = RG.rg_lru_cuda(x, a, h0, last=True)
+        torch.testing.assert_close(h.float(), want.float(), **tol)
+        assert h.dtype == dtype and last.dtype == dtype
+        assert torch.equal(last, h[:, -1])
+
+    def test_chained_chunks_equal_one_scan(self, cuda_device):
+        x, a, h0 = _rg_inputs(cuda_device, torch.float32, 2, 100, 300, True, seed=1)
+        full = RG.rg_lru_cuda(x, a, h0)
+        carry, parts = h0, []
+        for lo, hi in ((0, 7), (7, 40), (40, 64), (64, 100)):
+            h, carry = ops.rg_lru_scan(x[:, lo:hi], a[:, lo:hi], carry)
+            parts.append(h)
+        torch.testing.assert_close(torch.cat(parts, 1), full, rtol=1e-6, atol=1e-6)
+
+    def test_dispatch_launches_kernel(self, cuda_device):
+        x, a, h0 = _rg_inputs(cuda_device, torch.float32, 2, 9, 64, True)
+        RG.LAUNCHES.reset()
+        ops.rg_lru(x, a, h0)
+        ops.rg_lru_scan(x, a)
+        ops.rg_lru(x, a, h0, impl="ref")
+        assert RG.LAUNCHES.n == 2
+
+    def test_bad_operands_raise(self, cuda_device):
+        x, a, h0 = _rg_inputs(cuda_device, torch.float32, 2, 9, 64, True)
+        with pytest.raises(ValueError):
+            RG.rg_lru_cuda(x, a.bfloat16(), h0)
+        with pytest.raises(ValueError):
+            RG.rg_lru_cuda(x.transpose(1, 2), a.transpose(1, 2), h0)
+
+
+@pytest.mark.cuda
+def test_rglru_server_on_card_matches_plain_path(cuda_device):
+    """The recurrentgemma smoke server (f32) through the contiguous forge
+    fronts on the card: tokens equal the impl="ref" server's; the scan
+    kernel launched once per rec layer per prefill dispatch and never in
+    decode; ``apply``'s Forge bodies match the plain path."""
+    cfg = get_config("recurrentgemma-2b", smoke=True).with_(dtype="float32")
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 6)).astype(np.int32)
+    n_rec = sum(k == "rec" for k in m.module._pattern(cfg))
+    srv = BatchedServer(cfg, p, max_len=32, mode="forge")
+    srv.warmup([3], [6])
+    RG.LAUNCHES.reset()
+    got = srv.generate(prompts, 5)
+    assert got["prefill_mode"] == "chunked" and got["compile_s"] == 0.0
+    assert RG.LAUNCHES.n == n_rec  # one prefill dispatch, no decode launches
+    RG.LAUNCHES.reset()
+    want = BatchedServer(cfg, p, max_len=32, mode="forge", impl="ref").generate(prompts, 5)
+    assert RG.LAUNCHES.n == 0
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda_device)
+    RG.LAUNCHES.reset()
+    logits = m.apply(p, toks, cfg)
+    assert RG.LAUNCHES.n == n_rec
+    torch.testing.assert_close(logits, m.apply(p, toks, cfg, impl="ref"), **TOL_F32)

@@ -8,14 +8,16 @@ Run from the repository root, with one CUDA card:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Device and build: the card's name and power limit, then the four
+1. Device and build: the card's name and power limit, then the five
    CUDA kernels built with nvcc for sm_90a from
    ``src/repro_torch/kernels/csrc``, one nvcc per source, all started
    together.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (fused linear at M = 1 to 4096 rows and
-   recurrentgemma-2b's widths; the RG-LRU scan at the served prefill and
-   forward shapes and a ragged one, a in U(0.3, 0.999); f32: rtol 2e-4, atol 2e-5; bf16: 3e-2,
+   recurrentgemma-2b's and xlstm-350m's widths; the RG-LRU scan at the
+   served prefill and forward shapes and a ragged one, a in U(0.3,
+   0.999); RMSNorm at xlstm-350m's widths (rows x d: 4 x 1024, 128 x
+   1024, 512 x 512, 2048 x 1024) and a ragged d; f32: rtol 2e-4, atol 2e-5; bf16: 3e-2,
    the JAX package's kernel tolerances; bf16 flash attention also within
    a bound from bf16 rounding, on inputs whose softmax is peaky;
    whole-model bf16 logits 6e-2), with its time, the plain version's
@@ -57,6 +59,22 @@ Phases (any failure raises and the script exits non-zero):
    share of steady decode steps.  Then the same prefill program and
    ``apply`` in f32 at full width and depth against ``impl="ref"``,
    elementwise within rtol 1e-3 / atol 1e-3.
+7. xlstm-350m at full width and depth (24 layers: 21 mLSTM and 3 sLSTM,
+   d 1024, 4 heads, vocab 50304, bf16, random weights from seed 0)
+   through the contiguous forge fronts (batch rungs 2 and 4, one S32
+   grid cell): warmup of the B2/B4 decode programs and prefill cells,
+   batch 4, prompt 32, 32 new tokens with the chunked prefill and with
+   ``prefill="sequential"``, then the contiguous ``SlotScheduler`` over 8
+   requests with ragged prompts (max_slots 4: swap-ins and rung resizes),
+   then ``apply`` at B=2, S=1024.  Launches exact: fused linear = the
+   programs' linear nodes x their dispatches, every other kernel 0 (the
+   norms are plain, as in the JAX package); no compile after warmup.
+   The prefill program and ``apply`` against ``impl="ref"`` in bf16
+   (relative L2 within twice the spread of two kernel-free
+   implementations, SPREAD_FACTOR_BF16) and in f32 (elementwise, rtol
+   1e-3 / atol 1e-3); TTFT both ways, decode p50/p99, tok/s, the
+   scheduler's tok/s, compile seconds per program and the device busy
+   share of steady decode steps.
 
 Phase 2 also holds the paged-attention kernel against its plain version
 (f32 rtol 2e-4 / atol 2e-5; bf16 3e-2 and the bf16 rounding bound) on
@@ -65,6 +83,8 @@ forge-125m's shapes (B 1/2/4, 12 heads, D 64, page 16, 16 pages a row,
 129 pages), GQA 12/4, a window, and head dims 16, 32 and 128.
 
 Each path's launch counts are zeroed just before it and read just after.
+The RMSNorm kernel is on no path (the JAX package's models normalise
+through the plain version too): its row reports 0 launches.
 The line before the last is one JSON object with a row per kernel (its
 launches and times also split by path); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -95,6 +115,17 @@ TOL_MODEL_BF16 = dict(rtol=6e-2, atol=6e-2)
 # std 1; the bf16 path is held by relative L2 error
 TOL_DEEP_F32 = dict(rtol=1e-3, atol=1e-3)
 REL_L2_DEEP_BF16 = 0.1
+# xlstm-350m at full depth is more sensitive still: two bf16
+# implementations without any kernel (the prefill cell compiled with
+# impl="ref" against the eager plain path; apply unfused against apply
+# compiled with impl="ref") already differ by 5-8% relative L2 in logits
+# and states (measured on the H100), so the fixed bound above does not
+# hold for them either.  The kernels change the rounding at the same
+# fused-linear sites as the compiled plain path does, so phase 7 holds
+# the served bf16 results leaf by leaf within twice that kernel-free
+# spread, measured in the same run; the kernels are held elementwise in
+# f32 at full width and depth (TOL_DEEP_F32)
+SPREAD_FACTOR_BF16 = 2.0
 # bf16 flash attention, element by element, from bf16's unit roundoff
 # u = 2^-8: the kernel rounds its unnormalised probabilities and the
 # plain version its normalised ones, each term p_j*v_j by at most u, and
@@ -124,6 +155,18 @@ RG_FL_ROWS = (4, 128, 2048)
 # ragged T and D
 RG_SHAPES = ((4, 32, 2560, True), (4, 64, 2560, True), (2, 1024, 2560, False),
              (3, 37, 100, True))
+# xlstm-350m's fused-linear nodes (K, N, act): the mLSTM output gate
+# w_gate + silu (1024 x 2048) and down projection (2048 x 1024), the
+# sLSTM output projection (1024 x 1024); the other widths of the model,
+# 2048 x 2048 (q, k, v) and 1024 x 4096 (sLSTM w_in), are checked too
+XL_LINEARS = ((1024, 2048, "silu"), (2048, 1024, None), (1024, 1024, None),
+              (2048, 2048, None), (1024, 4096, None))
+# decode (M 4), the served prefill cell (4 x 32) and apply (2 x 1024)
+XL_FL_ROWS = (4, 128, 2048)
+# RMSNorm (rows, d): xlstm-350m's decode block norm, the B4 x S32
+# prefill block norm, norm_h at B4 x H4 x S32 (hd 512), apply at
+# B2 x S1024, and a ragged d
+RMS_SHAPES = ((4, 1024), (128, 1024), (512, 512), (2048, 1024), (3, 1000))
 
 
 def log(msg):
@@ -190,6 +233,7 @@ class Timer:
     mean over ``iters`` calls."""
 
     FLUSH_KERNEL = "FillFunctor"
+    PROFILES = 3
 
     def __init__(self, device):
         import torch
@@ -204,14 +248,20 @@ class Timer:
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-            for _ in range(iters):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if "CUDA" in str(getattr(e, "device_type", ""))
-                 and self.FLUSH_KERNEL not in e.key)
+        # a profile now and then records no device events at all (once in
+        # six whole runs on the H100): such a profile is taken again, at
+        # most PROFILES times in all
+        for _ in range(self.PROFILES):
+            with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+                for _ in range(iters):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if "CUDA" in str(getattr(e, "device_type", ""))
+                     and self.FLUSH_KERNEL not in e.key)
+            if us > 0:
+                break
         check(us > 0, "the profiler recorded no device time")
         return us / 1e3 / iters
 
@@ -335,7 +385,106 @@ def phase_fused_linear(dev, timer):
         log(f"fused_linear one recurrentgemma-2b rec layer (4 launches) M={M}: kernel "
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
             f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
+    rows.update(xlstm_fused_linear(dev, timer, g))
     return rows
+
+
+def xlstm_fused_linear(dev, timer, g):
+    """fused_linear at xlstm-350m's widths: every width checked in f32 and
+    bf16 at M 4 and 128; one mLSTM layer's two launches (w_gate + silu,
+    w_down) timed in bf16 at the path's M."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_linear as FL
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for M in XL_FL_ROWS[:2]:
+            for K, N, act in XL_LINEARS:
+                x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dtype)
+                w = (torch.randn(K, N, generator=g, device=dev) / K ** 0.5).to(dtype)
+                assert_close(FL.fused_linear_cuda(x, w, None, act=act),
+                             FL.fused_linear_plain(x, w, None, act=act), dtype,
+                             f"fused_linear (xlstm) {dtype} M={M} K={K} N={N} act={act}")
+                n += 1
+    torch.cuda.synchronize()
+    log(f"fused_linear: {n} xlstm-350m cases within tolerance of the plain version")
+    rows = {}
+    for M in XL_FL_ROWS:
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
+                   err=0.0)
+        for K, N, act in XL_LINEARS[:2]:
+            dt = torch.bfloat16
+            x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dt)
+            w = (torch.randn(K, N, generator=g, device=dev) / K ** 0.5).to(dt)
+            err = assert_close(FL.fused_linear_cuda(x, w, None, act=act),
+                               FL.fused_linear_plain(x, w, None, act=act), dt, "timing input")
+            lib_fn = ((lambda: F.silu(torch.mm(x, w))) if act  # noqa: E731
+                      else (lambda: torch.mm(x, w)))  # noqa: E731
+            nbytes = 2 * (M * K + K * N + M * N)
+            flops = 2.0 * M * K * N
+            for k, v in (("ms", timer.ms(lambda: FL.fused_linear_cuda(x, w, None, act=act))),
+                         ("plain_ms", timer.ms(lambda: FL.fused_linear_plain(x, w, None,
+                                                                             act=act))),
+                         ("library_ms", timer.ms(lib_fn)),
+                         ("bound_ms", max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3),
+                         ("flops", flops), ("bytes", nbytes)):
+                tot[k] += v
+            tot["err"] = max(tot["err"], err)
+        rows[("xlstm", M)] = tot
+        log(f"fused_linear one xlstm-350m mLSTM layer (2 launches: 1024x2048+silu, "
+            f"2048x1024) M={M}: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+            f"library {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
+    return rows
+
+
+def phase_rms_norm(dev, timer):
+    """The RMSNorm kernel against ``rms_norm_ref`` in f32 and bf16 at
+    xLSTM's widths and a ragged d (also a misaligned input, which takes
+    the one-element-a-load path), then its bf16 time beside the plain
+    version, ``torch.nn.functional.rms_norm`` (w in x's dtype) and the
+    bound (bytes: x read, y written, w read once)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rms_norm as RN
+    from repro_torch.kernels.ref import rms_norm_ref
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, d in RMS_SHAPES:
+            x = (torch.randn(rows, d, generator=g, device=dev) * 2).to(dtype)
+            w = torch.rand(d, generator=g, device=dev) + 0.5
+            assert_close(RN.rms_norm_cuda(x, w), rms_norm_ref(x, w), dtype,
+                         f"rms_norm {dtype} rows={rows} d={d}")
+            n += 1
+        flat = torch.randn(4 * 1024 + 1, generator=g, device=dev).to(dtype)
+        x = flat[1:].view(4, 1024)
+        w = torch.rand(1024, generator=g, device=dev)
+        assert_close(RN.rms_norm_cuda(x, w), rms_norm_ref(x, w), dtype,
+                     f"rms_norm {dtype} misaligned rows")
+        n += 1
+    torch.cuda.synchronize()
+    log(f"rms_norm: {n} cases within tolerance of the plain version")
+    rows_out = {}
+    for rows, d in RMS_SHAPES[:4]:
+        dt = torch.bfloat16
+        x = (torch.randn(rows, d, generator=g, device=dev) * 2).to(dt)
+        w = torch.rand(d, generator=g, device=dev) + 0.5
+        w_lib = w.to(dt)
+        err = assert_close(RN.rms_norm_cuda(x, w), rms_norm_ref(x, w), dt, "timing input")
+        nbytes = 2 * 2 * rows * d + 4 * d
+        flops = 4.0 * rows * d
+        t = dict(ms=timer.ms(lambda: RN.rms_norm_cuda(x, w)),
+                 plain_ms=timer.ms(lambda: rms_norm_ref(x, w)),
+                 library_ms=timer.ms(lambda: F.rms_norm(x, (d,), w_lib, 1e-6)),
+                 bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                 flops=flops, bytes=nbytes, err=err)
+        rows_out[(rows, d)] = t
+        log(f"rms_norm bf16 rows={rows} d={d}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library (F.rms_norm) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms (bytes), max abs err {err:.3e}")
+    return rows_out
 
 
 def phase_flash(dev, timer):
@@ -676,8 +825,10 @@ def kernel_modules():
     from repro_torch.kernels import fused_linear as FL
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import rg_lru as RG
+    from repro_torch.kernels import rms_norm as RN
 
-    return {"fused_linear": FL, "flash_attention": FA, "paged_attention": PA, "rg_lru": RG}
+    return {"fused_linear": FL, "flash_attention": FA, "paged_attention": PA, "rg_lru": RG,
+            "rms_norm": RN}
 
 
 def counts():
@@ -1013,17 +1164,17 @@ def check_served_prefill(model, cfg, params, server, shared_prompt, dev):
             f"masked pages untouched")
 
 
-def rg_program_log(front, name):
+def program_log(front, name):
     """One line per program of a contiguous front: compile seconds, nodes,
-    RGIR ops and the kernel nodes it holds."""
+    RGIR ops and the kernel, fused and opaque nodes it holds."""
     for key, mod in front.programs.items():
         r = mod.result
-        ops_ = [n.op for n in mod.graph.nodes.values()]
+        ops_ = [n.op for n in mod.graph.nodes.values()
+                if n.op.startswith(("forge", "repro_torch."))]
         log(f"  {name} program {key}: Phases 1-4 {front.stats.per_bucket_compile_s[str(key)]:.2f} s "
             f"(capture {r.capture_ms / 1e3:.2f} s, passes {r.optimize_ms / 1e3:.2f} s); nodes "
             f"{r.nodes_before} -> {r.nodes_after}, {r.executor_stats.n_instructions} RGIR ops, "
-            f"{linear_nodes(mod)} fused-linear, {ops_.count('repro_torch.rg_lru.default')} "
-            f"rg_lru and {ops_.count('forge.sdpa')} forge.sdpa nodes")
+            f"{linear_nodes(mod)} fused-linear; {dict(sorted((o, ops_.count(o)) for o in set(ops_)))}")
 
 
 def phase_rglru(dev):
@@ -1047,8 +1198,8 @@ def phase_rglru(dev):
     prompts = np.random.default_rng(6).integers(0, cfg.vocab, (B, P)).astype(np.int32)
     server = BatchedServer(cfg, params, max_len=max_len, mode="forge")
     warm_s = server.warmup([B], [P])
-    rg_program_log(server.bucketed, "decode")
-    rg_program_log(server.prefill_bucketed, "prefill")
+    program_log(server.bucketed, "decode")
+    program_log(server.prefill_bucketed, "prefill")
     log(f"recurrentgemma-2b ({n_params / 1e9:.3f} B parameters, bf16) warmup: "
         f"{len(server.bucketed.programs)} decode + {len(server.prefill_bucketed.programs)} "
         f"prefill programs in {warm_s:.1f} s")
@@ -1129,8 +1280,8 @@ def phase_rglru(dev):
         f"{apply_first_s:.1f} s (compile included), steady call {apply_ms:.1f} ms host wall")
 
     # comparisons with the plain path (their launches do not count)
-    check_rglru_prefill(model, cfg, params, server, dev)
-    compare_rglru_tokens(model, cfg, params, prompts, res["tokens"], dev)
+    check_contiguous_prefill(model, cfg, params, server, dev)
+    compare_greedy_tokens(model, cfg, params, prompts, res["tokens"], dev)
     with torch.no_grad():
         reset_counts()
         logits_ref = model.apply(params, tokens, cfg, impl="ref")
@@ -1150,19 +1301,19 @@ def phase_rglru(dev):
     busy_share(dev, server, prompts, floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
     del server, params
     torch.cuda.empty_cache()
-    phase_rglru_f32(dev)
+    phase_f32_deep(dev, "recurrentgemma-2b")
     return {"rglru_serve": served, "rglru_sequential": sequential, "rglru_apply": applied}
 
 
-def rglru_continuation(model, cfg, params, server, programs, dev):
+def continuation(model, cfg, params, server, programs, dev, eager=True):
     """A continuation prefill on the B4 x S32 cell: the first program
     folds a first chunk into a fresh cache; then every program of
     ``programs`` and the eager ``impl="ref"`` step prefill a second chunk
     at position 32 with ragged lengths, each on its own copy of that
-    cache; so does the eager step with kernels by device, whose only
-    kernel is the scan.  Returns ``({name: (logits, cache)}, lengths)``:
-    "ref" the eager plain path, "eager" the eager step with the scan
-    kernel."""
+    cache; with ``eager``, so does the eager step with kernels by device
+    (recurrentgemma's: the scan is its only kernel).  Returns ``({name:
+    (logits, cache)}, lengths)``: "ref" the eager plain path, "eager" the
+    eager step with kernels."""
     import numpy as np
     import torch
     from repro_torch.launch.steps import dealias_tree as copy_cache  # a clone per leaf
@@ -1177,9 +1328,9 @@ def rglru_continuation(model, cfg, params, server, programs, dev):
                                                  *server._prefill_args(B, first, 0))
         args = server._prefill_args(B, second, 32, lengths=lengths)
         out = {name: mod(params, copy_cache(cache), *args) for name, mod in programs.items()}
-        # eager and unfused: the scan kernel is the step's only kernel
-        out["eager"] = model.prefill_step(params, copy_cache(cache), args[0], args[1], cfg,
-                                          slot_mask=args[2], length=args[3])
+        if eager:  # eager and unfused: the scan kernel is the step's only kernel
+            out["eager"] = model.prefill_step(params, copy_cache(cache), args[0], args[1], cfg,
+                                              slot_mask=args[2], length=args[3])
         reset_counts()
         out["ref"] = model.prefill_step(params, copy_cache(cache), args[0], args[1], cfg,
                                         slot_mask=args[2], length=args[3], impl="ref")
@@ -1188,14 +1339,26 @@ def rglru_continuation(model, cfg, params, server, programs, dev):
     return out, lengths
 
 
+def state_leaves(layer, prefix=""):
+    """A layer's state as {dotted key: tensor} (xLSTM nests its cell)."""
+    out = {}
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            out.update(state_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def continuation_errors(got, want, lengths):
-    """{logits, h, conv, k, v: (max abs err, relative L2)} over the real
-    columns' logits and every layer's state leaves."""
+    """{logits and every state leaf's key: (max abs err, relative L2)} over
+    the real columns' logits and every layer's state leaves."""
     import torch
 
     pairs = {"logits": ([got[0][b, :n] for b, n in enumerate(lengths)],
                         [want[0][b, :n] for b, n in enumerate(lengths)])}
     for g, w in zip(got[1]["layers"], want[1]["layers"]):
+        g, w = state_leaves(g), state_leaves(w)
         for k in g:
             pairs.setdefault(k, ([], []))
             pairs[k][0].append(g[k])
@@ -1213,13 +1376,15 @@ def fmt_errors(errs):
     return ", ".join(f"{k} {m:.3e} ({r:.3e})" for k, (m, r) in errs.items())
 
 
-def check_rglru_prefill(model, cfg, params, server, dev):
+def check_contiguous_prefill(model, cfg, params, server, dev, eager=True,
+                             spread_factor=None):
     """The served bf16 B4 x S32 prefill program against ``impl="ref"`` on
-    copies of a served cache (see :func:`rglru_continuation`), beside the
+    copies of a served cache (see :func:`continuation`), beside the
     spread between two implementations without kernels (the same cell
     compiled with ``impl="ref"``, against the eager plain path).  Logits
-    and every state leaf (h, conv, window K/V) within REL_L2_DEEP_BF16
-    relative L2 of the plain path."""
+    and every state leaf within REL_L2_DEEP_BF16 relative L2 of the plain
+    path, or with ``spread_factor`` within that factor of the leaf's
+    kernel-free spread."""
     from repro_torch.launch.serve import BatchedServer
 
     key = server.prefill_bucketed.key_for_extents((4, 32))
@@ -1232,33 +1397,35 @@ def check_rglru_prefill(model, cfg, params, server, dev):
     zeros = torch.zeros((4, 32), dtype=torch.int32, device=dev)
     ref_mod, _, _ = ref_server.prefill_bucketed.program_for(
         params, server._build_cache(4), *server._prefill_args(4, zeros, 0))
-    out, lengths = rglru_continuation(model, cfg, params, server,
-                                      {"served": pmod, "plain program": ref_mod}, dev)
+    out, lengths = continuation(model, cfg, params, server,
+                                {"served": pmod, "plain program": ref_mod}, dev, eager=eager)
     served = continuation_errors(out["served"], out["ref"], lengths)
     spread = continuation_errors(out["plain program"], out["ref"], lengths)
-    scan_only = continuation_errors(out["eager"], out["ref"], lengths)
-    for k, (_, r) in served.items():
-        check(r <= REL_L2_DEEP_BF16, f"continuation prefill {k}: relative L2 {r:.3e} of "
-                                     f"impl='ref' above {REL_L2_DEEP_BF16}")
     log(f"served bf16 prefill {key} at pos 32, lengths {lengths.tolist()}, against the eager "
         f"impl='ref' step on copies of a served cache, max abs err (relative L2): "
         f"{fmt_errors(served)}; two kernel-free implementations (the cell compiled with "
-        f"impl='ref') differ by {fmt_errors(spread)}; the eager step with the scan kernel as "
-        f"its only kernel differs by {fmt_errors(scan_only)}")
+        f"impl='ref') differ by {fmt_errors(spread)}"
+        + (f"; the eager step with the scan kernel as its only kernel differs by "
+           f"{fmt_errors(continuation_errors(out['eager'], out['ref'], lengths))}"
+           if eager else ""))
+    for k, (_, r) in served.items():
+        bound = REL_L2_DEEP_BF16 if spread_factor is None else spread_factor * spread[k][1]
+        check(r <= bound, f"continuation prefill {k}: relative L2 {r:.3e} of impl='ref' "
+                          f"above {bound:.3e}")
 
 
-def phase_rglru_f32(dev):
-    """The kernels of the recurrentgemma-2b path held elementwise at full
-    width and depth in f32 (random weights from seed 0): the served
-    B4 x S32 prefill program and ``apply`` (B=2, S=1024, Forge bodies)
-    against ``impl="ref"``, within TOL_DEEP_F32.  Comparison launches:
-    they count on no path."""
+def phase_f32_deep(dev, arch, eager=True):
+    """The kernels of a recurrent path held elementwise at full width and
+    depth in f32 (random weights from seed 0): the served B4 x S32
+    prefill program and ``apply`` (B=2, S=1024, Forge bodies) against
+    ``impl="ref"``, within TOL_DEEP_F32.  Comparison launches: they count
+    on no path."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import get_model
 
-    cfg = get_config("recurrentgemma-2b").with_(dtype="float32")
+    cfg = get_config(arch).with_(dtype="float32")
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     server = BatchedServer(cfg, params, max_len=256, mode="forge")
@@ -1268,14 +1435,15 @@ def phase_rglru_f32(dev):
         params, server._build_cache(4),
         *server._prefill_args(4, torch.zeros((4, 32), dtype=torch.int32, device=dev), 0))
     compile_s = time.perf_counter() - t0
-    out, lengths = rglru_continuation(model, cfg, params, server, {"served": pmod}, dev)
-    scan_only = continuation_errors(out["eager"], out["ref"], lengths)
+    out, lengths = continuation(model, cfg, params, server, {"served": pmod}, dev, eager=eager)
+    eager_errs = continuation_errors(out["eager"], out["ref"], lengths) if eager else None
     logits, cache = out["served"]
     ref_logits, ref_cache = out["ref"]
     errs = {"logits": max(assert_close(logits[b, :n], ref_logits[b, :n], torch.float32,
                                        f"f32 continuation row {b} logits", TOL_DEEP_F32)
                           for b, n in enumerate(lengths))}
     for i, (g, w) in enumerate(zip(cache["layers"], ref_cache["layers"])):
+        g, w = state_leaves(g), state_leaves(w)
         for k in g:
             errs[k] = max(errs.get(k, 0.0), assert_close(
                 g[k], w[k], torch.float32, f"f32 continuation layer {i} {k}", TOL_DEEP_F32))
@@ -1286,16 +1454,17 @@ def phase_rglru_f32(dev):
         got = model.apply(params, tokens, cfg)
         want = model.apply(params, tokens, cfg, impl="ref")
     err_apply = assert_close(got, want, torch.float32, "f32 apply logits", TOL_DEEP_F32)
-    log(f"f32 recurrentgemma-2b (full width and depth): the prefill program {key} "
+    log(f"f32 {arch} (full width and depth): the prefill program {key} "
         f"(compiled in {compile_s:.1f} s) at pos 32 with lengths {lengths.tolist()} against "
         f"impl='ref' on copies of a served cache, max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"; apply B=2 S=1024 logits {err_apply:.3e} ({rel_l2(got, want):.3e} relative "
-          f"L2); all within rtol {TOL_DEEP_F32['rtol']} atol {TOL_DEEP_F32['atol']}; the eager "
-          f"step with the scan kernel as its only kernel: {fmt_errors(scan_only)}")
+          f"L2); all within rtol {TOL_DEEP_F32['rtol']} atol {TOL_DEEP_F32['atol']}"
+        + (f"; the eager step with the scan kernel as its only kernel: "
+           f"{fmt_errors(eager_errs)}" if eager else ""))
 
 
-def compare_rglru_tokens(model, cfg, params, prompts, tokens, dev):
+def compare_greedy_tokens(model, cfg, params, prompts, tokens, dev):
     """Greedy tokens of the served generation against an ``impl="ref"``
     generation (chunked prefill and decode steps run eagerly with the
     plain versions): the first token must be a top choice of the plain
@@ -1327,6 +1496,183 @@ def compare_rglru_tokens(model, cfg, params, prompts, tokens, dev):
     log(f"greedy tokens against an impl='ref' generation: {rows}/{B} rows equal over "
         f"{n_new} tokens, {int((ref == tokens).sum())}/{ref.size} tokens equal "
         f"(first tokens {int((ref[:, 0] == tokens[:, 0]).sum())}/{B})")
+
+
+def xlstm_workload(vocab):
+    """8 requests with ragged prompts of 17 to 32 tokens (one S32 grid
+    cell): four at tick 0, then two at tick 12 and two at tick 14, after
+    the early budgets (6 to 18 tokens) have left two slots active — so
+    the B4 rung shrinks to B2 and grows back, and later requests swap
+    into slots that finished mid-run."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(9)
+    budgets = (6, 10, 14, 18, 8, 12, 6, 10)
+    arrivals = (0, 0, 0, 0, 12, 12, 14, 14)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, (int(rng.integers(17, 33)),))
+                    .astype(np.int32), max_new=b, arrival=a)
+            for i, (b, a) in enumerate(zip(budgets, arrivals))]
+
+
+def phase_xlstm(dev):
+    """xlstm-350m at full width and depth through the contiguous forge
+    fronts (chunked and sequential prefill), the contiguous SlotScheduler
+    and ``apply``; returns the launches of each path."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, SlotScheduler
+    from repro_torch.models import _forge, get_model
+
+    cfg = get_config("xlstm-350m")  # 24 layers, d 1024, 4 heads, vocab 50304, bf16
+    check(cfg.fuse == "forge" and cfg.dtype == "bfloat16", "xlstm-350m defaults changed")
+    model = get_model(cfg)
+    kinds = model.module._kinds(cfg)
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    check((n_m, n_s) == (21, 3), f"{n_m} mLSTM and {n_s} sLSTM layers")
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in {id(t): t for t in pytree.tree_leaves(params)}.values())
+    B, P, n_new, max_len = 4, 32, 32, 256
+    prompts = np.random.default_rng(10).integers(0, cfg.vocab, (B, P)).astype(np.int32)
+    # batch rungs 2 and 4, one sequence cell (S32): the served cells only
+    server = BatchedServer(cfg, params, max_len=max_len, mode="forge",
+                           bucket_policy="ladder:2,4", seq_bucket_policy="ladder:32")
+    sched = SlotScheduler(server, max_slots=4)
+    reqs = xlstm_workload(cfg.vocab)
+    warm_s = sched.warmup(prompt_lens=[P])
+    program_log(server.bucketed, "decode")
+    program_log(server.prefill_bucketed, "prefill")
+    log(f"xlstm-350m ({n_params / 1e6:.1f} M parameters, bf16) warmup: "
+        f"{len(server.bucketed.programs)} decode + {len(server.prefill_bucketed.programs)} "
+        f"prefill programs in {warm_s:.1f} s")
+    fronts = (server.bucketed, server.prefill_bucketed)
+    compiles0 = [f.stats.compiles for f in fronts]
+
+    def counted(name, fn):
+        """Run ``fn`` with the counts zeroed just before and read just
+        after; fused_linear must equal the programs' linear nodes x their
+        dispatches in the run, and no other kernel may launch."""
+        calls0 = [dict(f.stats.per_bucket_calls) for f in fronts]
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launched = counts()
+        dispatches = [{k: f.stats.per_bucket_calls.get(k, 0) - c0.get(k, 0)
+                       for k in f.stats.per_bucket_calls} for f, c0 in zip(fronts, calls0)]
+        want_fl = sum(linear_nodes(mod) * d.get(str(key), 0)
+                      for f, d in zip(fronts, dispatches) for key, mod in f.programs.items())
+        check([f.stats.compiles for f in fronts] == compiles0,
+              f"{name}: a program compiled after warmup")
+        check(launched["fused_linear"] == want_fl > 0,
+              f"{name}: fused_linear launches {launched['fused_linear']} != {want_fl} "
+              f"predicted from the programs' linear nodes x dispatches")
+        others = {k: v for k, v in launched.items() if k != "fused_linear" and v}
+        check(not others, f"{name}: launched {others}")
+        return out, launched, [sum(d.values()) for d in dispatches]
+
+    def run(policy):
+        server.prefill_policy = policy
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, launched, (n_dec, n_pre) = counted(f"prefill={policy}",
+                                                lambda: server.generate(prompts, n_new))
+        check(res["tokens"].shape == (B, n_new) and res["compile_s"] == 0.0,
+              f"prefill={policy}: token shape {res['tokens'].shape}, compile "
+              f"{res['compile_s']} s")
+        log(f"serve xlstm-350m prefill={policy} ({res['prefill_mode']}) batch={B} prompt={P} "
+            f"gen={n_new}: ttft {res['ttft_s'] * 1e3:.2f} ms, decode p50 "
+            f"{res['decode_ms_p50']:.2f} ms p99 {res['decode_ms_p99']:.2f} ms, "
+            f"{res['tok_per_s']:.1f} tok/s; {n_pre} prefill and {n_dec} decode dispatches; "
+            f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+            f"launches {launched}")
+        return res, launched
+
+    res, served = run("auto")
+    check(res["prefill_mode"] == "chunked", f"prefill mode {res['prefill_mode']}")
+    res_seq, sequential = run("sequential")
+    check(res_seq["prefill_mode"] == "sequential", f"prefill mode {res_seq['prefill_mode']}")
+    server.prefill_policy = "auto"
+
+    sres, scheduled, (s_dec, s_pre) = counted("scheduler", lambda: sched.run(reqs))
+    for r in reqs:
+        got = sres["results"][r.rid]
+        check("error" not in got and len(got["tokens"]) == r.max_new,
+              f"request {r.rid}: {got.get('error')} {len(got['tokens'])} tokens, budget "
+              f"{r.max_new}")
+    check(sres["swaps"] >= 1 and sres["resizes"] >= 1 and sres["compiles"] == 0,
+          f"swaps {sres['swaps']}, resizes {sres['resizes']}, compiles {sres['compiles']}")
+    check(s_pre == sres["prefill_dispatches"] and s_dec == sres["decode_dispatches"],
+          "scheduler dispatch counts disagree with the fronts' stats")
+    log(f"contiguous SlotScheduler xlstm-350m (max_slots 4, rungs 2/4): {len(reqs)} requests, "
+        f"{sres['real_tokens']} tokens, {sres['tok_per_s']:.1f} tok/s, tick p50 "
+        f"{sres['tick_ms_p50']:.2f} ms p99 {sres['tick_ms_p99']:.2f} ms, TTFT p50 "
+        f"{sres['ttft_p50_ticks']:.1f} ticks {sres['ttft_p50_s'] * 1e3:.2f} ms; decode "
+        f"dispatches {s_dec}, prefill dispatches {s_pre}, swaps {sres['swaps']}, resizes "
+        f"{sres['resizes']}, occupancy {sres['occupancy']:.3f}; launches {scheduled}")
+
+    Ba, S = 2, 1024
+    tokens = torch.randint(0, cfg.vocab, (Ba, S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(11))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.apply(params, tokens, cfg)  # compiles the two Forge bodies
+        torch.cuda.synchronize()
+        apply_first_s = time.perf_counter() - t0
+        bodies = {k: v for k, v in _forge._CACHE.items()
+                  if k.startswith(f"{cfg!r}/") and "/None/" in k}
+        check(len(bodies) == 2, f"apply compiled {len(bodies)} bodies, not one per block kind")
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = model.apply(params, tokens, cfg)
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        applied = counts()
+    fl_apply = sum(linear_nodes(mod) * (n_s if "/slstm/" in k else n_m)
+                   for k, mod in bodies.items())
+    check(applied["fused_linear"] == fl_apply > 0,
+          f"apply: fused_linear launches {applied['fused_linear']} != {fl_apply}")
+    check(not {k: v for k, v in applied.items() if k != "fused_linear" and v},
+          f"apply launched {applied}")
+    check(tuple(logits.shape) == (Ba, S, cfg.vocab) and torch.isfinite(logits).all().item(),
+          f"apply logits shape {tuple(logits.shape)} or non-finite values")
+    for k, mod in bodies.items():
+        r = mod.result
+        ops_ = [n.op for n in mod.graph.nodes.values() if not n.op.startswith("aten.")]
+        log(f"  apply body {'slstm' if '/slstm/' in k else 'mlstm'}: nodes {r.nodes_before} -> "
+            f"{r.nodes_after}, {linear_nodes(mod)} fused-linear nodes, opaque and fused "
+            f"{sorted(ops_)}, Phases 1-4 {r.total_ms / 1e3:.2f} s")
+    log(f"apply B={Ba} S={S}: fused_linear launches {applied['fused_linear']}; first call "
+        f"{apply_first_s:.1f} s (compile included), steady call {apply_ms:.1f} ms host wall")
+
+    # comparisons with the plain path (their launches do not count)
+    check_contiguous_prefill(model, cfg, params, server, dev, eager=False,
+                             spread_factor=SPREAD_FACTOR_BF16)
+    compare_greedy_tokens(model, cfg, params, prompts, res["tokens"], dev)
+    with torch.no_grad():
+        reset_counts()
+        logits_ref = model.apply(params, tokens, cfg, impl="ref")
+        logits_plain = model.apply(params, tokens, cfg.with_(fuse="none"))  # eager, unfused
+        check(not any(counts().values()), "a kernel-free apply launched a kernel")
+    err, r = (logits - logits_ref).abs().max().item(), rel_l2(logits, logits_ref)
+    spread = rel_l2(logits_plain, logits_ref)
+    log(f"apply logits against the plain path: max abs err {err:.3e}, {r:.3e} relative L2; "
+        f"two kernel-free implementations (unfused eager, and compiled with impl='ref') "
+        f"differ by {(logits_plain - logits_ref).abs().max().item():.3e} ({spread:.3e})")
+    check(r <= SPREAD_FACTOR_BF16 * spread,
+          f"xlstm apply logits: relative L2 {r:.3e} of impl='ref' above "
+          f"{SPREAD_FACTOR_BF16} x the kernel-free spread {spread:.3e}")
+    del logits, logits_ref, logits_plain
+    log(f"xlstm-350m TTFT: chunked {res['ttft_s'] * 1e3:.2f} ms, sequential "
+        f"{res_seq['ttft_s'] * 1e3:.2f} ms (ratio {res['ttft_s'] / res_seq['ttft_s']:.4f}); "
+        f"decode p50 {res['decode_ms_p50']:.2f} ms p99 {res['decode_ms_p99']:.2f} ms, "
+        f"{res['tok_per_s']:.1f} tok/s; scheduler {sres['tok_per_s']:.1f} tok/s")
+    busy_share(dev, server, prompts, floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
+    del server, sched, params
+    torch.cuda.empty_cache()
+    phase_f32_deep(dev, "xlstm-350m", eager=False)
+    return {"xlstm_serve": served, "xlstm_sequential": sequential, "xlstm_sched": scheduled,
+            "xlstm_apply": applied}
 
 
 def busy_share(dev, server, prompts, steps=8, floor_ms=None):
@@ -1390,9 +1736,14 @@ def main():
     fa_row = phase_flash(dev, timer)
     pa_row = phase_paged(dev, timer)
     rg_rows = phase_rg_lru(dev, timer)
+    rms_rows = phase_rms_norm(dev, timer)
     launches = phase_main_path(dev)
     launches["paged"] = phase_paged_serve(dev)
     launches.update(phase_rglru(dev))
+    launches.update(phase_xlstm(dev))
+    # no path of the JAX package reaches rms_norm_pallas, nor does one here
+    check(not any(n["rms_norm"] for n in launches.values()),
+          f"rms_norm launched on a served path: {launches}")
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     def timing(t):
@@ -1402,7 +1753,7 @@ def main():
                 else "operations",
                 "library_ms": t["library_ms"]}
 
-    def row(name, replaces, head, per_path):
+    def row(name, replaces, head, per_path, on_path=True):
         """The kernel's row: ``launches`` sums the paths' counted runs;
         the top-level times are those of ``per_path[head]``; ``per_path``
         keeps each path's launches beside the times taken at its shapes."""
@@ -1410,7 +1761,7 @@ def main():
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                "replaces": replaces, "launches": sum(n.values())}
-        check(out["launches"] > 0, f"{name} launched on no path")
+        check(out["launches"] > 0 or not on_path, f"{name} launched on no path")
         out.update(timing(per_path[head]))
         out["per_path"] = {path: dict({"launches": n[path]},
                                       **(timing(per_path[path]) if path in per_path else {}))
@@ -1428,7 +1779,11 @@ def main():
             {"serve": fl_rows[4], "apply": fl_rows[4096], "paged": fl_rows[4],
              "rglru_serve": fl_rows[("rglru", 128)],
              "rglru_sequential": fl_rows[("rglru", 4)],
-             "rglru_apply": fl_rows[("rglru", 2048)]}),
+             "rglru_apply": fl_rows[("rglru", 2048)],
+             "xlstm_serve": fl_rows[("xlstm", 128)],
+             "xlstm_sequential": fl_rows[("xlstm", 4)],
+             "xlstm_sched": fl_rows[("xlstm", 4)],
+             "xlstm_apply": fl_rows[("xlstm", 2048)]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
             {"apply": fa_row}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
@@ -1440,6 +1795,13 @@ def main():
     # served path calls (only ops.rg_lru_scan); phase 2 checks it
     kernels[-1]["also_replaces"] = "src/repro/kernels/rg_lru.py:159"
     kernels[-1]["chunked"] = timing(rg_rows["chunked"])
+    # rms_norm is reached only through ops.rms_norm, as in the JAX package
+    # (no model calls it): 0 launches on every path; its times are phase
+    # 2's at xlstm-350m's widths, the head at apply's 2048 x 1024 rows
+    rms = row("rms_norm", "src/repro/kernels/rms_norm.py:54", "apply_rows", {
+        "apply_rows": rms_rows[(2048, 1024)]}, on_path=False)
+    rms["per_shape"] = {f"{r}x{d}": timing(t) for (r, d), t in rms_rows.items()}
+    kernels.append(rms)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,17 +2,17 @@
 
 The port carries ``forge-125m`` (a GPT-2-class dense decoder, the serve
 CLI's default), ``recurrentgemma-2b`` (the RG-LRU / local-attention
-hybrid) and their smoke variants; the other architectures of the JAX
-package follow in later slices.
+hybrid), ``xlstm-350m`` (mLSTM + sLSTM blocks) and their smoke variants;
+the other architectures of the JAX package follow in later slices.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
-from . import recurrentgemma_2b
+from . import recurrentgemma_2b, xlstm_350m
 from .base import ModelConfig
 
-REGISTRY: Dict[str, object] = {m.ARCH_ID: m for m in (recurrentgemma_2b,)}
+REGISTRY: Dict[str, object] = {m.ARCH_ID: m for m in (recurrentgemma_2b, xlstm_350m)}
 ARCH_IDS: List[str] = ["forge-125m"] + list(REGISTRY)
 
 

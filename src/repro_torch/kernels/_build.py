@@ -23,7 +23,7 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("fused_linear", "flash_attention", "paged_attention", "rg_lru")
+SOURCES = ("fused_linear", "flash_attention", "paged_attention", "rg_lru", "rms_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

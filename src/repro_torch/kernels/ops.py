@@ -1,5 +1,7 @@
-"""Dispatch for the fused graph nodes (``forge.sdpa``, ``forge.linear_act``)
-and the recurrent block's RG-LRU scan (``rg_lru``, ``rg_lru_scan``).
+"""Dispatch for the fused graph nodes (``forge.sdpa``, ``forge.linear_act``),
+the recurrent block's RG-LRU scan (``rg_lru``, ``rg_lru_scan``) and the
+fused RMSNorm (``rms_norm``), plus the decorators that make a plain torch
+function one opaque graph node (:func:`forge_op`, :func:`scan_op`).
 
 Every fused node the Phase-2 passes create bottoms out here.  The
 implementation follows the tensors' device:
@@ -17,12 +19,13 @@ package, never a Pallas kernel there either).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from . import ref as _ref
 from . import rg_lru as _rg_lru_kernel
+from . import rms_norm as _rms_norm_kernel
 from .flash_attention import flash_attention
 from .fused_linear import fused_linear as _fused_linear_kernel
 
@@ -36,6 +39,51 @@ _DEFAULT_Q_CHUNK = 1024
 def _check_impl(impl: Optional[str]) -> None:
     if impl not in _VALID_IMPLS:
         raise ValueError(f"impl must be one of {_VALID_IMPLS}, got {impl!r}")
+
+
+def _opaque_op(qualname: str, fake: Optional[Callable]) -> Callable[[Callable], Callable]:
+    """Register ``fn`` as the custom op ``qualname`` with the fake
+    implementation ``fake`` (default: ``fn`` itself, run on fake
+    tensors): a ``torch.export`` capture then records a call as ONE node
+    and never looks inside.  ``fn`` must be annotated (the op's schema is
+    read from its signature) and must not return a view of an input."""
+
+    def deco(fn: Callable) -> Callable:
+        op = torch.library.custom_op(qualname, mutates_args=())(fn)
+        op.register_fake(fake or fn)
+        return op
+
+    return deco
+
+
+def forge_op(name: str) -> Callable[[Callable], Callable]:
+    """Mark a function as an opaque fused dispatch unit.
+
+    The JAX package's ``forge_op`` names a ``jax.jit`` wrapper
+    ``forge_<name>``, which Phase-1 capture keeps as one ``forge.<name>``
+    node routed to the accelerator (the paper's custom-operator
+    registration hook, §9.5).  Here the function becomes the custom op
+    ``repro_torch::forge_<name>``: one ``repro_torch.forge_<name>.default``
+    node, which Phase 3 routes to the accelerator like the kernel ops
+    (``lowering.KERNEL_OP_PREFIX``); the executor calls the op, which runs
+    the plain torch function on the tensors' device.
+    """
+    return _opaque_op(f"repro_torch::forge_{name}", None)
+
+
+def scan_op(name: str, fake: Callable) -> Callable[[Callable], Callable]:
+    """Mark a function holding a sequential loop as one opaque node.
+
+    The JAX package's capture keeps control flow (``lax.scan``) as one
+    ``scan`` node routed to the host; ``torch.export`` would unroll a
+    Python loop instead (T steps of its body).  The function becomes the
+    custom op ``forge_scan::<name>``: one ``forge_scan.<name>.default``
+    node, outside the accelerator prefixes, so Phase 3 routes it to the
+    host as the reference routes ``scan``.  ``fake`` builds the outputs
+    directly: running the loop on fake tensors would cost a capture as
+    much host time as the loop's own ops.
+    """
+    return _opaque_op(f"forge_scan::{name}", fake)
 
 
 def _apply_scale(s, scale, scale_mode):
@@ -190,4 +238,25 @@ def rg_lru_scan(
     return _ref.rg_lru_chunk_ref(x, a, h0)
 
 
-__all__ = ["sdpa", "fused_linear", "rg_lru", "rg_lru_scan"]
+# --------------------------------------------------------------------------
+# RMSNorm (the ``rms_norm_pallas`` dispatch; no model calls it, as in the
+# JAX package)
+# --------------------------------------------------------------------------
+
+
+def rms_norm(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    eps: float = 1e-6,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Fused RMSNorm: x · rsqrt(mean(x², -1) + eps) · w.  x: (..., d); w: (d,)."""
+    _check_impl(impl)
+    if impl is None:
+        return _rms_norm_kernel.rms_norm(x, w, eps)
+    return _ref.rms_norm_ref(x, w, eps)
+
+
+__all__ = ["sdpa", "fused_linear", "rg_lru", "rg_lru_scan", "rms_norm", "forge_op",
+           "scan_op"]

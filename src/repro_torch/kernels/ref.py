@@ -178,3 +178,11 @@ def rg_lru_chunk_ref(
     chunk's ``h0``; chaining chunks with it is the unchunked scan."""
     h = rg_lru_ref(x, a, h0)
     return h, h[:, -1, :].clone()
+
+
+def rms_norm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Reference RMSNorm: x · rsqrt(mean(x², -1) + eps) · w, in fp32, cast
+    back to x's dtype.  x: (..., d); w: (d,)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)

@@ -13,25 +13,28 @@ through two multi-program fronts: the whole decode step (embedding,
 every layer, LM head, greedy argmax) compiled through Phases 1-4 once
 per batch bucket with the slot signature (per-row ``pos`` and
 ``slot_mask``), and the whole-prompt prefill once per (batch × sequence)
-grid cell.  The recurrent family prefills through the chunked state
-scan, one dispatch per prompt block (``last_prefill_mode ==
-"chunked"``; its RG-LRU recurrence launches the hand-written scan
-kernel); ``prefill="sequential"`` replays the prompt through the decode
-program instead.  The dense decoder is refused there until the port has
-its ``transformer.prefill_step``.
+grid cell.  The recurrent families (recurrentgemma, xLSTM) prefill
+through the chunked state scan, one dispatch per prompt block
+(``last_prefill_mode == "chunked"``; recurrentgemma's RG-LRU recurrence
+launches the hand-written scan kernel); ``prefill="sequential"`` replays
+the prompt through the decode program instead.  The dense decoder is
+refused there until the port has its ``transformer.prefill_step``.
 
-``BatchedServer(mode="forge", paged=True)`` with :class:`SlotScheduler`
-is slot-level continuous batching over a paged KV pool: every tick
-advances each active slot at its own position.  The KV cache is a shared
+:class:`SlotScheduler` is slot-level continuous batching: every tick
+advances each active slot at its own position.  Over
+``BatchedServer(mode="forge", paged=True)`` the KV cache is a shared
 page pool with per-slot page tables, a refcounted allocator and a
 shared-prefix tree (``core/paging.py``); with ``cfg.kv_kernel ==
 "pallas"`` decode attention runs the hand-written paged-attention kernel.
+Over the contiguous fronts a swapped-in recurrent row is reset to its
+init state and prefilled through the slot-masked chunked grid (or the
+in-loop fill path), and a rung resize gathers the active rows.
 
 CLI (runs on the CUDA device unless ``--device cpu``)::
 
     python -m repro_torch.launch.serve --arch forge-125m [--smoke]
-    python -m repro_torch.launch.serve --arch recurrentgemma-2b --mode forge \\
-        [--prefill auto|batched|sequential]
+    python -m repro_torch.launch.serve --arch xlstm-350m --mode forge \\
+        [--prefill auto|batched|sequential] [--continuous 8 --max-slots 4]
     python -m repro_torch.launch.serve --arch forge-125m --mode forge \\
         --continuous 12 --max-slots 4 --paged --kv-kernel pallas
 """
@@ -45,10 +48,11 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..configs import ARCH_IDS, get_config
 from ..core.paging import TRASH_PAGE, build_row_table, pages_for
-from ..core.shapekey import get_bucket_policy
+from ..core.shapekey import flatten_axes, get_bucket_policy
 from ..device import resolve_device
 from ..models import get_model
 from .steps import POISON_TOKEN, guarded_argmax, make_serve_step, supports_slot_decode
@@ -286,14 +290,16 @@ class BatchedServer:
                 torch.ones((extent,), dtype=torch.bool, device=dev))
 
     def _prefill_args(self, extent: int, tokens: torch.Tensor, pos: int,
-                      lengths: Optional[np.ndarray] = None):
-        """The prefill program's argument tail for group admission:
-        tokens, the 0-d int32 start position and an all-true slot mask;
+                      lengths: Optional[np.ndarray] = None,
+                      active: Optional[np.ndarray] = None):
+        """The prefill program's argument tail: tokens, the 0-d int32 start
+        position and the slot mask (default all true: group admission);
         recurrent fronts append per-row ``lengths`` (default: the full
         chunk width — every token real) bounding each row's state scan."""
         dev = self.device
-        tail = (tokens, torch.tensor(int(pos), dtype=torch.int32, device=dev),
-                torch.ones((extent,), dtype=torch.bool, device=dev))
+        mask = (torch.ones((extent,), dtype=torch.bool, device=dev) if active is None
+                else torch.as_tensor(active, dtype=torch.bool, device=dev))
+        tail = (tokens, torch.tensor(int(pos), dtype=torch.int32, device=dev), mask)
         if self.model.prefill_takes_length:
             if lengths is None:
                 lengths = np.full((extent,), tokens.shape[1], np.int32)
@@ -314,7 +320,8 @@ class BatchedServer:
     def warmup(self, batch_sizes: Sequence[int],
                prompt_lens: Optional[Sequence[int]] = None) -> float:
         """Precompile the decode buckets of ``batch_sizes`` and the prefill
-        grid cells of ``batch_sizes`` × ``prompt_lens``; returns the
+        grid cells of ``batch_sizes`` × ``prompt_lens`` (no cells for a
+        contiguous server under ``prefill="sequential"``); returns the
         seconds spent.  Each program's compile time is in
         ``stats.per_bucket_compile_s`` of its front.
 
@@ -342,8 +349,10 @@ class BatchedServer:
             # throwaway rows are all padding: none are served requests
             self.bucketed.stats.note_dispatch(key, 0, extent)
             self.forge_module = mod
-        cells = sorted({(e, s) for e in extents for s in map(self._seq_bucket_extent,
-                                                             prompt_lens or ())
+        # a contiguous server under prefill="sequential" prefills through
+        # the decode program only (the JAX server builds no prefill front)
+        lens = () if not self.paged and self.prefill_policy == "sequential" else prompt_lens
+        cells = sorted({(e, s) for e in extents for s in map(self._seq_bucket_extent, lens or ())
                         if s is not None})
         for extent, s_ext in cells:
             if self.paged:
@@ -511,7 +520,7 @@ class BatchedServer:
 
 
 # --------------------------------------------------------------------------
-# slot-level continuous batching over the paged KV pool
+# slot-level continuous batching (paged KV pool or contiguous cache)
 # --------------------------------------------------------------------------
 
 
@@ -531,10 +540,16 @@ class _Slot:
 
     req: Request
     pos: int = 0  # next cache write position == tokens consumed so far
+    #: prompt tokens still to consume through masked decode replay (the
+    #: contiguous fill path); None once the prompt is in the cache
+    fill: Optional[np.ndarray] = None
     remaining: int = 0  # decode steps left after the first emitted token
     cur_tok: int = 0  # last emitted token (next decode input)
     tokens: List[int] = field(default_factory=list)
     admitted_tick: int = 0
+    #: tick at which the fill path emitted the first token (None: the
+    #: admission prefill emitted it at admitted_tick)
+    first_tick: Optional[int] = None
     swapped_in: bool = False  # admitted while other slots were mid-generation
     #: page-pool pages this slot references (freed at retire; shared
     #: prefix pages survive on the prefix tree's own references)
@@ -549,38 +564,55 @@ class _Slot:
 
 
 class SlotScheduler:
-    """Slot-level continuous batching over a paged :class:`BatchedServer`.
+    """Slot-level continuous batching over a ``mode="forge"``
+    :class:`BatchedServer`.
 
-    A request queue, per-slot state (position, remaining budget, page
-    chain) and one decode dispatch per tick advancing every active slot
-    at its own position (``pos: int32[B]`` + ``slot_mask: bool[B]``
-    through the bucket program).  When a slot finishes, the next queued
-    request is swapped in mid-generation: its prompt is matched against
-    the prefix tree, pages are allocated, its page-table row is written
-    and its (suffix) prompt prefilled through the slot-masked prefill
-    grid in one dispatch; every other slot's pages stay untouched.
+    A request queue, per-slot state (position, remaining budget) and one
+    decode dispatch per tick advancing every active slot at its own
+    position (``pos: int32[B]`` + ``slot_mask: bool[B]`` through the
+    bucket program).  When a slot finishes, the next queued request is
+    swapped in mid-generation; every other slot's state stays untouched.
+
+    * Paged server (``paged=True``): the prompt is matched against the
+      prefix tree, pages are allocated, its page-table row is written and
+      its (suffix) prompt prefilled through the slot-masked prefill grid
+      in one dispatch.  A rung resize edits the page table; no KV moves.
+    * Contiguous server: a swapped-in row of a stateful family is first
+      reset to ``init_cache`` values (:meth:`_reset_rows`), then every
+      admitted prompt is prefilled through the slot-masked grid in one
+      dispatch with per-row ``length`` (:meth:`_admit`).  A prompt the
+      grid does not cover, or every prompt under ``prefill="sequential"``,
+      is consumed token by token inside the decode loop (the fill path)
+      while the other slots keep generating.  A rung resize gathers the
+      active rows into a fresh cache of the new bucket
+      (:meth:`_gather_rows`).
 
     Admission is pad-waste-aware: queued requests fill the bucket exactly,
-    and the bucket is resized — by editing the page table, no KV moves —
-    only when the active-slot count crosses a rung.  With every rung
-    warmed, scheduling runs zero Phase 1-4 compiles.  The clock is the
-    decode-dispatch counter (``tick``); ``Request.arrival`` is in ticks.
+    and the bucket is resized only when the active-slot count crosses a
+    rung.  With every rung and grid cell warmed, scheduling runs zero
+    Phase 1-4 compiles.  The clock is the decode-dispatch counter
+    (``tick``); ``Request.arrival`` is in ticks.
 
     The JAX scheduler's SLO deadlines and preemption, fault injection,
-    watchdog, dispatch retries, async compile and ladder re-fit are not
-    ported; with no budgets set its EDF order is arrival order, which
-    this scheduler keeps, so both give the same schedule.
+    watchdog, dispatch retries, async compile, ladder re-fit and the
+    contiguous cache's buffer pool are not ported; with no budgets set its
+    EDF order is arrival order, which this scheduler keeps, so both give
+    the same schedule.
     """
 
     def __init__(self, server: BatchedServer, max_slots: int = 16):
-        if server.mode != "forge" or not server.paged:
-            raise ValueError("SlotScheduler needs BatchedServer(mode='forge', paged=True)")
+        if server.mode != "forge":
+            raise ValueError("SlotScheduler needs BatchedServer(mode='forge')")
         if not server.slot_capable:
             raise ValueError(f"family {server.cfg.family!r} has no slot-level decode")
         server._ensure_bucketed()
         self.server = server
+        self.paged = server.paged
         self.max_slots = int(max_slots)
         server.bucketed.policy.bucket(self.max_slots)  # raises if the ladder cannot admit it
+        #: one-row init_cache template for stateful-decode swap-ins (built
+        #: lazily; KV-only families never need it)
+        self._init_row = None
         self.metrics: Dict[str, Any] = {}
         self._reset_metrics()
 
@@ -613,6 +645,46 @@ class SlotScheduler:
         """Precompile every reachable rung (and prefill grid cells)."""
         return self.server.warmup(self.rungs(), prompt_lens=prompt_lens)
 
+    def _gather_rows(self, old_cache, new_cache, src_rows: List[int]):
+        """Move the active slots' contiguous cache rows into the new
+        bucket's cache: row ``src_rows[j]`` of every batch-polymorphic leaf
+        lands in row ``j``; the other rows keep the new cache's init
+        values.  The new cache was just built for this resize, so the copy
+        writes into it in place."""
+        srv = self.server
+        flat_old, _ = pytree.tree_flatten(old_cache)
+        flat_new, spec = pytree.tree_flatten(new_cache)
+        src = torch.as_tensor(src_rows, dtype=torch.long, device=srv.device)
+        for o, nw, ax in zip(flat_old, flat_new, flatten_axes(srv.cache_axes, old_cache)):
+            if ax is not None:
+                nw.narrow(ax, 0, len(src_rows)).copy_(torch.index_select(o, ax, src))
+        return pytree.tree_unflatten(flat_new, spec)
+
+    def _reset_rows(self, cache, rows: List[int], extent: int):
+        """Re-initialize the admitted rows of a stateful-decode cache.
+
+        Recurrent states fold every past token in: without this reset a
+        swapped-in request would continue the PREVIOUS occupant's state.
+        Blends the one-row ``init_cache`` template into the admitted rows
+        only (a ``torch.where`` select), so every other slot's state
+        survives bitwise."""
+        srv = self.server
+        if self._init_row is None:
+            self._init_row = srv.model.init_cache(srv.cfg, 1, srv.max_len, device=srv.device)
+        mask = torch.zeros((extent,), dtype=torch.bool, device=srv.device)
+        mask[rows] = True
+        flat, spec = pytree.tree_flatten(cache)
+        flat_init, _ = pytree.tree_flatten(self._init_row)
+        out = []
+        for leaf, ini, ax in zip(flat, flat_init, flatten_axes(srv.cache_axes, cache)):
+            if ax is None:
+                out.append(leaf)
+                continue
+            shape = [1] * leaf.dim()
+            shape[ax] = extent
+            out.append(torch.where(mask.view(shape), ini, leaf))  # ini broadcasts (1 at ax)
+        return pytree.tree_unflatten(out, spec)
+
     def _validate(self, r: Request) -> Optional[str]:
         """Admission-time validation; a non-None return rejects the request
         with a typed RequestError outcome instead of failing the run."""
@@ -627,14 +699,16 @@ class SlotScheduler:
             return "max_new must be >= 1"
         if plen + r.max_new > srv.max_len:
             return f"prompt {plen} + budget {r.max_new} exceeds max_len={srv.max_len}"
-        need = pages_for(plen + r.max_new, srv.page_pool.page_size)
-        if need > srv.page_pool.capacity:
-            return f"needs {need} KV pages, pool capacity is {srv.page_pool.capacity}"
-        if srv._seq_bucket_extent(plen) is None:
-            # the JAX scheduler would replay such a prompt through the
-            # decode loop (the fill path); the port prefills by grid only
-            return (f"prompt {plen} is beyond the prefill grid "
-                    f"({srv.seq_bucket_policy}, max_len={srv.max_len})")
+        if self.paged:
+            need = pages_for(plen + r.max_new, srv.page_pool.page_size)
+            if need > srv.page_pool.capacity:
+                return f"needs {need} KV pages, pool capacity is {srv.page_pool.capacity}"
+            if srv._seq_bucket_extent(plen) is None:
+                # the JAX scheduler would replay such a prompt through the
+                # decode loop (the fill path); the paged port prefills by
+                # grid only
+                return (f"prompt {plen} is beyond the prefill grid "
+                        f"({srv.seq_bucket_policy}, max_len={srv.max_len})")
         if np.min(r.prompt) < 0 or np.max(r.prompt) >= srv.cfg.vocab:
             return "prompt token ids out of vocabulary range"
         return None
@@ -648,6 +722,7 @@ class SlotScheduler:
         srv = self.server
         params = srv.params
         dev = srv.device
+        paged = self.paged
         stats = srv.bucketed.stats
         self._reset_metrics()
         compiles0 = stats.compiles + srv.prefill_bucketed.stats.compiles
@@ -679,7 +754,9 @@ class SlotScheduler:
         queue: deque = deque()
         slots: List[Optional[_Slot]] = []
         extent = 0
-        cache = srv.page_store
+        #: the paged store (server-resident), or the contiguous cache of
+        #: the current rung (built at the first rung)
+        cache = srv.page_store if paged else None
         mod = key = None
         cur_tok = np.zeros((0, 1), np.int32)
         cur_pos = np.zeros((0,), np.int32)
@@ -699,8 +776,10 @@ class SlotScheduler:
 
         def resolve_program():
             nonlocal mod, key
-            args = (to_dev(pt_host), to_dev(cur_tok), to_dev(cur_pos),
+            args = (to_dev(cur_tok), to_dev(cur_pos),
                     torch.zeros((extent,), dtype=torch.bool, device=dev))
+            if paged:
+                args = (to_dev(pt_host),) + args
             mod, key, _ = srv.bucketed.program_for(params, cache, *args)
             srv.forge_module = mod
 
@@ -710,8 +789,8 @@ class SlotScheduler:
                 "admitted_tick": s.admitted_tick,
                 "finished_tick": tick,
                 "swapped_in": s.swapped_in,
-                # the first token comes out of the admission prefill
-                "ttft_ticks": s.admitted_tick - s.req.arrival,
+                "ttft_ticks": (s.admitted_tick if s.first_tick is None else s.first_tick)
+                - s.req.arrival,
                 "ttft_s": (s.first_wall - s.arrival_wall
                            if s.first_wall is not None else None),
                 "latency_s": time.perf_counter() - s.arrival_wall,
@@ -733,6 +812,18 @@ class SlotScheduler:
             self.metrics["rows_quarantined"] += 1
             retire(i, s, error="non-finite logits in decode row (quarantined)")
 
+        def emit(s: _Slot, t: int) -> bool:
+            """Append a decode output to the slot's stream; False (and the
+            slot flagged) when it is POISON_TOKEN."""
+            if t == POISON_TOKEN:
+                s.poisoned = True
+                return False
+            s.cur_tok = t
+            s.tokens.append(t)
+            if s.first_wall is None:
+                s.first_wall = time.perf_counter()
+            return True
+
         def harvest() -> None:
             """Copy the deferred token columns to the host, in tick order
             (one sync).  The active set cannot have changed while ticks
@@ -747,17 +838,8 @@ class SlotScheduler:
             rows = [i for i, s in enumerate(slots) if s is not None]
             for c in range(cols.shape[1]):
                 for i in rows:
-                    s = slots[i]
-                    if s.poisoned:
-                        continue
-                    t = int(cols[i, c])
-                    if t == POISON_TOKEN:
-                        s.poisoned = True
-                        continue
-                    s.cur_tok = t
-                    s.tokens.append(t)
-                    if s.first_wall is None:
-                        s.first_wall = time.perf_counter()
+                    if not slots[i].poisoned:
+                        emit(slots[i], int(cols[i, c]))
             for i in rows:
                 s = slots[i]
                 if s is not None and s.poisoned:
@@ -787,23 +869,35 @@ class SlotScheduler:
                     harvest()
                 if target != extent:
                     keep = [(i, s) for i, s in enumerate(slots) if s is not None]
-                    # O(table) resize: surviving rows' page-table entries
-                    # move; the KV pages themselves do not
-                    new_pt = np.full((target, MP), TRASH_PAGE, np.int32)
+                    if paged:
+                        # O(table) resize: surviving rows' page-table entries
+                        # move; the KV pages themselves do not
+                        new_pt = np.full((target, MP), TRASH_PAGE, np.int32)
+                        for dst, (i, s) in enumerate(keep):
+                            new_pt[dst] = pt_host[i]
+                        pt_host = new_pt
+                        if extent > 0:
+                            self.metrics["resizes"] += 1
+                    else:
+                        new_cache = srv._build_cache(target)
+                        if keep and cache is not None:
+                            new_cache = self._gather_rows(cache, new_cache,
+                                                          [i for i, _ in keep])
+                        if cache is not None:
+                            self.metrics["resizes"] += 1
+                        cache = new_cache
                     new_tok = np.zeros((target, 1), np.int32)
                     new_pos = np.zeros((target,), np.int32)
                     new_slots: List[Optional[_Slot]] = [None] * target
                     for dst, (i, s) in enumerate(keep):
-                        new_pt[dst] = pt_host[i]
                         new_slots[dst] = s
                         new_tok[dst] = cur_tok[i]
                         new_pos[dst] = cur_pos[i]
-                    if extent > 0:
-                        self.metrics["resizes"] += 1
-                    pt_host, slots, cur_tok, cur_pos = new_pt, new_slots, new_tok, new_pos
+                    slots, cur_tok, cur_pos = new_slots, new_tok, new_pos
                     extent = target
                     dev_args = None
-                    pt_dev = to_dev(pt_host)
+                    if paged:
+                        pt_dev = to_dev(pt_host)
                     resolve_program()
                 # pack queued requests into every free slot
                 mid_generation = active > 0
@@ -815,14 +909,18 @@ class SlotScheduler:
                         continue
                     req, req_wall = queue.popleft()
                     slots[i] = _Slot(req=req, admitted_tick=tick, swapped_in=mid_generation,
-                                     arrival_wall=req_wall)
+                                     arrival_wall=req_wall,
+                                     fill=None if paged else np.asarray(req.prompt, np.int32))
                     if mid_generation:
                         self.metrics["swaps"] += 1
                     admitted.append(i)
                 if admitted:
-                    cache = self._admit_paged(admitted, slots, cache, extent, cur_tok,
-                                              cur_pos, pt_host, queue)
-                    pt_dev = to_dev(pt_host)
+                    if paged:
+                        cache = self._admit_paged(admitted, slots, cache, extent, cur_tok,
+                                                  cur_pos, pt_host, queue)
+                        pt_dev = to_dev(pt_host)
+                    else:
+                        cache = self._admit(admitted, slots, cache, extent, cur_tok, cur_pos)
                     dev_args = None
                     # 1-token budgets finish at admission (a deferral leaves
                     # slots[i] None); a poisoned first token quarantines
@@ -832,7 +930,7 @@ class SlotScheduler:
                             continue
                         if s.poisoned:
                             quarantine(i, s)
-                        elif s.remaining <= 0:
+                        elif s.fill is None and s.remaining <= 0:
                             retire(i, s)
 
             if not any(s is not None for s in slots):
@@ -845,8 +943,7 @@ class SlotScheduler:
                     # with nothing active every page not in the tree is
                     # free and reclaim can take the tree's, so a validated
                     # request always fits: this would be an accounting bug
-                    raise RuntimeError("paged admission made no progress with no "
-                                       "active slot")
+                    raise RuntimeError("admission made no progress with no active slot")
                 break
 
             # ---- one decode dispatch advances every active slot ---------
@@ -855,16 +952,20 @@ class SlotScheduler:
                 for i, s in enumerate(slots):
                     if s is not None:
                         cur_pos[i] = s.pos
-                        cur_tok[i, 0] = s.cur_tok
+                        cur_tok[i, 0] = s.fill[s.pos] if s.fill is not None else s.cur_tok
                 tok_dev, pos_dev, mask_dev = to_dev(cur_tok), to_dev(cur_pos), to_dev(mask_np)
             else:
-                # steady state (same active set): the previous dispatch's
-                # output is this dispatch's input, no host round trip
+                # steady state (same active set, no prompt being consumed):
+                # the previous dispatch's output is this dispatch's input,
+                # no host round trip
                 tok_dev, pos_dev, mask_dev = dev_args
-            out_tok, cache = mod(params, cache, pt_dev, tok_dev, pos_dev, mask_dev)
-            # pool invariant after every tick: every page is referenced or
-            # free, never both
-            pool.check()
+            if paged:
+                out_tok, cache = mod(params, cache, pt_dev, tok_dev, pos_dev, mask_dev)
+                # pool invariant after every tick: every page is referenced
+                # or free, never both
+                pool.check()
+            else:
+                out_tok, cache = mod(params, cache, tok_dev, pos_dev, mask_dev)
             n_act = sum(s is not None for s in slots)
             stats.note_dispatch(key, n_act, extent)
             self.metrics["decode_dispatches"] += 1
@@ -872,34 +973,65 @@ class SlotScheduler:
             self.metrics["capacity_row_steps"] += extent
             tick += 1
             arrival_due = bool(pendreq) and pendreq[0].arrival <= tick
-            # budgets are host-side counters, so retirement needs no token
-            # values: defer the sync until a boundary (a retire, or an
-            # arrival that may admit)
-            pending.append(out_tok)
-            boundary = arrival_due
-            for s in slots:
-                if s is None:
-                    continue
-                s.pos += 1
-                s.remaining -= 1
-                if s.remaining <= 0:
-                    boundary = True
-            if boundary:
+            if any(s is not None and s.fill is not None for s in slots):
+                # prompt-consuming rows need this tick's tokens now (a fill
+                # ending switches the row's input to the program output);
+                # fills start at a boundary, so nothing is pending here
                 harvest()
+                out_np = out_tok.cpu().numpy()
+                changed = False
                 for i, s in enumerate(slots):
-                    if s is not None and s.remaining <= 0:
+                    if s is None:
+                        continue
+                    s.pos += 1
+                    if s.fill is not None:
+                        if s.pos < len(s.fill):
+                            changed = True  # mid-prompt rows feed host prompt tokens
+                            continue
+                        # prompt consumed: this dispatch emitted the first
+                        # token (the row's next input is the program output)
+                        s.fill = None
+                        s.first_tick = tick
+                        s.remaining = s.req.max_new
+                    if not emit(s, int(out_np[i, 0])):
+                        quarantine(i, s)
+                        continue
+                    s.remaining -= 1
+                    if s.remaining <= 0:
                         retire(i, s)
-                dev_args = None
+                        changed = True  # the active set shrank: rebuild the mask
+                dev_args = (None if changed or arrival_due
+                            else (out_tok, pos_dev + 1, mask_dev))
             else:
-                dev_args = (out_tok, pos_dev + 1, mask_dev)
+                # budgets are host-side counters, so retirement needs no
+                # token values: defer the sync until a boundary (a retire,
+                # or an arrival that may admit)
+                pending.append(out_tok)
+                boundary = arrival_due
+                for s in slots:
+                    if s is None:
+                        continue
+                    s.pos += 1
+                    s.remaining -= 1
+                    if s.remaining <= 0:
+                        boundary = True
+                if boundary:
+                    harvest()
+                    for i, s in enumerate(slots):
+                        if s is not None and s.remaining <= 0:
+                            retire(i, s)
+                    dev_args = None
+                else:
+                    dev_args = (out_tok, pos_dev + 1, mask_dev)
             tick_s.append(time.perf_counter() - t_tick)
 
         harvest()
         _sync(dev)
         wall = time.perf_counter() - t0
-        # the store is server-resident: the next run (and the prefix
-        # tree's cached pages) continue from it
-        srv.page_store = cache
+        if paged:
+            # the store is server-resident: the next run (and the prefix
+            # tree's cached pages) continue from it
+            srv.page_store = cache
         compiles = stats.compiles + srv.prefill_bucketed.stats.compiles - compiles0
         m = self.metrics
         cap = max(m["capacity_row_steps"], 1)
@@ -907,8 +1039,6 @@ class SlotScheduler:
         tick_ms = np.asarray(tick_s) * 1e3
         ttfts = [r["ttft_s"] for r in results.values() if r.get("ttft_s") is not None]
         ttft_ticks = [r["ttft_ticks"] for r in results.values() if "ttft_ticks" in r]
-        ps_ = pool.stats
-        page_bytes = sum(v.numel() * v.element_size() for v in cache.values()) // pool.num_pages
         out = {
             "results": results,
             "wall_s": wall,
@@ -923,21 +1053,87 @@ class SlotScheduler:
             "ttft_p50_s": float(np.percentile(ttfts, 50)) if ttfts else 0.0,
             "ttft_p50_ticks": float(np.percentile(ttft_ticks, 50)) if ttft_ticks else 0.0,
             **m,
-            "kv_pages_in_use": pool.pages_in_use,
-            "kv_pages_capacity": pool.capacity,
-            "kv_peak_pages_in_use": ps_.peak_pages_in_use,
-            "kv_page_bytes": page_bytes,
-            "kv_bytes_resident_peak": ps_.peak_pages_in_use * page_bytes,
-            "prefix_hits": ps_.prefix_hits,
-            "prefix_misses": ps_.prefix_misses,
-            "prefix_hit_rate": ps_.prefix_hit_rate,
-            "prefill_skip_rate": ps_.prefill_skip_rate,
-            "tokens_reused": ps_.tokens_reused,
-            "pages_allocated": ps_.pages_allocated,
-            "pages_reused": ps_.pages_reused,
-            "pages_reclaimed": ps_.pages_reclaimed,
         }
+        if paged:
+            ps_ = pool.stats
+            page_bytes = (sum(v.numel() * v.element_size() for v in cache.values())
+                          // pool.num_pages)
+            out.update(
+                kv_pages_in_use=pool.pages_in_use,
+                kv_pages_capacity=pool.capacity,
+                kv_peak_pages_in_use=ps_.peak_pages_in_use,
+                kv_page_bytes=page_bytes,
+                kv_bytes_resident_peak=ps_.peak_pages_in_use * page_bytes,
+                prefix_hits=ps_.prefix_hits,
+                prefix_misses=ps_.prefix_misses,
+                prefix_hit_rate=ps_.prefix_hit_rate,
+                prefill_skip_rate=ps_.prefill_skip_rate,
+                tokens_reused=ps_.tokens_reused,
+                pages_allocated=ps_.pages_allocated,
+                pages_reused=ps_.pages_reused,
+                pages_reclaimed=ps_.pages_reclaimed,
+            )
         return out
+
+    def _admit(self, admitted: List[int], slots: List[Optional[_Slot]], cache, extent: int,
+               cur_tok: np.ndarray, cur_pos: np.ndarray):
+        """Prefill newly admitted slots through the slot-masked grid
+        (contiguous cache).
+
+        Swapped-in rows of a stateful family are reset to init state
+        first.  One ``prefill_step`` dispatch writes every admitted prompt
+        into its slot's rows at position 0, with per-row ``length`` (the
+        other rows get 1: their state is slot-gated back anyway), while
+        every other slot's rows stay bitwise untouched; the first token is
+        read from each row's last real prompt column.  When the grid does
+        not cover the longest admitted prompt, or under
+        ``prefill="sequential"``, the slots keep their ``fill`` buffers and
+        consume the prompt inside the decode loop instead.
+        """
+        srv = self.server
+        if srv.model.stateful_decode:
+            cache = self._reset_rows(cache, admitted, extent)
+        Ps = [len(slots[i].req.prompt) for i in admitted]
+        s_ext = (None if srv.prefill_policy == "sequential"
+                 else srv._seq_bucket_extent(max(Ps)))
+        if s_ext is None:
+            return cache
+        tokens = np.zeros((extent, s_ext), np.int32)
+        mask = np.zeros((extent,), bool)
+        lengths = np.ones((extent,), np.int32)
+        for i, P in zip(admitted, Ps):
+            prompt = slots[i].req.prompt
+            tokens[i, :P] = prompt
+            tokens[i, P:] = prompt[-1]  # edge pad
+            mask[i] = True
+            lengths[i] = P
+        dev = srv.device
+        pargs = srv._prefill_args(extent, torch.from_numpy(tokens).to(dev), 0,
+                                  lengths=lengths, active=mask)
+        pmod, pkey, _ = srv.prefill_bucketed.program_for(srv.params, cache, *pargs)
+        logits, cache = pmod(srv.params, cache, *pargs)
+        srv.prefill_bucketed.stats.note_dispatch(pkey, (len(admitted), max(Ps)), pkey.extents)
+        self.metrics["prefill_dispatches"] += 1
+        # gather each admitted row's last real column on the device: only
+        # their argmax crosses to the host
+        rows_t = torch.as_tensor(admitted, device=dev)
+        cols_t = torch.as_tensor([P - 1 for P in Ps], device=dev)
+        firsts = guarded_argmax(logits[rows_t, cols_t]).cpu().numpy()
+        for i, P, first in zip(admitted, Ps, firsts):
+            s = slots[i]
+            s.fill = None
+            s.pos = P
+            cur_pos[i] = P
+            if int(first) == POISON_TOKEN:
+                s.poisoned = True  # quarantined at the admission boundary
+                continue
+            s.cur_tok = int(first)
+            s.tokens.append(s.cur_tok)
+            if s.first_wall is None:
+                s.first_wall = time.perf_counter()
+            s.remaining = s.req.max_new - 1
+            cur_tok[i, 0] = s.cur_tok
+        return cache
 
     def _admit_paged(self, admitted: List[int], slots: List[Optional[_Slot]], store,
                      extent: int, cur_tok: np.ndarray, cur_pos: np.ndarray,
@@ -1077,7 +1273,8 @@ def main(argv=None) -> int:
                          "recurrent family), sequential = token-at-a-time baseline")
     ap.add_argument("--continuous", type=int, default=0, metavar="N",
                     help="serve N mixed-length requests through the slot scheduler "
-                         "(--mode forge --paged)")
+                         "(--mode forge; over the paged KV pool with --paged, else over "
+                         "the contiguous cache)")
     ap.add_argument("--max-slots", type=int, default=8,
                     help="slot-scheduler bucket cap (--continuous)")
     ap.add_argument("--paged", action="store_true",
@@ -1099,9 +1296,9 @@ def main(argv=None) -> int:
 
     if (args.paged or args.continuous) and args.mode != "forge":
         ap.error("--paged / --continuous need --mode forge")
-    if bool(args.paged) != bool(args.continuous):
-        ap.error("--paged and --continuous go together: the paged KV pool is served "
-                 "through the slot scheduler (the contiguous fronts serve groups)")
+    if args.paged and not args.continuous:
+        ap.error("--paged needs --continuous N: the paged KV pool is served through the "
+                 "slot scheduler (the contiguous fronts also serve groups)")
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.mode == "forge" and not args.paged and get_model(cfg).prefill_step is None:
         ap.error(f"--mode forge with the contiguous cache needs the family's prefill_step; "
@@ -1129,8 +1326,8 @@ def main(argv=None) -> int:
     if args.continuous:
         server = BatchedServer(cfg, params, max_len=args.max_len, mode="forge",
                                backend=args.backend, bucket_policy=args.bucket_policy,
-                               seq_bucket_policy=args.seq_bucket_policy, paged=True,
-                               kv_page_size=args.kv_page_size,
+                               seq_bucket_policy=args.seq_bucket_policy, prefill=args.prefill,
+                               paged=args.paged, kv_page_size=args.kv_page_size,
                                kv_pages=args.kv_pages or None)
         lens = sorted({max(2, args.prompt_len // (2 ** k)) for k in range(2)})
         reqs = [
@@ -1150,17 +1347,18 @@ def main(argv=None) -> int:
               f"resizes={res['resizes']} compiles_post_warmup={res['compiles']} "
               f"(warmup={warmup_s:.2f}s) device={device}")
         print(f"[serve] {sched.report()}")
-        print(f"[serve] pages: in_use={res['kv_pages_in_use']}/{res['kv_pages_capacity']} "
-              f"peak={res['kv_peak_pages_in_use']} (page={args.kv_page_size}tok) "
-              f"prefix hit_rate={res['prefix_hit_rate']:.1%} "
-              f"skip_rate={res['prefill_skip_rate']:.1%} "
-              f"tokens_reused={res['tokens_reused']} reclaimed={res['pages_reclaimed']}")
+        if args.paged:
+            print(f"[serve] pages: in_use={res['kv_pages_in_use']}/{res['kv_pages_capacity']} "
+                  f"peak={res['kv_peak_pages_in_use']} (page={args.kv_page_size}tok) "
+                  f"prefix hit_rate={res['prefix_hit_rate']:.1%} "
+                  f"skip_rate={res['prefill_skip_rate']:.1%} "
+                  f"tokens_reused={res['tokens_reused']} reclaimed={res['pages_reclaimed']}")
         bs = server.bucketed.stats
         print(f"[serve] decode programs={len(server.bucketed.programs)} "
               f"prefill programs={len(server.prefill_bucketed.programs)} "
               f"compile_s={bs.compile_s + server.prefill_bucketed.stats.compile_s:.2f} "
               f"tick p50={res['tick_ms_p50']:.1f}ms p99={res['tick_ms_p99']:.1f}ms "
-              f"kv_kernel={cfg.kv_kernel}")
+              + (f"kv_kernel={cfg.kv_kernel}" if args.paged else "cache=contiguous"))
         bad = [rid for rid, r in res["results"].items() if "error" in r]
         if bad:
             raise SystemExit(f"requests failed: {bad}")

@@ -60,9 +60,9 @@ def guarded_argmax(last_logits: torch.Tensor) -> torch.Tensor:
 
 
 #: families whose decode step takes per-row positions and slot masks —
-#: the slot-level continuous-batching contract (the port has the dense
-#: and hybrid families so far; the JAX package adds moe and ssm)
-SLOT_FAMILIES = ("dense", "hybrid")
+#: the slot-level continuous-batching contract (the port has the dense,
+#: hybrid and ssm families so far; the JAX package adds moe)
+SLOT_FAMILIES = ("dense", "hybrid", "ssm")
 
 
 def supports_slot_decode(cfg: ModelConfig) -> bool:
@@ -94,7 +94,7 @@ def supports_batched_prefill(cfg: ModelConfig) -> bool:
     """Can this family prefill a whole (B, S) prompt block in one
     dispatch?  The one predicate every serve front consults: True when
     the family exposes a ``prefill_step`` whose one-pass result
-    reproduces sequential decode (the recurrent family through the
+    reproduces sequential decode (the recurrent families through the
     chunked state scan)."""
     return get_model(cfg).prefill_step is not None
 

@@ -11,8 +11,8 @@
 * ``paged_decode_step`` / ``paged_prefill_step`` / ``init_paged_cache``
   the same against a flat page pool (continuous batching)
 
-The port carries the dense family (``transformer``) and the RG-LRU
-hybrid (``rglru``) so far.
+The port carries the dense family (``transformer``), the RG-LRU hybrid
+(``rglru``) and the xLSTM family (``ssm``: ``xlstm``) so far.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from ..configs.base import ModelConfig
-from . import attention, layers, rglru, transformer
+from . import attention, layers, rglru, transformer, xlstm
 
 
 @dataclass(frozen=True)
@@ -30,8 +30,8 @@ class ModelAPI:
     apply: Callable
     decode_step: Callable
     #: whole-prompt batched prefill — (params, cache, tokens(B,S), pos)
-    #: -> ((B,S,V) logits, cache); the recurrent family folds the chunk
-    #: into state through the RG-LRU scan (see prefill_takes_length).
+    #: -> ((B,S,V) logits, cache); the recurrent families fold the chunk
+    #: into state through a scan (see prefill_takes_length).
     #: None for the dense decoder so far (transformer.prefill_step comes
     #: in a later slice of the port)
     prefill_step: Optional[Callable]
@@ -59,9 +59,11 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         m = transformer
     elif cfg.family == "hybrid":
         m = rglru
+    elif cfg.family == "ssm":
+        m = xlstm
     else:
-        raise NotImplementedError(f"family {cfg.family!r}: the port carries the dense "
-                                  f"and hybrid families so far")
+        raise NotImplementedError(f"family {cfg.family!r}: the port carries the dense, "
+                                  f"hybrid and ssm families so far")
     # a family module owns the knowledge of when a whole-block prefill
     # pass reproduces sequential decode; the registry stays family-agnostic
     prefill = getattr(m, "prefill_step", None)
@@ -88,4 +90,4 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     )
 
 
-__all__ = ["ModelAPI", "get_model", "attention", "layers", "rglru", "transformer"]
+__all__ = ["ModelAPI", "get_model", "attention", "layers", "rglru", "transformer", "xlstm"]

@@ -260,6 +260,21 @@ def window_writeback_index(pos: torch.Tensor, length: torch.Tensor, sq: int,
     return torch.clamp(idx, 0, sq - 1), idx >= 0
 
 
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv over time.  x: (B, T, D); w: (W, D);
+    ``state``: (B, W-1, D) trailing inputs from before ``x`` (zeros when
+    None).  The W taps accumulate in x's dtype, in tap order."""
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(W):
+        out = out + xp[:, i:i + x.shape[1]] * w[i].to(x.dtype)
+    return out
+
+
 def gather_last_valid(x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """Per-row element at time index ``length - 1``: (B, S, ...) -> (B, ...).
 

@@ -94,21 +94,6 @@ def rec_block_init(generator: Optional[torch.Generator], cfg: ModelConfig,
     }
 
 
-def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
-                   state: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Depthwise causal conv over time.  x: (B, T, D); w: (W, D)."""
-    W = w.shape[0]
-    if state is None:
-        pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-    else:
-        pad = state  # (B, W-1, D): trailing inputs from the previous step
-    xp = torch.cat([pad, x], dim=1)
-    out = torch.zeros_like(x)
-    for i in range(W):
-        out = out + xp[:, i:i + x.shape[1]] * w[i].to(x.dtype)
-    return out
-
-
 def _decay(p: Params, r: torch.Tensor, c: float = 8.0) -> torch.Tensor:
     log_a = -c * F.softplus(p["lam"].float()) * r.float()
     return torch.exp(log_a)
@@ -123,7 +108,7 @@ def rec_block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     impl: Optional[str] = None) -> torch.Tensor:
     h = L.apply_norm(x, p["norm"], cfg.norm)
     xt = L.linear(h, p["wx"])
-    xt = _causal_conv1d(xt, p["conv"])
+    xt = L.causal_conv1d(xt, p["conv"])
     i = torch.sigmoid(L.linear(h, p["wi"]))
     r = torch.sigmoid(L.linear(h, p["wr"]))
     a = _decay(p, r)
@@ -140,7 +125,7 @@ def rec_block_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     h = L.apply_norm(x, p["norm"], cfg.norm)  # (B, 1, d)
     xt = L.linear(h, p["wx"])  # (B, 1, lru)
     conv_state = state["conv"]  # (B, W-1, lru)
-    xt_conv = _causal_conv1d(xt, p["conv"], state=conv_state)
+    xt_conv = L.causal_conv1d(xt, p["conv"], state=conv_state)
     new_conv = torch.cat([conv_state, xt], dim=1)[:, 1:]
     i = torch.sigmoid(L.linear(h, p["wi"]))
     r = torch.sigmoid(L.linear(h, p["wr"]))
@@ -167,7 +152,7 @@ def rec_block_prefill(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
     """
     h = L.apply_norm(x, p["norm"], cfg.norm)
     xt = L.linear(h, p["wx"])  # (B, S, lru) — raw conv inputs
-    xt_conv = _causal_conv1d(xt, p["conv"], state=state["conv"])
+    xt_conv = L.causal_conv1d(xt, p["conv"], state=state["conv"])
     new_conv = L.conv_state_slice(state["conv"], xt, length)
     i = torch.sigmoid(L.linear(h, p["wi"]))
     r = torch.sigmoid(L.linear(h, p["wr"]))

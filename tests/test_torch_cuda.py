@@ -1,5 +1,5 @@
 """The port on the card: CUDA kernels against their plain versions, and
-the smoke models, servers and paged slot scheduler going through them.
+the smoke models, servers and slot schedulers going through them.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so it runs on a machine that has only the port's
@@ -17,6 +17,7 @@ from repro_torch.kernels import fused_linear as FL
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import rg_lru as RG
+from repro_torch.kernels import rms_norm as RN
 from repro_torch.launch.serve import BatchedServer, Request, SlotScheduler
 from repro_torch.models import get_model
 
@@ -315,3 +316,90 @@ def test_rglru_server_on_card_matches_plain_path(cuda_device):
     logits = m.apply(p, toks, cfg)
     assert RG.LAUNCHES.n == n_rec
     torch.testing.assert_close(logits, m.apply(p, toks, cfg, impl="ref"), **TOL_F32)
+
+
+#: (rows, d): xLSTM's decode block norm, the B4 x S32 prefill block norm,
+#: norm_h at B4 x H4 x S32, apply at B2 x S1024, ragged widths and a row
+#: longer than the registers hold
+RMS_SHAPES = [(4, 1024), (128, 1024), (512, 512), (2048, 1024), (3, 1000), (5, 37),
+              (2, 20000)]
+
+
+@pytest.mark.cuda
+class TestRmsNormOnCard:
+    """The RMSNorm kernel against its plain version: f32 rtol 2e-4 / atol
+    2e-5, bf16 3e-2."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("rows,d", RMS_SHAPES)
+    def test_rms_norm(self, cuda_device, dtype, rows, d):
+        g = torch.Generator(device=cuda_device).manual_seed(rows + d)
+        x = (torch.randn(rows, d, generator=g, device=cuda_device) * 2).to(dtype)
+        w = torch.rand(d, generator=g, device=cuda_device) + 0.5
+        got = RN.rms_norm_cuda(x, w, 1e-6)
+        assert got.dtype == dtype and got.shape == x.shape
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        torch.testing.assert_close(got.float(), RN.rms_norm_plain(x, w).float(), **tol)
+
+    def test_misaligned_rows_take_the_scalar_path(self, cuda_device):
+        flat = torch.randn(4 * 64 + 1, device=cuda_device)
+        x = flat[1:].view(4, 64)  # 4 bytes past a 16-byte boundary
+        w = torch.rand(64, device=cuda_device)
+        torch.testing.assert_close(RN.rms_norm_cuda(x, w), RN.rms_norm_plain(x, w), **TOL_F32)
+
+    def test_dispatch_launches_kernel(self, cuda_device):
+        x = torch.randn(2, 3, 48, device=cuda_device)
+        w = torch.rand(48, device=cuda_device)
+        RN.LAUNCHES.reset()
+        got = ops.rms_norm(x.transpose(0, 1), w, eps=1e-5)
+        ops.rms_norm(x, w, impl="ref")
+        assert RN.LAUNCHES.n == 1 and got.shape == (3, 2, 48)
+        torch.testing.assert_close(got, RN.rms_norm_plain(x.transpose(0, 1), w, 1e-5),
+                                   **TOL_F32)
+
+    def test_bad_operands_raise(self, cuda_device):
+        x = torch.randn(4, 8, device=cuda_device)
+        with pytest.raises(ValueError):
+            RN.rms_norm_cuda(x.t(), torch.ones(4, device=cuda_device))  # not contiguous
+        with pytest.raises(ValueError):
+            RN.rms_norm_cuda(x.half(), torch.ones(8, device=cuda_device))
+        with pytest.raises(ValueError):
+            RN.rms_norm_cuda(x, torch.ones(7, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_xlstm_server_on_card_matches_plain_path(cuda_device):
+    """The xlstm smoke server (f32) through the contiguous forge fronts and
+    the contiguous slot scheduler on the card: tokens equal the
+    impl="ref" servers'; fused linear launched, nothing compiled after
+    warmup; ``apply``'s Forge bodies match the plain path."""
+    cfg = get_config("xlstm-350m", smoke=True).with_(dtype="float32")
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 6)).astype(np.int32)
+    srv = BatchedServer(cfg, p, max_len=32, mode="forge")
+    srv.warmup([3], [6])
+    FL.LAUNCHES.reset()
+    RN.LAUNCHES.reset()
+    got = srv.generate(prompts, 5)
+    assert got["prefill_mode"] == "chunked" and got["compile_s"] == 0.0
+    assert FL.LAUNCHES.n > 0 and RN.LAUNCHES.n == 0  # the norms are plain, as in JAX
+    ref = BatchedServer(cfg, p, max_len=32, mode="forge", impl="ref")
+    FL.LAUNCHES.reset()
+    want = ref.generate(prompts, 5)
+    assert FL.LAUNCHES.n == 0
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+
+    def reqs():
+        rng = np.random.default_rng(1)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, (3 + 2 * i,)).astype(np.int32),
+                        max_new=2 + i % 3, arrival=i // 2) for i in range(5)]
+
+    res = SlotScheduler(srv, max_slots=2).run(reqs())
+    res_ref = SlotScheduler(ref, max_slots=2).run(reqs())
+    assert res["swaps"] >= 1 and res["prefill_dispatches"] >= 2
+    for rid, r in res_ref["results"].items():
+        np.testing.assert_array_equal(res["results"][rid]["tokens"], r["tokens"])
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda_device)
+    torch.testing.assert_close(m.apply(p, toks, cfg), m.apply(p, toks, cfg, impl="ref"),
+                               **TOL_F32)

@@ -10,8 +10,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Device and build: the card's name and power limit, then the five
    CUDA kernels built with nvcc for sm_90a from
-   ``src/repro_torch/kernels/csrc``, one nvcc per source, all started
-   together.
+   ``src/repro_torch/kernels/csrc`` (the Hopper primitives of
+   ``hopper.cuh`` included), one nvcc per source, all started together;
+   ptxas's registers and spills per kernel.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (fused linear at M = 1 to 4096 rows and
    recurrentgemma-2b's and xlstm-350m's widths; the RG-LRU scan at the
@@ -21,15 +22,21 @@ Phases (any failure raises and the script exits non-zero):
    the JAX package's kernel tolerances; bf16 flash attention also within
    a bound from bf16 rounding, on inputs whose softmax is peaky;
    whole-model bf16 logits 6e-2), with its time, the plain version's
-   time, one PyTorch library call's time and the card's bound.
+   time, one PyTorch library call's time and the card's bound.  The
+   fused-linear plans of every served shape take ``gemv`` (M <= 16) or
+   ``wgmma`` in bf16, with the shared memory the entry point uses; flash
+   also at one query row and at more query rows than keys (rows that see
+   no key write 0).
 3. Serve forge-125m at full width (12 layers, d 768, vocab 50257, bf16,
    random weights from seed 0) with the serve CLI's defaults through
    ``BatchedServer(mode="eager")``: Forge-compiled block bodies, 36
    fused-linear launches per decode step; the prefilled caches and the
    first generated step's logits and greedy tokens against the same
-   server with ``impl="ref"``.
+   server with ``impl="ref"``; a second generation's greedy tokens
+   bitwise equal to the first's.
 4. The full-sequence forward ``apply`` at B=4, S=1024: 12 flash-attention
-   and 36 fused-linear launches, logits against the plain path.
+   and 36 fused-linear launches, logits against the plain path; the
+   device time of one call, in all and for the two kernels.
 5. Paged continuous batching at full width: ``SlotScheduler`` over
    ``BatchedServer(mode="forge", paged=True)`` with the paged-attention
    kernel (``kv_kernel="pallas"``), 12 requests with a shared prefix; the
@@ -49,7 +56,7 @@ Phases (any failure raises and the script exits non-zero):
    the chunked state-scan prefill (one dispatch: 18 RG-LRU launches) and
    again with ``prefill="sequential"`` on the same decode program (no
    RG-LRU launch); the full-sequence ``apply`` at B=2, S=1024 through
-   the Forge bodies (18 launches).  Launch counts exact, no compile after
+   the Forge bodies (18 launches) and its device time.  Launch counts exact, no compile after
    warmup; a continuation prefill (pos 32, ragged lengths) on copies of
    a served cache and ``apply`` against ``impl="ref"`` (relative L2
    within 0.1: elementwise bf16 bounds do not hold at this depth, see
@@ -82,11 +89,15 @@ random non-contiguous page tables with positions at -1 and page edges:
 forge-125m's shapes (B 1/2/4, 12 heads, D 64, page 16, 16 pages a row,
 129 pages), GQA 12/4, a window, and head dims 16, 32 and 128.
 
-Each path's launch counts are zeroed just before it and read just after.
+Each path's launch counts are zeroed just before it and read just after,
+in all and, for fused linear and flash, by the kernel variant taken:
+every bf16 fused-linear launch of phases 3-7 must be ``gemv`` or
+``wgmma`` and every flash launch (phase 4's 12) the warpgroup kernel
+``wgmma``, never a ``wmma`` kernel kept for operands TMA cannot take.
 The RMSNorm kernel is on no path (the JAX package's models normalise
 through the plain version too): its row reports 0 launches.
 The line before the last is one JSON object with a row per kernel (its
-launches and times also split by path); the last line is
+launches, by variant too, and times also split by path); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -290,6 +301,24 @@ def phase_fused_linear(dev, timer):
     from repro_torch.kernels import fused_linear as FL
 
     g = torch.Generator(device=dev).manual_seed(1)
+    # the served shapes' plans: bf16 takes gemv at decode rows and wgmma
+    # above; the shared memory the Python plan counts is what the entry
+    # point launches with
+    lib = FL._lib()
+    served = ([(M, K, N) for M in FL_ROWS for K, N in ((768, 3072), (3072, 768), (768, 768))]
+              + [(M, K, N) for M in RG_FL_ROWS for K, N, _ in RG_LINEARS]
+              + [(M, K, N) for M in XL_FL_ROWS for K, N, _ in XL_LINEARS])
+    for M, K, N in served:
+        for dtype in (torch.float32, torch.bfloat16):
+            p = FL.plan(M, N, K, dtype, True)
+            want = ("gemv" if M <= FL.GEMV_MAX_M else "wgmma") if dtype == torch.bfloat16 else p[0]
+            c_smem = lib.forge_fused_linear_smem(FL.DTYPE_CODES[dtype], FL.VARIANT_CODES[p[0]],
+                                                 *p[1:4])
+            check(p[0] == want and FL.smem_bytes(p, dtype) == c_smem,
+                  f"plan {p} of M={M} K={K} N={N} {dtype}: want {want}, shared memory "
+                  f"{FL.smem_bytes(p, dtype)} (Python) vs {c_smem} (entry point)")
+    log(f"fused_linear: the plans of {len(served)} served shapes take gemv / wgmma in bf16; "
+        f"shared memory per CTA agrees with the entry point")
     n_checks = 0
     for dtype in (torch.float32, torch.bfloat16):
         for M in FL_ROWS:
@@ -510,6 +539,26 @@ def phase_flash(dev, timer):
         assert_close(got, want, dtype, what)
         if dtype == torch.bfloat16:
             worst = max(worst, assert_flash_rounding(got, want, q, k, v, scale, causal, what))
+    # one query row; more query rows than keys, causal: rows that see no
+    # key write 0 exactly, the others match the plain version
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(g, dev, dtype, 4, 12, 4, 1, 256)
+        got = FA.flash_attention_cuda(q, k, v, scale=0.125, causal=True)
+        want = FA.flash_attention_plain(q, k, v, scale=0.125, causal=True)
+        assert_close(got, want, dtype, f"flash {dtype} Sq=1 Sk=256")
+        if dtype == torch.bfloat16:
+            worst = max(worst, assert_flash_rounding(got, want, q, k, v, 0.125, True,
+                                                     "flash Sq=1 Sk=256"))
+        q, k, v = flash_inputs(g, dev, dtype, 2, 12, 12, 300, 100)
+        got = FA.flash_attention_cuda(q, k, v, scale=0.125, causal=True)
+        want = FA.flash_attention_plain(q, k, v, scale=0.125, causal=True)
+        check(bool((got[:, :, :200] == 0).all()), f"flash {dtype} Sq=300 Sk=100: a row "
+              "that sees no key is not 0")
+        assert_close(got[:, :, 200:], want[:, :, 200:], dtype, f"flash {dtype} Sq=300 Sk=100")
+        if dtype == torch.bfloat16:
+            worst = max(worst, assert_flash_rounding(
+                got[:, :, 200:], want[:, :, 200:], q[:, :, 200:], k, v, 0.125, True,
+                "flash Sq=300 Sk=100"))
     # a strided (transposed-view) input, as the model hands over v
     x = (torch.randn(4, 256, 12, 64, generator=g, device=dev) * QK_STD).to(torch.bfloat16)
     qs = x.transpose(1, 2)
@@ -519,7 +568,7 @@ def phase_flash(dev, timer):
     worst = max(worst, assert_flash_rounding(got, want, qs, qs, qs, 0.125, True,
                                              "flash strided views"))
     torch.cuda.synchronize()
-    log(f"flash_attention: {len(cases) + 1} cases within tolerance of the plain version "
+    log(f"flash_attention: {len(cases) + 5} cases within tolerance of the plain version "
         f"(inputs q, k std {QK_STD}, v std 1; bf16: worst error / rounding bound "
         f"{worst:.3e}, limit 1)")
 
@@ -801,6 +850,14 @@ def phase_main_path(dev):
             f"{s.n_segments} segments, vregs {s.n_vregs} -> buffers {s.n_buffers}, "
             f"Phases 1-4 {r.total_ms:.0f} ms (capture {r.capture_ms:.0f} ms)")
 
+    log_device_time(lambda: model.apply(params, tokens, cfg), f"apply B={Ba} S={S}")
+
+    # a second generation on the same server: greedy tokens bitwise equal
+    # (the split-K sums run in a fixed order, with no atomics)
+    again = server.generate(prompts, n_new)["tokens"]
+    check(np.array_equal(again, res["tokens"]), "two runs of the server gave other tokens")
+    log(f"a second generation gave the same {again.size} greedy tokens")
+
     # comparisons with the plain path (their launches do not count)
     compare_served_step(model, cfg, server, prompts, BatchedServer)
     with torch.no_grad():
@@ -831,9 +888,37 @@ def kernel_modules():
             "rms_norm": RN}
 
 
+class Counts(dict):
+    """Every kernel's launches (the dict), and in ``variants`` the
+    fused-linear and flash launches by the kernel variant they took."""
+
+    def __init__(self, launches, variants):
+        super().__init__(launches)
+        self.variants = variants
+
+
 def counts():
     """Every kernel's launches since the last :func:`reset_counts`."""
-    return {name: mod.LAUNCHES.n for name, mod in kernel_modules().items()}
+    mods = kernel_modules()
+    return Counts({name: mod.LAUNCHES.n for name, mod in mods.items()},
+                  {name: dict(mods[name].LAUNCHES.variants)
+                   for name in ("fused_linear", "flash_attention")})
+
+
+def check_variants(launches):
+    """Every bf16 fused-linear launch of the served paths took ``gemv``
+    (decode rows) or ``wgmma``, never the ``wmma`` kernel kept for
+    operands TMA cannot take; every flash launch took the warpgroup
+    kernel (``wgmma``)."""
+    for path, n in launches.items():
+        fl, fa = n.variants["fused_linear"], n.variants["flash_attention"]
+        check(sum(fl.values()) == n["fused_linear"] and set(fl) <= {"gemv", "wgmma"},
+              f"{path}: fused_linear launches by variant {fl} (of {n['fused_linear']})")
+        check(sum(fa.values()) == n["flash_attention"] and set(fa) <= {"wgmma"},
+              f"{path}: flash launches by variant {fa} (of {n['flash_attention']})")
+        log(f"variants on {path}: fused_linear {fl}, flash_attention {fa}")
+    check(launches["apply"].variants["flash_attention"] == {"wgmma": 12},
+          f"apply: flash launches by variant {launches['apply'].variants['flash_attention']}")
 
 
 def reset_counts():
@@ -1279,6 +1364,8 @@ def phase_rglru(dev):
         f"{applied['fused_linear']}, flash {applied['flash_attention']}; first call "
         f"{apply_first_s:.1f} s (compile included), steady call {apply_ms:.1f} ms host wall")
 
+    log_device_time(lambda: model.apply(params, tokens, cfg), f"apply B={Ba} S={S}")
+
     # comparisons with the plain path (their launches do not count)
     check_contiguous_prefill(model, cfg, params, server, dev)
     compare_greedy_tokens(model, cfg, params, prompts, res["tokens"], dev)
@@ -1675,6 +1762,28 @@ def phase_xlstm(dev):
             "xlstm_apply": applied}
 
 
+def log_device_time(fn, what):
+    """Device time of one call's kernels under the profiler, in all and
+    for the fused-linear and flash kernels (the names they launch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    if total <= 0:
+        log(f"{what} device time: not measured (the profiler recorded no device time)")
+        return
+
+    def part(tag):
+        return sum(e.self_device_time_total for e in events if tag in e.key) / 1e3
+
+    log(f"{what} device time {total:.3f} ms: fused_linear kernels {part('fused_linear'):.3f} ms, "
+        f"flash kernels {part('flash_'):.3f} ms")
+
+
 def busy_share(dev, server, prompts, steps=8, floor_ms=None):
     """Device busy share of steady decode steps: kernel time summed by
     ``torch.profiler`` over the host wall of the same steps."""
@@ -1744,6 +1853,7 @@ def main():
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
+    check_variants(launches)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
 
     def timing(t):
@@ -1763,7 +1873,15 @@ def main():
                "replaces": replaces, "launches": sum(n.values())}
         check(out["launches"] > 0 or not on_path, f"{name} launched on no path")
         out.update(timing(per_path[head]))
+        by_path = {path: launches[path].variants.get(name) for path in launches}
+        if any(v is not None for v in by_path.values()):
+            out["variants"] = {}
+            for v in by_path.values():
+                for k, c in v.items():
+                    out["variants"][k] = out["variants"].get(k, 0) + c
         out["per_path"] = {path: dict({"launches": n[path]},
+                                      **({"variants": by_path[path]}
+                                         if by_path[path] is not None else {}),
                                       **(timing(per_path[path]) if path in per_path else {}))
                            for path in n}
         return out

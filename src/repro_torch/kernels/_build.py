@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -96,13 +96,22 @@ def load(name: str) -> ctypes.CDLL:
 
 class LaunchCount:
     """Plain launch counter of one kernel wrapper: ``n`` grows by one
-    where the wrapper launches its kernel, and nowhere else."""
+    where the wrapper launches its kernel, and nowhere else;
+    ``variants`` counts the same launches by the kernel variant taken,
+    for wrappers that choose one."""
 
     def __init__(self) -> None:
         self.n = 0
+        self.variants: Dict[str, int] = {}
+
+    def count(self, variant: Optional[str] = None) -> None:
+        self.n += 1
+        if variant is not None:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
 
     def reset(self) -> None:
         self.n = 0
+        self.variants = {}
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -11,9 +11,9 @@
 // key skipped; GQA by index (query head h reads KV head h / groups, the
 // K/V heads are never expanded); the scale multiplies or divides the
 // scores; a row that saw no key at all writes 0.  Masked scores are
-// -inf here (the Pallas kernel uses the float32 minimum), and the update
-// is skipped while a row's running max is still -inf, so a fully masked
-// row keeps l == 0 and writes 0 exactly.
+// -inf here (the Pallas kernel uses the float32 minimum), and while a
+// row's running max is still -inf its probabilities are 0, so a fully
+// masked row keeps l == 0 and writes 0 exactly.
 //
 // What bounds it on the H100.  At the full-sequence shapes
 // (B=4, H=12, S=1024, D=64, causal) it does 4*B*H*D*S*(S+1)/2 = 6.4e9
@@ -21,35 +21,55 @@
 // about 256 operations per byte, just under the ~295 where the tensor
 // cores take over, so by that count the bytes bound it (7.5 us against
 // 6.5 us for the operations) and both limits are near.  Either way the
-// (Sq, Sk) score matrix must never reach device memory.
+// (Sq, Sk) score matrix must never reach device memory, and the two
+// products must run on the tensor cores at their wgmma rate.
 //
 // What the design does about that.  The Pallas grid's sequential KV
 // axis becomes a loop inside each block that streams K and V tiles
-// through shared memory, so the scores stay on the SM.  Two kernels:
+// through shared memory, so the scores stay on the SM.  The plan
+// (kernels/flash_attention.py `variant`) picks one of three kernels:
 //
-// * bf16 (the model's path): tensor cores through WMMA (mma.sync).  One
-//   block of four warps per (b*h, 64-row query tile), each warp 16 query
-//   rows, 64-key K/V tiles.  Q·Kᵀ lands in a per-warp shared-memory
-//   score tile where lane pairs run the online softmax of their row and
-//   round P to bf16 (as the reference casts P to V's dtype); the output
-//   accumulator is staged through the same tile to be rescaled by each
-//   row's correction before P·V accumulates into it.
-// * f32: fp32 FMAs (tensor cores would round f32 to TF32).  One thread
-//   per query row: its q row, its output accumulators and its running
-//   max and sum stay in registers; the row's scores of the current
-//   32-key tile sit in a shared-memory column of its own.  No
+// * wgmma (bf16 views TMA can take: 16-byte-aligned bases and strides,
+//   the model's transposed projections included).  One CTA per (b*h,
+//   128-row query tile), the causally longest tiles first: a producer
+//   warp loads Q once and 128-key K and V tiles into a three-stage ring
+//   with 4-D TMA over the strided view (the row bytes, 2D, are also the
+//   swizzle span); two consumer warpgroups of 64 rows each run S = Q K^T
+//   as m64n128k16 wgmma from shared memory (Q and K K-major), keep S in
+//   registers, run the online softmax there (row max and sum in four
+//   independent partials, then over the quad of lanes that shares a row;
+//   exp2 with scale*log2(e) folded in; masks on edge tiles only), round P
+//   to bf16 in registers as the reference casts P to V's dtype, and run
+//   O += P V as m64nDk16 wgmma with P as the register A operand and V
+//   read MN-major through the transpose bit.  The next tile's Q K^T is
+//   issued before this tile's softmax, so the tensor cores work while the
+//   softmax runs.  The O accumulator is rescaled in registers: S, P and O
+//   never go through shared memory.  (A view TMA cannot take, a base or
+//   stride off 16 bytes, could not take 16-byte cp.async copies either,
+//   so no cp.async loader sits beside the TMA one.)
+// * wmma (bf16 views TMA cannot take).  Four warps of 16 query rows per
+//   64-row block on mma.sync (WMMA 16x16x16); Q·K^T, the probabilities
+//   and the rescaled output accumulator are staged through shared
+//   memory, and K/V loads are synchronous.  No served call reaches it.
+// * fma (f32): fp32 FMAs (tensor cores would round f32 to TF32).  One
+//   thread per query row: its q row, its output accumulators and its
+//   running max and sum stay in registers; the row's scores of the
+//   current 32-key tile sit in a shared-memory column of its own.  No
 //   cross-thread reduction is needed, and every shared-memory read of a
 //   K or V element is a warp broadcast.  The key loops stay rolled (two
 //   keys per iteration), which keeps the build to seconds.
 //
 // Inputs may be strided views (the model hands over transposed
-// projections) as long as the head dimension is contiguous.
+// projections) as long as the head dimension is contiguous.  Measured
+// (chip_smoke.py phase 2: H100 80GB HBM3 at 700 W, device time with the L2
+// flushed): at B=4, H=12, S=1024, D=64, causal, bf16 the wgmma kernel takes
+// 0.0512 ms against 0.0288 ms for F.scaled_dot_product_attention (the
+// WMMA kernel it replaced: 0.1906-0.1948); more in PERF.md §6.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -146,7 +166,7 @@ __global__ void __launch_bounds__(BQ)
   }
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------------
+// ---- bf16 views TMA cannot take: WMMA (mma.sync) -------------------------------
 
 constexpr int TQ = 64, TKV = 64;  // query rows (4 warps x 16) and keys per tile
 
@@ -313,65 +333,339 @@ void launch_wmma(const void* q, const void* k, const void* v, void* o, Strides s
       so, H, KVH, Sq, Sk, scale, scale_div, causal, vec);
 }
 
-// ---- dispatch -------------------------------------------------------------
+// ---- bf16 on the tensor cores through wgmma ------------------------------------
 
-template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o, Strides sq,
-            Strides sk, Strides sv, Strides so, int B, int H, int KVH, int Sq,
-            int Sk, float scale, int scale_div, int causal,
-            cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    launch_wmma<D>(q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, scale, scale_div, causal,
-                   stream);
+constexpr int FW_Q = 128;        // query rows per CTA: two consumer warpgroups of 64
+constexpr int FW_KV = 128;       // keys per K / V tile
+constexpr int FW_STAGES = 3;     // K / V ring depth: tile t + 1 is read while t is in use
+constexpr int FW_THREADS = 384;  // two consumer warpgroups and the producer's
+constexpr int RED = 4;           // independent partial maxima / sums a row
+
+// 1024 bytes of slack to align the tiles for their swizzle, Q, the ring
+// of K and V tiles, and the barriers (Q, then full K, full V and empty
+// per stage)
+__host__ __device__ constexpr int fw_smem_bytes(int d) {
+  return 1024 + FW_Q * d * 2 + 2 * FW_STAGES * FW_KV * d * 2 + (1 + 3 * FW_STAGES) * 8;
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T of one K tile into sacc (64 x 128 per warpgroup), committed
+// and left running: the caller waits (the first k-step overwrites sacc)
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sacc)[FW_KV / 2], uint64_t dq, uint64_t dk) {
+  using namespace hopper;
+  fence_regs(sacc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n128<0>(sacc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), kk > 0);
+  wgmma_commit();
+}
+
+// grid (B * H, ceil(Sq / 128)); each row of a tile is D bf16 = 2D bytes,
+// which is also the tile's swizzle span (32, 64 or 128 bytes)
+template <int D>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       Strides so, int H, int KVH, int Sq, int Sk, float scale_log2,
+                       int causal) {
+  using namespace hopper;
+  constexpr int SW = 2 * D;
+  constexpr int Q_BYTES = FW_Q * SW, KV_BYTES = FW_KV * SW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = qs + Q_BYTES;
+  uint8_t* vs = ks + FW_STAGES * KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + FW_STAGES * KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + FW_STAGES;
+  uint64_t* empty = v_full + FW_STAGES;
+
+  // blocks start in launch order: every head's causally longest query
+  // tile first, the shortest last, so the long ones do not trail
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KVH);
+  const int q0 = qt * FW_Q, off = Sk - Sq;
+  // causal tile skip: the CTA's last row sees keys <= q0 + 127 + off
+  const int kv_end = causal ? max(0, min(Sk, q0 + FW_Q + off)) : Sk;
+  const int n_tiles = (kv_end + FW_KV - 1) / FW_KV;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: Q once, then K and V tiles through the ring
+    setmaxnreg_dec<40>();
+    if (warp == 0 && lane == 0) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      tma_load_4d(qs, &tq, q_full, 0, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % FW_STAGES;
+        mbar_wait(&empty[s], ((t / FW_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&k_full[s], KV_BYTES);
+        tma_load_4d(ks + s * KV_BYTES, &tk, &k_full[s], 0, t * FW_KV, kvh, b);
+        mbar_expect_tx(&v_full[s], KV_BYTES);
+        tma_load_4d(vs + s * KV_BYTES, &tv, &v_full[s], 0, t * FW_KV, kvh, b);
+      }
+    }
   } else {
-    dim3 grid((Sq + BQ - 1) / BQ, B * H);
-    flash_kernel<T, D><<<grid, BQ, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), sq, sk, sv, so, H, KVH, Sq, Sk, scale, scale_div, causal);
+    setmaxnreg_inc<232>();
+    const int wrow = q0 + 64 * wg;                    // this warpgroup's first row
+    const int row0 = wrow + 16 * warp + lane / 4;     // this thread's rows: row0, row0 + 8
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+    // Q and K tiles: K-major operands (D contiguous); V: MN-major (D is N)
+    const uint64_t dq = make_desc(qs + 64 * wg * SW, 16, 8 * SW, SW);
+    auto k_desc = [&](int t) { return make_desc(ks + (t % FW_STAGES) * KV_BYTES, 16, 8 * SW, SW); };
+
+    float sacc[FW_KV / 2], snext[FW_KV / 2];
+    if (n_tiles > 0) {
+      mbar_wait(q_full, 0);
+      mbar_wait(&k_full[0], 0);
+      issue_qk<D>(sacc, dq, k_desc(0));
+      wgmma_wait<0>();
+      fence_regs(sacc);
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % FW_STAGES;
+      const uint32_t ph = (t / FW_STAGES) & 1;
+      const int k0 = t * FW_KV;
+      // the next tile's scores run on the tensor cores during this softmax
+      const bool more = t + 1 < n_tiles;
+      if (more) {
+        mbar_wait(&k_full[(t + 1) % FW_STAGES], ((t + 1) / FW_STAGES) & 1);
+        issue_qk<D>(snext, dq, k_desc(t + 1));
+      }
+
+      // online softmax on the registers, in the log2 domain; keys past Sk
+      // and, on the diagonal, past a row's last visible key are -inf
+      // (row maxima and sums in RED independent partials: a single running
+      // value would chain 32 dependent operations a row)
+      const bool edge = k0 + FW_KV > Sk || (causal && k0 + FW_KV - 1 > wrow + off);
+      float mxp[2][RED];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int r = 0; r < RED; ++r) mxp[i][r] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < FW_KV / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = sacc[4 * j + 2 * i + e] * scale_log2;
+            if (edge) {
+              const int key = k0 + 8 * j + 2 * (lane % 4) + e;
+              if (key >= Sk || (causal && key > row0 + 8 * i + off)) v = -INFINITY;
+            }
+            sacc[4 * j + 2 * i + e] = v;
+            mxp[i][j % RED] = fmaxf(mxp[i][j % RED], v);
+          }
+        }
+      }
+      float mx[2], alpha[2], base[2], ls[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // the four lanes of a quad share a row
+        mx[i] = mxp[i][0];
+#pragma unroll
+        for (int r = 1; r < RED; ++r) mx[i] = fmaxf(mx[i], mxp[i][r]);
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[i], mx[i]);
+        base[i] = m_new == -INFINITY ? 0.0f : m_new;  // nothing visible yet: p = 0
+        alpha[i] = ex2(m_run[i] - base[i]);             // 0 while m_run is -inf
+        m_run[i] = m_new;
+      }
+      float lsp[2][RED];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int r = 0; r < RED; ++r) lsp[i][r] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < FW_KV / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(sacc[4 * j + 2 * i + e] - base[i]);
+            sacc[4 * j + 2 * i + e] = p;
+            lsp[i][j % RED] += p;
+          }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ls[i] = lsp[i][0];
+#pragma unroll
+        for (int r = 1; r < RED; ++r) ls[i] += lsp[i][r];
+        ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 1);
+        ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 2);
+        l_run[i] = l_run[i] * alpha[i] + ls[i];
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          oacc[4 * j + 2 * i] *= alpha[i];
+          oacc[4 * j + 2 * i + 1] *= alpha[i];
+        }
+      // P in bf16 (the reference casts P to V's dtype) as wgmma's register
+      // A operand: the accumulator layout taken 16 columns at a time
+      uint32_t pa[FW_KV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < FW_KV / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+
+      // O += P V
+      mbar_wait(&v_full[s], ph);
+      const uint64_t dv = make_desc(vs + s * KV_BYTES, KV_BYTES, 8 * SW, SW);
+      fence_regs(oacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FW_KV / 16; ++kk) {
+        if constexpr (D == 64) {
+          wgmma_rs_n64<1>(oacc, pa[kk], desc_add(dv, 16 * SW * kk), 1);
+        } else if constexpr (D == 32) {
+          wgmma_rs_n32<1>(oacc, pa[kk], desc_add(dv, 16 * SW * kk), 1);
+        } else {
+          wgmma_rs_n16<1>(oacc, pa[kk], desc_add(dv, 16 * SW * kk), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();  // P V and the next tile's scores are done
+      fence_regs(oacc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+      if (more) {
+        fence_regs(snext);
+#pragma unroll
+        for (int i = 0; i < FW_KV / 2; ++i) sacc[i] = snext[i];
+      }
+    }
+
+    __nv_bfloat16* op = o + b * so.b + h * so.h;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (r >= Sq) continue;
+      const float inv = l_run[i] > 0.0f ? 1.0f / l_run[i] : 0.0f;  // fully masked row -> 0
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + r * so.s + 8 * j + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * i] * inv, oacc[4 * j + 2 * i + 1] * inv);
+    }
   }
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, Strides sq,
-             Strides sk, Strides sv, Strides so, int B, int H, int KVH, int Sq,
-             int Sk, int D, float scale, int scale_div, int causal,
-             cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      launch<T, 16>(q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, scale, scale_div, causal, stream);
-      return 0;
-    case 32:
-      launch<T, 32>(q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, scale, scale_div, causal, stream);
-      return 0;
-    case 64:
-      launch<T, 64>(q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, scale, scale_div, causal, stream);
-      return 0;
-    default:
-      return (int)cudaErrorInvalidValue;
+// TMA over the (B, heads, S, D) view, innermost first: dims (D, S, heads,
+// B); a dimension of size 1 is never stepped, so its stride is free
+template <int D>
+bool encode_view(CUtensorMap* map, const void* base, Strides st, int B, int heads, int S,
+                 int rows) {
+  auto bytes = [](long long stride, int size) -> uint64_t {
+    return size == 1 ? 16 : (uint64_t)stride * 2;
+  };
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)S, (uint64_t)heads, (uint64_t)B};
+  const uint64_t strides[3] = {bytes(st.s, S), bytes(st.h, heads), bytes(st.b, B)};
+  const uint32_t box[4] = {(uint32_t)D, (uint32_t)rows, 1, 1};
+  return hopper::encode_bf16(map, base, 4, dims, strides, box, 2 * D);
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk,
+                 Strides sv, Strides so, int B, int H, int KVH, int Sq, int Sk, float scale,
+                 int scale_div, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (Sk <= 0 || !encode_view<D>(&tq, q, sq, B, H, Sq, FW_Q) ||
+      !encode_view<D>(&tk, k, sk, B, KVH, Sk, FW_KV) ||
+      !encode_view<D>(&tv, v, sv, B, KVH, Sk, FW_KV))
+    return (int)cudaErrorInvalidValue;
+  static const bool once = (cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 fw_smem_bytes(D)),
+                            true);
+  (void)once;
+  const float eff = scale_div ? 1.0f / scale : scale;
+  const dim3 grid(B * H, (Sq + FW_Q - 1) / FW_Q);
+  flash_wgmma_kernel<D><<<grid, FW_THREADS, fw_smem_bytes(D), stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, H, KVH, Sq, Sk,
+      eff * 1.4426950408889634f, causal);
+  return 0;
+}
+
+// ---- dispatch -------------------------------------------------------------
+
+enum Variant { V_FMA = 0, V_WGMMA = 2, V_WMMA = 3 };  // kernels/flash_attention.py
+
+template <int D>
+int launch_d(int dtype, int variant, const void* q, const void* k, const void* v, void* o,
+             Strides sq, Strides sk, Strides sv, Strides so, int B, int H, int KVH, int Sq,
+             int Sk, float scale, int scale_div, int causal, cudaStream_t stream) {
+  if (dtype == FORGE_F32 && variant == V_FMA) {
+    dim3 grid((Sq + BQ - 1) / BQ, B * H);
+    flash_kernel<float, D><<<grid, BQ, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so, H, KVH, Sq, Sk,
+        scale, scale_div, causal);
+    return 0;
   }
+  if (dtype == FORGE_BF16 && variant == V_WGMMA)
+    return launch_wgmma<D>(q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, scale, scale_div,
+                           causal, stream);
+  if (dtype == FORGE_BF16 && variant == V_WMMA) {
+    launch_wmma<D>(q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, scale, scale_div, causal,
+                   stream);
+    return 0;
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// strides: 4 views x (b, h, s) element strides, in the order q, k, v, o
+// strides: 4 views x (b, h, s) element strides, in the order q, k, v, o;
+// variant: the kernel kernels/flash_attention.py chose (refused with a
+// non-zero return where it cannot run)
 extern "C" int forge_flash_attention(const void* q, const void* k,
                                      const void* v, void* o,
                                      const long long* strides, int B, int H,
                                      int KVH, int Sq, int Sk, int D,
                                      float scale, int scale_div, int causal,
-                                     int dtype, void* stream) {
+                                     int dtype, int variant, void* stream) {
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
   const Strides so{strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == FORGE_F32) {
-    rc = launch_d<float>(q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, D, scale, scale_div, causal, s);
-  } else if (dtype == FORGE_BF16) {
-    rc = launch_d<__nv_bfloat16>(q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, D, scale, scale_div, causal, s);
-  } else {
-    rc = (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16:
+      rc = launch_d<16>(dtype, variant, q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, scale, scale_div, causal, s);
+      break;
+    case 32:
+      rc = launch_d<32>(dtype, variant, q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, scale, scale_div, causal, s);
+      break;
+    case 64:
+      rc = launch_d<64>(dtype, variant, q, k, v, o, sq, sk, sv, so, B, H, KVH, Sq, Sk, scale, scale_div, causal, s);
+      break;
+    default:
+      rc = (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

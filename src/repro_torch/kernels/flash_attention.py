@@ -2,12 +2,17 @@
 unmasked full-sequence forward.
 
 Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``
-(``flash_attention``) to a hand-written CUDA kernel for Hopper,
-``csrc/flash_attention.cu``; the source says what bounds it on the H100
-and what its design does about that.
+(``flash_attention``) to hand-written CUDA kernels for Hopper,
+``csrc/flash_attention.cu``; the source says what bounds each on the
+H100 and what its design does about that.
 
+* :func:`variant` — which kernel a call takes, a pure function of the
+  dtype, the key length and the views' alignment: ``wgmma`` (the
+  warpgroup kernel, for bf16 views TMA can take), ``wmma`` (bf16 views it
+  cannot take), ``fma`` (f32).
 * :func:`flash_attention_cuda` — the wrapper: checks, allocates the
-  output, launches, counts the launch in :data:`LAUNCHES`.
+  output, launches the chosen kernel, counts the launch in
+  :data:`LAUNCHES` (``n`` and ``variants[<variant>]``).
 * :func:`flash_attention_plain` — the plain PyTorch version
   (:func:`~repro_torch.kernels.ref.sdpa_ref` with the same scale).
 * :func:`flash_attention` — the front, the custom op
@@ -27,20 +32,41 @@ import torch
 from . import _build
 from . import ref as _ref
 
-#: launches of the CUDA kernel since the last ``LAUNCHES.reset()``
+#: launches of the CUDA kernels since the last ``LAUNCHES.reset()``, in all
+#: (``n``) and by variant (``variants``)
 LAUNCHES = _build.LaunchCount()
 
 #: head dims the kernels are instantiated for (the f32 kernel keeps 2*D
 #: fp32 accumulators per thread in registers; bf16 tiles D by 16)
 HEAD_DIMS = (16, 32, 64)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: variant codes of the C entry point (csrc/flash_attention.cu ``Variant``)
+VARIANT_CODES = {"fma": 0, "wgmma": 2, "wmma": 3}
+
+
+def tma_legal(t: torch.Tensor) -> bool:
+    """TMA can load (B, heads, S, D) tiles of the view: its base is on 16
+    bytes and each stepped dimension's stride is a multiple of 16 bytes
+    (a dimension of size 1 is never stepped)."""
+    esize = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (t.stride(i) * esize) % 16 == 0 for i in range(3) if t.shape[i] > 1)
+
+
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a call takes (``Sk`` = 0 leaves TMA no key to describe)."""
+    if q.dtype != torch.bfloat16:
+        return "fma"
+    if k.shape[2] > 0 and all(tma_legal(t) for t in (q, k, v)):
+        return "wgmma"
+    return "wmma"
 
 
 @functools.cache
 def _lib():
     fn = _build.load("flash_attention").forge_flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -100,13 +126,14 @@ def flash_attention_cuda(
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, o) for s in (t.stride(0), t.stride(1), t.stride(2))
     ))
-    fn = _lib()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            ctypes.cast(strides, ctypes.c_void_p), B, H, KVH, Sq, Sk, D,
-            float(scale), int(scale_mode == "div"), int(bool(causal)),
-            DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(rc, "flash_attention")
-    LAUNCHES.n += 1
+    kind = variant(q, k, v)
+    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                ctypes.cast(strides, ctypes.c_void_p), B, H, KVH, Sq, Sk, D,
+                float(scale), int(scale_mode == "div"), int(bool(causal)),
+                DTYPE_CODES[q.dtype], VARIANT_CODES[kind],
+                torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, f"flash_attention ({kind})")
+    LAUNCHES.count(kind)
     return o
 
 

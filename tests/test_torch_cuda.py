@@ -46,6 +46,17 @@ def _qkv(seed, B, H, KVH, Sq, Sk, D, dtype=np.float32):
     return q, k, v
 
 
+def _assert_flash_bf16(got, q, k, v, scale, causal):
+    """A bf16 flash result within the kernel tolerance of its plain version
+    and within 3u*(sum_j p_j|v_j| + |out|) of it, element by element."""
+    want = FA.flash_attention_plain(q, k, v, scale=scale, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
+    mass = FA.flash_attention_plain(q, k, v.abs(), scale=scale, causal=causal)
+    err = (got.float() - want.float()).abs()
+    bound = 3 * BF16_U * (mass.float() + want.float().abs())
+    assert bool((err <= bound).all()), (err / bound).max()
+
+
 @pytest.mark.cuda
 class TestKernelsOnCard:
     """CUDA kernels against their plain versions (tolerances of the JAX
@@ -85,6 +96,121 @@ class TestKernelsOnCard:
             err = (got.float() - want.float()).abs()
             bound = 3 * BF16_U * (mass.float() + want.float().abs())
             assert bool((err <= bound).all()), (err / bound).max()
+
+    @pytest.mark.parametrize("M,K,N,variant", [
+        (16, 1024, 1024, "gemv"), (17, 1024, 1024, "wgmma"),  # the gemv / wgmma boundary
+        (64, 1024, 1024, "wgmma"), (65, 1024, 1024, "wgmma"),  # 64- / 128-row tiles
+        (300, 768, 768, "wgmma"), (4100, 256, 384, "wgmma"),  # ragged row tiles
+        (128, 1000, 768, "wgmma"), (200, 512, 200, "wgmma"),  # K % 64, N % 128 ragged
+        (4, 776, 200, "gemv"), (1, 1000, 72, "gemv"),  # ragged K and N at decode
+        (128, 2560, 2560, "wgmma"), (4, 768, 768, "gemv")])  # clusters of 8
+    @pytest.mark.parametrize("act", [None, "gelu", "silu"])
+    def test_fused_linear_variants(self, cuda_device, M, K, N, variant, act):
+        g = torch.Generator(device=cuda_device).manual_seed(M + K + N)
+        x = (torch.randn(M, K, generator=g, device=cuda_device) * 0.5).bfloat16()
+        w = (torch.randn(K, N, generator=g, device=cuda_device) / K ** 0.5).bfloat16()
+        b = torch.randn(N, generator=g, device=cuda_device).bfloat16()
+        p = FL.plan(M, N, K, torch.bfloat16, True)
+        assert p[0] == variant
+        if (M, K, N) in ((128, 2560, 2560), (4, 768, 768)):
+            assert p[4] == 8  # the largest split
+        FL.LAUNCHES.reset()
+        got = FL.fused_linear_cuda(x, w, b, act=act)
+        torch.cuda.synchronize()
+        assert FL.LAUNCHES.variants == {variant: 1}
+        want = FL.fused_linear_plain(x, w, b, act=act)
+        torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
+
+    @pytest.mark.parametrize("plan", [("wgmma", 128, 128, 4, 8), ("wgmma", 64, 128, 3, 8),
+                                      ("wgmma", 128, 128, 2, 1), ("gemv", 16, 32, 8, 8)])
+    def test_fused_linear_plans_beyond_the_planner(self, cuda_device, plan):
+        """The entry point runs every plan it accepts, not only those the
+        planner picks today: clusters of 8 for wgmma, a shallow ring."""
+        g = torch.Generator(device=cuda_device).manual_seed(7)
+        M, K, N = (12, 1024, 520) if plan[0] == "gemv" else (100, 1024, 520)
+        x = (torch.randn(M, K, generator=g, device=cuda_device) * 0.5).bfloat16()
+        w = (torch.randn(K, N, generator=g, device=cuda_device) / K ** 0.5).bfloat16()
+        b = torch.randn(N, generator=g, device=cuda_device).bfloat16()
+        y = torch.empty(M, N, dtype=torch.bfloat16, device=cuda_device)
+        variant, bm, bn, stages, cluster = plan
+        rc = FL._lib().forge_fused_linear(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K,
+            FL.DTYPE_CODES[torch.bfloat16], FL.ACT_CODES["gelu"], FL.VARIANT_CODES[variant],
+            bm, bn, stages, cluster, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.testing.assert_close(y.float(), FL.fused_linear_plain(x, w, b, act="gelu").float(),
+                                   **TOL_BF16)
+
+    def test_refused_plans_raise(self, cuda_device):
+        x = torch.ones(4, 64, dtype=torch.bfloat16, device=cuda_device)
+        w = torch.ones(64, 64, dtype=torch.bfloat16, device=cuda_device)
+        y = torch.empty(4, 64, dtype=torch.bfloat16, device=cuda_device)
+        for plan in (("wgmma", 96, 128, 4, 1), ("gemv", 2, 64, 8, 1), ("wgmma", 64, 128, 4, 3)):
+            variant, bm, bn, stages, cluster = plan
+            assert FL._lib().forge_fused_linear(
+                x.data_ptr(), w.data_ptr(), None, y.data_ptr(), 4, 64, 64,
+                FL.DTYPE_CODES[torch.bfloat16], 0, FL.VARIANT_CODES[variant], bm, bn, stages,
+                cluster, torch.cuda.current_stream().cuda_stream) != 0
+
+    def test_misaligned_x_takes_wmma(self, cuda_device):
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        flat = (torch.randn(4 * 768 + 8, generator=g, device=cuda_device) * 0.5).bfloat16()
+        x = flat[1:1 + 4 * 768].view(4, 768)  # contiguous, on a 2-byte boundary
+        w = (torch.randn(768, 768, generator=g, device=cuda_device) / 768 ** 0.5).bfloat16()
+        b = torch.randn(768, generator=g, device=cuda_device).bfloat16()
+        FL.LAUNCHES.reset()
+        got = FL.fused_linear_cuda(x, w, b, act="gelu")
+        assert FL.LAUNCHES.variants == {"wmma": 1}
+        torch.testing.assert_close(got.float(), FL.fused_linear_plain(x, w, b, act="gelu").float(),
+                                   **TOL_BF16)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("M,K,N", [(4, 3072, 768), (1, 768, 768), (128, 2560, 2560),
+                                       (32, 768, 768), (2048, 768, 768)])
+    def test_fused_linear_bitwise_repeatable(self, cuda_device, dtype, M, K, N):
+        """No atomics: the split-K sums run in a fixed order, so two calls
+        on the same inputs agree bit for bit."""
+        g = torch.Generator(device=cuda_device).manual_seed(3)
+        x = torch.randn(M, K, generator=g, device=cuda_device).to(dtype)
+        w = (torch.randn(K, N, generator=g, device=cuda_device) / K ** 0.5).to(dtype)
+        b = torch.randn(N, generator=g, device=cuda_device).to(dtype)
+        first = FL.fused_linear_cuda(x, w, b, act="gelu")
+        assert all(torch.equal(first, FL.fused_linear_cuda(x, w, b, act="gelu"))
+                   for _ in range(3))
+
+    @pytest.mark.parametrize("B,H,KVH,Sq,Sk,D,causal", [
+        (2, 4, 4, 1, 300, 64, True), (2, 4, 4, 1, 300, 16, False),  # one query row
+        (1, 12, 4, 256, 256, 64, True), (1, 12, 4, 200, 200, 32, True),  # GQA 12/4
+        (1, 12, 4, 130, 170, 16, False), (2, 4, 2, 33, 100, 64, True),
+        (2, 4, 4, 100, 33, 64, False), (1, 2, 2, 384, 384, 32, True)])
+    def test_flash_warpgroup_kernel(self, cuda_device, B, H, KVH, Sq, Sk, D, causal):
+        q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                   for a in _qkv(5, B, H, KVH, Sq, Sk, D))
+        FA.LAUNCHES.reset()
+        got = FA.flash_attention_cuda(q, k, v, scale=D ** -0.5, causal=causal)
+        assert FA.LAUNCHES.variants == {"wgmma": 1}
+        _assert_flash_bf16(got, q, k, v, D ** -0.5, causal)
+
+    @pytest.mark.parametrize("D", [16, 32, 64])
+    def test_flash_more_queries_than_keys_causal(self, cuda_device, D):
+        """Sq > Sk, causal: query row r sees keys <= r + Sk - Sq, so the
+        first Sq - Sk rows see none and write exactly 0."""
+        q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                   for a in _qkv(6, 2, 4, 4, 300, 100, D))
+        got = FA.flash_attention_cuda(q, k, v, scale=D ** -0.5, causal=True)
+        assert bool((got[:, :, :200] == 0).all())
+        _assert_flash_bf16(got[:, :, 200:], q[:, :, 200:], k, v, D ** -0.5, True)
+
+    @pytest.mark.parametrize("D", [16, 32, 64])
+    def test_flash_transposed_views(self, cuda_device, D):
+        """(B, S, H, D) projections handed over as (B, H, S, D) views, as the
+        model does: the warpgroup kernel loads them with 4-D TMA."""
+        g = torch.Generator(device=cuda_device).manual_seed(D)
+        qkv = (torch.randn(2, 200, 3, 12, D, generator=g, device=cuda_device) * 1.5).bfloat16()
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        assert not q.is_contiguous() and FA.variant(q, k, v) == "wgmma"
+        got = FA.flash_attention_cuda(q, k, v, scale=D ** -0.5, causal=True)
+        _assert_flash_bf16(got, q, k, v, D ** -0.5, True)
 
     def test_unsupported_head_dim_raises(self, cuda_device):
         q = torch.ones(1, 2, 8, 48, device=cuda_device)

@@ -12,30 +12,45 @@
 // fp32; out (B, T, D) and last (B, D) have x's dtype, and last is the
 // same rounded value as out[:, T-1], bitwise.
 //
-// Design.  The TPU kernel tiles (B, T, D) into VMEM blocks with T the
-// innermost sequential grid axis, runs a Hillis-Steele scan inside each
-// block and carries the state in scratch between T-blocks.  Its own
-// docstring names the GPU form instead, which this is: one thread per
-// (b, d) channel walks T sequentially with the carry in a register.
-// Threads of a block take neighbouring d, so every load of x and a and
-// every store of out is coalesced along d; a block covers THREADS
-// channels of one row b (grid: ceil(D / THREADS) x B), and the ragged
-// edge d >= D is masked.  Any T and D work: there is no block-size
-// divisibility, unlike the TPU kernel's _shrink.  The loads of UNROLL
-// consecutive time steps are issued before their FMAs, so each thread
-// keeps UNROLL independent loads of x and a in flight instead of one
-// dependent round trip to memory per step.
+// What bounds it on the H100.  The function must read x and a and write
+// out once (3 x B x T x D elements), plus h0 and last: at the served
+// shapes (B 4, T 32 or 64, D 2560 in prefill; B 2, T 1024 in the
+// full-sequence forward; f32) 4 to 63 MB, 1.2 to 19 us at 3.35 TB/s.  The
+// arithmetic (two FMAs per element) is negligible, so the bytes bound it
+// once enough of them are in flight; with one thread walking each (b, d)
+// channel through all T steps (B x D = 5,120 threads at T = 1024, 40
+// blocks of 128 on 132 SMs) the dependent chain and the idle SMs set the
+// time.
 //
-// Bound on the H100.  The function must read x and a and write out once
-// (3 x B x T x D elements), plus h0 and last: at the served shapes
-// (B 4, T 32 or 64, D 2560 in prefill; B 2, T 1024 in the full-sequence
-// forward; f32) 4 to 63 MB, 1.2 to 19 us at 3.35 TB/s.  The arithmetic
-// (one FMA per element) is negligible.  B x D threads (5,120 to 10,240)
-// fill fewer than the 132 SMs' worth of resident warps and each walks T
-// steps in order, so at T = 1024 memory latency along the chain, not
-// bandwidth, sets the time.  A T-parallel form (per-chunk (A, X)
-// summaries folded in closed form, the TPU kernel's
-// out = scan(x) + cumprod(a) * h_in) is later work.
+// Design.  T is cut into C chunks of L <= 64 steps (kernels/rg_lru.py
+// `plan`: as few chunks as the registers allow, since every chunk past the
+// first pays a look-back; more, down to 32 steps, only where the grid
+// would leave SMs idle).  A block is 64 channels of one row b and one
+// chunk, so a short scan still spreads over more than 132 blocks at the
+// served widths; each thread loads its channel's L steps of x and a at
+// once (2L loads in flight, coalesced along d) and keeps them in
+// registers:
+// * chunk 0 knows its carry (h0) and runs the sequential FMA chain
+//   h = a_t h + x_t, the same chain as a single-chunk plan, which is
+//   therefore bitwise equal to the one-thread-per-channel scan;
+// * chunk c > 0 scans with a zero carry, s_t = a_t s + x_t, beside the
+//   running product P_t = a_t P, publishes its summary (A = P, X = s at
+//   its last step), then finds its carry h_in by a chained look-back over
+//   its predecessors: one thread walks back from chunk c - 1 to the
+//   nearest chunk that has published its inclusive state H, and the
+//   threads fold the summaries of the chunks between forward from it,
+//   h = fma(A_i, h, X_i).  Every H is that same sequential fold of the
+//   summaries from H_0, so the carry does not depend on how far a block
+//   had to look back: results are bitwise repeatable.  The block then
+//   publishes H_c = fma(A, h_in, X) and writes out_t = fma(P_t, h_in, s_t)
+//   from its registers, with no second read of x or a.
+// Blocks take their chunk from an atomic ticket, not blockIdx, so a block
+// waits only on chunks whose blocks have already started; chunk 0 waits on
+// nothing.  The flags carry the call's epoch (the wrapper counts calls),
+// so no flag has to be cleared between calls; the block that draws the
+// last ticket re-arms the ticket to 0.  A multi-chunk result reassociates
+// the recurrence, so it differs from the sequential chain by roundings,
+// as the TPU kernel's block scan does.
 //
 // The backward is not a kernel: as the Pallas kernel's custom_vjp does,
 // the wrapper's registered autograd recomputes through the plain version.
@@ -43,67 +58,160 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int UNROLL = 8;
+constexpr int THREADS = 64;  // channels of a block
+constexpr int LMAX = 64;      // steps of a chunk, at most: held in registers
 
+__device__ __forceinline__ int ld_flag(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
+}
+
+// grid: tiles x B x C blocks (tiles = ceil(D / 64)).  vals: per (b, tile,
+// chunk) the chunk's A, X and H (3 x 64 floats); flags: per (b, tile,
+// chunk) epoch * 4 + state (1: A and X published, 2: H published too);
+// ticket: 0 between calls
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 6)
     rg_lru_kernel(const T* __restrict__ x, const T* __restrict__ a,
                   const float* __restrict__ h0, T* __restrict__ out,
-                  T* __restrict__ last, int Tn, int D) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const int b = blockIdx.y;
-  if (d >= D) return;
-  const long long stride = D;
-  const long long base = (long long)b * Tn * stride + d;
-  float h = h0[(long long)b * D + d];
-  int t = 0;
-  for (; t + UNROLL <= Tn; t += UNROLL) {
-    float xv[UNROLL], av[UNROLL];
+                  T* __restrict__ last, int B, int Tn, int D, int L, int C,
+                  float* __restrict__ vals, int* __restrict__ flags, int* __restrict__ ticket,
+                  int epoch) {
+  __shared__ int s_idx, s_from;
+  const int tid = threadIdx.x;
+  int idx = blockIdx.x;
+  if (C > 1) {
+    if (tid == 0) {
+      const int t = atomicAdd(ticket, 1);
+      if (t == (int)gridDim.x - 1) atomicExch(ticket, 0);  // re-armed for the next call
+      s_idx = t;
+    }
+    __syncthreads();
+    idx = s_idx;
+  }
+  const int tiles = (D + THREADS - 1) / THREADS;
+  const int c = idx / (tiles * B), rest = idx - c * (tiles * B);
+  const int b = rest / tiles, tile = rest - b * tiles;
+  const int d = tile * THREADS + tid;
+  const bool live = d < D;  // the ragged edge: computes, stores nothing
+  const int t0 = c * L, n = min(Tn, t0 + L) - t0;
+  const long long base = ((long long)b * Tn + t0) * D + d;
+
+  float xv[LMAX], av[LMAX];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long i = base + (long long)(t + u) * stride;
-      xv[u] = to_f32<T>(x[i]);
-      av[u] = to_f32<T>(a[i]);
+  for (int i = 0; i < LMAX; ++i) {
+    const bool in = live && i < n;
+    xv[i] = in ? to_f32<T>(x[base + (long long)i * D]) : 0.0f;
+    av[i] = in ? to_f32<T>(a[base + (long long)i * D]) : 1.0f;
+  }
+
+  const int series = b * tiles + tile;  // this (b, tile)'s chunks
+  float* mine = vals + ((long long)series * C + c) * 3 * THREADS;
+  int* flag = flags + (long long)series * C;
+  float h;  // the state after this chunk's last step
+  if (c == 0) {  // the carry is h0: the sequential chain
+    h = live ? h0[(long long)b * D + d] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < LMAX; ++i)
+      if (i < n) {
+        h = fmaf(av[i], h, xv[i]);
+        xv[i] = h;
+      }
+    if (C > 1) {
+      mine[2 * THREADS + tid] = h;
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) atomicExch(flag, epoch * 4 + 2);
+    }
+  } else {
+    float s = 0.0f, P = 1.0f;  // the zero-carry scan and the running product
+#pragma unroll
+    for (int i = 0; i < LMAX; ++i)
+      if (i < n) {
+        s = fmaf(av[i], s, xv[i]);
+        P = av[i] * P;
+        xv[i] = s;
+        av[i] = P;
+      }
+    const bool publish = c < C - 1;  // the last chunk has no successor
+    if (publish) {
+      mine[tid] = P;
+      mine[THREADS + tid] = s;
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) atomicExch(flag + c, epoch * 4 + 1);
+    }
+    if (tid == 0) {  // back to the nearest chunk with its H published
+      int j = c - 1;
+      for (;;) {
+        int f;
+        while (((f = ld_flag(flag + j)) >> 2) != epoch) __nanosleep(32);
+        if ((f & 3) == 2) break;
+        --j;  // chunk 0 always publishes H, so this stops
+      }
+      s_from = j;
+    }
+    __syncthreads();
+    __threadfence();
+    const int j = s_from;
+    const float* vj = vals + ((long long)series * C + j) * 3 * THREADS;
+    float hin = __ldcg(vj + 2 * THREADS + tid);
+    for (int i = j + 1; i < c; ++i) {  // fold forward, in chunk order
+      const float* vi = vals + ((long long)series * C + i) * 3 * THREADS;
+      hin = fmaf(__ldcg(vi + tid), hin, __ldcg(vi + THREADS + tid));
+    }
+    h = fmaf(P, hin, s);
+    if (publish) {
+      mine[2 * THREADS + tid] = h;
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) atomicExch(flag + c, epoch * 4 + 2);
     }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      h = fmaf(av[u], h, xv[u]);
-      out[base + (long long)(t + u) * stride] = from_f32<T>(h);
-    }
+    for (int i = 0; i < LMAX; ++i)
+      if (i < n) xv[i] = fmaf(av[i], hin, xv[i]);  // the last one is h, bitwise
   }
-  for (; t < Tn; ++t) {
-    const long long i = base + (long long)t * stride;
-    h = fmaf(to_f32<T>(a[i]), h, to_f32<T>(x[i]));
-    out[i] = from_f32<T>(h);
-  }
-  if (last != nullptr) last[(long long)b * D + d] = from_f32<T>(h);
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < LMAX; ++i)
+    if (i < n) out[base + (long long)i * D] = from_f32<T>(xv[i]);
+  if (last != nullptr && t0 + n == Tn) last[(long long)b * D + d] = from_f32<T>(h);
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* a, const void* h0, void* out,
-                   void* last, int B, int Tn, int D, cudaStream_t stream) {
-  dim3 grid((D + THREADS - 1) / THREADS, B);
-  rg_lru_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a),
-      static_cast<const float*>(h0), static_cast<T*>(out),
-      static_cast<T*>(last), Tn, D);
+cudaError_t launch(const void* x, const void* a, const void* h0, void* out, void* last, int B,
+                   int Tn, int D, int L, int C, void* vals, void* flags, void* ticket,
+                   int epoch, cudaStream_t stream) {
+  const long long blocks = (long long)((D + THREADS - 1) / THREADS) * B * C;
+  rg_lru_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const float*>(h0),
+      static_cast<T*>(out), static_cast<T*>(last), B, Tn, D, L, C,
+      static_cast<float*>(vals), static_cast<int*>(flags), static_cast<int*>(ticket), epoch);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, a, out: (B, T, D) contiguous, dtype code 0 = f32, 1 = bf16; h0 (B, D)
-// f32 contiguous; last (B, D) in x's dtype, or null.  Returns the launch
-// error (0 on success).
-extern "C" int forge_rg_lru(const void* x, const void* a, const void* h0,
-                            void* out, void* last, int B, int Tn, int D,
-                            int dtype, void* stream) {
+// f32 contiguous; last (B, D) in x's dtype, or null.  The plan: C chunks
+// of L steps (C = ceil(T / L), 1 <= L <= 64).  With C > 1: vals holds
+// B * ceil(D / 64) * C * 192 floats of scratch, flags as many ints (0 or
+// an earlier call's epoch), ticket one int, 0; epoch in [1, 2^29), a new
+// one each call.  Returns the launch error (0 on success).
+extern "C" int forge_rg_lru(const void* x, const void* a, const void* h0, void* out,
+                            void* last, int B, int Tn, int D, int L, int C, void* vals,
+                            void* flags, void* ticket, int epoch, int dtype, void* stream) {
   if (B <= 0 || Tn <= 0 || D <= 0) return 0;
-  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (L < 1 || L > LMAX || C != (Tn + L - 1) / L) return (int)cudaErrorInvalidValue;
+  if (C > 1 && (vals == nullptr || flags == nullptr || ticket == nullptr || epoch < 1 ||
+                epoch >= (1 << 29)))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)((D + THREADS - 1) / THREADS) * B * C > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == FORGE_F32) return (int)launch<float>(x, a, h0, out, last, B, Tn, D, s);
+  if (dtype == FORGE_F32)
+    return (int)launch<float>(x, a, h0, out, last, B, Tn, D, L, C, vals, flags, ticket, epoch, s);
   if (dtype == FORGE_BF16)
-    return (int)launch<__nv_bfloat16>(x, a, h0, out, last, B, Tn, D, s);
+    return (int)launch<__nv_bfloat16>(x, a, h0, out, last, B, Tn, D, L, C, vals, flags, ticket,
+                                      epoch, s);
   return (int)cudaErrorInvalidValue;
 }

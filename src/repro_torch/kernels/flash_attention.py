@@ -7,9 +7,11 @@ Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 H100 and what its design does about that.
 
 * :func:`variant` — which kernel a call takes, a pure function of the
-  dtype, the key length and the views' alignment: ``wgmma`` (the
-  warpgroup kernel, for bf16 views TMA can take), ``wmma`` (bf16 views it
-  cannot take), ``fma`` (f32).
+  dtype, the head dim, the key length and the views' alignment: ``wgmma``
+  (the warpgroup kernel, for bf16 views TMA can take at head dims up to
+  128), ``wmma`` (other bf16 calls: views TMA cannot take, and D = 256),
+  ``fma`` (f32).  :func:`smem_bytes` is the shared memory the entry
+  point launches the variant with.
 * :func:`flash_attention_cuda` — the wrapper: checks, allocates the
   output, launches the chosen kernel, counts the launch in
   :data:`LAUNCHES` (``n`` and ``variants[<variant>]``).
@@ -36,9 +38,13 @@ from . import ref as _ref
 #: (``n``) and by variant (``variants``)
 LAUNCHES = _build.LaunchCount()
 
-#: head dims the kernels are instantiated for (the f32 kernel keeps 2*D
-#: fp32 accumulators per thread in registers; bf16 tiles D by 16)
-HEAD_DIMS = (16, 32, 64)
+#: head dims the kernels are instantiated for: the JAX kernel's (64, 96,
+#: 112, 128, 256) and the smoke configs' 16 and 32
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
+#: head dims of the warpgroup kernel: 96 and 112 run padded to 128 (TMA
+#: fills the padding with zeros); at 256 the O accumulator and two tiles'
+#: scores do not fit a thread's registers, so bf16 D = 256 takes ``wmma``
+WGMMA_HEAD_DIMS = (16, 32, 64, 96, 112, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: variant codes of the C entry point (csrc/flash_attention.cu ``Variant``)
 VARIANT_CODES = {"fma": 0, "wgmma": 2, "wmma": 3}
@@ -57,18 +63,40 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel a call takes (``Sk`` = 0 leaves TMA no key to describe)."""
     if q.dtype != torch.bfloat16:
         return "fma"
-    if k.shape[2] > 0 and all(tma_legal(t) for t in (q, k, v)):
+    if (q.shape[-1] in WGMMA_HEAD_DIMS and k.shape[2] > 0
+            and all(tma_legal(t) for t in (q, k, v))):
         return "wgmma"
     return "wmma"
 
 
+def smem_bytes(kind: str, D: int) -> int:
+    """Dynamic shared memory one CTA of ``kind`` takes at head dim ``D``
+    (csrc ``fma_smem_bytes``, ``wm_smem_bytes``, ``fw_smem_bytes``)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: no kernel at head dim {D}")
+    if kind == "fma":  # K and V tiles of 32 keys and the 32 x 64 scores, fp32
+        return (2 * 32 * D + 32 * 64) * 4
+    if kind == "wmma":  # 64-row tiles padded by 8; Q in registers up to D = 128
+        ldk, lds = D + 8, max(D, 64) + 4
+        return (128 + (0 if D <= 128 else 64 * ldk * 2) + 2 * 64 * ldk * 2
+                + 4 * 16 * lds * 4 + 4 * 16 * 72 * 2 + 4 * 16 * 4)
+    if kind == "wgmma" and D in WGMMA_HEAD_DIMS:  # Q and a 3-stage K / V ring
+        dp = D if D <= 64 else 128
+        keys = 128 if dp <= 64 else 64
+        return 1024 + 128 * dp * 2 + 2 * 3 * keys * dp * 2 + (1 + 3 * 3) * 8
+    raise ValueError(f"flash_attention: no {kind!r} kernel at head dim {D}")
+
+
 @functools.cache
 def _lib():
-    fn = _build.load("flash_attention").forge_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("flash_attention")
+    lib.forge_flash_attention.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                                          + [ctypes.c_float] + [ctypes.c_int] * 4
+                                          + [ctypes.c_void_p])
+    lib.forge_flash_attention.restype = ctypes.c_int
+    lib.forge_flash_attention_smem.argtypes = [ctypes.c_int] * 3
+    lib.forge_flash_attention_smem.restype = ctypes.c_int
+    return lib
 
 
 def _eff_scale(scale: float, scale_mode: str) -> float:
@@ -127,11 +155,11 @@ def flash_attention_cuda(
         s for t in (q, k, v, o) for s in (t.stride(0), t.stride(1), t.stride(2))
     ))
     kind = variant(q, k, v)
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                ctypes.cast(strides, ctypes.c_void_p), B, H, KVH, Sq, Sk, D,
-                float(scale), int(scale_mode == "div"), int(bool(causal)),
-                DTYPE_CODES[q.dtype], VARIANT_CODES[kind],
-                torch.cuda.current_stream().cuda_stream)
+    rc = _lib().forge_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        ctypes.cast(strides, ctypes.c_void_p), B, H, KVH, Sq, Sk, D, float(scale),
+        int(scale_mode == "div"), int(bool(causal)), DTYPE_CODES[q.dtype],
+        VARIANT_CODES[kind], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, f"flash_attention ({kind})")
     LAUNCHES.count(kind)
     return o

@@ -6,11 +6,13 @@ Port of the Pallas TPU kernels ``repro/kernels/rg_lru.py``
 kernel for Hopper, ``csrc/rg_lru.cu``; the source says what bounds it on
 the H100 and what its design does about that.
 
+* :func:`plan` — the launch plan, a pure function of (B, T, D): how many
+  chunks of T run side by side and their length (``(chunks, steps)``).
 * :func:`rg_lru_cuda` — the kernel's wrapper: checks device, dtype,
-  shape and contiguity, allocates the outputs, launches on PyTorch's
-  current stream and counts the launch in :data:`LAUNCHES`.  With
-  ``last=True`` the same launch also writes ``h[:, -1]`` (the chunked
-  entry point).
+  shape and contiguity, allocates the outputs and the chunks' scratch,
+  launches on PyTorch's current stream and counts the launch in
+  :data:`LAUNCHES`.  With ``last=True`` the same launch also writes
+  ``h[:, -1]`` (the chunked entry point).
 * :func:`rg_lru_plain` / :func:`rg_lru_chunked_plain` — the plain
   PyTorch versions (:func:`~repro_torch.kernels.ref.rg_lru_ref`, a
   log-step doubling scan in fp32).
@@ -37,12 +39,51 @@ from . import ref as _ref
 LAUNCHES = _build.LaunchCount()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: streaming multiprocessors of an H100 SXM; the grid aims at a block an SM
+SMS = 132
+CHANNELS = 64  # csrc THREADS: the channels of one block
+MAX_STEPS = 64  # csrc LMAX: the steps a thread holds in registers
+MIN_STEPS = 32  # the shortest chunk worth a look-back
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, T: int, D: int) -> Tuple[int, int]:
+    """``(chunks, steps)``: T cut into ``chunks`` chunks of ``steps``
+    steps (the last one ragged), each chunk of each 64-channel tile of
+    each row one block.  Chunks of at most 64 steps (a thread keeps its
+    steps in registers): as few as that allows, since a chunk past the
+    first pays a look-back; more, down to 32 steps, only where the grid
+    would leave SMs idle."""
+    base = B * -(-D // CHANNELS)
+    fill = -(-SMS // base)
+    chunks = max(-(-T // MAX_STEPS), min(-(-T // MIN_STEPS), fill))
+    steps = -(-T // max(1, chunks))
+    return -(-T // steps), steps
+
+
+_STATE: dict = {}
+
+
+def _chunk_state(device: torch.device, n: int):
+    """The chunks' flags and the ticket (ints: ticket first), kept per
+    device and stream, and the next call's epoch.  Flags carry the epoch
+    of the call that wrote them, so they are never cleared; the ticket
+    is back at 0 after every call."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf, epoch = _STATE.get(key, (None, 0))
+    epoch += 1
+    if buf is None or buf.numel() < n + 1 or epoch >= 1 << 29:
+        size = max(n + 1, 2 * (buf.numel() if buf is not None else 0))
+        buf, epoch = torch.zeros(size, dtype=torch.int32, device=device), 1
+    _STATE[key] = (buf, epoch)
+    return buf, epoch
 
 
 @functools.cache
 def _lib():
     fn = _build.load("rg_lru").forge_rg_lru
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -56,11 +97,12 @@ def rg_lru_chunked_plain(x, a, h0=None):
 
 
 def rg_lru_cuda(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor, *,
-                last: bool = False):
+                last: bool = False, steps: Optional[int] = None):
     """The scan on the card.  x, a: (B, T, D) contiguous, one dtype (f32
     or bf16); h0: (B, D), any float dtype (read as fp32).  Returns h
     (B, T, D) in x's dtype, and with ``last`` also ``h[:, -1]`` (B, D)
-    written by the same launch."""
+    written by the same launch.  ``steps`` forces the chunk length
+    (1 to 64) instead of :func:`plan`'s."""
     if x.dim() != 3 or a.shape != x.shape:
         raise ValueError(f"rg_lru: bad shapes x{tuple(x.shape)} a{tuple(a.shape)}")
     B, T, D = x.shape
@@ -80,9 +122,22 @@ def rg_lru_cuda(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor, *,
     h_last = torch.empty((B, D), dtype=x.dtype, device=x.device) if last else None
     if out.numel() == 0:
         return (out, h_last) if last else out
+    if steps is None:
+        chunks, steps = plan(B, T, D)
+    else:
+        chunks = -(-T // steps)
+    vals = flags = None
+    epoch = 0
+    if chunks > 1:
+        n = B * -(-D // CHANNELS) * chunks
+        vals = torch.empty(n * 3 * CHANNELS, dtype=torch.float32, device=x.device)
+        flags, epoch = _chunk_state(x.device, n)
     rc = _lib()(x.data_ptr(), a.data_ptr(), h0.data_ptr(), out.data_ptr(),
-                h_last.data_ptr() if last else None, B, T, D, DTYPE_CODES[x.dtype],
-                torch.cuda.current_stream().cuda_stream)
+                h_last.data_ptr() if last else None, B, T, D, steps, chunks,
+                vals.data_ptr() if vals is not None else None,
+                flags[1:].data_ptr() if flags is not None else None,
+                flags.data_ptr() if flags is not None else None, epoch,
+                DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "rg_lru")
     LAUNCHES.n += 1
     return (out, h_last) if last else out

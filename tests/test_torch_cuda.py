@@ -191,7 +191,7 @@ class TestKernelsOnCard:
         assert FA.LAUNCHES.variants == {"wgmma": 1}
         _assert_flash_bf16(got, q, k, v, D ** -0.5, causal)
 
-    @pytest.mark.parametrize("D", [16, 32, 64])
+    @pytest.mark.parametrize("D", FA.HEAD_DIMS)
     def test_flash_more_queries_than_keys_causal(self, cuda_device, D):
         """Sq > Sk, causal: query row r sees keys <= r + Sk - Sq, so the
         first Sq - Sk rows see none and write exactly 0."""
@@ -201,16 +201,71 @@ class TestKernelsOnCard:
         assert bool((got[:, :, :200] == 0).all())
         _assert_flash_bf16(got[:, :, 200:], q[:, :, 200:], k, v, D ** -0.5, True)
 
-    @pytest.mark.parametrize("D", [16, 32, 64])
+    @pytest.mark.parametrize("D", FA.HEAD_DIMS)
     def test_flash_transposed_views(self, cuda_device, D):
         """(B, S, H, D) projections handed over as (B, H, S, D) views, as the
-        model does: the warpgroup kernel loads them with 4-D TMA."""
+        model does: the warpgroup kernel loads them with 4-D TMA (D = 256:
+        the WMMA kernel, with 16-byte loads)."""
         g = torch.Generator(device=cuda_device).manual_seed(D)
         qkv = (torch.randn(2, 200, 3, 12, D, generator=g, device=cuda_device) * 1.5).bfloat16()
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        assert not q.is_contiguous() and FA.variant(q, k, v) == "wgmma"
+        want_variant = "wgmma" if D in FA.WGMMA_HEAD_DIMS else "wmma"
+        assert not q.is_contiguous() and FA.variant(q, k, v) == want_variant
         got = FA.flash_attention_cuda(q, k, v, scale=D ** -0.5, causal=True)
         _assert_flash_bf16(got, q, k, v, D ** -0.5, True)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("D", [96, 112, 128, 256])
+    @pytest.mark.parametrize("B,H,KVH,Sq,Sk,causal", [
+        (2, 8, 2, 200, 200, True),  # GQA 8/2, a ragged query tile
+        (1, 4, 4, 1, 300, False),  # one query row
+        (2, 4, 1, 130, 330, True),  # MQA, Sq < Sk: causal offset Sk - Sq
+        (1, 8, 2, 384, 384, False)])
+    def test_flash_head_dims(self, cuda_device, dtype, D, B, H, KVH, Sq, Sk, causal):
+        """The head dims the JAX kernel serves beyond 64: bf16 takes the
+        warpgroup kernel up to 128 (96 and 112 padded to 128) and WMMA at
+        256; f32 the FMA kernel with D split over 4 or 8 lanes a row."""
+        q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+                   for a in _qkv(D + Sq, B, H, KVH, Sq, Sk, D))
+        FA.LAUNCHES.reset()
+        got = FA.flash_attention_cuda(q, k, v, scale=D ** -0.5, causal=causal)
+        torch.cuda.synchronize()
+        want_variant = ("fma" if dtype == torch.float32
+                        else "wgmma" if D in FA.WGMMA_HEAD_DIMS else "wmma")
+        assert FA.LAUNCHES.variants == {want_variant: 1}
+        assert got.dtype == dtype and tuple(got.shape) == (B, H, Sq, D)
+        if dtype == torch.float32:
+            want = FA.flash_attention_plain(q, k, v, scale=D ** -0.5, causal=causal)
+            torch.testing.assert_close(got, want, **TOL_F32)
+        else:
+            _assert_flash_bf16(got, q, k, v, D ** -0.5, causal)
+
+    @pytest.mark.parametrize("D", [96, 112, 128, 256])
+    def test_flash_wmma_head_dims(self, cuda_device, D):
+        """bf16 views TMA cannot take (a base on 2 bytes) at the new head
+        dims: the WMMA kernel, its tiles in dynamic shared memory."""
+        q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                   for a in _qkv(D, 2, 4, 2, 150, 150, D))
+        flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+        qs = flat[1:].view(q.shape)
+        qs.copy_(q)
+        assert FA.variant(qs, k, v) == "wmma"
+        FA.LAUNCHES.reset()
+        got = FA.flash_attention_cuda(qs, k, v, scale=D ** -0.5, causal=True)
+        assert FA.LAUNCHES.variants == {"wmma": 1}
+        _assert_flash_bf16(got, q, k, v, D ** -0.5, True)
+
+    def test_flash_smem_matches_the_entry_point(self, cuda_device):
+        lib = FA._lib()
+        for D in FA.HEAD_DIMS:
+            for dtype, kinds in ((torch.float32, ("fma",)), (torch.bfloat16, ("wmma", "wgmma"))):
+                for kind in kinds:
+                    c = lib.forge_flash_attention_smem(FA.DTYPE_CODES[dtype],
+                                                       FA.VARIANT_CODES[kind], D)
+                    if kind == "wgmma" and D not in FA.WGMMA_HEAD_DIMS:
+                        assert c == -1
+                    else:
+                        assert c == FA.smem_bytes(kind, D), (kind, D)
 
     def test_unsupported_head_dim_raises(self, cuda_device):
         q = torch.ones(1, 2, 8, 48, device=cuda_device)
@@ -279,7 +334,9 @@ PAGED_CASES = [(1, 12, 12, 64, 16, 16, 129, None), (2, 12, 12, 64, 16, 16, 129, 
                (4, 12, 12, 64, 16, 16, 129, None), (4, 12, 4, 64, 16, 16, 129, None),
                (4, 12, 12, 64, 16, 16, 129, 20), (3, 4, 2, 8, 8, 4, 13, None),
                (2, 8, 8, 16, 16, 6, 20, 9), (2, 8, 4, 32, 16, 6, 20, None),
-               (2, 4, 4, 128, 16, 6, 20, None)]
+               (2, 4, 4, 128, 16, 6, 20, None), (2, 8, 2, 96, 16, 6, 20, None),
+               (2, 8, 2, 112, 16, 6, 20, 40), (3, 4, 1, 256, 16, 6, 20, None),
+               (4, 32, 8, 128, 16, 16, 70, None)]
 
 
 @pytest.mark.cuda
@@ -300,6 +357,56 @@ class TestPagedAttentionOnCard:
             err = (got.float() - want.float()).abs()
             bound = 3 * BF16_U * (mass.float() + want.float().abs())
             assert bool((err <= bound).all()), (err / bound).max()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("splits,chunk", [(1, 1), (1, 8), (3, 2), (16, 1), (5, 3),
+                                              (40, 1)])
+    @pytest.mark.parametrize("window", [None, 20])
+    def test_forced_plans(self, cuda_device, dtype, splits, chunk, window):
+        """Plans the planner does not pick: one block a row, one split per
+        page of the table (16), more splits than pages (40), chunks of 1 to
+        8 pages; rows at pos = -1, a page's edges and the table's last
+        slot; GQA 12/4.  Every plan matches the plain version."""
+        B, H, KVH, D, ps, MP, NP = 5, 12, 4, 64, 16, 16, 129
+        q, k, v, pt, pos = paged_case(11, B, H, KVH, D, ps, MP, NP, dtype, cuda_device)
+        assert sorted(pos.tolist()) == [-1, 15, 16, 35, 255]
+        PA.LAUNCHES.reset()
+        got = PA.paged_attention_cuda(q, k, v, pt, pos, window=window,
+                                      plan_override=(splits, chunk))
+        torch.cuda.synchronize()
+        assert PA.LAUNCHES.n == 1
+        want = PA.paged_attention_plain(q, k, v, pt, pos, window=window)
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert bool((got[pos < 0] == 0).all())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,H,KVH,D,MP", [(4, 12, 12, 64, 16), (8, 12, 12, 64, 128),
+                                              (4, 32, 8, 128, 128)])
+    def test_bitwise_repeatable(self, cuda_device, dtype, B, H, KVH, D, MP):
+        """The partials are merged in split order, whichever block finishes
+        last: calls on the same inputs agree bit for bit, and the tickets
+        are back at 0 after each call."""
+        q, k, v, pt, pos = paged_case(3, B, H, KVH, D, 16, MP, 1 + B * MP, dtype, cuda_device)
+        pos = torch.full_like(pos, MP * 16 - 1)
+        assert PA.plan(B, H, KVH, D, 16, MP, None, dtype)[0] > 1
+        first = PA.paged_attention_cuda(q, k, v, pt, pos)
+        assert all(torch.equal(first, PA.paged_attention_cuda(q, k, v, pt, pos))
+                   for _ in range(4))
+        torch.cuda.synchronize()
+        assert all(int(t.abs().sum()) == 0 for t in PA._TICKETS.values())
+        want = PA.paged_attention_plain(q, k, v, pt, pos)
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        torch.testing.assert_close(first.float(), want.float(), **tol)
+
+    def test_smem_matches_the_entry_point(self, cuda_device):
+        lib = PA._lib()
+        for B, H, KVH, D, ps, MP, NP, window in PAGED_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                chunk = PA.plan(B, H, KVH, D, ps, MP, window, dtype)[1]
+                assert lib.forge_paged_attention_smem(H // KVH, D, chunk * ps,
+                                                      PA.DTYPE_CODES[dtype]) == \
+                    PA.smem_bytes(H, KVH, D, ps, chunk, dtype)
 
     def test_front_launches_and_ref_does_not(self, cuda_device):
         q, k, v, pt, pos = paged_case(0, 2, 4, 4, 16, 8, 4, 9, torch.float32, cuda_device)
@@ -399,6 +506,48 @@ class TestRgLruOnCard:
             h, carry = ops.rg_lru_scan(x[:, lo:hi], a[:, lo:hi], carry)
             parts.append(h)
         torch.testing.assert_close(torch.cat(parts, 1), full, rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,T,D", [(2, 1, 2560), (3, 37, 100), (2, 100, 300),
+                                       (2, 1024, 2560), (1, 130, 129)])
+    @pytest.mark.parametrize("steps", [1, 7, 32, 64])
+    def test_forced_chunks(self, cuda_device, dtype, B, T, D, steps):
+        """Chunk lengths the planner does not pick, down to one step a
+        chunk (T look-backs deep), a ragged last chunk, T = 1 and D not a
+        multiple of 128, with and without ``last``."""
+        x, a, h0 = _rg_inputs(cuda_device, dtype, B, T, D, True, seed=T + steps)
+        want = RG.rg_lru_plain(x, a, h0)
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        RG.LAUNCHES.reset()
+        torch.testing.assert_close(RG.rg_lru_cuda(x, a, h0, steps=steps).float(), want.float(),
+                                   **tol)
+        h, last = RG.rg_lru_cuda(x, a, h0, last=True, steps=steps)
+        torch.cuda.synchronize()
+        assert RG.LAUNCHES.n == 2
+        torch.testing.assert_close(h.float(), want.float(), **tol)
+        assert torch.equal(last, h[:, -1])
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,T,D", [(2, 1024, 2560), (4, 128, 2560), (3, 37, 100)])
+    def test_bitwise_repeatable(self, cuda_device, dtype, B, T, D):
+        """The carries are folded in chunk order however far a block looks
+        back: calls on the same inputs agree bit for bit."""
+        assert RG.plan(B, T, D)[0] > 1
+        x, a, h0 = _rg_inputs(cuda_device, dtype, B, T, D, True, seed=5)
+        first = RG.rg_lru_cuda(x, a, h0)
+        assert all(torch.equal(first, RG.rg_lru_cuda(x, a, h0)) for _ in range(4))
+
+    def test_one_chunk_plans_chain_bitwise(self, cuda_device):
+        """Where every call's plan is one chunk, the sequential chain runs:
+        chained calls carried through ``last`` equal one scan bitwise."""
+        x, a, h0 = _rg_inputs(cuda_device, torch.float32, 4, 32, 2560, True, seed=2)
+        assert RG.plan(4, 32, 2560)[0] == 1
+        full = RG.rg_lru_cuda(x, a, h0)
+        carry, parts = h0, []
+        for lo, hi in ((0, 7), (7, 20), (20, 32)):
+            h, carry = ops.rg_lru_scan(x[:, lo:hi], a[:, lo:hi], carry)
+            parts.append(h)
+        assert torch.equal(torch.cat(parts, 1), full)
 
     def test_dispatch_launches_kernel(self, cuda_device):
         x, a, h0 = _rg_inputs(cuda_device, torch.float32, 2, 9, 64, True)

@@ -1,11 +1,13 @@
 """Launch plans of the port's CUDA kernels, checked on the CPU.
 
-``fused_linear.plan`` and ``flash_attention.variant`` are pure functions
-of shapes, dtypes and alignment: which kernel variant a call takes, its
-tiles, its pipeline depth and its cluster (the K split).  Here every
-served shape of the three models must take a variant built for it (never
-the WMMA kernels kept for operands TMA cannot take), fill the card where
-its size allows, fit a CTA's shared memory, and split K exactly.
+``fused_linear.plan``, ``flash_attention.variant``,
+``paged_attention.plan`` and ``rg_lru.plan`` are pure functions of
+shapes, dtypes and alignment: which kernel variant a call takes, its
+tiles, its pipeline depth, its cluster (the K split), the blocks that
+share a row's pages, the chunks of T.  Here every served shape of the
+three models must take a variant built for it (never the WMMA kernels
+kept for operands TMA cannot take), fill the card where its size allows,
+fit a CTA's shared memory, and split K, pages and T exactly.
 """
 import pytest
 import torch
@@ -13,6 +15,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_linear as FL
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import rg_lru as RG
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 232448  # bytes of shared memory a CTA may use (227 KB)
@@ -127,9 +131,32 @@ def _qkv(B=2, H=12, KVH=4, Sq=64, Sk=64, D=64, dtype=torch.bfloat16):
             torch.zeros(B, KVH, Sk, D, dtype=dtype))
 
 
-@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 112, 128])
 def test_flash_contiguous_bf16_takes_the_warpgroup_kernel(D):
     assert FA.variant(*_qkv(D=D)) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 112, 128, 256])
+def test_flash_every_head_dim_has_a_variant_that_fits(D, dtype):
+    """Every head dim the JAX kernel serves (64, 96, 112, 128, 256) and
+    the smoke configs' 16 and 32 pick a kernel that is built for it and
+    fits a CTA's shared memory; bf16 takes the warpgroup kernel up to 128
+    and WMMA at 256 (its O accumulator would not fit the registers)."""
+    assert D in FA.HEAD_DIMS
+    kind = FA.variant(*_qkv(D=D, dtype=dtype))
+    want = "fma" if dtype == torch.float32 else "wgmma" if D <= 128 else "wmma"
+    assert kind == want
+    assert 0 < FA.smem_bytes(kind, D) <= MAX_SMEM
+    if dtype == torch.bfloat16:  # the views TMA cannot take: WMMA, which fits too
+        assert 0 < FA.smem_bytes("wmma", D) <= MAX_SMEM
+
+
+def test_flash_has_no_warpgroup_kernel_at_256():
+    with pytest.raises(ValueError):
+        FA.smem_bytes("wgmma", 256)
+    with pytest.raises(ValueError):
+        FA.smem_bytes("fma", 48)
 
 
 def test_flash_transposed_projections_take_the_warpgroup_kernel():
@@ -165,3 +192,77 @@ def test_launch_count_by_variant():
     assert c.n == 4 and c.variants == {"gemv": 2, "wgmma": 1}
     c.reset()
     assert c.n == 0 and c.variants == {}
+
+
+#: paged decode shapes (B, H, KVH, D, ps, MP, window): forge-125m's served
+#: rungs (B 1, 2, 4; 16 pages of 16 a row), the long-context row (B 8,
+#: 128 live pages), GQA at D = 128, the new head dims, a window
+PAGED_SHAPES = [(1, 12, 12, 64, 16, 16, None), (2, 12, 12, 64, 16, 16, None),
+                (4, 12, 12, 64, 16, 16, None), (8, 12, 12, 64, 16, 128, None),
+                (4, 32, 8, 128, 16, 128, None), (4, 12, 12, 64, 16, 16, 20),
+                (2, 8, 2, 96, 16, 6, None), (2, 8, 2, 112, 16, 6, 40),
+                (3, 4, 1, 256, 16, 6, None), (64, 32, 8, 128, 16, 256, None),
+                (1, 1, 1, 8, 8, 4, None), (2, 10, 1, 256, 16, 128, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,H,KVH,D,ps,MP,window", PAGED_SHAPES,
+                         ids=[f"B{s[0]}-H{s[1]}-KVH{s[2]}-D{s[3]}-MP{s[5]}-w{s[6]}"
+                              for s in PAGED_SHAPES])
+def test_paged_plan(B, H, KVH, D, ps, MP, window, dtype):
+    """The split fills the card where the live pages allow, never splits
+    past them, loads at most a split's share a chunk, and fits shared
+    memory."""
+    splits, chunk = PA.plan(B, H, KVH, D, ps, MP, window, dtype)
+    live = PA.max_live_pages(MP, ps, window)
+    assert 1 <= splits <= live
+    if B * KVH * live >= SMS:
+        assert B * KVH * splits >= SMS
+    assert 1 <= chunk <= -(-live // splits) and chunk * ps <= max(ps, PA.CHUNK_KEYS)
+    assert PA.smem_bytes(H, KVH, D, ps, chunk, dtype) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("MP,ps,window,want", [(16, 16, None, 16), (16, 16, 1, 1),
+                                               (16, 16, 16, 2), (16, 16, 17, 2),
+                                               (16, 16, 20, 3), (128, 16, 2048, 128),
+                                               (4, 8, 100, 4)])
+def test_paged_live_pages(MP, ps, window, want):
+    """The most pages a window of keys can touch: a brute-force count."""
+    assert PA.max_live_pages(MP, ps, window) == want
+    if window is not None:
+        worst = max(min(p // ps, MP - 1) - max(0, p - window + 1) // ps + 1
+                    for p in range(MP * ps) if max(0, p - window + 1) // ps <= MP - 1)
+        assert worst == want
+
+
+def test_paged_plan_is_cached():
+    assert (PA.plan(4, 12, 12, 64, 16, 16, None, torch.bfloat16)
+            is PA.plan(4, 12, 12, 64, 16, 16, None, torch.bfloat16))
+
+
+#: (B, T, D): recurrentgemma-2b's served prefill cells, its apply, the
+#: ragged card cases, long and single-step scans
+RG_PLAN_SHAPES = [(4, 32, 2560), (4, 64, 2560), (2, 1024, 2560), (3, 37, 100),
+                  (2, 100, 300), (1, 1, 2560), (1, 8192, 2560), (16, 32, 2560), (4, 65, 2560)]
+
+
+@pytest.mark.parametrize("B,T,D", RG_PLAN_SHAPES, ids=[f"B{b}-T{t}-D{d}" for b, t, d in
+                                                        RG_PLAN_SHAPES])
+def test_rg_lru_plan(B, T, D):
+    """Chunks tile T exactly (none empty), hold at most 64 steps (a
+    thread's registers), never split past T, and bring the grid to the SM
+    count where chunks of 32 steps allow."""
+    chunks, steps = RG.plan(B, T, D)
+    assert 1 <= chunks <= T and 1 <= steps <= RG.MAX_STEPS
+    assert (chunks - 1) * steps < T <= chunks * steps
+    tiles = -(-D // RG.CHANNELS)
+    if B * tiles * -(-T // RG.MIN_STEPS) >= SMS:
+        assert B * tiles * chunks >= SMS
+    if T <= RG.MIN_STEPS:
+        assert chunks == 1  # a short scan runs the sequential chain alone
+
+
+def test_rg_lru_plan_at_the_served_shapes():
+    assert RG.plan(4, 32, 2560) == (1, 32)  # the B4 x S32 prefill cell: one chunk
+    chunks, steps = RG.plan(2, 1024, 2560)  # apply: T-parallel
+    assert chunks > 1 and 2 * 20 * chunks >= SMS

@@ -32,7 +32,10 @@ Phases (any failure raises and the script exits non-zero):
    RG-LRU scan also at forced chunk lengths (1, 7, 64 steps); chained
    ``rg_lru_scan`` calls equal one scan bitwise where every call's plan
    is one chunk, else within the f32 tolerance of one scan and of the
-   plain version; two calls of each redesigned kernel bitwise equal.
+   plain version; two calls of each redesigned kernel bitwise equal; the
+   multi-chunk scan (B4 x T128, and 43 forced chunks) captured in a CUDA
+   graph and replayed on new inputs, each replay within the f32
+   tolerance of the plain version and bitwise equal to an eager launch.
 3. Serve forge-125m at full width (12 layers, d 768, vocab 50257, bf16,
    random weights from seed 0) with the serve CLI's defaults through
    ``BatchedServer(mode="eager")``: Forge-compiled block bodies, 36
@@ -46,18 +49,23 @@ Phases (any failure raises and the script exits non-zero):
 5. Paged continuous batching at full width: ``SlotScheduler`` over
    ``BatchedServer(mode="forge", paged=True)`` with the paged-attention
    kernel (``kv_kernel="pallas"``), 12 requests with a shared prefix; the
-   whole decode step and prefill are Phase 1-4 programs per bucket.
+   whole decode step and prefill are Phase 1-4 programs per bucket, on
+   the ``segment_jit`` backend (each device-affine segment one CUDA
+   graph; warmup captures every program, nothing is captured after it).
    Launches: paged attention = 12 x decode dispatches, fused linear = the
    programs' linear nodes x their dispatches, flash 0; no compile after
    warmup; the pool accounting clean; two served prefill programs
    (M = 32 and 256 fused-linear rows; cold, prefix-hit and masked rows)
    and one decode tick against ``impl="ref"``, each on its own copy of
    the page store; tok/s, tick p50/p99, TTFT, compile seconds per
-   program and the device busy share of steady ticks.
+   program.  One decode and one prefill dispatch under ``segment_jit``
+   bitwise equal to the same lowered programs under ``interpret``; the
+   host/device split of steady decode ticks under both backends.
 6. recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU and
    8 local-attention blocks, d 2560, vocab 256000, bf16, random weights
    from seed 0) through the contiguous forge fronts,
-   ``BatchedServer(mode="forge")``: warmup of the B4 decode program and
+   ``BatchedServer(mode="forge")`` on ``segment_jit``: warmup of the B4
+   decode program and
    the B4 x S32 prefill cell, then batch 4, prompt 32, 32 new tokens with
    the chunked state-scan prefill (one dispatch: 18 RG-LRU launches) and
    again with ``prefill="sequential"`` on the same decode program (no
@@ -69,9 +77,9 @@ Phases (any failure raises and the script exits non-zero):
    TOL_DEEP_F32), beside the spread of two kernel-free implementations;
    greedy tokens against an ``impl="ref"`` generation (rows equal
    reported); TTFT both ways, decode p50/p99, tok/s and the device busy
-   share of steady decode steps.  Then the same prefill program and
-   ``apply`` in f32 at full width and depth against ``impl="ref"``,
-   elementwise within rtol 1e-3 / atol 1e-3.
+   share of steady decode steps under both backends.  Then the same
+   prefill program and ``apply`` in f32 at full width and depth against
+   ``impl="ref"``, elementwise within rtol 1e-3 / atol 1e-3.
 7. xlstm-350m at full width and depth (24 layers: 21 mLSTM and 3 sLSTM,
    d 1024, 4 heads, vocab 50304, bf16, random weights from seed 0)
    through the contiguous forge fronts (batch rungs 2 and 4, one S32
@@ -87,7 +95,27 @@ Phases (any failure raises and the script exits non-zero):
    implementations, SPREAD_FACTOR_BF16) and in f32 (elementwise, rtol
    1e-3 / atol 1e-3); TTFT both ways, decode p50/p99, tok/s, the
    scheduler's tok/s, compile seconds per program and the device busy
-   share of steady decode steps.
+   share of steady decode steps under both backends.
+8. forge-125m at full width through the contiguous forge fronts on
+   ``segment_jit`` (batch rungs 2 and 4; cells S16, S32, S64): batch 4,
+   prompt 32, 32 new tokens with the batched prefill and with
+   ``prefill="sequential"``, then the contiguous ``SlotScheduler``
+   (max_slots 4) over phase 5's 12 requests.  Launches exact (fused
+   linear = the programs' linear nodes x their dispatches, nothing
+   else); no compile or capture after warmup; the B4 x S32 prefill
+   program's logits and cache within TOL_MODEL_BF16 of the eager
+   ``impl="ref"`` ``prefill_step``, its and the served first tokens a
+   top choice of the plain path; two kept prefill outputs intact after
+   a later call.
+
+In phases 5-8, one decode and one prefill dispatch of the served
+programs under ``segment_jit`` must be bitwise equal to the same lowered
+programs under ``interpret`` (built without a second ``torch.export``),
+and so must the served greedy tokens; each path prints, for both
+backends, the host wall per steady decode step (p50/p99), the device
+time per step and the busy share (``torch.profiler``), the graph replays
+per step, the capture seconds per program and ``memory_reserved`` before
+and after warmup (the graph pools).
 
 Phase 2 also holds the paged-attention kernel against its plain version
 (f32 rtol 2e-4 / atol 2e-5; bf16 3e-2 and the bf16 rounding bound) on
@@ -115,6 +143,7 @@ The line before the last is one JSON object with a row per kernel (its
 launches, by variant too, and times also split by path); the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -374,10 +403,11 @@ def phase_fused_linear(dev, timer):
     log(f"fused_linear: {n_checks} cases within tolerance of the plain version")
 
     # timing at the main path's shapes and dtype: one layer's three
-    # launches (o-proj, FFN up + gelu, FFN down), at decode (M=4) and in
-    # the full-sequence forward (M=4096)
+    # launches (o-proj, FFN up + gelu, FFN down), at decode (M=4), in the
+    # contiguous fronts' B4 x S32 prefill cell (M=128) and in the
+    # full-sequence forward (M=4096)
     rows = {}
-    for M in (4, 4096):
+    for M in (4, 128, 4096):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
                    err=0.0)
         for K, N, act, has_b in ((768, 768, None, False), (768, 3072, "gelu", True),
@@ -767,6 +797,7 @@ def phase_rg_lru(dev, timer):
     log(f"rg_lru: {n} cases within tolerance of the plain version (last bitwise h[:, -1]; "
         f"chunk lengths forced to {RG_FORCED_STEPS}; chained one-chunk calls equal one scan "
         f"bitwise, multi-chunk ones within tolerance); {reps} repeated calls bitwise equal")
+    rg_graph_replays(dev, g)
 
     rows = {}
     for B, T, D, with_h0 in RG_SHAPES[:3]:
@@ -801,6 +832,42 @@ def phase_rg_lru(dev, timer):
         f"{rows['chunked']['ms']:.4f} ms, plain {rows['chunked']['plain_ms']:.4f} ms, bound "
         f"{rows['chunked']['bound_ms']:.5f} ms (bytes)")
     return rows
+
+
+def rg_graph_replays(dev, g):
+    """The multi-chunk scan inside a CUDA graph (recurrentgemma's B4 x S128
+    prefill shape, and a forced plan of 43 chunks): captured after a warm
+    call on the capture stream, then replayed on new inputs; each replay
+    within the f32 tolerance of the plain version and bitwise equal to an
+    eager launch (its epoch advances on the device at every replay)."""
+    import torch
+    from repro_torch.kernels import rg_lru as RG
+
+    for B, T, D, steps in ((4, 128, 2560, None), (2, 300, 300, 7)):
+        x, a, h0 = rg_inputs(g, dev, torch.float32, B, T, D, True)
+        chunks = RG.plan(B, T, D)[0] if steps is None else -(-T // steps)
+        check(chunks > 1, f"rg_lru B={B} T={T}: one chunk")
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            RG.rg_lru_cuda(x, a, h0, steps=steps)  # the chunk state on the capture stream
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = RG.rg_lru_cuda(x, a, h0, steps=steps)
+        errs = []
+        for _ in range(3):
+            nx, na, _ = rg_inputs(g, dev, torch.float32, B, T, D, True)
+            x.copy_(nx)
+            a.copy_(na)
+            graph.replay()
+            errs.append(assert_close(out, RG.rg_lru_plain(x, a, h0), torch.float32,
+                                     f"rg_lru B={B} T={T} ({chunks} chunks) graph replay"))
+            check(torch.equal(out, RG.rg_lru_cuda(x, a, h0, steps=steps)),
+                  f"rg_lru B={B} T={T}: a graph replay differs from the eager launch")
+        log(f"rg_lru B={B} T={T} D={D} ({chunks} chunks) captured in a CUDA graph: 3 replays "
+            f"on new inputs within f32 tolerance of the plain version (max abs err "
+            f"{max(errs):.3e}) and bitwise equal to eager launches")
 
 
 def paged_inputs(seed, dev, dtype, B, H, KVH, D, ps, MP, NP, pos=None):
@@ -888,6 +955,7 @@ def phase_paged(dev, timer):
     served decode shape, at long context and with GQA at D=128, beside
     the plain version, two library calls and the bound."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as PA
 
     cases = []  # (B, H, KVH, D, ps, MP, NP, window)
@@ -946,7 +1014,8 @@ def phase_paged(dev, timer):
                   f"paged B={B} H={H} KVH={KVH} D={D}: two calls differ")
             reps += 1
     torch.cuda.synchronize()
-    check(all(int(t.abs().sum()) == 0 for t in PA._TICKETS.values()),
+    tickets = [t for key, t in _build._SCRATCH.items() if key[0] == "paged_attention"]
+    check(tickets and all(int(t.abs().sum()) == 0 for t in tickets),
           "paged tickets not re-armed")
     log(f"paged_attention: {n} cases within tolerance of the plain version, head dims "
         f"{PA.HEAD_DIMS} and 12 forced plans a dtype (bf16: worst error / rounding bound "
@@ -1222,12 +1291,16 @@ def phase_paged_serve(dev):
     sched = SlotScheduler(server, max_slots=4)
     reqs = paged_workload(cfg.vocab)
     t0 = time.perf_counter()
-    warm_s = sched.warmup(prompt_lens=sorted({len(r.prompt) for r in reqs}))
+    warm_s = warm_graphs("paged", lambda: sched.warmup(
+        prompt_lens=sorted({len(r.prompt) for r in reqs})))
+    caps = captures_now()
     for front, name in ((server.bucketed, "decode"), (server.prefill_bucketed, "prefill")):
         for key, mod in front.programs.items():
             r = mod.result
-            log(f"  {name} program {key}: Phases 1-4 {r.total_ms:.0f} ms (capture "
-                f"{r.capture_ms:.0f} ms), {front.stats.per_bucket_compile_s[str(key)]:.2f} s "
+            log(f"  {name} program {key}: Phases 1-4 {r.total_ms:.0f} ms (torch.export "
+                f"{r.capture_ms:.0f} ms, CUDA graphs {r.capture_s:.2f} s, "
+                f"{r.executor_stats.n_segments} segments), "
+                f"{front.stats.per_bucket_compile_s[str(key)]:.2f} s "
                 f"in all; nodes {r.nodes_before} -> {r.nodes_after}, "
                 f"{r.executor_stats.n_instructions} RGIR ops, {linear_nodes(mod)} fused-linear "
                 f"and {sum(n.op == 'repro_torch.paged_attention.default' for n in mod.graph.nodes.values())} "
@@ -1253,7 +1326,8 @@ def phase_paged_serve(dev):
     pool.check()
     check(pool.pages_in_use == 1 + tree.cached_pages,
           f"pages in use {pool.pages_in_use} != 1 + {tree.cached_pages} cached")
-    check(res["compiles"] == 0, f"{res['compiles']} compiles after warmup")
+    check(res["compiles"] == 0 and captures_now() == caps,
+          f"{res['compiles']} compiles after warmup, captures {captures_now()} after {caps}")
     check(launched["paged_attention"] == cfg.n_layers * res["decode_dispatches"],
           f"paged launches {launched['paged_attention']} != {cfg.n_layers} x "
           f"{res['decode_dispatches']} decode dispatches")
@@ -1286,7 +1360,7 @@ def phase_paged_serve(dev):
     chain, n_tok = tree.match(reqs[0].prompt, max_tokens=32)
     check(n_tok == 32, f"the shared prefix is not cached ({n_tok} tokens)")
     B, MP = 4, server.max_pages_per_slot
-    own = [pool.alloc(1) for _ in range(B)]
+    own = [pool.alloc(2) for _ in range(B)]  # positions 32..63: the steady ticks below
     pt = torch.from_numpy(np.stack([build_row_table(chain + o, MP) for o in own])).to(dev)
     pos = torch.tensor([32, 33, 34, 35], dtype=torch.int32, device=dev)
     tok = torch.tensor([[t % cfg.vocab] for t in (11, 222, 3333, 44444)], dtype=torch.int32,
@@ -1323,38 +1397,37 @@ def phase_paged_serve(dev):
         f"of impl='ref' (max abs err {err:.3e}, {rel_l2(logits, logits_ref):.3e} relative "
         f"L2); served greedy tokens equal to the plain path's in {same}/{B} rows")
 
-    # device busy share of steady decode ticks: the served program fed its
-    # own output, as the scheduler's device-resident fast path does
-    steps = 8
+    # segment_jit against interpret: the decode tick above and one prefill
+    # dispatch of the B4 x S16 cell on the same rows (chunks at 32..47 on
+    # each row's own page), then the host/device split of steady decode
+    # ticks under both backends: the served program fed its own output, as
+    # the scheduler's device-resident fast path does
+    fronts = (server.bucketed, server.prefill_bucketed)
+    twins = interpret_twins(fronts)
+    ptoks = torch.randint(0, cfg.vocab, (B, 16), dtype=torch.int32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(13))
+    ppos = torch.full((B,), 32, dtype=torch.int32, device=dev)
     with torch.no_grad():
-        t_tok, t_pos, st = tok, pos, store
-        for _ in range(2):
-            t_tok, st = mod(params, st, pt, t_tok, t_pos, mask)
-            t_pos = t_pos + 1
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t1 = time.perf_counter()
-            for _ in range(steps):
-                t_tok, st = mod(params, st, pt, t_tok, t_pos, mask)
-                t_pos = t_pos + 1
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t1) * 1e3
+        hold_against_interpret("paged", [
+            ("decode", server.bucketed.key_for_extents(B), 0,
+             (params, store, pt, tok, pos, mask)),
+            ("prefill", server.prefill_bucketed.key_for_extents((B, 16)), 1,
+             (params, store, pt, ptoks, ppos, mask))], fronts, twins)
+
+    def ticks():
+        st = {"tok": tok, "pos": pos, "store": store}
+        prog = server.bucketed.lookup_program(server.bucketed.key_for_extents(B))
+
+        def one():
+            st["tok"], st["store"] = prog(params, st["store"], pt, st["tok"], st["pos"], mask)
+            st["pos"] = st["pos"] + 1
+
+        return one
+
+    backend_split("paged decode tick (B=4)", fronts, twins, ticks, mod)
     for o in own:
         pool.free(o)
     pool.check()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    if device_ms <= 0:
-        log("paged decode busy share: not measured (the profiler recorded no device time)")
-    else:
-        log(f"paged decode busy share over {steps} steady ticks (B=4) under the profiler: "
-            f"device kernels {device_ms / steps:.3f} ms per tick of {wall_ms / steps:.3f} ms "
-            f"host wall ({100 * device_ms / wall_ms:.1f}% busy)")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/tick, {e.count // steps} "
-                f"launches/tick: {e.key[:90]}")
     return launched
 
 
@@ -1451,7 +1524,8 @@ def program_log(front, name):
         ops_ = [n.op for n in mod.graph.nodes.values()
                 if n.op.startswith(("forge", "repro_torch."))]
         log(f"  {name} program {key}: Phases 1-4 {front.stats.per_bucket_compile_s[str(key)]:.2f} s "
-            f"(capture {r.capture_ms / 1e3:.2f} s, passes {r.optimize_ms / 1e3:.2f} s); nodes "
+            f"(torch.export {r.capture_ms / 1e3:.2f} s, passes {r.optimize_ms / 1e3:.2f} s, "
+            f"CUDA graphs {r.capture_s:.2f} s over {r.executor_stats.n_segments} segments); nodes "
             f"{r.nodes_before} -> {r.nodes_after}, {r.executor_stats.n_instructions} RGIR ops, "
             f"{linear_nodes(mod)} fused-linear; {dict(sorted((o, ops_.count(o)) for o in set(ops_)))}")
 
@@ -1476,7 +1550,8 @@ def phase_rglru(dev):
     B, P, n_new, max_len = 4, 32, 32, 256
     prompts = np.random.default_rng(6).integers(0, cfg.vocab, (B, P)).astype(np.int32)
     server = BatchedServer(cfg, params, max_len=max_len, mode="forge")
-    warm_s = server.warmup([B], [P])
+    warm_s = warm_graphs("recurrentgemma-2b", lambda: server.warmup([B], [P]))
+    caps = captures_now()
     program_log(server.bucketed, "decode")
     program_log(server.prefill_bucketed, "prefill")
     log(f"recurrentgemma-2b ({n_params / 1e9:.3f} B parameters, bf16) warmup: "
@@ -1498,8 +1573,9 @@ def phase_rglru(dev):
                       for f, d in zip(fronts, dispatches) for key, mod in f.programs.items())
         n_prefill = sum(dispatches[1].values())
         check(res["tokens"].shape == (B, n_new), f"token shape {res['tokens'].shape}")
-        check(res["compile_s"] == 0.0 and [f.stats.compiles for f in fronts] == compiles0,
-              f"prefill={policy}: a program compiled after warmup")
+        check(res["compile_s"] == 0.0 and [f.stats.compiles for f in fronts] == compiles0
+              and captures_now() == caps,
+              f"prefill={policy}: a program compiled or captured after warmup")
         check(launched["rg_lru"] == n_rec * n_prefill,
               f"prefill={policy}: rg_lru launches {launched['rg_lru']} != {n_rec} x "
               f"{n_prefill} prefill dispatches (decode launches none)")
@@ -1579,7 +1655,8 @@ def phase_rglru(dev):
         f"decode p50 {res['decode_ms_p50']:.2f} ms p99 {res['decode_ms_p99']:.2f} ms, "
         f"{res['tok_per_s']:.1f} tok/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    busy_share(dev, server, prompts, floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
+    contiguous_backends("recurrentgemma-2b", server, prompts, n_new,
+                        floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
     del server, params
     torch.cuda.empty_cache()
     phase_f32_deep(dev, "recurrentgemma-2b")
@@ -1855,7 +1932,8 @@ def phase_xlstm(dev):
                            bucket_policy="ladder:2,4", seq_bucket_policy="ladder:32")
     sched = SlotScheduler(server, max_slots=4)
     reqs = xlstm_workload(cfg.vocab)
-    warm_s = sched.warmup(prompt_lens=[P])
+    warm_s = warm_graphs("xlstm-350m", lambda: sched.warmup(prompt_lens=[P]))
+    caps = captures_now()
     program_log(server.bucketed, "decode")
     program_log(server.prefill_bucketed, "prefill")
     log(f"xlstm-350m ({n_params / 1e6:.1f} M parameters, bf16) warmup: "
@@ -1877,8 +1955,8 @@ def phase_xlstm(dev):
                        for k in f.stats.per_bucket_calls} for f, c0 in zip(fronts, calls0)]
         want_fl = sum(linear_nodes(mod) * d.get(str(key), 0)
                       for f, d in zip(fronts, dispatches) for key, mod in f.programs.items())
-        check([f.stats.compiles for f in fronts] == compiles0,
-              f"{name}: a program compiled after warmup")
+        check([f.stats.compiles for f in fronts] == compiles0 and captures_now() == caps,
+              f"{name}: a program compiled or captured after warmup")
         check(launched["fused_linear"] == want_fl > 0,
               f"{name}: fused_linear launches {launched['fused_linear']} != {want_fl} "
               f"predicted from the programs' linear nodes x dispatches")
@@ -1981,12 +2059,160 @@ def phase_xlstm(dev):
         f"{res_seq['ttft_s'] * 1e3:.2f} ms (ratio {res['ttft_s'] / res_seq['ttft_s']:.4f}); "
         f"decode p50 {res['decode_ms_p50']:.2f} ms p99 {res['decode_ms_p99']:.2f} ms, "
         f"{res['tok_per_s']:.1f} tok/s; scheduler {sres['tok_per_s']:.1f} tok/s")
-    busy_share(dev, server, prompts, floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
+    contiguous_backends("xlstm-350m", server, prompts, n_new,
+                        floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
     del server, sched, params
     torch.cuda.empty_cache()
     phase_f32_deep(dev, "xlstm-350m", eager=False)
     return {"xlstm_serve": served, "xlstm_sequential": sequential, "xlstm_sched": scheduled,
             "xlstm_apply": applied}
+
+
+def phase_dense_contiguous(dev):
+    """forge-125m at full width through the contiguous forge fronts
+    (segment_jit): group serving with the batched and the sequential
+    prefill, then the contiguous SlotScheduler over phase 5's workload;
+    returns the launches of each path."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_linear as FL
+    from repro_torch.launch.serve import BatchedServer, SlotScheduler
+    from repro_torch.models import get_model
+
+    cfg = get_config("forge-125m")  # 12 layers, d 768, vocab 50257, bf16
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    B, P, n_new, max_len = 4, 32, 32, 256  # the serve CLI's defaults
+    prompts = np.random.default_rng(12).integers(0, cfg.vocab, (B, P)).astype(np.int32)
+    # batch rungs 2 and 4 (max_slots 4); the sequence cells S16/S32/S64 of
+    # the workload's prompts (12, 24 and 40 tokens) and the group's S32
+    server = BatchedServer(cfg, params, max_len=max_len, mode="forge", bucket_policy="ladder:2,4")
+    sched = SlotScheduler(server, max_slots=4)
+    reqs = paged_workload(cfg.vocab)
+    warm_s = warm_graphs("forge-125m contiguous", lambda: sched.warmup(
+        prompt_lens=sorted({len(r.prompt) for r in reqs} | {P})))
+    caps = captures_now()
+    program_log(server.bucketed, "decode")
+    program_log(server.prefill_bucketed, "prefill")
+    log(f"forge-125m contiguous warmup: {len(server.bucketed.programs)} decode + "
+        f"{len(server.prefill_bucketed.programs)} prefill programs in {warm_s:.1f} s")
+    fronts = (server.bucketed, server.prefill_bucketed)
+    compiles0 = [f.stats.compiles for f in fronts]
+
+    def counted(name, fn):
+        """``fn`` with the counts zeroed just before and read just after:
+        fused_linear = the programs' linear nodes x their dispatches, no
+        other kernel (decode and prefill attention are masked: plain)."""
+        calls0 = [dict(f.stats.per_bucket_calls) for f in fronts]
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launched = counts()
+        dispatches = [{k: f.stats.per_bucket_calls.get(k, 0) - c0.get(k, 0)
+                       for k in f.stats.per_bucket_calls} for f, c0 in zip(fronts, calls0)]
+        want_fl = sum(linear_nodes(mod) * d.get(str(key), 0)
+                      for f, d in zip(fronts, dispatches) for key, mod in f.programs.items())
+        check([f.stats.compiles for f in fronts] == compiles0 and captures_now() == caps,
+              f"{name}: a program compiled or captured after warmup")
+        check(launched["fused_linear"] == want_fl > 0,
+              f"{name}: fused_linear launches {launched['fused_linear']} != {want_fl} "
+              f"predicted from the programs' linear nodes x dispatches")
+        others = {k: v for k, v in launched.items() if k != "fused_linear" and v}
+        check(not others, f"{name}: launched {others}")
+        return out, launched, [sum(d.values()) for d in dispatches]
+
+    runs = {}
+    for policy in ("auto", "sequential"):
+        server.prefill_policy = policy
+        res, launched, (n_dec, n_pre) = counted(f"prefill={policy}",
+                                                lambda: server.generate(prompts, n_new))
+        check(res["tokens"].shape == (B, n_new) and res["compile_s"] == 0.0,
+              f"prefill={policy}: token shape {res['tokens'].shape}, compile {res['compile_s']}")
+        check(res["prefill_mode"] == ("batched" if policy == "auto" else "sequential"),
+              f"prefill={policy}: prefill mode {res['prefill_mode']}")
+        log(f"serve forge-125m contiguous prefill={policy} ({res['prefill_mode']}) batch={B} "
+            f"prompt={P} gen={n_new}: ttft {res['ttft_s'] * 1e3:.2f} ms, decode p50 "
+            f"{res['decode_ms_p50']:.2f} ms p99 {res['decode_ms_p99']:.2f} ms, "
+            f"{res['tok_per_s']:.1f} tok/s; {n_pre} prefill and {n_dec} decode dispatches; "
+            f"launches {launched}")
+        runs[policy] = (res, launched)
+    server.prefill_policy = "auto"
+    res, served = runs["auto"]
+    # the two prefill routes round differently (M = 128 against M = 4
+    # fused-linear rows): reported, not required equal
+    same_seq = int((res["tokens"] == runs["sequential"][0]["tokens"]).all(1).sum())
+
+    sres, scheduled, (s_dec, s_pre) = counted("scheduler", lambda: sched.run(reqs))
+    for r in reqs:
+        got = sres["results"][r.rid]
+        check("error" not in got and len(got["tokens"]) == r.max_new,
+              f"request {r.rid}: {got.get('error')} {len(got['tokens'])} tokens, budget "
+              f"{r.max_new}")
+    check(sres["swaps"] >= 1 and sres["compiles"] == 0,
+          f"swaps {sres['swaps']}, compiles {sres['compiles']}")
+    check(s_pre == sres["prefill_dispatches"] and s_dec == sres["decode_dispatches"],
+          "scheduler dispatch counts disagree with the fronts' stats")
+    log(f"contiguous SlotScheduler forge-125m (max_slots 4, rungs 2/4): {len(reqs)} requests, "
+        f"{sres['real_tokens']} tokens, {sres['tok_per_s']:.1f} tok/s, tick p50 "
+        f"{sres['tick_ms_p50']:.2f} ms p99 {sres['tick_ms_p99']:.2f} ms, TTFT p50 "
+        f"{sres['ttft_p50_ticks']:.1f} ticks {sres['ttft_p50_s'] * 1e3:.2f} ms; decode "
+        f"dispatches {s_dec}, prefill dispatches {s_pre}, swaps {sres['swaps']}, resizes "
+        f"{sres['resizes']}, occupancy {sres['occupancy']:.3f}; launches {scheduled}")
+
+    # the served B4 x S32 prefill program against the eager impl="ref" step:
+    # logits and written cache within TOL_MODEL_BF16; the served first
+    # tokens a top choice of the plain path (phase 3's slack)
+    pkey = server.prefill_bucketed.key_for_extents((B, P))
+    pmod = server.prefill_bucketed.programs[pkey]
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        logits, cache = pmod(params, server._build_cache(B), *server._prefill_args(B, toks, 0))
+        reset_counts()
+        logits_ref, cache_ref = model.prefill_step(params, server._build_cache(B), toks, 0, cfg,
+                                                   impl="ref")
+        check(FL.LAUNCHES.n == 0, "the impl='ref' prefill launched a kernel")
+    err = assert_close(logits, logits_ref, torch.bfloat16, "forge-125m prefill logits",
+                       TOL_MODEL_BF16)
+    errs = {name: assert_close(cache[name][:, :, :, :P], cache_ref[name][:, :, :, :P],
+                               torch.bfloat16, f"prefilled {name} cache", TOL_MODEL_BF16)
+            for name in ("k", "v")}
+    last, last_ref = logits[:, P - 1].float(), logits_ref[:, P - 1].float()
+    best = last_ref.max(-1).values
+    slack = 2 * (TOL_MODEL_BF16["atol"] + TOL_MODEL_BF16["rtol"] * best.abs())
+    for name, pick in (("program", last.argmax(-1)),
+                       ("served", torch.as_tensor(res["tokens"][:, 0], device=dev).long())):
+        check(bool((last_ref.gather(-1, pick[:, None])[:, 0] >= best - slack).all()),
+              f"a first token of the {name} is no top choice of the impl='ref' prefill")
+    log(f"served prefill {pkey} within bf16 tolerance of the eager impl='ref' prefill_step: "
+        f"logits max abs err {err:.3e} ({rel_l2(logits, logits_ref):.3e} relative L2), cache "
+        f"k {errs['k']:.3e} v {errs['v']:.3e}; first tokens equal in "
+        f"{int((last.argmax(-1) == last_ref.argmax(-1)).sum())}/{B} rows (served "
+        f"{int((torch.as_tensor(res['tokens'][:, 0], device=dev) == last_ref.argmax(-1)).sum())}"
+        f"/{B}); batched and sequential prefill served equal tokens in {same_seq}/{B} rows")
+
+    # a caller keeping two calls' outputs sees both intact: two prefill
+    # dispatches on other prompts, each held after both against the
+    # interpret twin of the same lowered program
+    twin = pmod.with_backend("interpret")
+    other = torch.as_tensor(np.random.default_rng(14).integers(0, cfg.vocab, (B, P)),
+                            dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        args1 = (params, server._build_cache(B)) + server._prefill_args(B, toks, 0)
+        args2 = (params, server._build_cache(B)) + server._prefill_args(B, other, 0)
+        first, second = pmod(*args1), pmod(*args2)
+        leaves_equal("the first of two kept prefill outputs", first, twin(*args1))
+        leaves_equal("the second of two kept prefill outputs", second, twin(*args2))
+    log("two prefill dispatches' outputs kept by the caller: both bitwise equal to the "
+        "interpret program's after the second call")
+    n_params = sum(t.numel() for t in {id(t): t for t in pytree.tree_leaves(params)}.values())
+    contiguous_backends("forge-125m contiguous", server, prompts, n_new,
+                        floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
+    del server, sched, params
+    torch.cuda.empty_cache()
+    return {"dense_serve": served, "dense_sequential": runs["sequential"][1],
+            "dense_sched": scheduled}
 
 
 def log_device_time(fn, what):
@@ -2011,37 +2237,209 @@ def log_device_time(fn, what):
         f"flash kernels {part('flash_'):.3f} ms")
 
 
-def busy_share(dev, server, prompts, steps=8, floor_ms=None):
-    """Device busy share of steady decode steps: kernel time summed by
-    ``torch.profiler`` over the host wall of the same steps."""
+def step_split(step, what, steps=8, floor_ms=None):
+    """Where a served step's time goes: ``step()`` runs one step.  Host
+    wall per step, p50 and p99 over ``steps`` steps each ended by a
+    synchronize, and the p50 of the part of it spent before ``step()``
+    returned (enqueueing the step's work: the host's share); then device
+    kernel time per step from ``torch.profiler`` over ``steps`` steps run
+    back to back, and the busy share: kernel time over the same steps'
+    host wall under the profiler (which slows the host) and over the
+    unprofiled p50.  Returns the numbers (device time and busy shares
+    None when the profiler recorded no device time)."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
-        cache, tok, pos, step, _ = server.prefill(prompts)
+        for _ in range(2):
+            step()
         torch.cuda.synchronize()
+        walls, enqueue = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            step()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             t0 = time.perf_counter()
-            for i in range(steps):
-                tok, cache = step(server.params, cache, tok, pos + i)
+            for _ in range(steps):
+                step()
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            window_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and "CUDA" in str(e.device_type)]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    if device_ms <= 0:
-        log("decode busy share: not measured (the profiler recorded no device time)")
-        return
-    log(f"decode busy share over {steps} steps under the profiler: device kernels "
-        f"{device_ms / steps:.3f} ms per step of {wall_ms / steps:.3f} ms host wall "
-        f"({100 * device_ms / wall_ms:.1f}% busy)"
+              if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    out = {"wall_p50": float(np.percentile(walls, 50)), "wall_p99": float(np.percentile(walls, 99)),
+           "enqueue_p50": float(np.percentile(enqueue, 50)),
+           "device_ms": device_ms if device_ms > 0 else None, "window_ms": window_ms / steps}
+    out["busy"] = device_ms * steps / window_ms if device_ms > 0 else None
+    out["busy_p50"] = device_ms / out["wall_p50"] if device_ms > 0 else None
+    if out["device_ms"] is None:
+        log(f"{what}: host wall per step p50 {out['wall_p50']:.3f} ms p99 {out['wall_p99']:.3f} "
+            f"ms (enqueue p50 {out['enqueue_p50']:.3f} ms); device time not measured (the "
+            f"profiler recorded no device time)")
+        return out
+    log(f"{what}: host wall per step p50 {out['wall_p50']:.3f} ms p99 {out['wall_p99']:.3f} ms "
+        f"(enqueue p50 {out['enqueue_p50']:.3f} ms); under the profiler, device kernels {device_ms:.3f} ms per step of "
+        f"{out['window_ms']:.3f} ms host wall ({100 * out['busy']:.1f}% busy; "
+        f"{100 * out['busy_p50']:.1f}% of the unprofiled p50)"
         + (f"; a step must read the weights: at least {floor_ms:.3f} ms"
            if floor_ms is not None else ""))
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step, {e.count // steps} "
             f"launches/step: {e.key[:90]}")
+    return out
+
+
+def decode_steps(server, prompts):
+    """A step function over the server's decode program from a prefill of
+    ``prompts``: each call decodes one token, fed the last one."""
+    cache, tok, pos, step, _ = server.prefill(prompts)
+    st = {"cache": cache, "tok": tok, "i": 0}
+
+    def one():
+        st["tok"], st["cache"] = step(server.params, st["cache"], st["tok"], pos + st["i"])
+        st["i"] += 1
+
+    return one
+
+
+def busy_share(dev, server, prompts, steps=8, floor_ms=None):
+    """Device busy share of steady decode steps (the eager server)."""
+    return step_split(decode_steps(server, prompts), "eager decode", steps, floor_ms)
+
+
+def interpret_twins(fronts):
+    """Every program of ``fronts`` on the interpret backend, built from the
+    same lowered program (no second ``torch.export``)."""
+    return [{k: m.with_backend("interpret") for k, m in f.programs.items()} for f in fronts]
+
+
+@contextlib.contextmanager
+def serving_with(fronts, tables):
+    """Serve the fronts from other program tables (the interpret twins)
+    inside a ``with`` block; the served tables come back after it."""
+    saved = [f.programs for f in fronts]
+    for f, t in zip(fronts, tables):
+        f.programs = t
+    try:
+        yield
+    finally:
+        for f, t in zip(fronts, saved):
+            f.programs = t
+
+
+def leaves_equal(what, got, want):
+    """Every output leaf bitwise equal; else fail naming the leaves that
+    differ and by how much."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    g, spec = pytree.tree_flatten_with_path(got)
+    w = pytree.tree_leaves(want)
+    check(len(g) == len(w), f"{what}: {len(g)} outputs against {len(w)}")
+    bad = [(pytree.keystr(path), (a.float() - b.float()).abs().max().item())
+           for (path, a), b in zip(g, w)
+           if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b)]
+    check(not bad, f"{what}: segment_jit differs from interpret at {bad[:6]}")
+    return len(g)
+
+
+def hold_against_interpret(what, dispatches, fronts, twins, generate=None):
+    """segment_jit against interpret on the card: one dispatch of each
+    program in ``dispatches`` ((label, key, front index, args)) under
+    both backends on the same inputs, every output bitwise equal; with
+    ``generate``, the served greedy tokens under both, bitwise equal."""
+    import numpy as np
+
+    for label, key, fi, args in dispatches:
+        mod, twin = fronts[fi].programs[key], twins[fi][key]
+        n = leaves_equal(f"{what} {label} {key}", mod(*args), twin(*args))
+        log(f"{what}: {label} dispatch {key} under segment_jit bitwise equal to interpret "
+            f"({n} outputs; {mod.stats.last_segments_executed} graph replays against "
+            f"{twin.stats.n_instructions} per-op dispatches)")
+    if generate is not None:
+        got = generate()
+        with serving_with(fronts, twins):
+            want = generate()
+        check(np.array_equal(got, want), f"{what}: served greedy tokens differ between "
+                                         f"segment_jit and interpret")
+        log(f"{what}: served greedy tokens {got.shape} bitwise equal under both backends")
+
+
+def contiguous_backends(what, server, prompts, n_new, floor_ms=None):
+    """segment_jit against interpret on a contiguous forge path: one decode
+    and one prefill dispatch of the group's cells on the same inputs, the
+    served greedy tokens, then the host/device split of steady decode
+    steps under both backends."""
+    import torch
+
+    fronts = (server.bucketed, server.prefill_bucketed)
+    twins = interpret_twins(fronts)
+    B, P = prompts.shape
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=server.device)
+    with torch.no_grad():
+        cache, tok, pos, _, dkey = server.prefill(prompts)
+        hold_against_interpret(what, [
+            ("decode", dkey, 0, (server.params, cache) + server._decode_args(B, tok, pos)),
+            ("prefill", server.prefill_bucketed.key_for_extents((B, P)), 1,
+             (server.params, server._build_cache(B)) + server._prefill_args(B, toks, 0))],
+            fronts, twins, generate=lambda: server.generate(prompts, n_new)["tokens"])
+    return backend_split(what, fronts, twins, lambda: decode_steps(server, prompts),
+                         server.bucketed.lookup_program(dkey), floor_ms)
+
+
+def warm_graphs(what, warm):
+    """Run ``warm()`` (a front's warmup) and log the programs captured, the
+    CUDA graphs, the capture seconds and the device memory it reserved
+    (the graph pools with it); returns warm()'s value."""
+    import torch
+    from repro_torch.core.backends.segment_jit import CAPTURES
+
+    before, mem0 = dict(CAPTURES), torch.cuda.memory_reserved()
+    out = warm()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_reserved()
+    log(f"{what} warmup captured {CAPTURES['programs'] - before['programs']} programs as "
+        f"{CAPTURES['graphs'] - before['graphs']} CUDA graphs in "
+        f"{CAPTURES['seconds'] - before['seconds']:.2f} s (warm run + capture); "
+        f"memory_reserved {mem0 / 2**30:.2f} GiB before warmup, {mem1 / 2**30:.2f} GiB after")
+    return out
+
+
+def captures_now():
+    from repro_torch.core.backends.segment_jit import CAPTURES
+
+    return dict(CAPTURES)
+
+
+def backend_split(what, fronts, twins, make_step, decode_mod, floor_ms=None):
+    """Host wall per step, device time per step and busy share of steady
+    decode steps under segment_jit and under interpret, replays per step
+    and the capture seconds of each program."""
+    split = {"segment_jit": step_split(make_step(), f"{what} [segment_jit]", floor_ms=floor_ms)}
+    with serving_with(fronts, twins):
+        split["interpret"] = step_split(make_step(), f"{what} [interpret]", floor_ms=floor_ms)
+    s = decode_mod.stats
+    caps = [round(m.result.capture_s, 3) for f in fronts for m in f.programs.values()]
+
+    def fmt(v, scale=1.0, unit=" ms"):
+        return "not measured" if v is None else f"{v * scale:.3f}{unit}"
+
+    a, b = split["segment_jit"], split["interpret"]
+    log(f"{what} host/device split: host wall per step p50 {a['wall_p50']:.3f} / p99 "
+        f"{a['wall_p99']:.3f} ms (segment_jit) against {b['wall_p50']:.3f} / "
+        f"{b['wall_p99']:.3f} ms (interpret); enqueue p50 {a['enqueue_p50']:.3f} against "
+        f"{b['enqueue_p50']:.3f} ms; device time per step {fmt(a['device_ms'])} "
+        f"against {fmt(b['device_ms'])}; busy {fmt(a['busy'], 100, '%')} against "
+        f"{fmt(b['busy'], 100, '%')} under the profiler, {fmt(a['busy_p50'], 100, '%')} "
+        f"against {fmt(b['busy_p50'], 100, '%')} of the unprofiled p50; replays per step {s.n_segments} (delta_after + 1 = "
+        f"{s.delta_after + 1}) against {s.n_instructions} per-op dispatches; capture seconds "
+        f"per program {caps}")
+    return split
 
 
 def main():
@@ -2077,6 +2475,7 @@ def main():
     launches["paged"] = phase_paged_serve(dev)
     launches.update(phase_rglru(dev))
     launches.update(phase_xlstm(dev))
+    launches.update(phase_dense_contiguous(dev))
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
@@ -2115,7 +2514,7 @@ def main():
 
     # fused_linear times are one layer's launches at the path's M: three
     # for forge-125m (4 at decode, B*S = 4096 in apply; the paged path's
-    # decode M is 4), four for a recurrentgemma-2b rec layer (4 at decode,
+    # decode M is 4; 4 x 32 = 128 in the contiguous prefill cell), four for a recurrentgemma-2b rec layer (4 at decode,
     # 4 x 32 = 128 in the prefill cell, 2 x 1024 = 2048 in apply); flash
     # runs in the forge-125m apply only, paged attention in the paged path
     # only, rg_lru in recurrentgemma-2b's prefill and apply (f32 inputs)
@@ -2128,7 +2527,9 @@ def main():
              "xlstm_serve": fl_rows[("xlstm", 128)],
              "xlstm_sequential": fl_rows[("xlstm", 4)],
              "xlstm_sched": fl_rows[("xlstm", 4)],
-             "xlstm_apply": fl_rows[("xlstm", 2048)]}),
+             "xlstm_apply": fl_rows[("xlstm", 2048)],
+             "dense_serve": fl_rows[128], "dense_sequential": fl_rows[4],
+             "dense_sched": fl_rows[4]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
             {"apply": fa_rows["apply"]}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",

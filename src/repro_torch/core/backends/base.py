@@ -9,13 +9,18 @@ segment-at-a-time programs:
 * ``as_fn() -> Callable`` — the same program as a plain callable,
 * ``stats: ExecutorStats`` — the transparency counters.
 
+``build`` takes the positions of the flat inputs that are parameters
+(``static_inputs``, with their names): a backend that captures the
+program on the card reads them at the caller's address.
+
 Backends register themselves by name; ``get_backend`` resolves the name
 given as ``ForgeCompiler(backend=...)``.
 """
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Any, Callable, Dict, List, Protocol, Type, runtime_checkable
+from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence, Type,
+                    runtime_checkable)
 
 from ..lowering import RGIRProgram
 
@@ -40,7 +45,8 @@ class Backend(ABC):
     name: str = "?"
 
     @abstractmethod
-    def build(self, prog: RGIRProgram) -> ExecutorLike:
+    def build(self, prog: RGIRProgram, *, static_inputs: Sequence[int] = (),
+              input_names: Optional[Sequence[str]] = None) -> ExecutorLike:
         """Compile an RGIR program into an executor."""
 
     def __repr__(self) -> str:  # pragma: no cover

@@ -6,6 +6,8 @@ Python-level dispatch per RGIR instruction over the physical buffer file
 """
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 from ..executor import CompiledExecutor, analyze_program
 from ..lowering import RGIRProgram
 from .base import Backend, register_backend
@@ -15,5 +17,6 @@ from .base import Backend, register_backend
 class InterpretBackend(Backend):
     name = "interpret"
 
-    def build(self, prog: RGIRProgram) -> CompiledExecutor:
+    def build(self, prog: RGIRProgram, *, static_inputs: Sequence[int] = (),
+              input_names: Optional[Sequence[str]] = None) -> CompiledExecutor:
         return CompiledExecutor(analyze_program(prog))

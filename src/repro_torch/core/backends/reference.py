@@ -7,7 +7,7 @@ real backend is compared against this one.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from ..executor import ExecutorStats
 from ..lowering import RGIRProgram
@@ -51,5 +51,6 @@ class ReferenceExecutor:
 class ReferenceBackend(Backend):
     name = "reference"
 
-    def build(self, prog: RGIRProgram) -> ReferenceExecutor:
+    def build(self, prog: RGIRProgram, *, static_inputs: Sequence[int] = (),
+              input_names: Optional[Sequence[str]] = None) -> ReferenceExecutor:
         return ReferenceExecutor(prog)

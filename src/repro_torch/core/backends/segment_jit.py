@@ -1,0 +1,437 @@
+"""The ``segment_jit`` backend — one CUDA graph per device-affine segment.
+
+The device-affinity schedule (Phase 4c) leaves the RGIR stream as
+``δ_after + 1`` maximal same-device runs.  Instead of dispatching each
+instruction from Python (the ``interpret`` backend), this backend makes
+every *segment* one dispatch unit — the JAX package's ``segment_jit``,
+whose accel segments are ``jax.jit`` programs:
+
+* each segment's program is the replay of its ops over a local register
+  environment, whose signature is the segment's live-in / live-out
+  register sets (derived from the liveness intervals);
+* buffer allocation stays linear-scan but is **segment-aware**:
+  registers born and killed inside a single segment never occupy a
+  physical slot — they exist only in the segment's local environment;
+* per-segment slot plans (gather live-ins, clear the registers that die,
+  scatter live-outs) are computed once at build.
+
+On CPU tensors each segment runs its replay closure: that is the plain
+version, bitwise the ``interpret`` backend's results.
+
+On CUDA tensors **every segment, of either tag, is one CUDA graph**.  On
+this card both tags run on the same CUDA tensors, so the ``host`` tag is
+scheduling metadata, not a device, and graphing only the ``accel`` ops
+(forge nodes, kernel custom ops, bare matmuls) would leave 90-98% of the
+ops on the per-op Python path.  :meth:`SegmentExecutor.prepare` (the
+compiler calls it with the example arguments, so capture is part of
+Phase 4) runs the program once eagerly on a side stream, which builds
+the kernels' libraries, cuBLAS's handles and the kernels' lazy scratch
+before capture, then captures the segments in program order into one
+memory pool: a later segment's graph reads the earlier graphs' output
+tensors by address, and no live-in is copied between segments.
+
+* Parameters (``static_inputs``: the fronts pass ``static_argnums=(0,)``,
+  every step signature puts ``params`` first) are captured at the
+  caller's address; a parameter whose address changes at a later call
+  raises, naming it.
+* Every other input is copied into the program's own input tensors
+  before the replays.
+* The outputs are copied out of the pool after the replays, so what a
+  call returns stays valid after later calls of the same program.
+* Per call there are exactly ``n_segments`` (= δ_after + 1) replays.
+* There is no fallback: a segment that cannot be captured (an op that
+  syncs the host, an op CUDA graphs cannot hold) raises with its index
+  and its first op that cannot be captured; it never falls back to
+  per-op replay.  No op of the served programs needs the host: the
+  sLSTM ``scan_op`` loop has a fixed trip count and no sync.
+* Each segment records the kernel launches its capture met (the
+  ``LAUNCHES`` counters), takes them back off and adds them at every
+  replay, so the counters keep counting launches on the device.
+
+Graphs of one program are replayed in order on the caller's current
+stream; two programs must not replay concurrently on two streams (they
+share the kernels' per-stream scratch through their capture stream).
+
+Not ported: the JAX package's export and disk cache of segments
+(``_serialize_segment``), buffer donation and the pad-and-mask
+execution (``PaddedExecutionMixin``).
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+import torch
+
+from ...kernels import _build
+from ..bufalloc import allocate
+from ..executor import AnalyzedProgram, ExecutorStats, analyze_program
+from ..lowering import RGIROp, RGIRProgram
+from .base import Backend, register_backend
+
+#: capture counters of this process (read by the serve checks): programs
+#: captured, graphs captured, seconds spent in ``prepare``
+CAPTURES: Dict[str, float] = {"programs": 0, "graphs": 0, "seconds": 0.0}
+
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream per device for every warm run and capture, so the
+    kernels' per-stream scratch made by a warm run is the one its
+    capture finds."""
+    s = _CAPTURE_STREAMS.get(device.index)
+    if s is None:
+        s = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return s
+
+
+class SegmentCaptureError(RuntimeError):
+    """A segment could not be captured as one CUDA graph."""
+
+
+@dataclass
+class CompiledSegment:
+    """One schedulable unit: a maximal device-affine instruction run."""
+
+    index: int
+    device: str
+    start: int  # scheduled-order instruction range [start, stop)
+    stop: int
+    live_in: Tuple[int, ...]  # registers read from the buffer file
+    live_out: Tuple[int, ...]  # registers written back to the buffer file
+    free_after: Tuple[int, ...]  # buffer-file registers that die here
+    fn: Callable  # (*live_in values) -> tuple of live_out values
+    # -- dispatch plan: slot indices into the flat buffer file ------------
+    in_slots: Tuple[int, ...] = ()
+    out_slots: Tuple[int, ...] = ()
+    free_slots: Tuple[int, ...] = ()
+
+
+def _make_segment_fn(ops: Sequence[RGIROp], live_in: Tuple[int, ...],
+                     live_out: Tuple[int, ...], drop: Sequence[Tuple[int, ...]]) -> Callable:
+    """Replay ``ops`` over a local register env: the segment's program.
+    ``drop[k]`` are the env registers whose last reader is ``ops[k]``:
+    they leave the env there, so a temporary's memory is free for the
+    next op (eager GC inside the segment).  ``fn.at[0]`` is the index of
+    the op running (or that raised)."""
+    plan = tuple(zip(ops, drop))
+    at = [0]
+
+    def seg_fn(*vals):
+        env: Dict[int, Any] = dict(zip(live_in, vals))
+        read = env.__getitem__
+        for k, (op, dead) in enumerate(plan):
+            at[0] = k
+            for r, v in zip(op.output_regs, op.execute(read)):
+                env[r] = v
+            for r in dead:
+                del env[r]
+        return tuple(env[r] for r in live_out)
+
+    seg_fn.at = at
+    return seg_fn
+
+
+class SegmentExecutor:
+    """Segment-at-a-time executor over the physical buffer file; on the
+    card, one CUDA graph replay per segment."""
+
+    def __init__(self, analyzed: AnalyzedProgram, *,
+                 static_inputs: Sequence[int] = (),
+                 input_names: Optional[Sequence[str]] = None):
+        self.prog = analyzed.prog
+        self.sched = analyzed.sched
+        self.live = analyzed.live
+        n = len(self.prog.ops)
+        segments = self.sched.segments
+
+        seg_of = [0] * n
+        for si, seg in enumerate(segments):
+            for i in range(seg.start, seg.stop):
+                seg_of[i] = si
+
+        # registers whose entire life [s, e] sits inside one segment never
+        # touch the buffer file: they live in that segment's local env
+        intervals = self.live.intervals
+        internal: Set[int] = set()
+        for r, (s, e) in intervals.items():
+            if s < 0 or e >= n or r in self.live.pinned:
+                continue
+            if seg_of[s] == seg_of[e]:
+                internal.add(r)
+        self._internal = internal
+
+        # segment-aware linear scan: only buffer-file registers get slots
+        lifetimes = {r: iv for r, iv in intervals.items() if r not in internal}
+        pinned = set(self.live.pinned)
+        for r, (s, _) in lifetimes.items():
+            if s < 0:
+                pinned.add(r)
+        self.alloc = allocate(lifetimes, pinned)
+        self._r2b = self.alloc.reg_to_buf
+
+        self._const_items = tuple((self._r2b[r], v) for r, v in self.prog.constants.items())
+        self._input_bufs = [self._r2b[r] for r in self.prog.input_regs]
+        self._output_bufs = [self._r2b[r] for r in self.prog.output_regs]
+        # constant slots are never cleared: the executor pins their values
+        const_slots = {b for b, _ in self._const_items}
+
+        dead_after = self.live.dead_after
+        self.segments: List[CompiledSegment] = []
+        for si, seg in enumerate(segments):
+            ops = self.prog.ops[seg.start:seg.stop]
+            live_in_set: Set[int] = set()
+            defined_here: Set[int] = set()
+            for op in ops:
+                for r in op.input_regs:
+                    if intervals[r][0] < seg.start:
+                        live_in_set.add(r)
+                defined_here.update(op.output_regs)
+            live_out = tuple(sorted(r for r in defined_here if r not in internal))
+            live_in = tuple(sorted(live_in_set))
+            free_after = tuple(sorted(r for idx in range(seg.start, seg.stop)
+                                      for r in dead_after.get(idx, ()) if r not in internal))
+            drop = [tuple(dead_after.get(idx, ())) for idx in range(seg.start, seg.stop)]
+            self.segments.append(CompiledSegment(
+                index=si,
+                device=seg.device,
+                start=seg.start,
+                stop=seg.stop,
+                live_in=live_in,
+                live_out=live_out,
+                free_after=free_after,
+                fn=_make_segment_fn(ops, live_in, live_out, drop),
+                in_slots=tuple(self._r2b[r] for r in live_in),
+                out_slots=tuple(self._r2b[r] for r in live_out),
+                free_slots=tuple(b for b in (self._r2b[r] for r in free_after)
+                                 if b not in const_slots),
+            ))
+        self._plans = tuple((s.fn, s.in_slots, s.free_slots, s.out_slots)
+                            for s in self.segments)
+
+        occupied = set(const_slots) | set(self._input_bufs)
+        peak = len(occupied)
+        for s in self.segments:
+            occupied.difference_update(self._r2b[r] for r in s.free_after)
+            occupied.update(s.out_slots)
+            peak = max(peak, len(occupied))
+        self._static_peak = peak
+
+        n_in = len(self._input_bufs)
+        self._static_inputs = tuple(sorted(set(static_inputs)))
+        if any(not 0 <= i < n_in for i in self._static_inputs):
+            raise ValueError(f"static input positions {self._static_inputs} out of range "
+                             f"for {n_in} inputs")
+        self._input_names = (list(input_names) if input_names is not None
+                             else [f"input {i}" for i in range(n_in)])
+        #: the card's replay state, made by prepare(): (graph, launches) per
+        #: segment, the program's own input tensors, the parameters'
+        #: addresses and the output tensors in the pool
+        self._replay: Optional[Tuple[Any, ...]] = None
+
+        self.stats = ExecutorStats(
+            n_instructions=n,
+            n_accel=sum(1 for op in self.prog.ops if op.device == "accel"),
+            n_host=sum(1 for op in self.prog.ops if op.device == "host"),
+            n_vregs=self.prog.n_vregs,
+            n_buffers=self.alloc.n_buffers,
+            rho_buf=(1.0 - self.alloc.n_buffers / self.prog.n_vregs
+                     if self.prog.n_vregs else 0.0),
+            delta_before=self.sched.delta_before,
+            delta_after=self.sched.delta_after,
+            n_segments=len(self.segments),
+            # every segment is one CUDA graph on the card
+            n_compiled_segments=len(self.segments),
+            n_internal_regs=len(internal),
+        )
+
+    # -- the plain path: the segments' closures over the buffer file ------
+
+    def _run_file(self, flat_inputs: Sequence[Any]) -> List[Any]:
+        file: List[Any] = [None] * self.alloc.n_buffers
+        for b, v in self._const_items:
+            file[b] = v
+        for b, v in zip(self._input_bufs, flat_inputs):
+            file[b] = v
+        for fn, in_slots, free_slots, out_slots in self._plans:
+            out_vals = fn(*[file[b] for b in in_slots])
+            # clear BEFORE the stores: a register dying inside this segment
+            # may share its slot with a live-out born later in it
+            for b in free_slots:
+                file[b] = None
+            for b, v in zip(out_slots, out_vals):
+                file[b] = v
+        return [file[b] for b in self._output_bufs]
+
+    # -- the card: capture ------------------------------------------------
+
+    @property
+    def captured(self) -> bool:
+        return self._replay is not None
+
+    def prepare(self, *flat_inputs: Any) -> None:
+        """Capture the program's CUDA graphs from inputs on the card (a
+        no-op on CPU inputs or once captured)."""
+        if self._replay is not None or not any(
+                isinstance(x, torch.Tensor) and x.is_cuda for x in flat_inputs):
+            return
+        self._check_arity(flat_inputs)
+        t0 = time.perf_counter()
+        dev = next(x.device for x in flat_inputs if x.is_cuda)
+        static = set(self._static_inputs)
+        own: List[Tuple[int, torch.Tensor]] = []
+        values = list(flat_inputs)
+        for i, x in enumerate(flat_inputs):
+            if x.device != dev:
+                raise ValueError(f"segment_jit: {self._input_names[i]} is on {x.device}, not "
+                                 f"{dev}: a captured program reads its inputs on the card")
+            if i not in static:
+                values[i] = x.clone()  # the program's own input tensor
+                own.append((i, values[i]))
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.no_grad(), torch.cuda.stream(stream):
+            # warm run: the kernels' libraries, cuBLAS's handles and the
+            # kernels' per-stream scratch exist before any capture
+            self._run_file(values)
+            stream.synchronize()
+            pool = torch.cuda.graph_pool_handle()
+            file: List[Any] = [None] * self.alloc.n_buffers
+            for b, v in self._const_items:
+                file[b] = v
+            for b, v in zip(self._input_bufs, values):
+                file[b] = v
+            graphs = []
+            for seg in self.segments:
+                graph, outs, launches = self._capture(
+                    seg, [file[b] for b in seg.in_slots], pool, stream)
+                graphs.append((graph, launches))
+                for b in seg.free_slots:
+                    file[b] = None
+                for b, v in zip(seg.out_slots, outs):
+                    file[b] = v
+            outputs = [file[b] for b in self._output_bufs]
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        params = tuple((i, flat_inputs[i].data_ptr()) for i in self._static_inputs)
+        self._replay = (tuple(graphs), tuple(own), params, outputs)
+        seconds = time.perf_counter() - t0
+        self.stats.capture_s = seconds
+        CAPTURES["programs"] += 1
+        CAPTURES["graphs"] += len(graphs)
+        CAPTURES["seconds"] += seconds
+
+    def _capture(self, seg: CompiledSegment, args: List[Any], pool, stream):
+        """One segment as one CUDA graph; returns (graph, outputs in the
+        pool, the kernel launches its capture recorded)."""
+        before = _build.launch_snapshot()
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            outs = seg.fn(*args)
+        except Exception as e:
+            try:
+                graph.capture_end()
+            except Exception:  # noqa: BLE001 — the capture is void already
+                pass
+            raise self._capture_error(seg, args, stream, e) from e
+        try:
+            with warnings.catch_warnings():
+                # a segment of views and reshapes launches no kernel: its
+                # graph is empty, and replaying it costs nothing
+                warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+                graph.capture_end()
+        except Exception as e:
+            raise self._capture_error(seg, args, stream, e) from e
+        launches = _build.launch_delta(before, _build.launch_snapshot())
+        _build.add_launches(launches, -1)  # a capture launches nothing
+        return graph, outs, launches
+
+    def _capture_error(self, seg: CompiledSegment, args: List[Any], stream,
+                       cause: Exception) -> SegmentCaptureError:
+        """Name the segment and its first op that cannot be captured: each
+        op captured alone in a throwaway graph, in order."""
+        env: Dict[int, Any] = dict(zip(seg.live_in, args))
+        bad = None
+        for k, op in enumerate(self.prog.ops[seg.start:seg.stop]):
+            g = torch.cuda.CUDAGraph()
+            ok, outs = True, None
+            g.capture_begin(capture_error_mode="thread_local")
+            try:
+                outs = op.execute(env.__getitem__)
+            except Exception:  # noqa: BLE001 — this op is the one
+                ok = False
+            try:
+                g.capture_end()
+            except Exception:  # noqa: BLE001
+                ok = False
+            if not ok:
+                bad = (seg.start + k, op.opcode)
+                break
+            env.update(zip(op.output_regs, outs))
+        where = (f"first bad op {bad[0]} {bad[1]}" if bad is not None
+                 else f"no op fails alone (op {seg.start + seg.fn.at[0]} was running)")
+        return SegmentCaptureError(
+            f"segment {seg.index} ({seg.device}, ops {seg.start}-{seg.stop - 1}) cannot be "
+            f"captured as a CUDA graph: {where}: {type(cause).__name__}: {cause}")
+
+    # -- execution -------------------------------------------------------
+
+    def _check_arity(self, flat_inputs: Sequence[Any]) -> None:
+        if len(flat_inputs) != len(self._input_bufs):
+            raise TypeError(f"executor expects {len(self._input_bufs)} inputs, "
+                            f"got {len(flat_inputs)}")
+
+    def execute(self, *flat_inputs: Any) -> List[Any]:
+        """Run segment-at-a-time: exactly ``n_segments`` dispatches (on the
+        card, graph replays; on the CPU, the segments' closures)."""
+        self._check_arity(flat_inputs)
+        if self._replay is None:
+            self.prepare(*flat_inputs)
+        if self._replay is None:
+            outs = self._run_file(flat_inputs)
+        else:
+            outs = self._run_graphs(flat_inputs)
+        self.stats.note_call(self._static_peak, segments_executed=len(self.segments))
+        return outs
+
+    def _run_graphs(self, flat_inputs: Sequence[Any]) -> List[Any]:
+        graphs, own, params, outputs = self._replay
+        for i, ptr in params:
+            if flat_inputs[i].data_ptr() != ptr:
+                raise ValueError(
+                    f"segment_jit: parameter {self._input_names[i]} moved since its program "
+                    f"was captured; a captured program reads parameters at their address "
+                    f"(compile a new program for new parameter tensors)")
+        srcs = [flat_inputs[i] for i, _ in own]
+        for (i, buf), x in zip(own, srcs):
+            if x.shape != buf.shape or x.dtype != buf.dtype or x.device != buf.device:
+                raise ValueError(f"segment_jit: {self._input_names[i]} is {tuple(x.shape)} "
+                                 f"{x.dtype} on {x.device}, the program was captured at "
+                                 f"{tuple(buf.shape)} {buf.dtype} on {buf.device}")
+        if own:  # one multi-tensor copy, not a launch per input
+            torch._foreach_copy_([buf for _, buf in own], srcs)
+        for graph, launches in graphs:
+            graph.replay()
+            if launches:
+                _build.add_launches(launches)
+        outs = [torch.empty_like(o) for o in outputs]
+        if outs:
+            torch._foreach_copy_(outs, outputs)
+        return outs
+
+    def as_fn(self) -> Callable:
+        """The executor as a plain callable on flat inputs."""
+        return self.execute
+
+
+@register_backend
+class SegmentJitBackend(Backend):
+    name = "segment_jit"
+
+    def build(self, prog: RGIRProgram, *, static_inputs: Sequence[int] = (),
+              input_names: Optional[Sequence[str]] = None) -> SegmentExecutor:
+        return SegmentExecutor(analyze_program(prog), static_inputs=static_inputs,
+                               input_names=input_names)

@@ -19,6 +19,7 @@ resolved by the call's extents (the serve fronts' shape generalization).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -30,7 +31,7 @@ from .backends import ExecutorLike, get_backend
 from .capture import CaptureResult, trace_to_graph
 from .executor import ExecutorStats
 from .graph import Graph
-from .lowering import lower_to_rgir
+from .lowering import RGIRProgram, lower_to_rgir
 from .passes import PassRecord, run_forge_passes
 from .shapekey import (
     AxisKey,
@@ -65,6 +66,9 @@ class CompilationResult:
     backend: str = "interpret"
     #: the bucket cell this program serves (BucketedModule), else None
     shape_key: Optional[str] = None
+    #: seconds of Phase 4 spent on the warm run and the CUDA graph
+    #: captures (segment_jit on the card; 0 elsewhere), inside backend_ms
+    capture_s: float = 0.0
 
     @property
     def node_reduction(self) -> float:
@@ -107,24 +111,52 @@ class CompilationResult:
 
 
 class CompiledModule:
-    """A compiled function: pytree-aware wrapper over the executor."""
+    """A compiled function: pytree-aware wrapper over the executor.
+
+    ``program`` is the lowered RGIR program (Phase 3's output) and
+    ``static_inputs`` / ``input_names`` the parameter positions among its
+    flat inputs: :meth:`with_backend` builds another Phase 4 from them
+    without capturing the function again."""
 
     def __init__(self, executor: ExecutorLike, capture: CaptureResult,
-                 result: CompilationResult, graph: Graph):
+                 result: CompilationResult, graph: Graph, *,
+                 program: Optional[RGIRProgram] = None,
+                 static_inputs: Tuple[int, ...] = (),
+                 input_names: Optional[List[str]] = None):
         self.executor = executor
         self.capture = capture
         self.result = result
         self.graph = graph
+        self.program = program
+        self.static_inputs = static_inputs
+        self.input_names = input_names
 
-    def _flatten_inputs(self, args: Sequence[Any]) -> List[Any]:
+    def with_backend(self, backend: str) -> "CompiledModule":
+        """The same lowered program on another Phase-4 backend (a fresh
+        executor; on the card, segment_jit captures at its first call)."""
+        if self.program is None:
+            raise ValueError("this module keeps no lowered program")
+        executor = get_backend(backend).build(self.program, static_inputs=self.static_inputs,
+                                              input_names=self.input_names)
+        result = dataclasses.replace(self.result, backend=backend,
+                                     executor_stats=executor.stats, capture_s=0.0)
+        return CompiledModule(executor, self.capture, result, self.graph,
+                              program=self.program, static_inputs=self.static_inputs,
+                              input_names=self.input_names)
+
+    @staticmethod
+    def _flatten_inputs_of(capture: CaptureResult, args: Sequence[Any]) -> List[Any]:
         flat, spec = pytree.tree_flatten(tuple(args))
-        if spec != self.capture.in_spec:
-            raise TypeError(f"input pytree mismatch: expected {self.capture.in_spec}, "
+        if spec != capture.in_spec:
+            raise TypeError(f"input pytree mismatch: expected {capture.in_spec}, "
                             f"got {spec}")
-        tied = self.capture.tied_map
+        tied = capture.tied_map
         if tied:
             flat = [x for i, x in enumerate(flat) if i not in tied]
         return flat
+
+    def _flatten_inputs(self, args: Sequence[Any]) -> List[Any]:
+        return self._flatten_inputs_of(self.capture, args)
 
     def __call__(self, *args: Any) -> Any:
         """Interpreted flat-dispatch execution (paper Listing 9)."""
@@ -138,6 +170,24 @@ class CompiledModule:
     @property
     def stats(self) -> ExecutorStats:
         return self.executor.stats
+
+
+def _static_inputs(cap: CaptureResult, args: Sequence[Any],
+                   static_argnums: Sequence[int]) -> Tuple[Tuple[int, ...], List[str]]:
+    """Positions of the leaves of ``args[i]`` (i in ``static_argnums``)
+    among the program's flat inputs (tied duplicates dropped), and every
+    flat input's name (its pytree path, e.g. ``args[0]['embed']``)."""
+    paths, _ = pytree.tree_flatten_with_path(tuple(args))
+    raw_static = set()
+    offset = 0
+    for i, a in enumerate(args):
+        n = len(pytree.tree_leaves(a))
+        if i in static_argnums:
+            raw_static.update(range(offset, offset + n))
+        offset += n
+    keep = [i for i in range(len(paths)) if i not in cap.tied_map]
+    names = [f"args{pytree.keystr(paths[i][0])}" for i in keep]
+    return tuple(j for j, i in enumerate(keep) if i in raw_static), names
 
 
 def _count_fused(g: Graph) -> Dict[str, int]:
@@ -154,7 +204,7 @@ class ForgeCompiler:
     ``impl`` is forwarded into the fused nodes (None dispatches by device,
     ``"ref"`` runs the kernels' plain versions).  Phase 4 is delegated to
     the pluggable :class:`~repro_torch.core.backends.Backend` named by
-    ``backend`` (``interpret`` | ``reference``).
+    ``backend`` (``interpret`` | ``reference`` | ``segment_jit``).
     """
 
     def __init__(self, *, impl: Optional[str] = None, backend: str = "interpret"):
@@ -163,10 +213,15 @@ class ForgeCompiler:
         get_backend(backend)  # fail fast on unknown names
 
     def compile(self, fn: Callable, *example_args: Any,
-                shape_key: Optional[ShapeKey] = None) -> CompiledModule:
+                shape_key: Optional[ShapeKey] = None,
+                static_argnums: Sequence[int] = ()) -> CompiledModule:
         """Compile ``fn`` specialised to ``example_args``' shapes, dtypes
         and device.  ``shape_key`` names the bucket cell when a
-        :class:`BucketedModule` compiles (transparency only)."""
+        :class:`BucketedModule` compiles (transparency only).
+        ``static_argnums`` names the arguments that are parameters: a
+        backend that captures the program on the card (segment_jit, which
+        captures here, from the example arguments) reads them at the
+        caller's address and refuses a call that moved them."""
         t_total = time.perf_counter()
 
         cap = trace_to_graph(fn, *example_args)  # Phase 1
@@ -182,7 +237,12 @@ class ForgeCompiler:
         lower_ms = (time.perf_counter() - t0) * 1e3
 
         t0 = time.perf_counter()  # Phase 4
-        executor = get_backend(self.backend_name).build(prog)
+        static, names = _static_inputs(cap, example_args, static_argnums)
+        executor = get_backend(self.backend_name).build(prog, static_inputs=static,
+                                                        input_names=names)
+        prepare = getattr(executor, "prepare", None)
+        if prepare is not None:  # segment_jit: capture on the card now
+            prepare(*CompiledModule._flatten_inputs_of(cap, example_args))
         backend_ms = (time.perf_counter() - t0) * 1e3
 
         fused = _count_fused(g)
@@ -202,8 +262,10 @@ class ForgeCompiler:
             impl=self.impl,
             backend=self.backend_name,
             shape_key=str(shape_key) if shape_key is not None else None,
+            capture_s=executor.stats.capture_s,
         )
-        return CompiledModule(executor, cap, result, g)
+        return CompiledModule(executor, cap, result, g, program=prog, static_inputs=static,
+                              input_names=names)
 
     def compile_bucketed(
         self,
@@ -213,6 +275,7 @@ class ForgeCompiler:
         in_axes: AxisSpec = 0,
         policy: Union[str, BucketPolicy] = "pow2",
         prime: bool = False,
+        static_argnums: Sequence[int] = (),
     ) -> "BucketedModule":
         """A shape-generalized multi-program front over ``fn``.
 
@@ -221,9 +284,11 @@ class ForgeCompiler:
         form ``in_axes``/``policy`` marks one batch axis.  With
         ``example_args`` their cell compiles now; otherwise the first
         call per cell pays the compile.  ``prime`` runs ``fn`` once
-        eagerly before each capture (see :class:`BucketedModule`).
+        eagerly before each capture (see :class:`BucketedModule`);
+        ``static_argnums`` goes to every cell's :meth:`compile`.
         """
-        mod = BucketedModule(self, fn, axes=axes, in_axes=in_axes, policy=policy, prime=prime)
+        mod = BucketedModule(self, fn, axes=axes, in_axes=in_axes, policy=policy, prime=prime,
+                             static_argnums=static_argnums)
         if example_args:
             mod.program_for(*example_args)
         return mod
@@ -255,10 +320,12 @@ class BucketedModule:
 
     def __init__(self, compiler: ForgeCompiler, fn: Callable, *,
                  axes: Optional[Sequence[PolyAxis]] = None, in_axes: AxisSpec = 0,
-                 policy: Union[str, BucketPolicy] = "pow2", prime: bool = False):
+                 policy: Union[str, BucketPolicy] = "pow2", prime: bool = False,
+                 static_argnums: Sequence[int] = ()):
         self.compiler = compiler
         self.fn = fn
         self.prime = prime
+        self.static_argnums = tuple(static_argnums)
         if axes is None:
             axes = (PolyAxis(in_axes=in_axes, policy=policy),)
         self.axes: Tuple[PolyAxis, ...] = tuple(axes)
@@ -295,7 +362,8 @@ class BucketedModule:
         if self.prime:
             with torch.no_grad():
                 self.fn(*args)
-        mod = self.compiler.compile(self.fn, *args, shape_key=key)
+        mod = self.compiler.compile(self.fn, *args, shape_key=key,
+                                    static_argnums=self.static_argnums)
         self.programs[key] = mod
         self.stats.note_lookup(hit=False, key=key, compile_s=time.perf_counter() - t0)
         return mod, key, n

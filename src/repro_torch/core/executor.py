@@ -46,18 +46,32 @@ class ExecutorStats:
     total_calls: int = 0
     #: maximal device-affine runs of the scheduled stream (δ_after + 1)
     n_segments: int = 0
+    # -- segment backend statistics (zero for per-op backends) ------------
+    #: segments dispatched as one unit each (segment_jit: every segment,
+    #: one CUDA graph on the card)
+    n_compiled_segments: int = 0
+    #: registers whose whole life is inside one segment (never hit a slot)
+    n_internal_regs: int = 0
+    #: segment dispatches of the most recent ``execute()`` call
+    last_segments_executed: int = 0
+    #: segment dispatches across all calls
+    total_segments_executed: int = 0
+    #: seconds of the warm run and the CUDA graph captures (0: none)
+    capture_s: float = 0.0
 
     def __post_init__(self) -> None:
         # per-call counters are folded in under a lock so a shared stats
         # object stays consistent under concurrent calls
         self._lock = threading.Lock()
 
-    def note_call(self, peak: int) -> None:
+    def note_call(self, peak: int, segments_executed: int = 0) -> None:
         """Record one ``execute()`` call's counters (thread-safe)."""
         with self._lock:
             self.total_calls += 1
             self.last_peak_live_buffers = peak
             self.peak_live_buffers = max(self.peak_live_buffers, peak)
+            self.last_segments_executed = segments_executed
+            self.total_segments_executed += segments_executed
 
     @property
     def transition_reduction(self) -> float:

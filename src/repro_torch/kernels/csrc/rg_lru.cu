@@ -46,11 +46,15 @@
 //   from its registers, with no second read of x or a.
 // Blocks take their chunk from an atomic ticket, not blockIdx, so a block
 // waits only on chunks whose blocks have already started; chunk 0 waits on
-// nothing.  The flags carry the call's epoch (the wrapper counts calls),
-// so no flag has to be cleared between calls; the block that draws the
-// last ticket re-arms the ticket to 0.  A multi-chunk result reassociates
-// the recurrence, so it differs from the sequential chain by roundings,
-// as the TPU kernel's block scan does.
+// nothing.  The flags carry the call's epoch, so no flag has to be cleared
+// between calls; the block that draws the last ticket re-arms the ticket
+// to 0.  The epoch lives in device memory beside the ticket: every block
+// reads it when it draws its ticket, and the last block to finish with the
+// flags advances it (and re-arms the count of blocks done).  So no host
+// value enters the launch, and a launch captured in a CUDA graph runs in a
+// fresh epoch at every replay.  A multi-chunk result reassociates the
+// recurrence, so it differs from the sequential chain by roundings, as the
+// TPU kernel's block scan does.
 //
 // The backward is not a kernel: as the Pallas kernel's custom_vjp does,
 // the wrapper's registered autograd recomputes through the plain version.
@@ -68,26 +72,29 @@ __device__ __forceinline__ int ld_flag(const int* p) {
 // grid: tiles x B x C blocks (tiles = ceil(D / 64)).  vals: per (b, tile,
 // chunk) the chunk's A, X and H (3 x 64 floats); flags: per (b, tile,
 // chunk) epoch * 4 + state (1: A and X published, 2: H published too);
-// ticket: 0 between calls
+// ctrl: the ticket and the count of blocks done (0 between calls), then
+// the epoch
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 6)
     rg_lru_kernel(const T* __restrict__ x, const T* __restrict__ a,
                   const float* __restrict__ h0, T* __restrict__ out,
                   T* __restrict__ last, int B, int Tn, int D, int L, int C,
-                  float* __restrict__ vals, int* __restrict__ flags, int* __restrict__ ticket,
-                  int epoch) {
-  __shared__ int s_idx, s_from;
+                  float* __restrict__ vals, int* __restrict__ flags, int* __restrict__ ctrl) {
+  __shared__ int s_idx, s_from, s_epoch;
   const int tid = threadIdx.x;
   int idx = blockIdx.x;
   if (C > 1) {
     if (tid == 0) {
-      const int t = atomicAdd(ticket, 1);
-      if (t == (int)gridDim.x - 1) atomicExch(ticket, 0);  // re-armed for the next call
+      const int t = atomicAdd(ctrl, 1);
+      if (t == (int)gridDim.x - 1) atomicExch(ctrl, 0);  // re-armed for the next call
       s_idx = t;
+      // the last call's last block advanced it before this launch began
+      s_epoch = ld_flag(ctrl + 2);
     }
     __syncthreads();
     idx = s_idx;
   }
+  const int epoch = C > 1 ? s_epoch : 0;
   const int tiles = (D + THREADS - 1) / THREADS;
   const int c = idx / (tiles * B), rest = idx - c * (tiles * B);
   const int b = rest / tiles, tile = rest - b * tiles;
@@ -170,6 +177,16 @@ __global__ void __launch_bounds__(THREADS, 6)
     for (int i = 0; i < LMAX; ++i)
       if (i < n) xv[i] = fmaf(av[i], hin, xv[i]);  // the last one is h, bitwise
   }
+  if (C > 1) {  // this block is done with the flags
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();
+      if (atomicAdd(ctrl + 1, 1) == (int)gridDim.x - 1) {  // every block has read the epoch
+        atomicExch(ctrl + 1, 0);
+        atomicExch(ctrl + 2, epoch + 1 < (1 << 29) ? epoch + 1 : 1);
+      }
+    }
+  }
   if (!live) return;
 #pragma unroll
   for (int i = 0; i < LMAX; ++i)
@@ -179,13 +196,13 @@ __global__ void __launch_bounds__(THREADS, 6)
 
 template <typename T>
 cudaError_t launch(const void* x, const void* a, const void* h0, void* out, void* last, int B,
-                   int Tn, int D, int L, int C, void* vals, void* flags, void* ticket,
-                   int epoch, cudaStream_t stream) {
+                   int Tn, int D, int L, int C, void* vals, void* flags, void* ctrl,
+                   cudaStream_t stream) {
   const long long blocks = (long long)((D + THREADS - 1) / THREADS) * B * C;
   rg_lru_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const float*>(h0),
       static_cast<T*>(out), static_cast<T*>(last), B, Tn, D, L, C,
-      static_cast<float*>(vals), static_cast<int*>(flags), static_cast<int*>(ticket), epoch);
+      static_cast<float*>(vals), static_cast<int*>(flags), static_cast<int*>(ctrl));
   return cudaGetLastError();
 }
 
@@ -194,24 +211,24 @@ cudaError_t launch(const void* x, const void* a, const void* h0, void* out, void
 // x, a, out: (B, T, D) contiguous, dtype code 0 = f32, 1 = bf16; h0 (B, D)
 // f32 contiguous; last (B, D) in x's dtype, or null.  The plan: C chunks
 // of L steps (C = ceil(T / L), 1 <= L <= 64).  With C > 1: vals holds
-// B * ceil(D / 64) * C * 192 floats of scratch, flags as many ints (0 or
-// an earlier call's epoch), ticket one int, 0; epoch in [1, 2^29), a new
-// one each call.  Returns the launch error (0 on success).
+// B * ceil(D / 64) * C * 192 floats of scratch, flags B * ceil(D / 64) * C
+// ints (0 or an earlier call's epoch), ctrl three ints: the ticket and the
+// count of blocks done, both 0, and the epoch, in [1, 2^29) and above every
+// flag's (a fresh buffer: 1; after that the kernel keeps it).  Returns the
+// launch error (0 on success).
 extern "C" int forge_rg_lru(const void* x, const void* a, const void* h0, void* out,
                             void* last, int B, int Tn, int D, int L, int C, void* vals,
-                            void* flags, void* ticket, int epoch, int dtype, void* stream) {
+                            void* flags, void* ctrl, int dtype, void* stream) {
   if (B <= 0 || Tn <= 0 || D <= 0) return 0;
   if (L < 1 || L > LMAX || C != (Tn + L - 1) / L) return (int)cudaErrorInvalidValue;
-  if (C > 1 && (vals == nullptr || flags == nullptr || ticket == nullptr || epoch < 1 ||
-                epoch >= (1 << 29)))
+  if (C > 1 && (vals == nullptr || flags == nullptr || ctrl == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((long long)((D + THREADS - 1) / THREADS) * B * C > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == FORGE_F32)
-    return (int)launch<float>(x, a, h0, out, last, B, Tn, D, L, C, vals, flags, ticket, epoch, s);
+    return (int)launch<float>(x, a, h0, out, last, B, Tn, D, L, C, vals, flags, ctrl, s);
   if (dtype == FORGE_BF16)
-    return (int)launch<__nv_bfloat16>(x, a, h0, out, last, B, Tn, D, L, C, vals, flags, ticket,
-                                      epoch, s);
+    return (int)launch<__nv_bfloat16>(x, a, h0, out, last, B, Tn, D, L, C, vals, flags, ctrl, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -96,20 +96,14 @@ def smem_bytes(H: int, KVH: int, D: int, ps: int, chunk_pages: int, dtype: torch
     return words * 4 + STAGES * 2 * keys * D * esize
 
 
-_TICKETS: dict = {}
-
-
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
     """Zeroed ticket counters, one per (row, KV head), kept per device and
-    stream: the kernel's last block of each (row, KV head) sets its
-    counter back to 0, so they are zero between calls on one stream."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 2 * (t.numel() if t is not None else 0)), dtype=torch.int32,
-                        device=device)
-        _TICKETS[key] = t
-    return t
+    stream (:func:`~repro_torch.kernels._build.stream_scratch`, sized
+    before any CUDA graph captures them and never freed under one): the
+    kernel's last block of each (row, KV head) sets its counter back to
+    0, so they are zero between calls on one stream and between replays
+    of a graph."""
+    return _build.stream_scratch("paged_attention", device, n)
 
 
 @functools.cache

@@ -12,7 +12,8 @@ the H100 and what its design does about that.
   shape and contiguity, allocates the outputs and the chunks' scratch,
   launches on PyTorch's current stream and counts the launch in
   :data:`LAUNCHES`.  With ``last=True`` the same launch also writes
-  ``h[:, -1]`` (the chunked entry point).
+  ``h[:, -1]`` (the chunked entry point).  The launch is safe to capture
+  in a CUDA graph: its epoch lives on the device (:func:`_chunk_state`).
 * :func:`rg_lru_plain` / :func:`rg_lru_chunked_plain` — the plain
   PyTorch versions (:func:`~repro_torch.kernels.ref.rg_lru_ref`, a
   log-step doubling scan in fp32).
@@ -61,29 +62,33 @@ def plan(B: int, T: int, D: int) -> Tuple[int, int]:
     return -(-T // steps), steps
 
 
-_STATE: dict = {}
+#: the chunk state's control words ahead of the flags: the ticket, the
+#: count of blocks done and the epoch
+CTRL = 3
 
 
-def _chunk_state(device: torch.device, n: int):
-    """The chunks' flags and the ticket (ints: ticket first), kept per
-    device and stream, and the next call's epoch.  Flags carry the epoch
-    of the call that wrote them, so they are never cleared; the ticket
-    is back at 0 after every call."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    buf, epoch = _STATE.get(key, (None, 0))
-    epoch += 1
-    if buf is None or buf.numel() < n + 1 or epoch >= 1 << 29:
-        size = max(n + 1, 2 * (buf.numel() if buf is not None else 0))
-        buf, epoch = torch.zeros(size, dtype=torch.int32, device=device), 1
-    _STATE[key] = (buf, epoch)
-    return buf, epoch
+def _set_epoch(buf: torch.Tensor) -> None:
+    buf[2] = 1  # epochs run 1 .. 2^29 - 1; a zeroed flag belongs to none
+
+
+def _chunk_state(device: torch.device, n: int) -> torch.Tensor:
+    """The control words (ticket, blocks done, epoch) and the chunks'
+    flags, kept per device and stream
+    (:func:`~repro_torch.kernels._build.stream_scratch`: made before any
+    CUDA graph captures it, never freed under one).  The epoch lives on
+    the device and the kernel's last block to finish advances it, so
+    every call and every replay of a captured launch runs in a fresh
+    epoch; flags carry the epoch of the call that wrote them, so they are
+    never cleared; the ticket and the count are back at 0 after every
+    call."""
+    return _build.stream_scratch("rg_lru", device, CTRL + n, init=_set_epoch)
 
 
 @functools.cache
 def _lib():
     fn = _build.load("rg_lru").forge_rg_lru
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_int] + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -126,17 +131,16 @@ def rg_lru_cuda(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor, *,
         chunks, steps = plan(B, T, D)
     else:
         chunks = -(-T // steps)
-    vals = flags = None
-    epoch = 0
+    vals = state = None
     if chunks > 1:
         n = B * -(-D // CHANNELS) * chunks
         vals = torch.empty(n * 3 * CHANNELS, dtype=torch.float32, device=x.device)
-        flags, epoch = _chunk_state(x.device, n)
+        state = _chunk_state(x.device, n)
     rc = _lib()(x.data_ptr(), a.data_ptr(), h0.data_ptr(), out.data_ptr(),
                 h_last.data_ptr() if last else None, B, T, D, steps, chunks,
                 vals.data_ptr() if vals is not None else None,
-                flags[1:].data_ptr() if flags is not None else None,
-                flags.data_ptr() if flags is not None else None, epoch,
+                state[CTRL:].data_ptr() if state is not None else None,
+                state.data_ptr() if state is not None else None,
                 DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "rg_lru")
     LAUNCHES.n += 1

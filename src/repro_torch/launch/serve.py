@@ -13,12 +13,15 @@ through two multi-program fronts: the whole decode step (embedding,
 every layer, LM head, greedy argmax) compiled through Phases 1-4 once
 per batch bucket with the slot signature (per-row ``pos`` and
 ``slot_mask``), and the whole-prompt prefill once per (batch × sequence)
-grid cell.  The recurrent families (recurrentgemma, xLSTM) prefill
-through the chunked state scan, one dispatch per prompt block
-(``last_prefill_mode == "chunked"``; recurrentgemma's RG-LRU recurrence
-launches the hand-written scan kernel); ``prefill="sequential"`` replays
-the prompt through the decode program instead.  The dense decoder is
-refused there until the port has its ``transformer.prefill_step``.
+grid cell.  The dense decoder writes the whole prompt block into its KV
+cache in one dispatch (``last_prefill_mode == "batched"``); the
+recurrent families (recurrentgemma, xLSTM) prefill through the chunked
+state scan, one dispatch per prompt block (``"chunked"``;
+recurrentgemma's RG-LRU recurrence launches the hand-written scan
+kernel); ``prefill="sequential"`` replays the prompt through the decode
+program instead.  Every program runs on the Phase-4 backend named by
+``backend``: ``segment_jit`` (the default, as in the JAX package) replays
+each device-affine segment as one CUDA graph on the card.
 
 :class:`SlotScheduler` is slot-level continuous batching: every tick
 advances each active slot at its own position.  Over
@@ -26,13 +29,16 @@ advances each active slot at its own position.  Over
 page pool with per-slot page tables, a refcounted allocator and a
 shared-prefix tree (``core/paging.py``); with ``cfg.kv_kernel ==
 "pallas"`` decode attention runs the hand-written paged-attention kernel.
-Over the contiguous fronts a swapped-in recurrent row is reset to its
-init state and prefilled through the slot-masked chunked grid (or the
-in-loop fill path), and a rung resize gathers the active rows.
+Over the contiguous fronts a swapped-in row is prefilled through the
+slot-masked grid (or the in-loop fill path) — a recurrent row is reset
+to its init state first, a dense row's stale keys are hidden by the
+length mask — and a rung resize gathers the active rows.
 
 CLI (runs on the CUDA device unless ``--device cpu``)::
 
     python -m repro_torch.launch.serve --arch forge-125m [--smoke]
+    python -m repro_torch.launch.serve --arch forge-125m --mode forge \\
+        [--backend segment_jit|interpret|reference] [--continuous 8 --max-slots 4]
     python -m repro_torch.launch.serve --arch xlstm-350m --mode forge \\
         [--prefill auto|batched|sequential] [--continuous 8 --max-slots 4]
     python -m repro_torch.launch.serve --arch forge-125m --mode forge \\
@@ -102,7 +108,7 @@ class BatchedServer:
     MODES = ("eager", "forge")
 
     def __init__(self, cfg, params, max_len: int = 256, mode: str = "eager",
-                 impl: Optional[str] = None, *, backend: str = "interpret",
+                 impl: Optional[str] = None, *, backend: str = "segment_jit",
                  bucket_policy: str = "pow2",
                  seq_bucket_policy: str = "ladder:16,32,64,128,256",
                  prefill: str = "auto", paged: bool = False, kv_page_size: int = 16,
@@ -116,11 +122,6 @@ class BatchedServer:
         self.cfg = cfg
         self.params = params
         self.model = get_model(cfg)
-        if mode == "forge" and not paged and self.model.prefill_step is None:
-            raise NotImplementedError(
-                f"mode='forge' with the contiguous cache needs the family's prefill_step; "
-                f"the {cfg.family} decoder's (transformer.prefill_step) comes in a later "
-                f"slice of the port — serve it with paged=True through SlotScheduler")
         self.max_len = max_len
         self.mode = mode
         self.impl = impl
@@ -209,14 +210,21 @@ class BatchedServer:
         b_in, s_in = (None, cache_axes, 0, None, 0), (None, None, 1, None, None)
         if self.model.prefill_takes_length:
             b_in, s_in = b_in + (0,), s_in + (None,)
+        # the dense decoder's steps call Forge-compiled block bodies, which
+        # compile at their first call and cannot inside the front's
+        # capture: prime each cell first (see BucketedModule).  Every step
+        # takes params first: the parameters (static_argnums)
+        prime = self.cfg.family == "dense" and self.cfg.fuse == "forge"
         self.prefill_bucketed = compiler.compile_bucketed(
             pstep,
             axes=(PolyAxis(in_axes=b_in, policy=self.bucket_policy, label="B"),
                   PolyAxis(in_axes=s_in, policy=self.seq_bucket_policy, label="S")),
+            prime=prime, static_argnums=(0,),
         )
         self.bucketed = compiler.compile_bucketed(
             make_slot_serve_step(self.cfg, impl=self.impl),
-            in_axes=(None, cache_axes, 0, 0, 0), policy=self.bucket_policy,
+            in_axes=(None, cache_axes, 0, 0, 0), policy=self.bucket_policy, prime=prime,
+            static_argnums=(0,),
         )
 
     def _build_paged_front(self) -> None:
@@ -257,11 +265,12 @@ class BatchedServer:
                 PolyAxis(in_axes=(None, None, None, 1, None, None),
                          policy=self.seq_bucket_policy, label="S"),
             ),
-            prime=prime,
+            prime=prime, static_argnums=(0,),
         )
         self.bucketed = compiler.compile_bucketed(
             make_paged_serve_step(self.cfg, impl=self.impl),
             in_axes=(None, None, 0, 0, 0, 0), policy=self.bucket_policy, prime=prime,
+            static_argnums=(0,),
         )
 
     def _bucket_extent(self, B: int) -> int:
@@ -578,7 +587,9 @@ class SlotScheduler:
       its (suffix) prompt prefilled through the slot-masked prefill grid
       in one dispatch.  A rung resize edits the page table; no KV moves.
     * Contiguous server: a swapped-in row of a stateful family is first
-      reset to ``init_cache`` values (:meth:`_reset_rows`), then every
+      reset to ``init_cache`` values (:meth:`_reset_rows`; a dense row's
+      old keys need no reset: the per-row length mask hides every slot
+      past the new request's position until it is rewritten), then every
       admitted prompt is prefilled through the slot-masked grid in one
       dispatch with per-row ``length`` (:meth:`_admit`).  A prompt the
       grid does not cover, or every prompt under ``prefill="sequential"``,
@@ -1259,9 +1270,10 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--mode", choices=list(BatchedServer.MODES), default="eager")
-    ap.add_argument("--backend", default="interpret",
-                    help="Phase-4 backend of the --mode forge programs "
-                         "(interpret | reference)")
+    ap.add_argument("--backend", default="segment_jit",
+                    help="Phase-4 backend of the --mode forge programs (segment_jit: each "
+                         "device-affine segment one CUDA graph on the card | interpret | "
+                         "reference)")
     ap.add_argument("--bucket-policy", default="pow2",
                     help="batch-axis bucket policy for --mode forge "
                          "(exact | pow2 | ladder:<r1,r2,...>)")
@@ -1300,10 +1312,6 @@ def main(argv=None) -> int:
         ap.error("--paged needs --continuous N: the paged KV pool is served through the "
                  "slot scheduler (the contiguous fronts also serve groups)")
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.mode == "forge" and not args.paged and get_model(cfg).prefill_step is None:
-        ap.error(f"--mode forge with the contiguous cache needs the family's prefill_step; "
-                 f"the {cfg.family} decoder's comes in a later slice: serve {args.arch} "
-                 f"with --paged --continuous N")
     if args.mode == "forge":
         from ..core.backends import get_backend
 

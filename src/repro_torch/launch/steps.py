@@ -94,8 +94,9 @@ def supports_batched_prefill(cfg: ModelConfig) -> bool:
     """Can this family prefill a whole (B, S) prompt block in one
     dispatch?  The one predicate every serve front consults: True when
     the family exposes a ``prefill_step`` whose one-pass result
-    reproduces sequential decode (the recurrent families through the
-    chunked state scan)."""
+    reproduces sequential decode (the dense decoder through a causal
+    KV-chunk write, the recurrent families through the chunked state
+    scan)."""
     return get_model(cfg).prefill_step is not None
 
 

@@ -7,7 +7,6 @@
 * ``init_cache(cfg, batch, max_len, device)``   decode state
 * ``decode_step(params, cache, tok, pos, cfg)`` one-token serve step
 * ``prefill_step(params, cache, tokens, pos, cfg)`` whole-prompt prefill
-  (None where the port has none yet)
 * ``paged_decode_step`` / ``paged_prefill_step`` / ``init_paged_cache``
   the same against a flat page pool (continuous batching)
 
@@ -31,9 +30,8 @@ class ModelAPI:
     decode_step: Callable
     #: whole-prompt batched prefill — (params, cache, tokens(B,S), pos)
     #: -> ((B,S,V) logits, cache); the recurrent families fold the chunk
-    #: into state through a scan (see prefill_takes_length).
-    #: None for the dense decoder so far (transformer.prefill_step comes
-    #: in a later slice of the port)
+    #: into state through a scan (see prefill_takes_length); None where a
+    #: family cannot reproduce sequential decode in one pass
     prefill_step: Optional[Callable]
     init_cache: Callable
     module: Any

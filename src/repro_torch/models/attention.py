@@ -9,7 +9,8 @@ Carries the no-cache branch (full causal self-attention: the
 full-sequence forward, optionally banded to a local window), the
 contiguous-cache branch (single-token decode at a scalar or per-row
 position, optionally windowed, or over a rotating window buffer masked
-by ``cache_valid_len``) and the paged-cache branch (decode and chunked
+by ``cache_valid_len``), whole-chunk prefill into the contiguous cache
+at a scalar start position, and the paged-cache branch (decode and chunked
 prefill against a flat page pool through a per-row page table,
 :func:`_paged_update_attend`).
 """
@@ -226,25 +227,40 @@ def attention(
             kv_kernel=kv_kernel, impl=impl,
         )
     elif cache is not None:
-        # one-token decode: write at cache_pos, attend to all keys <= pos.
-        # A per-row (B,) position writes and masks each row at its own
-        # position (slot-level continuous batching); the write is a select
-        # against a position iota, so the captured graph stays in plain ops.
+        # one-token decode or whole-chunk prefill: write at cache_pos,
+        # attend to every key at or before the query's position.  A chunk
+        # (sq > 1, the batched-prefill path) takes a causal length mask —
+        # query i at cache position cache_pos + i sees keys <= cache_pos + i
+        # — so one pass writes the whole prompt block with sequential-decode
+        # semantics.  A per-row (B,) position writes and masks each row at
+        # its own position (slot-level continuous batching, one token per
+        # row); the write is a select against a position iota, so the
+        # captured graph stays in plain ops.
         max_len = cache["k"].shape[2]
-        if q.shape[2] != 1:
-            raise NotImplementedError(
-                "cached attention takes one token per step here; whole-chunk "
-                "prefill comes with the 2-D prefill grid"
-            )
-        slot_idx = torch.arange(max_len, device=x.device).view(1, 1, max_len, 1)
-        write = slot_idx == L.per_row_pos(cache_pos)
-        k_cache = torch.where(write, k, cache["k"])
-        v_cache = torch.where(write, v, cache["v"])
+        sq = q.shape[2]
+        if sq == 1:
+            slot_idx = torch.arange(max_len, device=x.device).view(1, 1, max_len, 1)
+            write = slot_idx == L.per_row_pos(cache_pos)
+            k_cache = torch.where(write, k, cache["k"])
+            v_cache = torch.where(write, v, cache["v"])
+        else:
+            if cache_pos.dim() != 0:
+                raise NotImplementedError(
+                    "per-row cache positions require single-token steps (chunked "
+                    "prefill shares one scalar start position)")
+            # the block lands at [pos, pos + sq), the start clamped so the
+            # block fits, as JAX's dynamic_update_slice clamps it
+            start = torch.clamp(cache_pos.long(), 0, max_len - sq)
+            idx = start + torch.arange(sq, device=x.device)
+            k_cache = cache["k"].index_copy(2, idx, k)
+            v_cache = cache["v"].index_copy(2, idx, v)
         new_cache = {"k": k_cache, "v": v_cache}
         if cache_valid_len is not None:
             idx = torch.arange(max_len, device=x.device).view(1, 1, 1, max_len)
             mask = torch.where(idx < L.per_row_pos(cache_valid_len), 0.0,
                                torch.finfo(torch.float32).min)
+        elif sq > 1:
+            mask = L.prefill_length_mask(cache_pos, sq, max_len, window=window)
         elif window is not None:
             mask = L.window_decode_mask(cache_pos, max_len, window)
         else:

@@ -12,6 +12,8 @@ Entry points:
 * ``apply(params, tokens, cfg)``                  — full-sequence logits
 * ``init_cache(cfg, batch, max_len, device)``     — stacked KV cache
 * ``decode_step(params, cache, tok, pos, cfg)``   — one-token serve step
+* ``prefill_step(params, cache, tokens, pos, cfg)`` — whole-prompt prefill
+  of an S-token block into the KV cache in one pass
 * ``init_paged_cache(cfg, batch, max_len, num_pages=, page_size=)``,
   ``paged_decode_step``, ``paged_prefill_step``   — the same against a
   flat page pool and a per-row page table (continuous batching)
@@ -200,6 +202,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
 
 
+def supports_batched_prefill(cfg: ModelConfig) -> bool:
+    """Whole-block prefill reproduces sequential decode only when no op
+    couples tokens across the (B, S) block — false for MoE, whose
+    capacity routing is first-come-first-served over the flattened
+    token stream (the port carries no MoE family yet)."""
+    return cfg.family != "moe"
+
+
 def _cached_forward(
     params: Params,
     cache: Dict[str, torch.Tensor],
@@ -213,7 +223,8 @@ def _cached_forward(
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Layer loop over the block-decode body against the KV cache, final
-    norm, LM head.  ``slot_mask`` gates the cache update per batch row
+    norm, LM head.  ``mode`` keys the Forge body compile ("decode" and
+    "prefill" apart).  ``slot_mask`` gates the cache update per batch row
     outside the compiled body (the body graph is mask-free): inactive
     rows keep their previous KV bitwise."""
     blocks = params["blocks"]
@@ -250,6 +261,37 @@ def decode_step(
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     cos, sin = _rope_for(cfg, L.decode_positions(pos))
     return _cached_forward(params, cache, x, pos, cos, sin, cfg, "decode",
+                           slot_mask=slot_mask, impl=impl)
+
+
+def prefill_step(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,  # (B, S) int — a whole (padded) prompt block
+    pos: Union[int, torch.Tensor],  # first write position — scalar
+    cfg: ModelConfig,
+    *,
+    slot_mask: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Whole-prompt batched prefill: one forward pass writes the S-token
+    block into the KV cache at ``[pos, pos + S)``.
+
+    Equivalent to S sequential :func:`decode_step` calls (the causal
+    length mask keeps query i from seeing keys beyond ``pos + i``) in one
+    dispatch.  Returns the full (B, S, vocab) logits (the serve path
+    reads the last real column) and the updated cache.  ``slot_mask``
+    restricts the cache write to the marked rows: every other row's KV
+    stays bitwise untouched (the slot scheduler's swap-in)."""
+    _check_family(cfg)
+    x = L.embed(tokens, params["embed"])
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    if pos.dim() != 0:
+        raise NotImplementedError("per-row start positions need the paged prefill "
+                                  "(paged_prefill_step); a contiguous chunk shares one")
+    positions = pos + torch.arange(x.shape[1], device=x.device)
+    cos, sin = _rope_for(cfg, positions)
+    return _cached_forward(params, cache, x, pos, cos, sin, cfg, "prefill",
                            slot_mask=slot_mask, impl=impl)
 
 

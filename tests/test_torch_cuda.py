@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_linear as FL
 from repro_torch.kernels import ops
@@ -394,7 +395,8 @@ class TestPagedAttentionOnCard:
         assert all(torch.equal(first, PA.paged_attention_cuda(q, k, v, pt, pos))
                    for _ in range(4))
         torch.cuda.synchronize()
-        assert all(int(t.abs().sum()) == 0 for t in PA._TICKETS.values())
+        tickets = [t for key, t in _build._SCRATCH.items() if key[0] == "paged_attention"]
+        assert tickets and all(int(t.abs().sum()) == 0 for t in tickets)
         want = PA.paged_attention_plain(q, k, v, pt, pos)
         tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
         torch.testing.assert_close(first.float(), want.float(), **tol)
@@ -678,3 +680,190 @@ def test_xlstm_server_on_card_matches_plain_path(cuda_device):
     toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda_device)
     torch.testing.assert_close(m.apply(p, toks, cfg), m.apply(p, toks, cfg, impl="ref"),
                                **TOL_F32)
+
+
+# --------------------------------------------------------------------------
+# CUDA graphs: the kernels replayed, and the segment_jit backend
+# --------------------------------------------------------------------------
+
+
+def _graphed(fn, *args):
+    """``fn(*args)`` captured in one CUDA graph after a warm call on the
+    capture stream (the kernels' per-stream scratch is made there, outside
+    the capture); returns (graph, the output tensors the replays write)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        out = fn(*args)
+    return g, out
+
+
+def _refill(tensors, seed):
+    g = torch.Generator(device=tensors[0].device).manual_seed(seed)
+    for t in tensors:
+        t.copy_(torch.rand(t.shape, generator=g, device=t.device) * 0.699 + 0.3)
+
+
+@pytest.mark.cuda
+class TestGraphReplayOnCard:
+    """Each served kernel launched inside ``torch.cuda.graph`` and replayed
+    on new inputs equals its plain version and its eager launch on the
+    same inputs, bitwise."""
+
+    @pytest.mark.parametrize("M,K,N,act", [(4, 768, 3072, "gelu"), (128, 2560, 2560, None),
+                                           (256, 768, 768, None)])
+    def test_fused_linear_replayed(self, cuda_device, M, K, N, act):
+        g = torch.Generator(device=cuda_device).manual_seed(M)
+        x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+        w = (torch.randn(K, N, generator=g, device=cuda_device) / K ** 0.5).bfloat16()
+        b = torch.randn(N, generator=g, device=cuda_device).bfloat16()
+        FL.LAUNCHES.reset()
+        graph, out = _graphed(lambda: FL.fused_linear(x, w, b, act=act))
+        launched = FL.LAUNCHES.n
+        for seed in (1, 2):
+            x.copy_(torch.randn(M, K, generator=g, device=cuda_device))
+            graph.replay()
+            torch.testing.assert_close(out.float(), FL.fused_linear_plain(x, w, b, act=act)
+                                       .float(), **TOL_BF16)
+            assert torch.equal(out, FL.fused_linear(x, w, b, act=act))
+        assert launched == 2  # the warm call and the capture; replays run no wrapper
+
+    @pytest.mark.parametrize("plan", [None, (16, 1), (3, 2)])
+    def test_paged_tickets_across_replays(self, cuda_device, plan):
+        """Split plans merge through tickets the last block re-arms: they
+        stay armed across replays of a captured launch."""
+        q, k, v, pt, pos = paged_case(3, 4, 12, 12, 64, 16, 16, 129, torch.bfloat16, cuda_device)
+        pos.copy_(torch.tensor([200, 31, 17, 255], dtype=torch.int32))
+        graph, out = _graphed(lambda: PA.paged_attention_cuda(q, k, v, pt, pos,
+                                                               plan_override=plan))
+        for seed in range(3):
+            _refill([k, v], seed)
+            q.copy_(torch.randn(q.shape, device=cuda_device))
+            graph.replay()
+            want = PA.paged_attention_plain(q, k, v, pt, pos)
+            torch.testing.assert_close(out.float(), want.float(), **TOL_BF16)
+            assert torch.equal(out, PA.paged_attention_cuda(q, k, v, pt, pos,
+                                                            plan_override=plan))
+
+    @pytest.mark.parametrize("B,T,D,steps", [(4, 32, 2560, None), (4, 128, 2560, None),
+                                             (2, 300, 300, 7)])
+    def test_rg_lru_replayed_on_new_inputs(self, cuda_device, B, T, D, steps):
+        """A multi-chunk plan's look-back reads flags of the replay's own
+        epoch, which the kernel advances on the device: every replay on new
+        inputs equals the plain version and the eager launch bitwise."""
+        x, a, h0 = _rg_inputs(cuda_device, torch.float32, B, T, D, True, seed=B + T)
+        chunks = RG.plan(B, T, D)[0] if steps is None else -(-T // steps)
+        assert (chunks > 1) == (T > 32)
+        graph, out = _graphed(lambda: RG.rg_lru_cuda(x, a, h0, steps=steps))
+        for seed in range(3):
+            g = torch.Generator(device=cuda_device).manual_seed(seed)
+            x.copy_(torch.randn(x.shape, generator=g, device=cuda_device))
+            a.copy_(0.3 + 0.699 * torch.rand(a.shape, generator=g, device=cuda_device))
+            graph.replay()
+            torch.testing.assert_close(out, RG.rg_lru_plain(x, a, h0), **TOL_F32)
+            assert torch.equal(out, RG.rg_lru_cuda(x, a, h0, steps=steps))
+
+    def test_scratch_is_not_made_inside_a_capture(self, cuda_device):
+        x, a, h0 = _rg_inputs(cuda_device, torch.float32, 3, 200, 96, True)
+        s = torch.cuda.Stream()
+        g = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="before a CUDA graph capture"):
+            with torch.cuda.graph(g, stream=s):
+                RG.rg_lru_cuda(x, a, h0, steps=8)
+
+
+def _smoke_server(arch, cuda_device, backend, **kw):
+    cfg = get_config(arch, smoke=True).with_(dtype="float32")
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    return cfg, p, BatchedServer(cfg, p, max_len=32, mode="forge", backend=backend, **kw)
+
+
+def _counts():
+    return {mod.__name__: (mod.LAUNCHES.n, dict(mod.LAUNCHES.variants))
+            for mod in (FL, FA, PA, RG, RN)}
+
+
+def _reset_counts():
+    for mod in (FL, FA, PA, RG, RN):
+        mod.LAUNCHES.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["forge-125m", "recurrentgemma-2b", "xlstm-350m"])
+def test_segment_jit_equals_interpret_on_card(cuda_device, arch):
+    """The smoke server's tokens under segment_jit are interpret's,
+    bitwise; every launch the interpret run counts, by kernel and
+    variant, the graph replays count too; no capture after warmup."""
+    from repro_torch.core.backends.segment_jit import CAPTURES
+
+    prompts = np.random.default_rng(0).integers(0, 400, (3, 6)).astype(np.int32)
+    runs = {}
+    for backend in ("interpret", "segment_jit"):
+        _, _, srv = _smoke_server(arch, cuda_device, backend)
+        srv.warmup([3], [6])
+        captured = dict(CAPTURES)
+        _reset_counts()
+        res = srv.generate(prompts, 5)
+        torch.cuda.synchronize()
+        runs[backend] = (res["tokens"], _counts())
+        assert CAPTURES == captured
+    np.testing.assert_array_equal(runs["segment_jit"][0], runs["interpret"][0])
+    assert runs["segment_jit"][1] == runs["interpret"][1]
+    assert runs["segment_jit"][1][FL.__name__][0] > 0
+    s = srv.forge_module.stats
+    assert s.last_segments_executed == s.n_segments and s.capture_s > 0
+
+
+@pytest.mark.cuda
+def test_segment_jit_outputs_survive_and_params_are_pinned(cuda_device):
+    """Outputs a caller keeps stay intact after the program's next call;
+    a parameter tensor that moved raises, naming it; an input off the card
+    raises."""
+    cfg, p, srv = _smoke_server("forge-125m", cuda_device, "segment_jit")
+    srv.warmup([2], [6])
+    mod = srv.prefill_bucketed.programs[srv.prefill_bucketed.key_for_extents((2, 16))]
+    ref = mod.with_backend("interpret")
+
+    def args(seed):
+        toks = torch.randint(0, cfg.vocab, (2, 16), device=cuda_device,
+                             generator=torch.Generator(device=cuda_device).manual_seed(seed))
+        return (srv._build_cache(2),) + srv._prefill_args(2, toks.to(torch.int32), 0)
+
+    a1, a2 = args(1), args(2)
+    first = mod(p, *a1)
+    second = mod(p, *a2)
+    for got, want in ((first, ref(p, *a1)), (second, ref(p, *a2))):
+        assert all(torch.equal(g, w) for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                                                      torch.utils._pytree.tree_leaves(want)))
+    moved = dict(p, embed=p["embed"].clone())
+    with pytest.raises(ValueError, match=r"args\[0\]\['embed'\]"):
+        mod(moved, *a1)
+    fresh = mod.with_backend("segment_jit")
+    with pytest.raises(ValueError, match="on cpu"):
+        fresh(p, a1[0], a1[1].cpu(), *a1[2:])
+
+
+@pytest.mark.cuda
+def test_segment_capture_error_names_the_op(cuda_device):
+    """An op that syncs the host cannot be captured: the segment raises with
+    its index and the op, and nothing falls back to per-op replay."""
+    from repro_torch.core.backends.segment_jit import SegmentCaptureError, SegmentJitBackend
+    from repro_torch.core.graph import Aval
+    from repro_torch.core.lowering import RegRef, RGIROp, RGIRProgram
+
+    x = torch.ones(4, device=cuda_device)
+    aval = Aval.of(x)
+    ops_ = [RGIROp(0, "host.aten.mul.Tensor", "host", lambda t: t * 2, (RegRef(0),), (0,), (1,)),
+            RGIROp(1, "host.aten._local_scalar_dense.default", "host",
+                   lambda t: t + t.sum().item(), (RegRef(1),), (1,), (2,))]
+    prog = RGIRProgram(ops=ops_, n_vregs=3, input_regs=[0], output_regs=[2], constants={},
+                       reg_avals={0: aval, 1: aval, 2: aval})
+    ex = SegmentJitBackend().build(prog)
+    assert torch.equal(ex.execute(x.cpu())[0], torch.full((4,), 10.0))  # the CPU path
+    with pytest.raises(SegmentCaptureError, match=r"segment 0 .*op 1 host\.aten\._local_scalar"):
+        ex.execute(x)

@@ -127,8 +127,7 @@ def test_invalid_requests_get_typed_errors(setup, port_run):
 
 def test_server_guards(setup):
     cfg, _, _, p = setup
-    with pytest.raises(NotImplementedError):
-        BatchedServer(cfg, p, mode="forge")
+    assert not BatchedServer(cfg, p, mode="forge").paged  # the contiguous fronts serve it
     with pytest.raises(ValueError):
         BatchedServer(cfg, p, paged=True)  # paged needs mode="forge"
     with pytest.raises(ValueError):

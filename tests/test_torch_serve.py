@@ -90,12 +90,16 @@ def test_unknown_mode_rejected(setup):
         BatchedServer(cfg, p, mode="bogus")
 
 
-def test_forge_mode_needs_paged(setup):
-    """The contiguous forge fronts are not ported yet: mode="forge"
-    without paged=True says so."""
+def test_forge_mode_needs_paged(setup, prompts, port_result):
+    """mode="forge" no longer needs paged=True: the dense decoder serves
+    on the contiguous forge fronts (its whole-prompt prefill is ported),
+    with the eager server's greedy tokens."""
     cfg, _, _, p = setup
-    with pytest.raises(NotImplementedError, match="paged"):
-        BatchedServer(cfg, p, mode="forge")
+    srv = BatchedServer(cfg, p, max_len=64, mode="forge")
+    assert not srv.paged
+    r = srv.generate(prompts, 3)
+    assert r["prefill_mode"] == "batched"
+    np.testing.assert_array_equal(r["tokens"], port_result["tokens"])
 
 
 def test_cli_paged_continuous_on_cpu(capsys):
@@ -108,9 +112,14 @@ def test_cli_paged_continuous_on_cpu(capsys):
     assert "[serve] pages: in_use=" in out
 
 
-def test_cli_forge_needs_paged_continuous():
+def test_cli_forge_needs_paged_continuous(capsys):
+    """--mode forge serves forge-125m on the contiguous fronts without
+    --paged --continuous now; --paged alone still needs --continuous."""
+    assert serve.main(["--mode", "forge", "--smoke", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "3", "--gen", "2", "--max-len", "16"]) == 0
+    assert "(prefill=batched)" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        serve.main(["--mode", "forge", "--smoke", "--device", "cpu"])
+        serve.main(["--mode", "forge", "--paged", "--smoke", "--device", "cpu"])
 
 
 def test_cli_on_cpu(capsys):

@@ -146,7 +146,7 @@ def test_sweep_no_compiles_after_warmup(setup):
 def test_step_builders(setup):
     cfg, _, _, p = setup
     assert supports_batched_prefill(cfg)
-    assert not supports_batched_prefill(get_config("forge-125m", smoke=True))
+    assert supports_batched_prefill(get_config("forge-125m", smoke=True))
     m = get_model(cfg)
     toks = torch.from_numpy(_prompts(2, 5))
     slot = make_slot_prefill_step(cfg)(p, m.init_cache(cfg, 2, 16, device="cpu"), toks,
@@ -158,10 +158,15 @@ def test_step_builders(setup):
 
 
 def test_dense_contiguous_front_refused(setup):
+    """No longer refused: the dense decoder's contiguous fronts build its
+    whole-prompt prefill grid (tokens against the JAX server are held in
+    tests/test_torch_dense_prefill.py)."""
     cfg = get_config("forge-125m", smoke=True)
     p = get_model(cfg).init(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        BatchedServer(cfg, p, mode="forge")
+    srv = BatchedServer(cfg, p, max_len=32, mode="forge")
+    r = srv.generate(_prompts(2, 5), 2)
+    assert r["prefill_mode"] == "batched" and r["tokens"].shape == (2, 2)
+    assert str(next(iter(srv.prefill_bucketed.programs))) == "pow2:B2xladder:S16"
 
 
 def test_unknown_prefill_policy_rejected(setup):

@@ -108,7 +108,26 @@ Phases (any failure raises and the script exits non-zero):
    top choice of the plain path; two kept prefill outputs intact after
    a later call.
 
-In phases 5-8, one decode and one prefill dispatch of the served
+9. qwen2.5-14b at full width and depth (48 layers, d 5120, 40 heads of
+   128 with 8 KV heads, d_ff 13824, vocab 152064, QKV bias, rope theta
+   1e6, SwiGLU; 14.77 B parameters, 29.5 GB bf16, random weights from
+   seed 0), after phases 3-8 freed their models and graph pools:
+   ``BatchedServer(mode="eager")`` at the CLI defaults (Forge-compiled
+   block bodies with ``forge.swiglu``: two fused-linear launches each),
+   then the contiguous forge fronts on ``segment_jit`` (rung 4, the B4 x
+   S32 cell only): batched prefill and 32 decode steps, every dispatch
+   and served token bitwise against ``interpret``, the host/device split;
+   then ``apply`` at B=1, S=1024 (flash at H=40, KVH=8, D=128) against
+   ``impl="ref"`` by relative L2 beside the kernel-free spread.  Launches
+   exact (fused linear = the compiled graphs' linear nodes, a
+   ``forge.swiglu`` counting two, x dispatches; flash = the apply body's
+   unmasked attention x 48); each program's seven-pass table, node
+   reduction and fused counts; FGR of the decode block body.  Then in
+   f32 at full width, depth cut to 8 layers (48 layers in f32 are 59 GB),
+   the served prefill program and ``apply`` against ``impl="ref"``
+   elementwise within TOL_DEEP_F32.
+
+In phases 5-9, one decode and one prefill dispatch of the served
 programs under ``segment_jit`` must be bitwise equal to the same lowered
 programs under ``interpret`` (built without a second ``torch.export``),
 and so must the served greedy tokens; each path prints, for both
@@ -134,9 +153,13 @@ the check against each other.
 
 Each path's launch counts are zeroed just before it and read just after,
 in all and, for fused linear and flash, by the kernel variant taken:
-every bf16 fused-linear launch of phases 3-7 must be ``gemv`` or
-``wgmma`` and every flash launch (phase 4's 12) the warpgroup kernel
-``wgmma``, never a ``wmma`` kernel kept for operands TMA cannot take.
+every bf16 fused-linear launch of phases 3-9 must be ``gemv`` or
+``wgmma`` and every flash launch (phase 4's 12, phase 9's 48) the
+warpgroup kernel ``wgmma``, never a ``wmma`` kernel kept for operands
+TMA cannot take.  recurrentgemma-2b's ``apply`` (phase 6) runs flash in
+its local-attention layers: at S = 1024 below its window the banded
+mask folds to the causal pattern, as in the JAX package, and its head
+dim 256 has only the ``wmma`` kernel.
 The RMSNorm kernel is on no path (the JAX package's models normalise
 through the plain version too): its row reports 0 launches.
 The line before the last is one JSON object with a row per kernel (its
@@ -229,6 +252,15 @@ XL_LINEARS = ((1024, 2048, "silu"), (2048, 1024, None), (1024, 1024, None),
               (2048, 2048, None), (1024, 4096, None))
 # decode (M 4), the served prefill cell (4 x 32) and apply (2 x 1024)
 XL_FL_ROWS = (4, 128, 2048)
+# qwen2.5-14b's fused-linear nodes (K, N, act): the attention output
+# projection (5120 x 5120, with the residual), the SwiGLU gate + silu and
+# up projection (5120 x 13824), the down projection (13824 x 5120, with
+# the residual); the KV projections' width (5120 x 1024) is checked too,
+# though the biased q, k, v products stay plain (as in the JAX package)
+QW_LINEARS = ((5120, 5120, None), (5120, 13824, "silu"), (5120, 13824, None),
+              (13824, 5120, None), (5120, 1024, None))
+# decode (M 4), the served B4 x S32 prefill cell, apply at B1 x S1024
+QW_FL_ROWS = (4, 128, 1024)
 # RMSNorm (rows, d): xlstm-350m's decode block norm, the B4 x S32
 # prefill block norm, norm_h at B4 x H4 x S32 (hd 512), apply at
 # B2 x S1024, and a ragged d
@@ -362,7 +394,8 @@ def phase_fused_linear(dev, timer):
     lib = FL._lib()
     served = ([(M, K, N) for M in FL_ROWS for K, N in ((768, 3072), (3072, 768), (768, 768))]
               + [(M, K, N) for M in RG_FL_ROWS for K, N, _ in RG_LINEARS]
-              + [(M, K, N) for M in XL_FL_ROWS for K, N, _ in XL_LINEARS])
+              + [(M, K, N) for M in XL_FL_ROWS for K, N, _ in XL_LINEARS]
+              + [(M, K, N) for M in QW_FL_ROWS for K, N, _ in QW_LINEARS])
     for M, K, N in served:
         for dtype in (torch.float32, torch.bfloat16):
             p = FL.plan(M, N, K, dtype, True)
@@ -471,6 +504,73 @@ def phase_fused_linear(dev, timer):
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
             f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
     rows.update(xlstm_fused_linear(dev, timer, g))
+    rows.update(qwen_fused_linear(dev, timer, g))
+    return rows
+
+
+def qwen_fused_linear(dev, timer, g):
+    """fused_linear at qwen2.5-14b's widths: every width checked in f32 and
+    bf16 at the path's M; one layer's launches (the output projection with
+    the residual, ``ops.swiglu``'s gate + silu and up projection, the down
+    projection with the residual) timed in bf16 at M 4, 128 and 1024, as
+    the path runs them (the residual add and the gate product included),
+    beside the plain version and the library calls ``addmm`` (residual as
+    the added term), ``mm`` + ``silu`` + ``mm`` + ``mul`` and ``addmm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_linear as FL
+    from repro_torch.kernels import ops
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for M in QW_FL_ROWS:
+            for K, N, act in QW_LINEARS:
+                x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dtype)
+                w = (torch.randn(K, N, generator=g, device=dev) / K ** 0.5).to(dtype)
+                assert_close(FL.fused_linear_cuda(x, w, None, act=act),
+                             FL.fused_linear_plain(x, w, None, act=act), dtype,
+                             f"fused_linear (qwen2.5-14b) {dtype} M={M} K={K} N={N} act={act}")
+                n += 1
+    torch.cuda.synchronize()
+    log(f"fused_linear: {n} qwen2.5-14b cases within tolerance of the plain version")
+    rows = {}
+    dt = torch.bfloat16
+    d, ff = 5120, 13824
+    for M in QW_FL_ROWS:
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
+                   err=0.0)
+
+        def mat(r, c, scale):
+            return (torch.randn(r, c, generator=g, device=dev) * scale).to(dt)
+
+        x, h, res = mat(M, d, 0.5), mat(M, ff, 0.5), mat(M, d, 1.0)
+        wo, wg, wu, wd = mat(d, d, d ** -0.5), mat(d, ff, d ** -0.5), mat(d, ff, d ** -0.5), \
+            mat(ff, d, ff ** -0.5)
+        cases = (
+            ("o + residual", lambda impl=None: ops.fused_linear(x, wo, residual=res, impl=impl),
+             lambda: torch.addmm(res, x, wo), 2 * (M * d + d * d + 2 * M * d), 2.0 * M * d * d),
+            ("swiglu", lambda impl=None: ops.swiglu(x, wg, wu, impl=impl),
+             lambda: F.silu(torch.mm(x, wg)) * torch.mm(x, wu),
+             2 * (M * d + 2 * d * ff + M * ff), 4.0 * M * d * ff),
+            ("down + residual", lambda impl=None: ops.fused_linear(h, wd, residual=res,
+                                                                   impl=impl),
+             lambda: torch.addmm(res, h, wd), 2 * (M * ff + ff * d + 2 * M * d),
+             2.0 * M * ff * d),
+        )
+        for name, fn, lib_fn, nbytes, flops in cases:
+            err = assert_close(fn(), fn("ref"), dt, f"qwen2.5-14b {name} timing input")
+            for k, v in (("ms", timer.ms(fn)), ("plain_ms", timer.ms(lambda: fn("ref"))),
+                         ("library_ms", timer.ms(lib_fn)),
+                         ("bound_ms", max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3),
+                         ("flops", flops), ("bytes", nbytes)):
+                tot[k] += v
+            tot["err"] = max(tot["err"], err)
+        rows[("qwen", M)] = tot
+        log(f"fused_linear one qwen2.5-14b layer (4 launches: o + residual, swiglu gate + "
+            f"silu and up, down + residual) M={M}: kernel {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
+            f"{tot['bound_ms']:.5f} ms "
+            f"({'bytes' if tot['bytes'] / HBM_BYTES_PER_S > tot['flops'] / BF16_FLOPS else 'operations'})")
     return rows
 
 
@@ -709,6 +809,39 @@ def phase_flash(dev, timer):
         f"({'bytes' if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else 'operations'}), "
         f"max abs err {err:.3e}")
     rows["d128"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, flops=flops,
+                        bytes=nbytes, err=err)
+
+    # qwen2.5-14b's apply: B=1, H=40, KVH=8 (5 query heads a KV head),
+    # D=128, causal; checked in f32 and bf16 (and at a ragged S), then
+    # timed in bf16 beside the library call
+    B, H, KVH, S, D = 1, 40, 8, 1024, 128
+    scale = D ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        for Sq in (S, 300):
+            q, k, v = flash_inputs(g, dev, dtype, B, H, KVH, Sq, Sq, D)
+            got = FA.flash_attention_cuda(q, k, v, scale=scale, causal=True)
+            want = FA.flash_attention_plain(q, k, v, scale=scale, causal=True)
+            what = f"flash {dtype} B={B} H={H} KVH={KVH} S={Sq} D={D} causal (qwen2.5-14b)"
+            assert_close(got, want, dtype, what)
+            if dtype == torch.bfloat16:
+                assert_flash_rounding(got, want, q, k, v, scale, True, what)
+    q, k, v = flash_inputs(g, dev, dt, B, H, KVH, S, S, D)
+    got = FA.flash_attention_cuda(q, k, v, scale=scale, causal=True)
+    err = assert_close(got, FA.flash_attention_plain(q, k, v, scale=scale, causal=True), dt,
+                       "qwen2.5-14b timing input")
+    check(FA.variant(q, k, v) == "wgmma", "qwen2.5-14b flash does not take the warpgroup kernel")
+    ms = timer.ms(lambda: FA.flash_attention_cuda(q, k, v, scale=scale, causal=True))
+    plain = timer.ms(lambda: FA.flash_attention_plain(q, k, v, scale=scale, causal=True))
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
+                                                          enable_gqa=True))
+    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KVH * S * D)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    log(f"flash_attention bf16 B={B} H={H} KVH={KVH} S={S} D={D} causal (qwen2.5-14b apply): "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound {bound:.5f} ms "
+        f"({'bytes' if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else 'operations'}), "
+        f"max abs err {err:.3e}")
+    rows["qwen"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, flops=flops,
                         bytes=nbytes, err=err)
     return rows
 
@@ -1172,12 +1305,16 @@ def check_variants(launches):
     """Every bf16 fused-linear launch of the served paths took ``gemv``
     (decode rows) or ``wgmma``, never the ``wmma`` kernel kept for
     operands TMA cannot take; every flash launch took the warpgroup
-    kernel (``wgmma``)."""
+    kernel (``wgmma``), but at recurrentgemma-2b's head dim 256, which
+    only the ``wmma`` kernel serves."""
     for path, n in launches.items():
         fl, fa = n.variants["fused_linear"], n.variants["flash_attention"]
         check(sum(fl.values()) == n["fused_linear"] and set(fl) <= {"gemv", "wgmma"},
               f"{path}: fused_linear launches by variant {fl} (of {n['fused_linear']})")
-        check(sum(fa.values()) == n["flash_attention"] and set(fa) <= {"wgmma"},
+        # recurrentgemma-2b's head dim 256 has no wgmma kernel (its O
+        # accumulator does not fit beside the scores): wmma is its kernel
+        allowed = {"wmma"} if path == "rglru_apply" else {"wgmma"}
+        check(sum(fa.values()) == n["flash_attention"] and set(fa) <= allowed,
               f"{path}: flash launches by variant {fa} (of {n['flash_attention']})")
         log(f"variants on {path}: fused_linear {fl}, flash_attention {fa}")
     check(launches["apply"].variants["flash_attention"] == {"wgmma": 12},
@@ -1242,9 +1379,20 @@ def compare_served_step(model, cfg, server, prompts, server_cls):
 
 def linear_nodes(mod):
     """fused-linear launches one call of a compiled program makes: its
-    ``forge.linear_act`` nodes plus the fused-linear kernel calls the
-    capture met inside Forge-compiled block bodies."""
-    return sum(n.op in ("forge.linear_act", "repro_torch.fused_linear.default")
+    ``forge.linear_act`` nodes, two for each ``forge.swiglu`` (the gate and
+    the up projection), plus the fused-linear kernel calls the capture met
+    inside Forge-compiled block bodies."""
+    return sum({"forge.linear_act": 1, "forge.swiglu": 2,
+                "repro_torch.fused_linear.default": 1}.get(n.op, 0)
+               for n in mod.graph.nodes.values())
+
+
+def flash_nodes(mod):
+    """Flash launches one call of a compiled program makes: its unmasked
+    ``forge.sdpa`` nodes over more than one query row (``ops.sdpa``
+    routes them to the kernel) plus the kernel calls the capture met."""
+    return sum((n.op == "forge.sdpa" and not n.params["has_mask"]
+                and n.invars[0].shape[-2] > 1) or n.op == "repro_torch.flash_attention.default"
                for n in mod.graph.nodes.values())
 
 
@@ -1621,8 +1769,15 @@ def phase_rglru(dev):
     check(applied["rg_lru"] == n_rec, f"apply: rg_lru launches {applied['rg_lru']} != {n_rec}")
     check(applied["fused_linear"] == fl_apply,
           f"apply: fused_linear launches {applied['fused_linear']} != {fl_apply}")
-    check(applied["flash_attention"] == 0 and applied["paged_attention"] == 0,
-          "apply: the banded attention launched flash or paged attention")
+    # at S = 1024 <= window 2048 the banded mask folds to the causal
+    # pattern, which attention fusion reads as the kernel's causal mode (as
+    # the JAX package's constant folding does): flash, at D = 256 its wmma
+    # kernel, once a local-attention layer
+    fa_apply = sum(flash_nodes(mod) * (n_rec if "/rec" in k else cfg.n_layers - n_rec)
+                   for k, mod in bodies.items())
+    check(applied["flash_attention"] == fa_apply and applied["paged_attention"] == 0,
+          f"apply: flash launches {applied['flash_attention']} != {fa_apply} predicted from "
+          f"the bodies' unmasked forge.sdpa nodes, paged {applied['paged_attention']}")
     check(tuple(logits.shape) == (Ba, S, cfg.vocab) and torch.isfinite(logits).all().item(),
           f"apply logits shape {tuple(logits.shape)} or non-finite values")
     for k, mod in bodies.items():
@@ -2012,7 +2167,7 @@ def phase_xlstm(dev):
         torch.cuda.synchronize()
         apply_first_s = time.perf_counter() - t0
         bodies = {k: v for k, v in _forge._CACHE.items()
-                  if k.startswith(f"{cfg!r}/") and "/None/" in k}
+                  if k.startswith(f"{cfg!r}/") and "impl=None" in k}
         check(len(bodies) == 2, f"apply compiled {len(bodies)} bodies, not one per block kind")
         reset_counts()
         t0 = time.perf_counter()
@@ -2215,6 +2370,250 @@ def phase_dense_contiguous(dev):
             "dense_sched": scheduled}
 
 
+def log_pass_table(what, result):
+    """The seven passes of one compiled program: time, node delta and
+    detail counters (paper Table 10), and the node reduction."""
+    log(f"{what}: nodes {result.nodes_before} -> {result.nodes_after} (node_reduction "
+        f"{result.node_reduction:.4f}), passes {result.optimize_ms:.1f} ms, torch.export "
+        f"{result.capture_ms / 1e3:.2f} s")
+    for row in result.pass_table():
+        log(f"    {row['pass']}: {row['time_ms']:.2f} ms, {row['delta_nodes']:+d} nodes over "
+            f"{row['runs']} rounds, {row['detail']}")
+    check([row["pass"] for row in result.pass_table()] == [
+        "dce", "cse", "constant_folding", "device_constant", "attention_fusion",
+        "operator_fusion", "layout_optimization"], f"{what}: not the seven passes")
+
+
+def fused_counts(mod):
+    ops_ = [n.op for n in mod.graph.nodes.values() if n.is_fused]
+    return {op: ops_.count(op) for op in ("forge.sdpa", "forge.linear_act", "forge.swiglu")}
+
+
+def phase_qwen(dev):
+    """qwen2.5-14b at full width and depth (48 layers, d 5120, 40 heads of
+    128 with 8 KV heads, d_ff 13824, vocab 152064, QKV bias, SwiGLU; bf16,
+    random weights from seed 0): the eager server, the contiguous forge
+    fronts on segment_jit (rung 4, the B4 x S32 cell) held bitwise against
+    interpret, and ``apply`` at B=1, S=1024; then the served prefill
+    program and ``apply`` in f32 at 8 layers against ``impl="ref"``.
+    Returns the launches of each path."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.metrics import fusion_gain_ratio
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import _forge, get_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"qwen2.5-14b: before its model, memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, memory_reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    cfg = get_config("qwen2.5-14b")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab,
+           cfg.ffn, cfg.qkv_bias, cfg.dtype) == (48, 5120, 40, 8, 13824, 152064, "swiglu",
+                                                  True, "bfloat16"), f"qwen2.5-14b is {cfg}")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in {id(t): t for t in pytree.tree_leaves(params)}.values())
+    floor_ms = 2 * n_params / HBM_BYTES_PER_S * 1e3
+    log(f"qwen2.5-14b: {n_params / 1e9:.3f} B parameters ({2 * n_params / 1e9:.2f} GB bf16) "
+        f"made in {time.perf_counter() - t0:.1f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, P, n_new, max_len = 4, 32, 32, 256  # the serve CLI's defaults
+    prompts = np.random.default_rng(18).integers(0, cfg.vocab, (B, P)).astype(np.int32)
+
+    def bodies_of(mode):
+        return [m for k, m in _forge._CACHE.items()
+                if k.startswith(f"{cfg!r}/{mode}/") and "impl=None" in k]
+
+    # -- the eager server: Forge-compiled block bodies --------------------
+    eager = BatchedServer(cfg, params, max_len=max_len, mode="eager")
+    reset_counts()
+    res_e = eager.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    served_eager = counts()
+    (dbody,) = bodies_of("decode")
+    steps = P + n_new - 1
+    per_step = linear_nodes(dbody) * cfg.n_layers
+    check(res_e["tokens"].shape == (B, n_new), f"eager token shape {res_e['tokens'].shape}")
+    check(served_eager["fused_linear"] == per_step * steps,
+          f"eager: fused_linear launches {served_eager['fused_linear']} != {per_step} per "
+          f"step (the body's linear nodes x {cfg.n_layers} layers) x {steps} steps")
+    check(not any(v for k, v in served_eager.items() if k != "fused_linear"),
+          f"eager: launched {served_eager}")
+    check(fused_counts(dbody) == {"forge.sdpa": 1, "forge.linear_act": 2, "forge.swiglu": 1},
+          f"decode body fused {fused_counts(dbody)}")
+    log(f"serve qwen2.5-14b eager (bf16, 48 layers) batch={B} prompt={P} gen={n_new}: ttft "
+        f"{res_e['ttft_s'] * 1e3:.1f} ms (sequential prefill, body compile included), decode "
+        f"p50 {res_e['decode_ms_p50']:.2f} ms p99 {res_e['decode_ms_p99']:.2f} ms, "
+        f"{res_e['tok_per_s']:.1f} tok/s; fused_linear launches {served_eager['fused_linear']} "
+        f"= {per_step} per step; fused nodes of the body {fused_counts(dbody)}")
+    log_pass_table("qwen2.5-14b decode block body", dbody.result)
+    del eager
+
+    # FGR on the block body (Eq. 22): two captures, alpha 0 and 1
+    p0 = params["blocks"][0]
+    x1 = torch.zeros((B, 1, cfg.d_model), dtype=torch.bfloat16, device=dev)
+    kc = torch.zeros((B, cfg.n_kv_heads, max_len, cfg.head_dim_), dtype=torch.bfloat16,
+                     device=dev)
+    pos = torch.tensor(P, device=dev)
+    cos, sin = T._rope_for(cfg, L.decode_positions(pos))
+    fgr = fusion_gain_ratio(lambda *a: T.block_decode(*a, cfg=cfg), p0, x1, kc, kc.clone(),
+                            pos, cos, sin)
+    check(fgr["fgr"] > 1, f"FGR {fgr}")
+    log(f"qwen2.5-14b decode block body FGR (cost model, alpha 0 / alpha 1): "
+        f"{fgr['score_alpha0']:.2f} / {fgr['score_alpha1']:.2f} = {fgr['fgr']:.3f}")
+    del x1, kc
+
+    # -- the contiguous forge fronts on segment_jit ------------------------
+    server = BatchedServer(cfg, params, max_len=max_len, mode="forge", bucket_policy="ladder:4")
+    warm_s = warm_graphs("qwen2.5-14b contiguous", lambda: server.warmup([B], prompt_lens=[P]))
+    fronts = (server.bucketed, server.prefill_bucketed)
+    check([len(f.programs) for f in fronts] == [1, 1],
+          f"warmup compiled {[len(f.programs) for f in fronts]} programs, not the B4 decode "
+          f"program and the B4 x S32 cell")
+    program_log(server.bucketed, "decode")
+    program_log(server.prefill_bucketed, "prefill")
+    for f, name in zip(fronts, ("decode", "prefill")):
+        for key, mod in f.programs.items():
+            log_pass_table(f"qwen2.5-14b {name} program {key}", mod.result)
+    log(f"qwen2.5-14b contiguous warmup: 2 programs in {warm_s:.1f} s")
+    caps = captures_now()
+    compiles0 = [f.stats.compiles for f in fronts]
+    calls0 = [dict(f.stats.per_bucket_calls) for f in fronts]
+    reset_counts()
+    res = server.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    served = counts()
+    dispatches = [{k: f.stats.per_bucket_calls.get(k, 0) - c0.get(k, 0)
+                   for k in f.stats.per_bucket_calls} for f, c0 in zip(fronts, calls0)]
+    want_fl = sum(linear_nodes(mod) * d.get(str(key), 0)
+                  for f, d in zip(fronts, dispatches) for key, mod in f.programs.items())
+    check([f.stats.compiles for f in fronts] == compiles0 and captures_now() == caps,
+          "qwen2.5-14b: a program compiled or captured after warmup")
+    check(res["prefill_mode"] == "batched" and res["tokens"].shape == (B, n_new)
+          and res["compile_s"] == 0.0, f"served {res['prefill_mode']} {res['tokens'].shape}")
+    check(served["fused_linear"] == want_fl > 0,
+          f"qwen2.5-14b: fused_linear launches {served['fused_linear']} != {want_fl} "
+          f"predicted from the programs' linear nodes x dispatches")
+    check(not any(v for k, v in served.items() if k != "fused_linear"),
+          f"qwen2.5-14b: launched {served}")
+    n_dec, n_pre = (sum(d.values()) for d in dispatches)
+    log(f"serve qwen2.5-14b contiguous (segment_jit) batch={B} prompt={P} gen={n_new}: ttft "
+        f"{res['ttft_s'] * 1e3:.2f} ms, decode p50 {res['decode_ms_p50']:.2f} ms p99 "
+        f"{res['decode_ms_p99']:.2f} ms, {res['tok_per_s']:.1f} tok/s (the weights' byte "
+        f"bound {floor_ms:.3f} ms a step); {n_pre} prefill and {n_dec} decode dispatches; "
+        f"launches {served}, {served.variants}")
+    contiguous_backends("qwen2.5-14b contiguous", server, prompts, n_new, floor_ms=floor_ms)
+    del server, fronts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- apply at B=1, S=1024: flash at H=40, KVH=8, D=128 -----------------
+    tokens = torch.randint(0, cfg.vocab, (1, 1024), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(19))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.apply(params, tokens, cfg)  # compiles the apply body
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = model.apply(params, tokens, cfg)
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        applied = counts()
+    (abody,) = bodies_of("apply")
+    check(applied["flash_attention"] == flash_nodes(abody) * cfg.n_layers == cfg.n_layers,
+          f"apply: flash launches {applied['flash_attention']} != {cfg.n_layers}")
+    check(applied["fused_linear"] == linear_nodes(abody) * cfg.n_layers,
+          f"apply: fused_linear launches {applied['fused_linear']} != "
+          f"{linear_nodes(abody) * cfg.n_layers}")
+    check(applied.variants["flash_attention"] == {"wgmma": cfg.n_layers},
+          f"apply: flash variants {applied.variants['flash_attention']}")
+    check(tuple(logits.shape) == (1, 1024, cfg.vocab) and torch.isfinite(logits).all().item(),
+          "qwen2.5-14b apply logits: shape or non-finite values")
+    log(f"apply qwen2.5-14b B=1 S=1024: flash launches {applied['flash_attention']}, "
+        f"fused_linear {applied['fused_linear']} ({applied.variants}); first call "
+        f"{first_s:.1f} s (body compile included), steady call {apply_ms:.1f} ms host wall; "
+        f"fused nodes of the body {fused_counts(abody)}")
+    log_pass_table("qwen2.5-14b apply block body", abody.result)
+    log_device_time(lambda: model.apply(params, tokens, cfg), "qwen2.5-14b apply B=1 S=1024")
+    with torch.no_grad():
+        reset_counts()
+        ref = model.apply(params, tokens, cfg, impl="ref")
+        raw = model.apply(params, tokens, cfg.with_(fuse="none"), impl="ref")
+        check(not any(counts().values()), "the impl='ref' apply launched a kernel")
+    got_r, spread = rel_l2(logits, ref), rel_l2(ref, raw)
+    bound = max(REL_L2_DEEP_BF16, SPREAD_FACTOR_BF16 * spread)
+    check(got_r <= bound, f"qwen2.5-14b apply logits: relative L2 {got_r:.3e} of impl='ref' "
+                          f"above {bound:.3e}")
+    log(f"qwen2.5-14b apply logits against impl='ref': {got_r:.3e} relative L2 (max abs "
+        f"{(logits - ref).abs().max().item():.3e}); two kernel-free implementations (compiled "
+        f"and unfused) differ by {spread:.3e}; bound {bound:.3e}")
+    del logits, ref, raw, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_qwen_f32(dev, cfg, prompts)
+    return {"qwen_eager": served_eager, "qwen_serve": served, "qwen_apply": applied}
+
+
+def phase_qwen_f32(dev, cfg, prompts):
+    """qwen2.5-14b's kernels held elementwise in f32 at full width, depth
+    cut to 8 layers (48 in f32 is 59 GB): the served B4 x S32 prefill
+    program (logits and written cache) and ``apply`` (B=1, S=1024) against
+    ``impl="ref"`` within TOL_DEEP_F32.  Comparison launches: they count
+    on no path."""
+    import torch
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import get_model
+
+    cfg = cfg.with_(dtype="float32", n_layers=8)
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    server = BatchedServer(cfg, params, max_len=256, mode="forge")
+    server._ensure_bucketed()
+    B, P = prompts.shape
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    pmod, key, _ = server.prefill_bucketed.program_for(
+        params, server._build_cache(B), *server._prefill_args(B, toks, 0))
+    compile_s = time.perf_counter() - t0
+    with torch.no_grad():
+        logits, cache = pmod(params, server._build_cache(B), *server._prefill_args(B, toks, 0))
+        ref_logits, ref_cache = model.prefill_step(params, server._build_cache(B), toks, 0, cfg,
+                                                   impl="ref")
+    errs = {"logits": assert_close(logits, ref_logits, torch.float32,
+                                   "qwen2.5-14b f32 prefill logits", TOL_DEEP_F32)}
+    for name in ("k", "v"):
+        errs[name] = assert_close(cache[name][:, :, :, :P], ref_cache[name][:, :, :, :P],
+                                  torch.float32, f"qwen2.5-14b f32 prefill {name} cache",
+                                  TOL_DEEP_F32)
+    del server, logits, cache, ref_logits, ref_cache
+    tokens = torch.randint(0, cfg.vocab, (1, 1024), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(20))
+    with torch.no_grad():
+        got = model.apply(params, tokens, cfg)
+        want = model.apply(params, tokens, cfg, impl="ref")
+    err_apply = assert_close(got, want, torch.float32, "qwen2.5-14b f32 apply logits",
+                             TOL_DEEP_F32)
+    log(f"f32 qwen2.5-14b (full width, depth cut to 8 of 48 layers: 48 layers in f32 are "
+        f"59 GB): the prefill program {key} (compiled in {compile_s:.1f} s) against "
+        f"impl='ref', max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; apply B=1 S=1024 logits {err_apply:.3e} ({rel_l2(got, want):.3e} relative L2); "
+          f"all within rtol {TOL_DEEP_F32['rtol']} atol {TOL_DEEP_F32['atol']}")
+    del params, got, want
+    torch.cuda.empty_cache()
+
+
 def log_device_time(fn, what):
     """Device time of one call's kernels under the profiler, in all and
     for the fused-linear and flash kernels (the names they launch)."""
@@ -2240,8 +2639,10 @@ def log_device_time(fn, what):
 def step_split(step, what, steps=8, floor_ms=None):
     """Where a served step's time goes: ``step()`` runs one step.  Host
     wall per step, p50 and p99 over ``steps`` steps each ended by a
-    synchronize, and the p50 of the part of it spent before ``step()``
-    returned (enqueueing the step's work: the host's share); then device
+    synchronize, the p50 of the part of it spent before ``step()``
+    returned (enqueueing the step's work: the host's share) and of the
+    device span between CUDA events recorded before and after the step
+    (device time, kernels and the gaps between them); then device
     kernel time per step from ``torch.profiler`` over ``steps`` steps run
     back to back, and the busy share: kernel time over the same steps'
     host wall under the profiler (which slows the host) and over the
@@ -2255,13 +2656,17 @@ def step_split(step, what, steps=8, floor_ms=None):
         for _ in range(2):
             step()
         torch.cuda.synchronize()
-        walls, enqueue = [], []
+        walls, enqueue, spans = [], [], []
         for _ in range(steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
+            e0.record()
             step()
+            e1.record()
             enqueue.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
+            spans.append(e0.elapsed_time(e1))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             t0 = time.perf_counter()
@@ -2274,6 +2679,7 @@ def step_split(step, what, steps=8, floor_ms=None):
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     out = {"wall_p50": float(np.percentile(walls, 50)), "wall_p99": float(np.percentile(walls, 99)),
            "enqueue_p50": float(np.percentile(enqueue, 50)),
+           "span_p50": float(np.percentile(spans, 50)),
            "device_ms": device_ms if device_ms > 0 else None, "window_ms": window_ms / steps}
     out["busy"] = device_ms * steps / window_ms if device_ms > 0 else None
     out["busy_p50"] = device_ms / out["wall_p50"] if device_ms > 0 else None
@@ -2283,7 +2689,8 @@ def step_split(step, what, steps=8, floor_ms=None):
             f"profiler recorded no device time)")
         return out
     log(f"{what}: host wall per step p50 {out['wall_p50']:.3f} ms p99 {out['wall_p99']:.3f} ms "
-        f"(enqueue p50 {out['enqueue_p50']:.3f} ms); under the profiler, device kernels {device_ms:.3f} ms per step of "
+        f"(enqueue p50 {out['enqueue_p50']:.3f} ms; device span p50 {out['span_p50']:.3f} ms "
+        f"between events recorded before and after the step); under the profiler, device kernels {device_ms:.3f} ms per step of "
         f"{out['window_ms']:.3f} ms host wall ({100 * out['busy']:.1f}% busy; "
         f"{100 * out['busy_p50']:.1f}% of the unprofiled p50)"
         + (f"; a step must read the weights: at least {floor_ms:.3f} ms"
@@ -2433,7 +2840,8 @@ def backend_split(what, fronts, twins, make_step, decode_mod, floor_ms=None):
     log(f"{what} host/device split: host wall per step p50 {a['wall_p50']:.3f} / p99 "
         f"{a['wall_p99']:.3f} ms (segment_jit) against {b['wall_p50']:.3f} / "
         f"{b['wall_p99']:.3f} ms (interpret); enqueue p50 {a['enqueue_p50']:.3f} against "
-        f"{b['enqueue_p50']:.3f} ms; device time per step {fmt(a['device_ms'])} "
+        f"{b['enqueue_p50']:.3f} ms; device span p50 {a['span_p50']:.3f} against "
+        f"{b['span_p50']:.3f} ms; device time per step {fmt(a['device_ms'])} "
         f"against {fmt(b['device_ms'])}; busy {fmt(a['busy'], 100, '%')} against "
         f"{fmt(b['busy'], 100, '%')} under the profiler, {fmt(a['busy_p50'], 100, '%')} "
         f"against {fmt(b['busy_p50'], 100, '%')} of the unprofiled p50; replays per step {s.n_segments} (delta_after + 1 = "
@@ -2476,6 +2884,7 @@ def main():
     launches.update(phase_rglru(dev))
     launches.update(phase_xlstm(dev))
     launches.update(phase_dense_contiguous(dev))
+    launches.update(phase_qwen(dev))
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
@@ -2529,9 +2938,11 @@ def main():
              "xlstm_sched": fl_rows[("xlstm", 4)],
              "xlstm_apply": fl_rows[("xlstm", 2048)],
              "dense_serve": fl_rows[128], "dense_sequential": fl_rows[4],
-             "dense_sched": fl_rows[4]}),
+             "dense_sched": fl_rows[4],
+             "qwen_eager": fl_rows[("qwen", 4)], "qwen_serve": fl_rows[("qwen", 128)],
+             "qwen_apply": fl_rows[("qwen", 1024)]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
-            {"apply": fa_rows["apply"]}),
+            {"apply": fa_rows["apply"], "qwen_apply": fa_rows["qwen"]}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
             {"paged": pa_rows["served"]}),
         row("rg_lru", "src/repro/kernels/rg_lru.py:130", "rglru_serve",
@@ -2545,7 +2956,10 @@ def main():
 
     kernels[1]["head_dims"] = list(FA.HEAD_DIMS)
     kernels[1]["per_shape"] = {"B4-H12-S1024-D64": timing(fa_rows["apply"]),
-                               "B4-H32-KVH8-S1024-D128": timing(fa_rows["d128"])}
+                               "B4-H32-KVH8-S1024-D128": timing(fa_rows["d128"]),
+                               "B1-H40-KVH8-S1024-D128": timing(fa_rows["qwen"])}
+    kernels[0]["per_shape"] = {f"qwen2.5-14b-layer-M{M}": timing(fl_rows[("qwen", M)])
+                               for M in QW_FL_ROWS}
     kernels[2]["head_dims"] = list(PA.HEAD_DIMS)
     kernels[2]["per_shape"] = {"B4-H12-D64-served": timing(pa_rows["served"]),
                                "B8-H12-D64-pos2047": timing(pa_rows["long"]),

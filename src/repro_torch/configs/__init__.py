@@ -1,18 +1,23 @@
 """Architecture registry — the ``--arch <id>`` lookup.
 
 The port carries ``forge-125m`` (a GPT-2-class dense decoder, the serve
-CLI's default), ``recurrentgemma-2b`` (the RG-LRU / local-attention
-hybrid), ``xlstm-350m`` (mLSTM + sLSTM blocks) and their smoke variants;
-the other architectures of the JAX package follow in later slices.
+CLI's default), the SwiGLU dense decoders ``deepseek-7b``,
+``phi3-mini-3.8b``, ``qwen1.5-32b`` and ``qwen2.5-14b`` (GQA 40/8),
+``recurrentgemma-2b`` (the RG-LRU / local-attention hybrid),
+``xlstm-350m`` (mLSTM + sLSTM blocks) and their smoke variants; the MoE,
+encoder-decoder and VLM architectures of the JAX package follow in later
+slices.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
-from . import recurrentgemma_2b, xlstm_350m
+from . import (deepseek_7b, phi3_mini_38b, qwen15_32b, qwen25_14b, recurrentgemma_2b,
+               xlstm_350m)
 from .base import ModelConfig
 
-REGISTRY: Dict[str, object] = {m.ARCH_ID: m for m in (recurrentgemma_2b, xlstm_350m)}
+REGISTRY: Dict[str, object] = {m.ARCH_ID: m for m in (
+    deepseek_7b, phi3_mini_38b, qwen15_32b, qwen25_14b, recurrentgemma_2b, xlstm_350m)}
 ARCH_IDS: List[str] = ["forge-125m"] + list(REGISTRY)
 
 

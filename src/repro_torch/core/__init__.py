@@ -13,7 +13,8 @@ from .compiler import (
 from .executor import CompiledExecutor, ExecutorStats, analyze_program
 from .graph import Graph
 from .lowering import RGIRProgram, lower_to_rgir
-from .passes import run_forge_passes
+from .cost_model import CostBreakdown, roofline_score, score_graph
+from .passes import PipelineConfig, default_passes, run_forge_passes
 from .shapekey import PolyAxis, ShapeKey, get_bucket_policy
 
 __all__ = [
@@ -36,4 +37,9 @@ __all__ = [
     "RGIRProgram",
     "lower_to_rgir",
     "run_forge_passes",
+    "PipelineConfig",
+    "default_passes",
+    "CostBreakdown",
+    "score_graph",
+    "roofline_score",
 ]

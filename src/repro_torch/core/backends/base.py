@@ -11,7 +11,8 @@ segment-at-a-time programs:
 
 ``build`` takes the positions of the flat inputs that are parameters
 (``static_inputs``, with their names): a backend that captures the
-program on the card reads them at the caller's address.
+program on the card reads them at the caller's address.  ``reorder``
+chooses between the device-affinity schedule and the program order.
 
 Backends register themselves by name; ``get_backend`` resolves the name
 given as ``ForgeCompiler(backend=...)``.
@@ -46,8 +47,10 @@ class Backend(ABC):
 
     @abstractmethod
     def build(self, prog: RGIRProgram, *, static_inputs: Sequence[int] = (),
-              input_names: Optional[Sequence[str]] = None) -> ExecutorLike:
-        """Compile an RGIR program into an executor."""
+              input_names: Optional[Sequence[str]] = None,
+              reorder: bool = True) -> ExecutorLike:
+        """Compile an RGIR program into an executor; ``reorder=False``
+        keeps the program order (no device-affinity schedule)."""
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"<backend {self.name!r}>"

@@ -18,5 +18,6 @@ class InterpretBackend(Backend):
     name = "interpret"
 
     def build(self, prog: RGIRProgram, *, static_inputs: Sequence[int] = (),
-              input_names: Optional[Sequence[str]] = None) -> CompiledExecutor:
-        return CompiledExecutor(analyze_program(prog))
+              input_names: Optional[Sequence[str]] = None,
+              reorder: bool = True) -> CompiledExecutor:
+        return CompiledExecutor(analyze_program(prog, reorder=reorder))

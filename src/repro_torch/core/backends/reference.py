@@ -52,5 +52,6 @@ class ReferenceBackend(Backend):
     name = "reference"
 
     def build(self, prog: RGIRProgram, *, static_inputs: Sequence[int] = (),
-              input_names: Optional[Sequence[str]] = None) -> ReferenceExecutor:
+              input_names: Optional[Sequence[str]] = None,
+              reorder: bool = True) -> ReferenceExecutor:
         return ReferenceExecutor(prog)

@@ -432,6 +432,8 @@ class SegmentJitBackend(Backend):
     name = "segment_jit"
 
     def build(self, prog: RGIRProgram, *, static_inputs: Sequence[int] = (),
-              input_names: Optional[Sequence[str]] = None) -> SegmentExecutor:
-        return SegmentExecutor(analyze_program(prog), static_inputs=static_inputs,
+              input_names: Optional[Sequence[str]] = None,
+              reorder: bool = True) -> SegmentExecutor:
+        return SegmentExecutor(analyze_program(prog, reorder=reorder),
+                               static_inputs=static_inputs,
                                input_names=input_names)

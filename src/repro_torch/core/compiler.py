@@ -10,8 +10,10 @@
 
 and returns a :class:`CompiledModule` — callable on the same pytree
 signature as ``fn`` — plus the transparent :class:`CompilationResult`
-(nodes before/after, fused-op counts, per-pass profile, buffer and
-transition statistics, phase timings).
+(nodes before/after, the cost model's breakdown and fused-op counts,
+per-pass profile, buffer and transition statistics, phase timings).
+A :class:`~repro_torch.core.passes.PipelineConfig` sets Phase 2 (α, λ,
+π, ι, pass enables) and the default backend.
 
 ``ForgeCompiler.compile_bucketed`` builds a :class:`BucketedModule`: one
 compiled program per :class:`~repro_torch.core.shapekey.ShapeKey` cell,
@@ -29,10 +31,11 @@ from torch.utils import _pytree as pytree
 
 from .backends import ExecutorLike, get_backend
 from .capture import CaptureResult, trace_to_graph
+from .cost_model import CostBreakdown, score_graph
 from .executor import ExecutorStats
 from .graph import Graph
 from .lowering import RGIRProgram, lower_to_rgir
-from .passes import PassRecord, run_forge_passes
+from .passes import PassRecord, PipelineConfig, run_forge_passes
 from .shapekey import (
     AxisKey,
     AxisSpec,
@@ -61,7 +64,11 @@ class CompilationResult:
     backend_ms: float = 0.0
     total_ms: float = 0.0
     executor_stats: Optional[ExecutorStats] = None
+    #: the cost model's breakdown of the optimized graph (paper Eq. 18)
+    cost: Optional[CostBreakdown] = None
     tied_weights: int = 0
+    #: the Phase-2 configuration the program was compiled under
+    config: Optional[PipelineConfig] = None
     impl: Optional[str] = None
     backend: str = "interpret"
     #: the bucket cell this program serves (BucketedModule), else None
@@ -122,7 +129,8 @@ class CompiledModule:
                  result: CompilationResult, graph: Graph, *,
                  program: Optional[RGIRProgram] = None,
                  static_inputs: Tuple[int, ...] = (),
-                 input_names: Optional[List[str]] = None):
+                 input_names: Optional[List[str]] = None,
+                 reorder: bool = True):
         self.executor = executor
         self.capture = capture
         self.result = result
@@ -130,6 +138,7 @@ class CompiledModule:
         self.program = program
         self.static_inputs = static_inputs
         self.input_names = input_names
+        self.reorder = reorder
 
     def with_backend(self, backend: str) -> "CompiledModule":
         """The same lowered program on another Phase-4 backend (a fresh
@@ -137,12 +146,13 @@ class CompiledModule:
         if self.program is None:
             raise ValueError("this module keeps no lowered program")
         executor = get_backend(backend).build(self.program, static_inputs=self.static_inputs,
-                                              input_names=self.input_names)
+                                              input_names=self.input_names,
+                                              reorder=self.reorder)
         result = dataclasses.replace(self.result, backend=backend,
                                      executor_stats=executor.stats, capture_s=0.0)
         return CompiledModule(executor, self.capture, result, self.graph,
                               program=self.program, static_inputs=self.static_inputs,
-                              input_names=self.input_names)
+                              input_names=self.input_names, reorder=self.reorder)
 
     @staticmethod
     def _flatten_inputs_of(capture: CaptureResult, args: Sequence[Any]) -> List[Any]:
@@ -190,27 +200,29 @@ def _static_inputs(cap: CaptureResult, args: Sequence[Any],
     return tuple(j for j, i in enumerate(keep) if i in raw_static), names
 
 
-def _count_fused(g: Graph) -> Dict[str, int]:
-    counts: Dict[str, int] = {}
-    for n in g.nodes.values():
-        if n.is_fused:
-            counts[n.op] = counts.get(n.op, 0) + 1
-    return counts
-
-
 class ForgeCompiler:
     """Four-phase compiler facade (paper Figure 1).
 
-    ``impl`` is forwarded into the fused nodes (None dispatches by device,
-    ``"ref"`` runs the kernels' plain versions).  Phase 4 is delegated to
-    the pluggable :class:`~repro_torch.core.backends.Backend` named by
-    ``backend`` (``interpret`` | ``reference`` | ``segment_jit``).
+    ``config`` sets Phase 2 (:class:`PipelineConfig`; its ``impl`` is
+    forwarded into the fused nodes: None dispatches by device, ``"ref"``
+    runs the kernels' plain versions); ``impl`` is a shorthand for
+    ``config.impl``.  Phase 4 is delegated to the pluggable
+    :class:`~repro_torch.core.backends.Backend` named by ``backend``
+    (``interpret`` | ``reference`` | ``segment_jit``), which wins over
+    ``config.backend``.  ``reorder=False`` is the unscheduled build:
+    liveness and allocation run on the program order.
     """
 
-    def __init__(self, *, impl: Optional[str] = None, backend: str = "interpret"):
-        self.impl = impl
-        self.backend_name = backend
-        get_backend(backend)  # fail fast on unknown names
+    def __init__(self, config: Optional[PipelineConfig] = None, *, reorder: bool = True,
+                 backend: Optional[str] = None, impl: Optional[str] = None):
+        config = config or PipelineConfig()
+        if impl is not None:
+            config = dataclasses.replace(config, impl=impl)
+        self.config = config
+        self.impl = config.impl
+        self.reorder = reorder
+        self.backend_name = backend or config.backend
+        get_backend(self.backend_name)  # fail fast on unknown names
 
     def compile(self, fn: Callable, *example_args: Any,
                 shape_key: Optional[ShapeKey] = None,
@@ -229,7 +241,7 @@ class ForgeCompiler:
         nodes_before = g.num_nodes()
 
         t0 = time.perf_counter()  # Phase 2
-        records = run_forge_passes(g, impl=self.impl)
+        records = run_forge_passes(g, cfg=self.config)
         optimize_ms = (time.perf_counter() - t0) * 1e3
 
         t0 = time.perf_counter()  # Phase 3
@@ -239,18 +251,19 @@ class ForgeCompiler:
         t0 = time.perf_counter()  # Phase 4
         static, names = _static_inputs(cap, example_args, static_argnums)
         executor = get_backend(self.backend_name).build(prog, static_inputs=static,
-                                                        input_names=names)
+                                                        input_names=names,
+                                                        reorder=self.reorder)
         prepare = getattr(executor, "prepare", None)
         if prepare is not None:  # segment_jit: capture on the card now
             prepare(*CompiledModule._flatten_inputs_of(cap, example_args))
         backend_ms = (time.perf_counter() - t0) * 1e3
 
-        fused = _count_fused(g)
+        cost = score_graph(g, self.config.precision)
         result = CompilationResult(
             nodes_before=nodes_before,
             nodes_after=g.num_nodes(),
-            fused_ops=sum(fused.values()),
-            attention_fused=fused.get("forge.sdpa", 0),
+            fused_ops=cost.n_fused,
+            attention_fused=cost.n_attn_fused,
             pass_records=records,
             capture_ms=cap.capture_ms,
             optimize_ms=optimize_ms,
@@ -258,14 +271,16 @@ class ForgeCompiler:
             backend_ms=backend_ms,
             total_ms=(time.perf_counter() - t_total) * 1e3,
             executor_stats=executor.stats,
+            cost=cost,
             tied_weights=len(cap.tied_map),
+            config=self.config,
             impl=self.impl,
             backend=self.backend_name,
             shape_key=str(shape_key) if shape_key is not None else None,
             capture_s=executor.stats.capture_s,
         )
         return CompiledModule(executor, cap, result, g, program=prog, static_inputs=static,
-                              input_names=names)
+                              input_names=names, reorder=self.reorder)
 
     def compile_bucketed(
         self,
@@ -382,7 +397,9 @@ class BucketedModule:
                               for pa, e in zip(self.axes, extents)))
 
 
-def forge_compile(fn: Callable, *example_args: Any, impl: Optional[str] = None,
-                  backend: str = "interpret") -> CompiledModule:
+def forge_compile(fn: Callable, *example_args: Any, config: Optional[PipelineConfig] = None,
+                  impl: Optional[str] = None, backend: Optional[str] = None,
+                  reorder: bool = True) -> CompiledModule:
     """One-shot convenience API: ``forge_compile(f, x, backend="reference")``."""
-    return ForgeCompiler(impl=impl, backend=backend).compile(fn, *example_args)
+    return ForgeCompiler(config, reorder=reorder, backend=backend, impl=impl).compile(
+        fn, *example_args)

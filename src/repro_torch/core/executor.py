@@ -25,7 +25,7 @@ from typing import Any, Callable, List, Tuple
 from .bufalloc import AllocationResult, allocate_from_liveness
 from .liveness import LivenessInfo, analyze_liveness
 from .lowering import RGIRProgram
-from .scheduler import ScheduleResult, schedule, verify_topological
+from .scheduler import ScheduleResult, compute_segments, schedule, verify_topological
 
 
 @dataclass
@@ -95,9 +95,17 @@ class AnalyzedProgram:
     alloc: AllocationResult
 
 
-def analyze_program(prog: RGIRProgram) -> AnalyzedProgram:
-    """Run Phase 4a-c: schedule, then liveness + allocation on that order."""
+def analyze_program(prog: RGIRProgram, *, reorder: bool = True) -> AnalyzedProgram:
+    """Run Phase 4a-c: schedule, then liveness + allocation on that order.
+
+    ``reorder=False`` is the unscheduled build: the program order stands,
+    and liveness and allocation run on it."""
     sched = schedule(prog)
+    if not reorder:
+        sched = ScheduleResult(order=list(range(len(prog.ops))),
+                               delta_before=sched.delta_before,
+                               delta_after=sched.delta_before,
+                               segments=compute_segments([op.device for op in prog.ops]))
     verify_topological(prog, sched.order)
     scheduled = prog.renumber(sched.order)
     live = analyze_liveness(scheduled)

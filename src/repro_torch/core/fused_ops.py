@@ -1,4 +1,5 @@
-"""Dispatch table for fused ``forge.*`` graph nodes.
+"""Dispatch table for fused ``forge.*`` graph nodes (``forge.sdpa``,
+``forge.linear_act``, ``forge.swiglu``).
 
 Phase-2 fusion passes replace matched ATen chains with single
 ``forge.*`` nodes; Phase-3 lowering resolves each to a concrete callable
@@ -68,9 +69,23 @@ def _linear_act_callable(node: GNode) -> Callable:
     return fn
 
 
+def _swiglu_callable(node: GNode) -> Callable:
+    from ..kernels import ops
+
+    p = node.params
+    out_dtype = _dtype(p.get("out_dtype"))
+
+    def fn(x, w_gate, w_up):
+        out = ops.swiglu(x, w_gate, w_up, impl=p.get("impl"))
+        return out.to(out_dtype) if out_dtype is not None else out
+
+    return fn
+
+
 _BUILDERS: Dict[str, Callable[[GNode], Callable]] = {
     "forge.sdpa": _sdpa_callable,
     "forge.linear_act": _linear_act_callable,
+    "forge.swiglu": _swiglu_callable,
 }
 
 

@@ -240,6 +240,24 @@ class Graph:
     def num_nodes(self) -> int:
         return len(self.nodes)
 
+    def const_index(self) -> Dict[int, int]:
+        """vid of each graph constant -> its position in ``consts``."""
+        return {cv.vid: i for i, cv in enumerate(self.constvars)}
+
+    def depth(self) -> int:
+        """Longest def-use chain length (graph depth, cost-model term)."""
+        memo: Dict[int, int] = {}
+        d = 0
+        for node in self.nodes.values():
+            best = 0
+            for iv in node.invars:
+                pr = self.producer_of.get(iv.vid)
+                if pr:
+                    best = max(best, memo.get(pr[0], 0))
+            memo[node.nid] = best + 1
+            d = max(d, best + 1)
+        return d
+
     # -- mutation ------------------------------------------------------------
 
     def replace_all_uses(self, old: GVar, new: GVar) -> None:

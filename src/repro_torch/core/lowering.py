@@ -26,6 +26,7 @@ program's constant table.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -85,6 +86,8 @@ class RGIROp:
     output_regs: Tuple[int, ...]
     params: Dict[str, Any] = field(default_factory=dict)
     out_avals: Tuple[Any, ...] = ()
+    #: rough FLOP estimate (:func:`node_flops`)
+    flops: float = 0.0
 
     def execute(self, read: Callable[[int], Any]) -> List[Any]:
         out = self.target(*[read(a.reg) for a in self.frozen_args])
@@ -125,6 +128,32 @@ class RGIRProgram:
             constants=self.constants,
             reg_avals=self.reg_avals,
         )
+
+
+#: bare products: the operand position whose last axis is contracted
+_PRODUCT_LHS = {"aten.matmul.default": 0, "aten.mm.default": 0, "aten.bmm.default": 0,
+                "aten.linear.default": 0, "aten.addmm.default": 1}
+
+
+def node_flops(node: GNode) -> float:
+    """Rough FLOP estimate used by the cost model and the program stats:
+    4·B·H·Sq·Sk·D for ``forge.sdpa``, 2·M·K·N for a linear (twice that
+    for ``forge.swiglu``'s two products) and for a bare product, else one
+    operation per output element."""
+    if not node.outvars:
+        return 0.0
+    if node.op == "forge.sdpa":
+        q, k = node.invars[0], node.invars[1]
+        B, H, Sq, D = q.shape
+        return 4.0 * B * H * Sq * k.shape[2] * D
+    if node.op in ("forge.linear_act", "forge.swiglu"):
+        x, w = node.invars[0], node.invars[1]
+        mult = 2.0 if node.op == "forge.swiglu" else 1.0
+        return mult * 2.0 * math.prod(x.shape[:-1]) * x.shape[-1] * w.shape[-1]
+    if node.op in _PRODUCT_LHS:
+        lhs = node.invars[_PRODUCT_LHS[node.op]]
+        return 2.0 * math.prod(node.outvars[0].shape) * (lhs.shape[-1] if lhs.shape else 1)
+    return float(math.prod(node.outvars[0].shape))
 
 
 def _aten_target(node: GNode) -> Callable:
@@ -206,6 +235,7 @@ def lower_to_rgir(g: Graph) -> RGIRProgram:
                 output_regs=tuple(out_regs),
                 params=dict(node.params),
                 out_avals=tuple(ov.aval for ov in node.outvars),
+                flops=node_flops(node),
             )
         )
 

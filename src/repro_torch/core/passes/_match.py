@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Iterable, List, Optional, Sequence, Set, Tuple
 
+import torch
+
 from ..graph import Graph, GLit, GNode, GVar, Operand
 
 #: value-preserving casts / copies the matchers look through
@@ -33,6 +35,16 @@ def scalar_lit(x: Operand) -> Optional[float]:
         return None
     if isinstance(x.val, (int, float)):
         return float(x.val)
+    return None
+
+
+def const_value(g: Graph, x: Operand):
+    """The tensor of a graph constant operand, else None."""
+    if not isinstance(x, GVar):
+        return None
+    for cv, cval in zip(g.constvars, g.consts):
+        if cv.vid == x.vid:
+            return cval
     return None
 
 
@@ -228,9 +240,20 @@ def _iota(g: Graph, x: Operand) -> Optional[Tuple[int, int, List[GNode]]]:
 def is_causal_pred(g: Graph, pred: Operand, sq: int, sk: int) -> Optional[List[GNode]]:
     """Recognize ``row (+ off) >= col`` causal predicates with
     ``off == sk - sq``; returns the producer chain, or None.  Masks that
-    do not match stay as explicit fused-node operands."""
+    do not match stay as explicit fused-node operands.
+
+    A predicate that constant folding evaluated is a boolean graph
+    constant: it is causal when every (sq, sk) slice of it is the
+    ``row + (sk - sq) >= col`` pattern (the chain is then empty)."""
     p = producer(g, pred)
-    if p is None or p.op != "aten.ge.Tensor":
+    if p is None:
+        c = const_value(g, pred)
+        if c is None or c.dtype != torch.bool or c.dim() < 2 or tuple(c.shape[-2:]) != (sq, sk):
+            return None
+        row = torch.arange(sq, device=c.device).view(sq, 1) + (sk - sq)
+        tril = row >= torch.arange(sk, device=c.device).view(1, sk)
+        return [] if bool((c.reshape(-1, sq, sk) == tril).all()) else None
+    if p.op != "aten.ge.Tensor":
         return None
     chain: List[GNode] = [p]
     lhs, rhs = p.args[:2]

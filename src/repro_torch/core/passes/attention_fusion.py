@@ -27,6 +27,7 @@ Adaptations of the paper's matcher, kept from the JAX package:
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Set
 
 from ..graph import Graph, GNode, GVar, Operand
@@ -44,7 +45,9 @@ def dtype_name(dtype) -> str:
 class AttentionFusionPass(ForgePass):
     name = "attention_fusion"
 
-    def __init__(self, impl: Optional[str] = None):
+    def __init__(self, alpha: float = 1.0, impl: Optional[str] = None):
+        #: fusion aggressiveness α: the first ⌈α·n⌉ of n matches fuse
+        self.alpha = alpha
         self.impl = impl
         self.last_detail: Dict[str, Any] = {}
 
@@ -191,12 +194,15 @@ class AttentionFusionPass(ForgePass):
         g.replace_all_uses(out, fused.outvars[0])
         M.erase_set(g, m["value_path"] + m["aux_path"])
 
-    def _scan(self, g: Graph) -> List[Dict[str, Any]]:
-        """One scan over the graph; fuses each match at once so later
-        matches see post-rewrite operands (stale-reference safety)."""
+    def _scan(self, g: Graph, limit: Optional[int], fuse: bool) -> List[Dict[str, Any]]:
+        """One scan over the graph, at most ``limit`` matches; with
+        ``fuse`` each match fuses at once so later matches see
+        post-rewrite operands (stale-reference safety)."""
         out: List[Dict[str, Any]] = []
         claimed: Set[int] = set()
         for node in list(g.nodes.values()):
+            if limit is not None and len(out) >= limit:
+                break
             if node.nid not in g.nodes or node.op not in SOFTMAX_OPS or node.nid in claimed:
                 continue
             m = self._match_chain(g, node)
@@ -207,12 +213,16 @@ class AttentionFusionPass(ForgePass):
                 continue
             claimed |= nids
             out.append(m)
-            self._fuse(g, m)
+            if fuse:
+                self._fuse(g, m)
         return out
 
     def run(self, g: Graph) -> bool:
-        fused = self._scan(g)
+        n_matched = len(self._scan(g, None, fuse=False))
+        n_fuse = math.ceil(self.alpha * n_matched) if n_matched else 0
+        fused = self._scan(g, n_fuse, fuse=True) if n_fuse else []
         self.last_detail = {
+            "matched": n_matched,
             "fused": len(fused),
             "causal": sum(1 for m in fused if m["causal"]),
             "gqa": sum(1 for m in fused if m["groups"] > 1),

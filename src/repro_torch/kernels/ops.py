@@ -1,4 +1,5 @@
-"""Dispatch for the fused graph nodes (``forge.sdpa``, ``forge.linear_act``),
+"""Dispatch for the fused graph nodes (``forge.sdpa``, ``forge.linear_act``,
+``forge.swiglu``),
 the recurrent block's RG-LRU scan (``rg_lru``, ``rg_lru_scan``) and the
 fused RMSNorm (``rms_norm``), plus the decorators that make a plain torch
 function one opaque graph node (:func:`forge_op`, :func:`scan_op`).
@@ -200,6 +201,29 @@ def fused_linear(
     return y
 
 
+def swiglu(
+    x: torch.Tensor,
+    w_gate: torch.Tensor,
+    w_up: torch.Tensor,
+    *,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Fused SwiGLU gate (beyond-paper mega-fusion): silu(x·Wg) ⊙ (x·Wu).
+    x: (..., K); w_gate, w_up: (K, N).
+
+    As the JAX package's kernel branch: two launches of the fused-linear
+    kernel, the gate with ``act="silu"`` in its epilogue and the up
+    projection plain, then their product in x's dtype."""
+    _check_impl(impl)
+    if impl is None:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        g = _fused_linear_kernel(x2, w_gate.contiguous(), None, act="silu")
+        u = _fused_linear_kernel(x2, w_up.contiguous(), None, act=None)
+        return (g * u).reshape(*lead, w_gate.shape[-1])
+    return _ref.swiglu_ref(x, w_gate, w_up)
+
+
 # --------------------------------------------------------------------------
 # RG-LRU linear recurrence (the recurrent block's pre-fused dispatch)
 # --------------------------------------------------------------------------
@@ -258,5 +282,5 @@ def rms_norm(
     return _ref.rms_norm_ref(x, w, eps)
 
 
-__all__ = ["sdpa", "fused_linear", "rg_lru", "rg_lru_scan", "rms_norm", "forge_op",
+__all__ = ["sdpa", "fused_linear", "swiglu", "rg_lru", "rg_lru_scan", "rms_norm", "forge_op",
            "scan_op"]

@@ -123,6 +123,14 @@ def fused_linear_ref(
     return apply_act(y, act)
 
 
+def swiglu_ref(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
+    """Reference SwiGLU gate: silu(x·Wg) ⊙ (x·Wu), each product accumulated
+    in fp32 and rounded to x's dtype, as the JAX oracle does."""
+    g = torch.matmul(x.float(), w_gate.float()).to(x.dtype)
+    u = torch.matmul(x.float(), w_up.float()).to(x.dtype)
+    return F.silu(g) * u
+
+
 def apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     """The five epilogue activations.  ``gelu`` is the tanh approximation
     (``jax.nn.gelu``'s default); ``gelu_exact`` is the erf form."""

@@ -1,13 +1,15 @@
 """Forge-pipeline integration glue shared by every model family.
 
 ``forge_body(raw_fn, key, example_args)`` captures the block body through
-the full four-phase compiler ONCE per (config, mode, kernel impl, input
-structure, shapes, dtypes, devices) and returns the compiled module's
-callable; families call it when ``cfg.fuse == 'forge'``.  ``torch.export``
-specialises on shapes, so a new shape is a new compile.
+the full four-phase compiler ONCE per (model config, mode, pipeline
+configuration, input structure, shapes, dtypes, devices) and returns the
+compiled module's callable; families call it when ``cfg.fuse == 'forge'``.
+``torch.export`` specialises on shapes, so a new shape is a new compile,
+and two pipeline configurations never share a body.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -33,20 +35,26 @@ def forge_body(
     *,
     enabled: bool = True,
     impl: Optional[str] = None,
+    config: Optional[Any] = None,
 ) -> Callable:
     """Return the Forge-compiled body (or ``raw_fn`` when disabled).
 
-    ``impl`` is forwarded into the fused nodes: None dispatches by device
-    (kernels on the card), ``"ref"`` runs their plain versions.
+    ``config`` is the :class:`~repro_torch.core.passes.PipelineConfig`
+    (default: the paper's pipeline); ``impl``, when given, replaces its
+    ``impl``, which is forwarded into the fused nodes: None dispatches by
+    device (kernels on the card), ``"ref"`` runs their plain versions.
     """
     if not enabled:
         return raw_fn
-    key = f"{key_prefix}/{impl}/{_shape_key(example_args)}"
+    from ..core import ForgeCompiler, PipelineConfig
+
+    config = config or PipelineConfig()
+    if impl is not None:
+        config = dataclasses.replace(config, impl=impl)
+    key = f"{key_prefix}/{config!r}/{_shape_key(example_args)}"
     hit = _CACHE.get(key)
     if hit is None:
-        from ..core import ForgeCompiler
-
-        hit = ForgeCompiler(impl=impl).compile(raw_fn, *example_args)
+        hit = ForgeCompiler(config).compile(raw_fn, *example_args)
         _CACHE[key] = hit
     return hit.as_fn()
 

@@ -327,6 +327,13 @@ def slot_gate(slot_mask: Optional[torch.Tensor], new: Any, old: Any) -> Any:
 # --------------------------------------------------------------------------
 
 
+def swiglu_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
+    g = linear(x, p["w_gate"])
+    u = linear(x, p["w_up"])
+    h = F.silu(g) * u
+    return linear(h, p["w_down"])
+
+
 def geglu_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
     g = linear(x, p["w_gate"])
     u = linear(x, p["w_up"])
@@ -340,17 +347,14 @@ def gelu_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 def ffn_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
-             kind: str = "gelu", bias: bool = False, dtype=torch.bfloat16,
+             kind: str = "swiglu", bias: bool = False, dtype=torch.bfloat16,
              device="cpu") -> Params:
-    if kind == "geglu":
+    if kind in ("swiglu", "geglu"):
         return {
             "w_gate": dense_init(generator, d_model, d_ff, dtype, device),
             "w_up": dense_init(generator, d_model, d_ff, dtype, device),
             "w_down": dense_init(generator, d_ff, d_model, dtype, device),
         }
-    if kind != "gelu":
-        raise NotImplementedError(f"ffn {kind!r}: the port carries the GELU and GeGLU "
-                                  f"FFNs so far")
     p = {
         "w_fc": dense_init(generator, d_model, d_ff, dtype, device),
         "w_out": dense_init(generator, d_ff, d_model, dtype, device),
@@ -362,9 +366,8 @@ def ffn_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
 
 
 def apply_ffn(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        return swiglu_ffn(x, p)
     if kind == "geglu":
         return geglu_ffn(x, p)
-    if kind != "gelu":
-        raise NotImplementedError(f"ffn {kind!r}: the port carries the GELU and GeGLU "
-                                  f"FFNs so far")
     return gelu_ffn(x, p)

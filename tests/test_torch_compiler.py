@@ -1,8 +1,9 @@
 """The port's four-phase compiler against eager execution and against the
-JAX package's compiler (run with the passes the port lacks disabled).
+JAX package's compiler, both under the default ``PipelineConfig``.
 
 Phase 1 (``torch.export`` capture, tied weights), Phase 2 (DCE, CSE,
-attention and operator fusion), Phase 3 (RGIR lowering) and Phase 4
+constant folding, device constants, attention and operator fusion,
+layout), Phase 3 (RGIR lowering) and Phase 4
 (scheduling, liveness, linear-scan allocation, interpret and reference
 backends) on the conftest-style GQA block and on forge-125m's smoke
 block bodies.
@@ -22,15 +23,13 @@ from repro.core import PipelineConfig as JaxPipelineConfig
 from repro.models import transformer as jax_T
 from repro_torch.configs import get_config
 from repro_torch.core import ForgeCompiler, forge_compile, lower_to_rgir, trace_to_graph
-from repro_torch.core.bufalloc import allocate_from_liveness, validate_allocation
-from repro_torch.core.executor import AnalyzedProgram, CompiledExecutor, analyze_program
-from repro_torch.core.liveness import analyze_liveness
+from repro_torch.core.bufalloc import validate_allocation
+from repro_torch.core.executor import CompiledExecutor, analyze_program
 from repro_torch.core.passes import CSEPass, DCEPass, run_forge_passes
-from repro_torch.core.scheduler import ScheduleResult, compute_segments
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
-from torch_port_support import JAX_PORTED_PASSES, TOL_F32, as_np, jax_params, port_params
+from torch_port_support import TOL_F32, as_np, jax_params, port_params
 
 from conftest import make_block_args, make_block_fn
 
@@ -89,7 +88,7 @@ class TestConftestBlock:
                                    **TOL_F32)
 
     def test_same_fusions_as_jax(self, compiled_block, block_args):
-        jmod = JaxForgeCompiler(JaxPipelineConfig(enable=dict(JAX_PORTED_PASSES))).compile(
+        jmod = JaxForgeCompiler(JaxPipelineConfig()).compile(
             make_block_fn(), *(b.numpy() for b in block_args))
         jfused = [n for n in jmod.graph.nodes.values() if n.op.startswith("forge.")]
         tfused = [n for n in compiled_block.graph.nodes.values() if n.is_fused]
@@ -101,8 +100,9 @@ class TestConftestBlock:
         r = compiled_block.result
         assert r.nodes_after < r.nodes_before
         assert r.fused_ops == 4 and r.attention_fused == 1  # 3 linear_act + sdpa
-        names = {row["pass"] for row in r.pass_table()}
-        assert names == {"dce", "cse", "attention_fusion", "operator_fusion"}
+        names = [row["pass"] for row in r.pass_table()]
+        assert names == ["dce", "cse", "constant_folding", "device_constant",
+                         "attention_fusion", "operator_fusion", "layout_optimization"]
         assert "fused ops: 4" in r.summary()
 
     def test_segments_and_allocation(self, compiled_block):
@@ -120,16 +120,8 @@ class TestConftestBlock:
 
     def test_unscheduled_build_agrees(self, block_args, compiled_block):
         """Liveness and allocation on the program order, not the schedule."""
-        g = trace_to_graph(torch_block, *block_args).graph
-        run_forge_passes(g)
-        prog = lower_to_rgir(g)
-        order = list(range(len(prog.ops)))
-        delta = prog.device_transitions()
-        sched = ScheduleResult(order=order, delta_before=delta, delta_after=delta,
-                               segments=compute_segments([op.device for op in prog.ops]))
-        live = analyze_liveness(prog)
-        ex = CompiledExecutor(AnalyzedProgram(prog=prog, sched=sched, live=live,
-                                              alloc=allocate_from_liveness(live)))
+        ex = forge_compile(torch_block, *block_args, reorder=False).executor
+        assert [op.op_id for op in ex.prog.ops] == list(range(len(ex.prog.ops)))
         validate_allocation(ex.alloc, ex.live)
         assert ex.stats.delta_after == ex.stats.delta_before
         (got,) = ex.execute(*block_args)
@@ -269,7 +261,7 @@ def _jax_block_fused(jcfg, jp, mode):
         pos = jnp.asarray(3, jnp.int32)
         cos, sin = jax_T._rope_for(jcfg, pos[None], None)
         fn, args = jax_T.block_decode, (one, x, kc, kc, pos, cos, sin)
-    mod = JaxForgeCompiler(JaxPipelineConfig(enable=dict(JAX_PORTED_PASSES))).compile(
+    mod = JaxForgeCompiler(JaxPipelineConfig()).compile(
         lambda *a: fn(*a, cfg=jcfg), *args)
     return [n for n in mod.graph.nodes.values() if n.op.startswith("forge.")]
 

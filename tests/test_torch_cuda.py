@@ -794,7 +794,8 @@ def _reset_counts():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["forge-125m", "recurrentgemma-2b", "xlstm-350m"])
+@pytest.mark.parametrize("arch", ["forge-125m", "recurrentgemma-2b", "xlstm-350m",
+                                  "qwen2.5-14b"])
 def test_segment_jit_equals_interpret_on_card(cuda_device, arch):
     """The smoke server's tokens under segment_jit are interpret's,
     bitwise; every launch the interpret run counts, by kernel and
@@ -867,3 +868,81 @@ def test_segment_capture_error_names_the_op(cuda_device):
     assert torch.equal(ex.execute(x.cpu())[0], torch.full((4,), 10.0))  # the CPU path
     with pytest.raises(SegmentCaptureError, match=r"segment 0 .*op 1 host\.aten\._local_scalar"):
         ex.execute(x)
+
+
+# --------------------------------------------------------------------------
+# qwen2.5-14b's shapes: forge.swiglu and GQA flash with 5 query heads a KV head
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 128])
+def test_swiglu_is_two_fused_linear_launches(cuda_device, M):
+    """``ops.swiglu`` on the card: the gate with the silu epilogue and the
+    up projection, two fused-linear launches, then their product; within
+    the bf16 tolerance of ``ops.swiglu(impl="ref")`` at qwen2.5-14b's
+    widths (K 5120, N 13824)."""
+    from repro_torch.kernels import ref
+
+    K, N = 5120, 13824
+    g = torch.Generator(device=cuda_device).manual_seed(M)
+    x = (torch.randn(M, K, generator=g, device=cuda_device) * 0.5).bfloat16()
+    wg, wu = ((torch.randn(K, N, generator=g, device=cuda_device) / K ** 0.5).bfloat16()
+              for _ in range(2))
+    FL.LAUNCHES.reset()
+    got = ops.swiglu(x, wg, wu)
+    torch.cuda.synchronize()
+    assert FL.LAUNCHES.n == 2 and set(FL.LAUNCHES.variants) <= {"gemv", "wgmma"}
+    gate = FL.fused_linear_cuda(x, wg, None, act="silu")
+    up = FL.fused_linear_cuda(x, wu, None, act=None)
+    assert torch.equal(got, gate * up)
+    torch.testing.assert_close(got.float(), ops.swiglu(x, wg, wu, impl="ref").float(),
+                               **TOL_BF16)
+    torch.testing.assert_close(ops.swiglu(x, wg, wu, impl="ref"), ref.swiglu_ref(x, wg, wu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,causal", [(256, True), (300, True), (1, False)])
+def test_flash_qwen_gqa(cuda_device, dtype, S, causal):
+    """Flash at H=40, KVH=8 (5 query heads a KV head), D=128."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(40, 1, 40, 8, S, S if causal else 77, 128))
+    got = FA.flash_attention_cuda(q, k, v, scale=128 ** -0.5, causal=causal)
+    if dtype == torch.bfloat16:
+        assert FA.variant(q, k, v) == "wgmma"
+        _assert_flash_bf16(got, q, k, v, 128 ** -0.5, causal)
+    else:
+        want = FA.flash_attention_plain(q, k, v, scale=128 ** -0.5, causal=causal)
+        torch.testing.assert_close(got, want, **TOL_F32)
+
+
+@pytest.mark.cuda
+def test_folded_and_promoted_constants_survive_replays(cuda_device):
+    """A folded constant (a RoPE-like table) and a promoted factory stay at
+    their address and keep their values across segment_jit replays: every
+    replay equals the interpret program's result on new inputs."""
+    from repro_torch.core import PipelineConfig, forge_compile
+
+    def f(x):
+        table = torch.arange(64, device=x.device, dtype=torch.float32) * 0.25 + 1.0
+        return torch.relu(x * table + torch.full((64,), 2.0, device=x.device)) @ x.t()
+
+    x0 = torch.randn(8, 64, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(9))
+    for cfg in (PipelineConfig(), PipelineConfig(enable={"constant_folding": False})):
+        mod = forge_compile(f, x0, config=cfg, backend="segment_jit")
+        rows = {r["pass"]: r["detail"] for r in mod.result.pass_table()}
+        assert rows.get("constant_folding", {}).get("folded", 0) + \
+            rows["device_constant"]["promoted"] > 0
+        consts = [c for c in mod.program.constants.values()]
+        assert consts and all(c.is_cuda for c in consts)
+        ptrs = [c.data_ptr() for c in consts]
+        twin = mod.with_backend("interpret")
+        for seed in range(3):
+            x = torch.randn(8, 64, device=cuda_device,
+                            generator=torch.Generator(device=cuda_device).manual_seed(seed))
+            assert torch.equal(mod(x), twin(x))
+            torch.testing.assert_close(mod(x), f(x), **TOL_F32)
+        assert [c.data_ptr() for c in mod.program.constants.values()] == ptrs
+        assert mod.executor.captured

@@ -37,7 +37,6 @@ from repro_torch.models import get_model
 from repro_torch.models import xlstm as X
 
 from torch_port_support import (
-    JAX_PORTED_PASSES,
     TOL_BF16,
     TOL_F32,
     as_np,
@@ -318,7 +317,7 @@ def test_apply_bodies_opaque_nodes_match_jax(f32, kind):
     raw = X.slstm_block_apply if kind == "slstm" else X.mlstm_block_apply
     jraw = JX.slstm_block_apply if kind == "slstm" else JX.mlstm_block_apply
     mod = ForgeCompiler().compile(lambda q, x_: raw(q, x_, cfg), p["blocks"][i], _t(x))
-    jmod = JaxForgeCompiler(JaxPipelineConfig(enable=dict(JAX_PORTED_PASSES))).compile(
+    jmod = JaxForgeCompiler(JaxPipelineConfig()).compile(
         lambda q, x_: jraw(q, x_, jcfg), jp["blocks"][i], jnp.asarray(x))
     got = _opaque(mod.graph.nodes.values(), port=True)
     assert got == _opaque(jmod.graph.nodes.values(), port=False)
@@ -339,7 +338,7 @@ def test_prefill_program_loop_nodes_match_jax(f32):
     mod = ForgeCompiler().compile(
         lambda q, c, t, ln: m.prefill_step(q, c, t, 0, cfg, length=ln),
         p, m.init_cache(cfg, 2, 32, device="cpu"), _t(toks), _t(n))
-    jmod = JaxForgeCompiler(JaxPipelineConfig(enable=dict(JAX_PORTED_PASSES))).compile(
+    jmod = JaxForgeCompiler(JaxPipelineConfig()).compile(
         lambda q, c, t, ln: jm.prefill_step(q, c, t, 0, jcfg, length=ln),
         jp, jm.init_cache(jcfg, 2, 32), jnp.asarray(toks), jnp.asarray(n))
     loops = [g for g in _opaque(mod.graph.nodes.values(), port=True) if g[0] == "scan"]

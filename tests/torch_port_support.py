@@ -12,10 +12,6 @@ import torch
 #: the JAX package's kernel tolerances (tests/test_kernels.py)
 TOL_F32 = dict(rtol=2e-4, atol=2e-5)
 TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
-#: the passes disabled in the JAX runs: the port's pipeline has no
-#: constant folding, device constants or layout pass yet
-JAX_PORTED_PASSES = {"constant_folding": False, "device_constant": False,
-                     "layout_optimization": False}
 
 
 def to_numpy(tree):

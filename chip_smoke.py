@@ -83,7 +83,7 @@ Phases (any failure raises and the script exits non-zero):
 7. xlstm-350m at full width and depth (24 layers: 21 mLSTM and 3 sLSTM,
    d 1024, 4 heads, vocab 50304, bf16, random weights from seed 0)
    through the contiguous forge fronts (batch rungs 2 and 4, one S32
-   grid cell): warmup of the B2/B4 decode programs and prefill cells,
+   grid cell): warmup of the B2/B4 decode programs and the B4 prefill cell,
    batch 4, prompt 32, 32 new tokens with the chunked prefill and with
    ``prefill="sequential"``, then the contiguous ``SlotScheduler`` over 8
    requests with ragged prompts (max_slots 4: swap-ins and rung resizes),
@@ -97,7 +97,7 @@ Phases (any failure raises and the script exits non-zero):
    scheduler's tok/s, compile seconds per program and the device busy
    share of steady decode steps under both backends.
 8. forge-125m at full width through the contiguous forge fronts on
-   ``segment_jit`` (batch rungs 2 and 4; cells S16, S32, S64): batch 4,
+   ``segment_jit`` (batch rungs 2 and 4; B4 cells S16, S32, S64): batch 4,
    prompt 32, 32 new tokens with the batched prefill and with
    ``prefill="sequential"``, then the contiguous ``SlotScheduler``
    (max_slots 4) over phase 5's 12 requests.  Launches exact (fused
@@ -126,6 +126,34 @@ Phases (any failure raises and the script exits non-zero):
    f32 at full width, depth cut to 8 layers (48 layers in f32 are 59 GB),
    the served prefill program and ``apply`` against ``impl="ref"``
    elementwise within TOL_DEEP_F32.
+
+10. forge-125m at full width (bf16, ``segment_jit``) through the
+   compile-cost layer.  (a) The JAX package's async-compile workload (24
+   requests in one wave, prompts of 4 + i % 5 tokens, budgets of 12 +
+   2 (i % 8), 8 slots, pow2 rungs, only rung 8 warm, max_len 256)
+   through ``SlotScheduler`` inline, then with ``async_compile=True``
+   and two compile workers: the async run falls back to the warm rung at
+   least once, blocks at most 5 ms on compiles, and its tokens equal the
+   inline run's, a request that diverges held at its first differing
+   token by the measured-slack rule (below); tick p50 / p99 / max of
+   both runs, the fallback counters and the background builds.  (b)
+   Restart replay in one process: rungs 2 and 4 warmed against a fresh
+   cache directory, every in-memory tier dropped, warmed again with zero
+   full builds (block bodies included), both warmups' split into
+   export / Phase 2 / Phase 3 / Phase 4 / capture; then the serve CLI
+   twice as subprocesses (``--sweep 1,3,8 --prompt-sweep 17,48 --gen 8
+   --cache-dir D``, the second with ``--assert-no-builds``), both exiting
+   0.  (c) ``BucketedModule.__call__`` on the block body at S=1024,
+   bucketed over batch (pow2): B 1, 3 and 5 against exact-shape compiles
+   within the bf16 kernel tolerance (the fused-linear ``wgmma`` split
+   depends on M), exactly 3 flash and 9 fused-linear launches, and
+   ``check_bucketed_fidelity``.  (d) A second ``generate`` at one batch
+   takes the pooled cache and ``memory_reserved`` does not grow.  (e)
+   ``evict_cold(1)`` frees the evicted programs' graph pools
+   (``memory_reserved`` falls), and a later dispatch of an evicted rung
+   replays it from the disk tier, bitwise equal to its first program.
+   Between phases the process-global compile cache is cleared: on the
+   card its executors hold their CUDA graphs and pools.
 
 In phases 5-9, one decode and one prefill dispatch of the served
 programs under ``segment_jit`` must be bitwise equal to the same lowered
@@ -1439,8 +1467,12 @@ def phase_paged_serve(dev):
     sched = SlotScheduler(server, max_slots=4)
     reqs = paged_workload(cfg.vocab)
     t0 = time.perf_counter()
-    warm_s = warm_graphs("paged", lambda: sched.warmup(
-        prompt_lens=sorted({len(r.prompt) for r in reqs})))
+    # the programs the workload dispatches: decode rungs 2 and 4, the B4
+    # cells of its prompt lengths, and the B2 x S16 cell check_served_prefill
+    # holds (the schedule admits on rung 4 only: the B2 x S32 and B2 x S64
+    # cells would never run)
+    warm_s = warm_graphs("paged", lambda: server.warmup([2], [16]) + server.warmup(
+        [4], sorted({len(r.prompt) for r in reqs})))
     caps = captures_now()
     for front, name in ((server.bucketed, "decode"), (server.prefill_bucketed, "prefill")):
         for key, mod in front.programs.items():
@@ -1813,7 +1845,7 @@ def phase_rglru(dev):
     contiguous_backends("recurrentgemma-2b", server, prompts, n_new,
                         floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
     del server, params
-    torch.cuda.empty_cache()
+    release_device_memory()
     phase_f32_deep(dev, "recurrentgemma-2b")
     return {"rglru_serve": served, "rglru_sequential": sequential, "rglru_apply": applied}
 
@@ -2087,7 +2119,9 @@ def phase_xlstm(dev):
                            bucket_policy="ladder:2,4", seq_bucket_policy="ladder:32")
     sched = SlotScheduler(server, max_slots=4)
     reqs = xlstm_workload(cfg.vocab)
-    warm_s = warm_graphs("xlstm-350m", lambda: sched.warmup(prompt_lens=[P]))
+    # decode rungs 2 and 4, and the B4 x S32 cell: the schedule admits on
+    # rung 4 only, so a B2 x S32 cell would never run
+    warm_s = warm_graphs("xlstm-350m", lambda: server.warmup([2]) + server.warmup([4], [P]))
     caps = captures_now()
     program_log(server.bucketed, "decode")
     program_log(server.prefill_bucketed, "prefill")
@@ -2217,7 +2251,7 @@ def phase_xlstm(dev):
     contiguous_backends("xlstm-350m", server, prompts, n_new,
                         floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
     del server, sched, params
-    torch.cuda.empty_cache()
+    release_device_memory()
     phase_f32_deep(dev, "xlstm-350m", eager=False)
     return {"xlstm_serve": served, "xlstm_sequential": sequential, "xlstm_sched": scheduled,
             "xlstm_apply": applied}
@@ -2246,8 +2280,10 @@ def phase_dense_contiguous(dev):
     server = BatchedServer(cfg, params, max_len=max_len, mode="forge", bucket_policy="ladder:2,4")
     sched = SlotScheduler(server, max_slots=4)
     reqs = paged_workload(cfg.vocab)
-    warm_s = warm_graphs("forge-125m contiguous", lambda: sched.warmup(
-        prompt_lens=sorted({len(r.prompt) for r in reqs} | {P})))
+    # decode rungs 2 and 4 and the B4 cells: the schedule admits on rung 4
+    # only, so the B2 cells would never run
+    warm_s = warm_graphs("forge-125m contiguous", lambda: server.warmup([2]) + server.warmup(
+        [4], sorted({len(r.prompt) for r in reqs} | {P})))
     caps = captures_now()
     program_log(server.bucketed, "decode")
     program_log(server.prefill_bucketed, "prefill")
@@ -2365,7 +2401,7 @@ def phase_dense_contiguous(dev):
     contiguous_backends("forge-125m contiguous", server, prompts, n_new,
                         floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
     del server, sched, params
-    torch.cuda.empty_cache()
+    release_device_memory()
     return {"dense_serve": served, "dense_sequential": runs["sequential"][1],
             "dense_sched": scheduled}
 
@@ -2410,7 +2446,7 @@ def phase_qwen(dev):
     from repro_torch.models import transformer as T
 
     gc.collect()
-    torch.cuda.empty_cache()
+    release_device_memory()
     log(f"qwen2.5-14b: before its model, memory_allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, memory_reserved "
         f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
@@ -2515,7 +2551,7 @@ def phase_qwen(dev):
     contiguous_backends("qwen2.5-14b contiguous", server, prompts, n_new, floor_ms=floor_ms)
     del server, fronts
     gc.collect()
-    torch.cuda.empty_cache()
+    release_device_memory()
 
     # -- apply at B=1, S=1024: flash at H=40, KVH=8, D=128 -----------------
     tokens = torch.randint(0, cfg.vocab, (1, 1024), device=dev,
@@ -2561,7 +2597,7 @@ def phase_qwen(dev):
         f"and unfused) differ by {spread:.3e}; bound {bound:.3e}")
     del logits, ref, raw, params, model
     gc.collect()
-    torch.cuda.empty_cache()
+    release_device_memory()
     phase_qwen_f32(dev, cfg, prompts)
     return {"qwen_eager": served_eager, "qwen_serve": served, "qwen_apply": applied}
 
@@ -2611,7 +2647,7 @@ def phase_qwen_f32(dev, cfg, prompts):
         + f"; apply B=1 S=1024 logits {err_apply:.3e} ({rel_l2(got, want):.3e} relative L2); "
           f"all within rtol {TOL_DEEP_F32['rtol']} atol {TOL_DEEP_F32['atol']}")
     del params, got, want
-    torch.cuda.empty_cache()
+    release_device_memory()
 
 
 def log_device_time(fn, what):
@@ -2850,6 +2886,307 @@ def backend_split(what, fronts, twins, make_step, decode_mod, floor_ms=None):
     return split
 
 
+def async_workload(vocab):
+    """The JAX package's async-compile workload (benchmarks/async_compile.py):
+    24 requests in one wave, prompts of 4 + i % 5 tokens, budgets of
+    12 + 2 (i % 8) tokens; with 8 slots the live count decays through the
+    cold rungs 4 and 2 once the queue is empty."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, (4 + i % 5,)).astype(np.int32),
+                    max_new=12 + 2 * (i % 8), arrival=0) for i in range(24)]
+
+
+def first_token_slack(model, cfg, params, ctx, picks, dev, what):
+    """PR 16's measured-slack rule for one context: the plain path's last
+    logits (the unfused prefill) and a second kernel-free implementation
+    (the unfused decode-step replay) give a spread; slack = max(2 x
+    TOL_MODEL_BF16, SPREAD_FACTOR_BF16 x spread).  The two must pass the
+    check against each other, then every token of ``picks`` must be a top
+    choice of the plain path within the slack.  Returns (spread, slack,
+    margins)."""
+    import torch
+
+    plain_cfg = cfg.with_(fuse="none")
+    toks = torch.as_tensor(ctx, dtype=torch.int32, device=dev)[None]
+    with torch.no_grad():
+        cache = model.init_cache(plain_cfg, 1, 256, device=dev)
+        last = model.prefill_step(params, cache, toks, 0, plain_cfg, impl="ref")[0][0, -1].float()
+        cache = model.init_cache(plain_cfg, 1, 256, device=dev)
+        for i in range(toks.shape[1]):
+            lg, cache = model.decode_step(params, cache, toks[:, i:i + 1], i, plain_cfg, impl="ref")
+        other = lg[0, -1].float()
+    spread = (other - last).abs().max().item()
+
+    def slack_of(best):
+        return max(2 * (TOL_MODEL_BF16["atol"] + TOL_MODEL_BF16["rtol"] * abs(best)),
+                   SPREAD_FACTOR_BF16 * spread)
+
+    def top(plain, pick):
+        return plain[pick].item() >= plain.max().item() - slack_of(plain.max().item())
+
+    check(top(last, int(other.argmax())) and top(other, int(last.argmax())),
+          f"{what}: the first-token check fails between two kernel-free implementations")
+    margins = [last.max().item() - last[int(t)].item() for t in picks]
+    check(all(top(last, int(t)) for t in picks),
+          f"{what}: tokens {picks} not all top choices of the plain path within "
+          f"{slack_of(last.max().item()):.4f} (margins {margins})")
+    return spread, slack_of(last.max().item()), margins
+
+
+def compile_split(results):
+    """Seconds of export / Phase 2 / Phase 3 / Phase 4 (without capture) /
+    capture summed over CompilationResults."""
+    out = {"export": 0.0, "phase2": 0.0, "phase3": 0.0, "phase4": 0.0, "capture": 0.0}
+    for r in results:
+        out["export"] += r.capture_ms / 1e3
+        out["phase2"] += r.optimize_ms / 1e3
+        out["phase3"] += r.lower_ms / 1e3
+        out["phase4"] += r.backend_ms / 1e3 - r.capture_s
+        out["capture"] += r.capture_s
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def release_device_memory():
+    """Drop the process-global compile cache's executors (on the card they
+    hold their CUDA graphs and pools) and return the freed memory."""
+    import gc
+
+    import torch
+    from repro_torch.core import get_compile_cache
+
+    get_compile_cache().clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_compile_cost(dev):
+    """Phase 10: forge-125m at full width, bf16, segment_jit, through the
+    compile-cost layer: (a) async serving against inline, (b) restart
+    replay from a disk cache in one process and through the CLI, (c)
+    ``BucketedModule.__call__`` on the block body at S=1024, (d) the
+    buffer pool, (e) ``evict_cold``.  Returns the launches of (a)'s async
+    run and (c)'s calls."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (CompileCache, DiskCacheStore, ForgeCompiler, PipelineConfig,
+                                  get_compile_cache)
+    from repro_torch.core.metrics import bucket_report, check_bucketed_fidelity
+    from repro_torch.launch.serve import BatchedServer, SlotScheduler
+    from repro_torch.models import _forge, get_model
+    from repro_torch.models import transformer as T
+
+    release_device_memory()
+    cfg = get_config("forge-125m")
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    reqs = async_workload(cfg.vocab)
+    lens = sorted({len(r.prompt) for r in reqs})
+
+    # -- (a) async serving against inline ------------------------------------
+    runs = {}
+    for name, kw in (("inline", {}), ("async", {"async_compile": True, "compile_workers": 2})):
+        srv = BatchedServer(cfg, params, max_len=256, mode="forge", **kw)
+        t0 = time.perf_counter()
+        srv.warmup([8], prompt_lens=lens)  # only rung 8 (and its S16 cell) warm
+        warm_s = time.perf_counter() - t0
+        sched = SlotScheduler(srv, max_slots=8)
+        bs = srv.bucketed.stats
+        wait0 = bs.compile_wait_s  # the warmup's own compiles (inline) excluded
+        reset_counts()
+        res = sched.run(async_workload(cfg.vocab))
+        torch.cuda.synchronize()
+        launched = counts()
+        run_wait = bs.compile_wait_s - wait0
+        svc = None
+        if srv.compile_service is not None:
+            check(srv.compile_service.wait_idle(600.0), "the compile service did not go idle")
+            svc = srv.compile_service.stats.snapshot()
+        runs[name] = (srv, res, launched, run_wait)
+        bad = [rid for rid, r in res["results"].items() if "error" in r]
+        check(not bad and len(res["results"]) == len(reqs), f"{name}: requests failed {bad}")
+        log(f"async workload [{name}]: warmup {warm_s:.1f} s; {res['real_tokens']} tokens, "
+            f"{res['tok_per_s']:.1f} tok/s, tick p50 {res['tick_ms_p50']:.3f} ms p99 "
+            f"{res['tick_ms_p99']:.3f} ms max {res['tick_ms_max']:.3f} ms; compile_wait_s "
+            f"{run_wait:.4f} s in the run ({bs.compile_wait_s:.4f} s with the warmup), "
+            f"background {bs.compile_background_s:.2f} s; "
+            f"warm_fallbacks {res['warm_fallbacks']}, fallback_calls {bs.fallback_calls}, "
+            f"fallback_cells_padded {bs.fallback_cells_padded}; decode dispatches "
+            f"{res['decode_dispatches']}, resizes {res['resizes']}; launches {launched}"
+            + (f"; background builds {svc['completed']} in {svc['busy_s']:.2f} busy s "
+               f"(submitted {svc['submitted']}, promoted {svc['promoted']})" if svc else ""))
+        log(f"  [{name}] decode {bucket_report(bs)}")
+    srv_in, res_in, _, _ = runs["inline"]
+    srv_as, res_as, served_async, async_wait = runs["async"]
+    bs_as = srv_as.bucketed.stats
+    check(res_as["warm_fallbacks"] >= 1, "the async run never fell back to a warm rung")
+    check(async_wait <= 0.005 and bs_as.compile_wait_s <= 0.005,
+          f"the async run blocked {bs_as.compile_wait_s:.4f} s on compiles")
+    check(served_async["fused_linear"] > 0, "the async run launched no fused linear")
+    # the background builds have landed: the same workload again switches
+    # to the exact rungs (resizes, no fallback)
+    res_sw = SlotScheduler(srv_as, max_slots=8).run(async_workload(cfg.vocab))
+    check(res_sw["warm_fallbacks"] == 0 and res_sw["resizes"] == res_in["resizes"],
+          f"after the builds landed: warm_fallbacks {res_sw['warm_fallbacks']}, resizes "
+          f"{res_sw['resizes']} (inline {res_in['resizes']})")
+    log(f"async server again, the background builds landed: exact rungs "
+        f"{sorted(map(str, srv_as.bucketed.programs))}, {res_sw['resizes']} resizes, no "
+        f"fallback; tick p50 {res_sw['tick_ms_p50']:.3f} ms p99 {res_sw['tick_ms_p99']:.3f} "
+        f"ms max {res_sw['tick_ms_max']:.3f} ms")
+    diverged = []
+    for r in reqs:
+        a = res_in["results"][r.rid]["tokens"]
+        for run, res in (("async", res_as), ("async after the switch", res_sw)):
+            b = res["results"][r.rid]["tokens"]
+            if not np.array_equal(a, b):
+                j = int(np.argmax(a != b)) if len(a) == len(b) else min(len(a), len(b))
+                diverged.append((r, j, a, b))
+    for r, j, a, b in diverged:
+        ctx = np.concatenate([r.prompt, a[:j]])
+        spread, slack, margins = first_token_slack(
+            model, cfg, params, ctx, [int(a[j]), int(b[j])], dev,
+            f"request {r.rid} token {j}")
+        log(f"  request {r.rid} diverged at token {j} (inline {a[j]}, async {b[j]}): both "
+            f"top choices of the plain path, margins {[round(m, 4) for m in margins]}, "
+            f"kernel-free spread {spread:.4f}, slack {slack:.4f}")
+    log(f"async against inline, both async runs: {2 * len(reqs) - len(diverged)}/"
+        f"{2 * len(reqs)} requests' tokens bitwise equal, {len(diverged)} diverged (each "
+        f"first differing token held by the measured-slack rule)")
+
+    # -- (d) the buffer pool: a second generate at one batch reuses the cache --
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (8, 8)).astype(np.int32)
+    srv_in.generate(prompts, 8)
+    torch.cuda.synchronize()
+    hits0, reserved0 = srv_in.bucketed.stats.pool_hits, torch.cuda.memory_reserved()
+    srv_in.generate(prompts, 8)
+    torch.cuda.synchronize()
+    hits1, reserved1 = srv_in.bucketed.stats.pool_hits, torch.cuda.memory_reserved()
+    check(hits1 > hits0 and reserved1 <= reserved0,
+          f"buffer pool: hits {hits0} -> {hits1}, memory_reserved {reserved0} -> {reserved1}")
+    log(f"buffer pool: a second generate at B=8 took the pooled cache (pool hits {hits0} -> "
+        f"{hits1}, {srv_in.bucketed.stats.pool_bytes_reused / 2**20:.1f} MiB reused); "
+        f"memory_reserved {reserved0 / 2**30:.3f} -> {reserved1 / 2**30:.3f} GiB")
+    srv_as.compile_service.shutdown()
+    del runs, srv_in, srv_as
+    release_device_memory()
+
+    # -- (b) restart replay in one process, then through the CLI -------------
+    g = get_compile_cache()
+    store0 = g.store
+    cache_dir = tempfile.mkdtemp(prefix="forge-cache-", dir=os.environ.get("TMPDIR"))
+    splits, builds = {}, {}
+    for run in ("cold", "restart"):
+        _forge.clear_cache()
+        g.clear()
+        g.store = None
+        srv = BatchedServer(cfg, params, max_len=256, mode="forge", cache_dir=cache_dir)
+        t0 = time.perf_counter()
+        srv.warmup([2, 4])
+        wall = time.perf_counter() - t0
+        results = ([m.result for m in srv.bucketed.programs.values()]
+                   + _forge.compiled_bodies())
+        splits[run] = compile_split(results)
+        cs, ds = srv.compile_cache.stats, srv.compile_cache.store.stats
+        builds[run] = cs.misses + g.stats.misses
+        log(f"restart replay [{run}]: warmup of rungs 2 and 4 {wall:.2f} s; split {splits[run]}; "
+            f"full builds {builds[run]} (fronts {cs.misses}, bodies {g.stats.misses}), "
+            f"disk hits {cs.disk_hits + g.stats.disk_hits}, writes {ds.writes}, "
+            f"bytes_written {ds.bytes_written}")
+        del srv
+    check(builds["cold"] > 0 and builds["restart"] == 0,
+          f"restart replay ran {builds['restart']} full builds (expected 0)")
+    _forge.clear_cache()
+    g.clear()
+    g.store = store0
+    release_device_memory()
+    cli_dir = tempfile.mkdtemp(prefix="forge-cli-cache-", dir=os.environ.get("TMPDIR"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for extra in ((), ("--assert-no-builds",)):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "forge-125m",
+               "--mode", "forge", "--sweep", "1,3,8", "--prompt-sweep", "17,48", "--gen", "8",
+               "--cache-dir", cli_dir, *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
+        log(f"CLI {' '.join(extra) or '(cold)'}: exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s; "
+            + "; ".join(ln for ln in lines if "disk cache" in ln or "programs=" in ln))
+        check(proc.returncode == 0, f"the serve CLI {extra} exited {proc.returncode}: "
+                                    f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+
+    # -- (c) BucketedModule.__call__ on the block body at S=1024 -------------
+    x_of = {B: torch.randn(B, 1024, cfg.d_model, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(B)).to(torch.bfloat16)
+            for B in (1, 3, 5)}
+    cos, sin = T._rope_for(cfg, torch.arange(1024, device=dev))
+    layer = params["blocks"][0]
+
+    def body(p, x, cos, sin):
+        return T.block_apply(p, x, cos, sin, cfg)
+
+    body_dir = tempfile.mkdtemp(prefix="forge-body-cache-", dir=os.environ.get("TMPDIR"))
+    cache = CompileCache(store=DiskCacheStore(body_dir))
+    bucketed = ForgeCompiler(PipelineConfig(backend="segment_jit"), cache=cache).compile_bucketed(
+        body, in_axes=(None, 0, None, None), policy="pow2", static_argnums=(0,))
+    with torch.no_grad():
+        for B, x in x_of.items():  # compiles pow2:B2, B4, B8
+            bucketed(layer, x, cos, sin)
+        reset_counts()
+        got = {B: bucketed(layer, x, cos, sin) for B, x in x_of.items()}
+        torch.cuda.synchronize()
+        called = counts()
+        exact = {B: ForgeCompiler(PipelineConfig(backend="segment_jit"), cache=CompileCache())
+                 .compile(body, layer, x, cos, sin, static_argnums=(0,))(layer, x, cos, sin)
+                 for B, x in x_of.items()}
+    check(called["flash_attention"] == 3 and called["fused_linear"] == 9
+          and sum(called.values()) == 12,
+          f"__call__ at B 1, 3, 5: launches {called} (want 3 flash, 9 fused linear)")
+    errs = {B: assert_close(got[B], exact[B], torch.bfloat16, f"__call__ B={B} against the "
+                            f"exact-shape compile") for B in x_of}
+    fid = check_bucketed_fidelity(body, layer, x_of[3], cos, sin, in_axes=(None, 0, None, None),
+                                  backend="segment_jit")
+    check(fid.max_abs_diff <= TOL_BF16["atol"] + TOL_BF16["rtol"] * max(
+        got[3].float().abs().max().item(), 1.0), f"check_bucketed_fidelity: {fid}")
+    log(f"BucketedModule.__call__ block body S=1024 at B 1, 3, 5 (buckets "
+        f"{sorted(map(str, bucketed.programs))}): launches {called} ({called.variants}); "
+        f"max abs err against exact-shape compiles {errs} (bitwise: "
+        f"{ {B: bool(torch.equal(got[B], exact[B])) for B in x_of} }); "
+        f"check_bucketed_fidelity at B=3: max abs {fid.max_abs_diff:.3e}, KL "
+        f"{fid.kl_divergence:.3e}; pad_waste {bucketed.stats.pad_waste:.3f}")
+    del exact
+
+    # -- (e) evict_cold(1): the evicted programs' graph pools are freed ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    victims = bucketed.evict_cold(1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    check(len(victims) == 2 and len(bucketed.programs) == 1 and cache.stats.coherence_drops == 2,
+          f"evict_cold(1): victims {victims}, {len(bucketed.programs)} programs left")
+    check(after < before, f"evict_cold freed no memory: {before} -> {after}")
+    with torch.no_grad():
+        again = bucketed(layer, x_of[1], cos, sin)  # pow2:B2: replayed from disk
+    check(cache.stats.disk_hits == 1 and torch.equal(again, got[1]),
+          f"the evicted rung's rebuild: disk hits {cache.stats.disk_hits}, bitwise "
+          f"{torch.equal(again, got[1])}")
+    log(f"evict_cold(1): evicted {sorted(map(str, victims))}; memory_reserved "
+        f"{before / 2**30:.3f} -> {after / 2**30:.3f} GiB; the evicted pow2:B2 replayed from "
+        f"disk (disk hits {cache.stats.disk_hits}) bitwise equal to its first program")
+    del bucketed, got, again, params, model
+    release_device_memory()
+    return {"async_serve": served_async, "bucketed_call": called}
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         log("FAIL: src/repro_torch is not beside this script; run it from the repository")
@@ -2881,10 +3218,12 @@ def main():
     rms_rows = phase_rms_norm(dev, timer)
     launches = phase_main_path(dev)
     launches["paged"] = phase_paged_serve(dev)
+    release_device_memory()
     launches.update(phase_rglru(dev))
     launches.update(phase_xlstm(dev))
     launches.update(phase_dense_contiguous(dev))
     launches.update(phase_qwen(dev))
+    launches.update(phase_compile_cost(dev))
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")

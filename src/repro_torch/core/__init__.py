@@ -1,14 +1,20 @@
 """Forge-UGC core: the four-phase compiler (capture, passes, RGIR
-lowering, Phase-4 scheduling/liveness/allocation/executors), its
-bucketed multi-program front, and the paged-KV page pool."""
+lowering, Phase-4 scheduling/liveness/allocation/executors), the compile
+cache (memory and disk tiers) and the background compile service, the
+bucketed multi-program front with its buffer pool, and the paged-KV page
+pool."""
 from .backends import available_backends, get_backend
+from .cache import CompileCache, DiskCacheStore, get_compile_cache
 from .capture import CaptureResult, trace_to_graph
+from .compile_service import CompileService, get_compile_service
 from .compiler import (
     BucketedModule,
+    BufferPool,
     CompilationResult,
     CompiledModule,
     ForgeCompiler,
     forge_compile,
+    forge_compile_bucketed,
 )
 from .executor import CompiledExecutor, ExecutorStats, analyze_program
 from .graph import Graph
@@ -20,6 +26,13 @@ from .shapekey import PolyAxis, ShapeKey, get_bucket_policy
 __all__ = [
     "available_backends",
     "BucketedModule",
+    "BufferPool",
+    "CompileCache",
+    "CompileService",
+    "DiskCacheStore",
+    "get_compile_cache",
+    "get_compile_service",
+    "forge_compile_bucketed",
     "PolyAxis",
     "ShapeKey",
     "get_bucket_policy",

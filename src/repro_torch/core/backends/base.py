@@ -16,6 +16,13 @@ chooses between the device-affinity schedule and the program order.
 
 Backends register themselves by name; ``get_backend`` resolves the name
 given as ``ForgeCompiler(backend=...)``.
+
+Persistence hooks for the compile cache's disk tier: ``export_entry``
+turns a built executor into picklable analysis products, and
+``build_from_entry`` rebuilds an executor from them against a freshly
+lowered program of the same fingerprint.  ``adopt`` hands a memory-tier
+hit to a new module (the executor itself, unless the backend holds
+per-caller state that does not fit the new caller).
 """
 from __future__ import annotations
 
@@ -51,6 +58,33 @@ class Backend(ABC):
               reorder: bool = True) -> ExecutorLike:
         """Compile an RGIR program into an executor; ``reorder=False``
         keeps the program order (no device-affinity schedule)."""
+
+    # -- persistence hooks (DESIGN.md §Async compilation & persistent
+    # cache).  Both are best-effort: ``None`` means "this backend (or this
+    # program) does not persist", and the compile cache falls back to a
+    # full build.  An entry must be pure picklable data — RGIR itself is
+    # not picklable (op targets are closures), so entries store analysis
+    # products and are rehydrated against a freshly lowered program.
+
+    def export_entry(self, prog: RGIRProgram, executor: ExecutorLike
+                     ) -> Optional[Dict[str, Any]]:
+        """Serialize ``executor`` into a picklable disk-cache entry."""
+        return None
+
+    def build_from_entry(self, prog: RGIRProgram, entry: Dict[str, Any], *,
+                         static_inputs: Sequence[int] = (),
+                         input_names: Optional[Sequence[str]] = None,
+                         reorder: bool = True) -> Optional[ExecutorLike]:
+        """Rebuild an executor from a disk entry + fresh RGIR, or None."""
+        return None
+
+    def adopt(self, executor: ExecutorLike, *, static_inputs: Sequence[int] = (),
+              input_names: Optional[Sequence[str]] = None,
+              flat_inputs: Sequence[Any] = ()) -> ExecutorLike:
+        """The executor a compile-cache hit hands to a new caller with
+        these parameter positions and example inputs: the cached one,
+        shared, unless it cannot serve this caller."""
+        return executor
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"<backend {self.name!r}>"

@@ -3,18 +3,24 @@
 Executes the RGIR stream in *original program order* with one value slot
 per virtual register: no scheduling, no buffer sharing, no eager GC.
 Nothing Phase 4b/4c could get wrong can corrupt its results, so every
-real backend is compared against this one.
+real backend is compared against this one.  Bucketed pad-and-mask calls
+route through the shared ``execute_padded`` mixin like every other
+backend.
+
+It has no analysis to persist; its disk-cache entry records only its
+kind and op count, so a restart rebuilds it from the entry with no full
+build counted (the JAX package's reference backend writes no entry).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
-from ..executor import ExecutorStats
+from ..executor import ExecutorStats, PaddedExecutionMixin
 from ..lowering import RGIRProgram
 from .base import Backend, register_backend
 
 
-class ReferenceExecutor:
+class ReferenceExecutor(PaddedExecutionMixin):
     """Straight-line evaluator over a one-slot-per-vreg register file."""
 
     def __init__(self, prog: RGIRProgram):
@@ -54,4 +60,17 @@ class ReferenceBackend(Backend):
     def build(self, prog: RGIRProgram, *, static_inputs: Sequence[int] = (),
               input_names: Optional[Sequence[str]] = None,
               reorder: bool = True) -> ReferenceExecutor:
+        return ReferenceExecutor(prog)
+
+    def export_entry(self, prog: RGIRProgram, executor: Any) -> Optional[Dict[str, Any]]:
+        if not isinstance(executor, ReferenceExecutor):
+            return None
+        return {"kind": self.name, "n_ops": len(executor.prog.ops)}
+
+    def build_from_entry(self, prog: RGIRProgram, entry: Dict[str, Any], *,
+                         static_inputs: Sequence[int] = (),
+                         input_names: Optional[Sequence[str]] = None,
+                         reorder: bool = True) -> Optional[ReferenceExecutor]:
+        if entry.get("kind") != self.name or entry.get("n_ops") != len(prog.ops):
+            return None
         return ReferenceExecutor(prog)

@@ -49,15 +49,39 @@ tensors by address, and no live-in is copied between segments.
   replay, so the counters keep counting launches on the device.
 
 Graphs of one program are replayed in order on the caller's current
-stream; two programs must not replay concurrently on two streams (they
-share the kernels' per-stream scratch through their capture stream).
+stream.  A program's warm run and captures take the kernels' scratch
+(paged attention's tickets, the RG-LRU flags) in a scope of their own
+(``_build.scratch_scope``), so no two programs' graphs share scratch.
 
-Not ported: the JAX package's export and disk cache of segments
-(``_serialize_segment``), buffer donation and the pad-and-mask
-execution (``PaddedExecutionMixin``).
+Each thread captures on its own side stream (one per device and
+thread), in ``capture_error_mode="thread_local"``: a compile-service
+worker can capture a program while the serving thread replays another
+one, allocates or synchronizes.  The launches a capture records are
+counted on the capturing thread only (``_build.recording``), so the
+serving thread's launches in the meantime do not leak into them.
+
+Persistence (the compile cache's disk tier): the entry is the analysis
+products only — schedule, liveness, allocation.  A CUDA graph cannot be
+serialized, so a disk hit rebuilds the segment closures from the
+freshly lowered program with the same fingerprint, and on the card the
+graphs are captured again, in Phase 4 from the example arguments as a
+fresh build captures them.  The JAX package also persists each
+segment's exported XLA program (``_serialize_segment``) and points
+XLA's own persistent compilation cache under the cache directory
+(``_enable_jax_persistent_cache`` in its serve module); neither has a
+counterpart here.  A restart thus saves Phase 4a-c's analysis and
+nothing of Phases 1-3 or the capture.
+
+A compile-cache hit shares the executor (as the JAX package does),
+except where it cannot serve the new caller: different parameter
+positions, or graphs captured with parameters at other addresses — then
+the caller gets a new executor over the same analysis (``adopt``).
+
+Not ported: buffer donation.
 """
 from __future__ import annotations
 
+import threading
 import time
 import warnings
 from dataclasses import dataclass
@@ -67,7 +91,8 @@ import torch
 
 from ...kernels import _build
 from ..bufalloc import allocate
-from ..executor import AnalyzedProgram, ExecutorStats, analyze_program
+from ..executor import (AnalyzedProgram, ExecutorStats, PaddedExecutionMixin, analyze_program,
+                        analyzed_from_persisted)
 from ..lowering import RGIROp, RGIRProgram
 from .base import Backend, register_backend
 
@@ -75,16 +100,18 @@ from .base import Backend, register_backend
 #: captured, graphs captured, seconds spent in ``prepare``
 CAPTURES: Dict[str, float] = {"programs": 0, "graphs": 0, "seconds": 0.0}
 
-_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+_CAPTURE_STREAMS: Dict[Tuple[Optional[int], int], torch.cuda.Stream] = {}
 
 
 def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """One side stream per device for every warm run and capture, so the
-    kernels' per-stream scratch made by a warm run is the one its
-    capture finds."""
-    s = _CAPTURE_STREAMS.get(device.index)
+    """One side stream per device and thread for every warm run and
+    capture of that thread, so the kernels' per-stream scratch made by a
+    warm run is the one its capture finds, and a worker thread's capture
+    never shares a stream with the serving thread's."""
+    key = (device.index, threading.get_ident())
+    s = _CAPTURE_STREAMS.get(key)
     if s is None:
-        s = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+        s = _CAPTURE_STREAMS[key] = torch.cuda.Stream(device)
     return s
 
 
@@ -135,13 +162,14 @@ def _make_segment_fn(ops: Sequence[RGIROp], live_in: Tuple[int, ...],
     return seg_fn
 
 
-class SegmentExecutor:
+class SegmentExecutor(PaddedExecutionMixin):
     """Segment-at-a-time executor over the physical buffer file; on the
     card, one CUDA graph replay per segment."""
 
     def __init__(self, analyzed: AnalyzedProgram, *,
                  static_inputs: Sequence[int] = (),
                  input_names: Optional[Sequence[str]] = None):
+        self.analyzed = analyzed
         self.prog = analyzed.prog
         self.sched = analyzed.sched
         self.live = analyzed.live
@@ -293,7 +321,7 @@ class SegmentExecutor:
                 own.append((i, values[i]))
         stream = _capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.no_grad(), torch.cuda.stream(stream):
+        with torch.no_grad(), torch.cuda.stream(stream), _build.scratch_scope(id(self)):
             # warm run: the kernels' libraries, cuBLAS's handles and the
             # kernels' per-stream scratch exist before any capture
             self._run_file(values)
@@ -326,28 +354,28 @@ class SegmentExecutor:
     def _capture(self, seg: CompiledSegment, args: List[Any], pool, stream):
         """One segment as one CUDA graph; returns (graph, outputs in the
         pool, the kernel launches its capture recorded)."""
-        before = _build.launch_snapshot()
         graph = torch.cuda.CUDAGraph()
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            outs = seg.fn(*args)
-        except Exception as e:
+        # a capture launches nothing: the wrappers it runs count into this
+        # thread's recorder, and the graph adds them at each replay
+        with _build.recording() as rec:
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
-                graph.capture_end()
-            except Exception:  # noqa: BLE001 — the capture is void already
-                pass
-            raise self._capture_error(seg, args, stream, e) from e
-        try:
-            with warnings.catch_warnings():
-                # a segment of views and reshapes launches no kernel: its
-                # graph is empty, and replaying it costs nothing
-                warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
-                graph.capture_end()
-        except Exception as e:
-            raise self._capture_error(seg, args, stream, e) from e
-        launches = _build.launch_delta(before, _build.launch_snapshot())
-        _build.add_launches(launches, -1)  # a capture launches nothing
-        return graph, outs, launches
+                outs = seg.fn(*args)
+            except Exception as e:
+                try:
+                    graph.capture_end()
+                except Exception:  # noqa: BLE001 — the capture is void already
+                    pass
+                raise self._capture_error(seg, args, stream, e) from e
+            try:
+                with warnings.catch_warnings():
+                    # a segment of views and reshapes launches no kernel: its
+                    # graph is empty, and replaying it costs nothing
+                    warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+                    graph.capture_end()
+            except Exception as e:
+                raise self._capture_error(seg, args, stream, e) from e
+        return graph, outs, rec.delta()
 
     def _capture_error(self, seg: CompiledSegment, args: List[Any], stream,
                        cause: Exception) -> SegmentCaptureError:
@@ -358,15 +386,16 @@ class SegmentExecutor:
         for k, op in enumerate(self.prog.ops[seg.start:seg.stop]):
             g = torch.cuda.CUDAGraph()
             ok, outs = True, None
-            g.capture_begin(capture_error_mode="thread_local")
-            try:
-                outs = op.execute(env.__getitem__)
-            except Exception:  # noqa: BLE001 — this op is the one
-                ok = False
-            try:
-                g.capture_end()
-            except Exception:  # noqa: BLE001
-                ok = False
+            with _build.recording():  # throwaway captures launch nothing
+                g.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outs = op.execute(env.__getitem__)
+                except Exception:  # noqa: BLE001 — this op is the one
+                    ok = False
+                try:
+                    g.capture_end()
+                except Exception:  # noqa: BLE001
+                    ok = False
             if not ok:
                 bad = (seg.start + k, op.opcode)
                 break
@@ -436,4 +465,50 @@ class SegmentJitBackend(Backend):
               reorder: bool = True) -> SegmentExecutor:
         return SegmentExecutor(analyze_program(prog, reorder=reorder),
                                static_inputs=static_inputs,
+                               input_names=input_names)
+
+    # -- persistence: the analysis products (a CUDA graph cannot be
+    # serialized; see the module docstring) ------------------------------
+
+    def export_entry(self, prog: RGIRProgram, executor: Any) -> Optional[Dict[str, Any]]:
+        if not isinstance(executor, SegmentExecutor):
+            return None
+        # ``alloc`` is carried for AnalyzedProgram completeness only: the
+        # rebuilt executor recomputes its segment-aware scan from ``live``
+        # exactly as a fresh build does
+        return {"kind": self.name, "n_ops": len(executor.prog.ops), "sched": executor.sched,
+                "live": executor.live, "alloc": executor.analyzed.alloc}
+
+    def build_from_entry(self, prog: RGIRProgram, entry: Dict[str, Any], *,
+                         static_inputs: Sequence[int] = (),
+                         input_names: Optional[Sequence[str]] = None,
+                         reorder: bool = True) -> Optional[SegmentExecutor]:
+        if entry.get("kind") != self.name or entry.get("n_ops") != len(prog.ops):
+            return None
+        analyzed = analyzed_from_persisted(prog, entry["sched"], entry["live"], entry["alloc"])
+        if analyzed is None:
+            return None
+        try:
+            return SegmentExecutor(analyzed, static_inputs=static_inputs,
+                                   input_names=input_names)
+        except Exception:
+            return None
+
+    def adopt(self, executor: Any, *, static_inputs: Sequence[int] = (),
+              input_names: Optional[Sequence[str]] = None,
+              flat_inputs: Sequence[Any] = ()) -> Any:
+        """Share ``executor`` unless its parameter positions differ, or its
+        graphs read parameters at other addresses than ``flat_inputs``':
+        then a new executor over the same analysis (captured anew)."""
+        if not isinstance(executor, SegmentExecutor):
+            return executor
+        static = tuple(sorted(set(static_inputs)))
+        fits = executor._static_inputs == static
+        if fits and executor._replay is not None:
+            params = executor._replay[2]
+            fits = all(i < len(flat_inputs) and isinstance(flat_inputs[i], torch.Tensor)
+                       and flat_inputs[i].data_ptr() == ptr for i, ptr in params)
+        if fits:
+            return executor
+        return SegmentExecutor(executor.analyzed, static_inputs=static,
                                input_names=input_names)

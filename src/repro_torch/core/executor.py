@@ -15,12 +15,17 @@ flat, pre-scheduled instruction stream executed with
 
 Values are tensors on the caller's device; host- and accel-tagged ops
 run on the same CUDA tensors.
+
+:class:`PaddedExecutionMixin` is the pad-and-mask call every backend's
+executor shares (a bucket-shaped program run on narrower inputs), and
+:func:`analyzed_from_persisted` rehydrates Phase 4a-c from a disk-cache
+entry (``core/cache.py``).
 """
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
-from typing import Any, Callable, List, Tuple
+from dataclasses import dataclass, replace as _dc_replace
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from .bufalloc import AllocationResult, allocate_from_liveness
 from .liveness import LivenessInfo, analyze_liveness
@@ -44,6 +49,13 @@ class ExecutorStats:
     last_peak_live_buffers: int = 0
     #: total ``execute()`` calls on this executor
     total_calls: int = 0
+    # -- pad-and-mask (bucketed execution) counters -----------------------
+    #: ``execute_padded`` calls routed through this executor
+    padded_calls: int = 0
+    #: real (valid) cells executed via ``execute_padded``
+    rows_valid_total: int = 0
+    #: padding cells executed via ``execute_padded`` (pad waste numerator)
+    rows_padded_total: int = 0
     #: maximal device-affine runs of the scheduled stream (δ_after + 1)
     n_segments: int = 0
     # -- segment backend statistics (zero for per-op backends) ------------
@@ -73,11 +85,56 @@ class ExecutorStats:
             self.last_segments_executed = segments_executed
             self.total_segments_executed += segments_executed
 
+    def note_padding(self, rows_valid: int, rows_padded: int) -> None:
+        """Record one pad-and-mask call's cell accounting (thread-safe)."""
+        with self._lock:
+            self.padded_calls += 1
+            self.rows_valid_total += rows_valid
+            self.rows_padded_total += rows_padded
+
+    @property
+    def pad_waste(self) -> float:
+        """Fraction of the cells executed by ``execute_padded`` that were
+        padding."""
+        total = self.rows_valid_total + self.rows_padded_total
+        return self.rows_padded_total / total if total else 0.0
+
     @property
     def transition_reduction(self) -> float:
         if self.delta_before == 0:
             return 0.0
         return 1.0 - self.delta_after / self.delta_before
+
+    def fresh_snapshot(self) -> "ExecutorStats":
+        """Copy with the run counters zeroed (analysis fields kept).
+
+        A compile-cache hit hands a *shared* executor to a new module; its
+        CompilationResult must not report the execution history other
+        modules accumulated on that executor.
+        """
+        return _dc_replace(self, peak_live_buffers=0, last_peak_live_buffers=0,
+                           total_calls=0, last_segments_executed=0,
+                           total_segments_executed=0, padded_calls=0,
+                           rows_valid_total=0, rows_padded_total=0)
+
+
+class PaddedExecutionMixin:
+    """Pad-and-mask execution: run a bucket-shaped program on narrower
+    inputs (DESIGN.md §Shape generalization).
+
+    The program was compiled for canonical bucket extents, one per
+    polymorphic axis; a concrete call with fewer rows or columns is
+    padded up along every polymorphic axis (the plan, a
+    :class:`~repro_torch.core.shapekey.PadPlan`, says where), executed
+    full-width, and its outputs sliced back to the valid region — the
+    "mask".  Pad waste is folded into the stats as *cells* (the product
+    over axes).  Shared by every backend's executor.
+    """
+
+    def execute_padded(self, flat_inputs: Sequence[Any], *, plan: Any) -> List[Any]:
+        outs = self.execute(*plan.pad(flat_inputs))
+        self.stats.note_padding(plan.n_valid_cells, plan.n_padded)
+        return plan.unpad(outs)
 
 
 @dataclass
@@ -113,10 +170,40 @@ def analyze_program(prog: RGIRProgram, *, reorder: bool = True) -> AnalyzedProgr
     return AnalyzedProgram(prog=scheduled, sched=sched, live=live, alloc=alloc)
 
 
-class CompiledExecutor:
+def analyzed_from_persisted(prog: RGIRProgram, sched: ScheduleResult, live: LivenessInfo,
+                            alloc: AllocationResult) -> Optional[AnalyzedProgram]:
+    """Rehydrate Phase-4 analysis from a disk-cache entry.
+
+    ``prog`` is a freshly lowered program whose fingerprint matched the
+    persisted entry's cache key; ``renumber`` keeps register ids, so the
+    stored schedule, liveness and allocation (keyed by register id and
+    scheduled instruction index) apply verbatim.  Returns ``None`` on
+    any inconsistency — the caller falls back to a full analysis, never
+    trusts a stale entry.
+    """
+    n = len(prog.ops)
+    if sorted(sched.order) != list(range(n)):
+        return None
+    if sched.segments and sched.segments[-1].stop != n:
+        return None
+    try:
+        verify_topological(prog, sched.order)
+        scheduled = prog.renumber(sched.order)
+        regs = set(scheduled.input_regs) | set(scheduled.constants)
+        for op in scheduled.ops:
+            regs.update(op.output_regs)
+        if not regs.issubset(live.intervals.keys()):
+            return None
+    except Exception:
+        return None
+    return AnalyzedProgram(prog=scheduled, sched=sched, live=live, alloc=alloc)
+
+
+class CompiledExecutor(PaddedExecutionMixin):
     """Flat instruction-stream executor over a physical buffer file."""
 
     def __init__(self, analyzed: AnalyzedProgram):
+        self.analyzed = analyzed
         self.prog = analyzed.prog
         self.sched = analyzed.sched
         # liveness + allocation on the *scheduled* stream (soundness)

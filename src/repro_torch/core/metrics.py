@@ -9,11 +9,11 @@
   latency speedup delivered per second of compile time.
 * **fidelity** — max-abs logit difference and KL divergence between
   pre- and post-compilation outputs (paper Table 6 protocol), and the
-  same between every Phase-4 backend and the ``reference`` oracle.
-
-The bucketed, prefill and ragged-decode fidelity checks of the JAX
-package wait for the compile cache and the pad-and-mask call of
-``BucketedModule``.
+  same between every Phase-4 backend and the ``reference`` oracle;
+  bucketed pad-and-mask calls against exact-shape compiles, whole-prompt
+  prefill against sequential decode, ragged slot decode against per-row
+  decode.
+* ``bucket_report`` — the one-line summary of a front's BucketStats.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from torch.utils import _pytree as pytree
 
 from .capture import trace_to_graph
 from .compiler import ForgeCompiler
+from .shapekey import PolyAxis
 from .cost_model import score_graph
 from .passes import PipelineConfig, run_forge_passes
 
@@ -127,6 +128,167 @@ def check_compilation_fidelity(
         mod = ForgeCompiler(config or PipelineConfig()).compile(fn, *concrete_args)
         post = mod(*concrete_args)
     return fidelity(pre, post)
+
+
+def check_bucketed_fidelity(
+    fn: Callable,
+    *concrete_args: Any,
+    in_axes: Any = 0,
+    out_axes: Any = 0,
+    policy: Any = "pow2",
+    axes: Optional[Sequence[PolyAxis]] = None,
+    config: Optional[PipelineConfig] = None,
+    backend: Optional[str] = None,
+) -> FidelityReport:
+    """Bucketed pad-and-mask execution vs exact-shape compilation.
+
+    Compiles ``fn`` twice — once specialised to the concrete shapes, once
+    through the ShapeKey bucketing front (``axes=(PolyAxis, ...)`` for
+    multi-axis fronts, the 1-D kwargs otherwise) — and compares outputs.
+    Any divergence means the padded rows or columns were not inert (some
+    op coupled rows along a polymorphic axis) or the output mask sliced
+    the wrong axis.  Private caches keep the two compiles from sharing
+    executors.
+    """
+    from .cache import CompileCache
+
+    cfg = config or PipelineConfig()
+    with torch.no_grad():
+        exact = ForgeCompiler(cfg, backend=backend, cache=CompileCache()).compile(
+            fn, *concrete_args)
+        bucketed = ForgeCompiler(cfg, backend=backend, cache=CompileCache()).compile_bucketed(
+            fn, axes=axes, in_axes=in_axes, out_axes=out_axes, policy=policy)
+        return fidelity(exact(*concrete_args), bucketed(*concrete_args))
+
+
+def check_prefill_fidelity(cfg: Any, params: Any, prompts: Any, *,
+                           max_len: int = 64) -> FidelityReport:
+    """Whole-prompt batched prefill vs sequential decode-step replay.
+
+    Runs the model's ``prefill_step`` once on the (B, P) prompt block and
+    ``decode_step`` P times on the same prompts, then compares the
+    per-position logits and the resulting caches — the acceptance bound
+    of the 2-D serve front is 1e-5 max-abs (a divergence means the
+    chunk-causal length mask let a future token leak into a past
+    position, or the cache write strided wrong).
+    """
+    import numpy as np
+
+    from ..models import get_model
+
+    model = get_model(cfg)
+    if model.prefill_step is None:
+        raise ValueError(f"family {cfg.family!r} has no batched prefill")
+    dev = params["embed"].device
+    prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32, device=dev)
+    B, P = prompts.shape
+    with torch.no_grad():
+        cache_seq = model.init_cache(cfg, B, max_len, device=dev)
+        logits_seq = []
+        for i in range(P):
+            lg, cache_seq = model.decode_step(params, cache_seq, prompts[:, i:i + 1],
+                                              torch.tensor(i, dtype=torch.int32, device=dev),
+                                              cfg)
+            logits_seq.append(lg[:, -1, :])
+        cache_b = model.init_cache(cfg, B, max_len, device=dev)
+        logits_b, cache_b = model.prefill_step(
+            params, cache_b, prompts, torch.tensor(0, dtype=torch.int32, device=dev), cfg)
+    return fidelity((torch.stack(logits_seq, dim=1), cache_seq), (logits_b, cache_b))
+
+
+def check_ragged_decode_fidelity(cfg: Any, params: Any, prompts: Sequence[Any], *,
+                                 n_new: int = 3, max_len: int = 32) -> FidelityReport:
+    """Vectorized per-row-position decode vs per-row sequential decode.
+
+    ``prompts`` is a list of 1-D token arrays of different lengths.  The
+    reference decodes each row alone (batch 1, scalar positions); the
+    candidate runs all rows in one batch through slot-masked ragged
+    decode — each prompt consumed through masked decode steps (rows
+    whose prompt is exhausted are frozen by ``slot_mask``), then
+    ``n_new`` greedy steps with a per-row position vector.  A divergence
+    means a per-row RoPE / KV write / mask strayed from its row's
+    position, or a masked slot leaked state — the acceptance bound of
+    slot-level continuous batching is 1e-5 max-abs.
+    """
+    import numpy as np
+
+    from ..models import get_model
+
+    model = get_model(cfg)
+    dev = params["embed"].device
+    B = len(prompts)
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+    plens = [len(p) for p in prompts]
+
+    def greedy(lg):
+        return torch.argmax(lg[:, -1, :], dim=-1).to(torch.int32)[:, None]
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    with torch.no_grad():
+        solo_logits = []  # per row: (n_new, vocab)
+        for r in range(B):
+            cache = model.init_cache(cfg, 1, max_len, device=dev)
+            lg = None
+            for i in range(plens[r]):
+                lg, cache = model.decode_step(params, cache, t(prompts[r][i:i + 1][None]),
+                                              t(i), cfg)
+            tok = greedy(lg)
+            outs = []
+            for j in range(n_new):
+                lg, cache = model.decode_step(params, cache, tok, t(plens[r] + j), cfg)
+                outs.append(lg[0, -1, :])
+                tok = greedy(lg)
+            solo_logits.append(torch.stack(outs))
+
+        cache = model.init_cache(cfg, B, max_len, device=dev)
+        tok_col = np.zeros((B, 1), np.int32)
+        first = np.zeros((B, 1), np.int32)
+        for i in range(max(plens)):
+            active = np.asarray([i < p for p in plens])
+            for r in range(B):
+                tok_col[r, 0] = prompts[r][min(i, plens[r] - 1)]
+            lg, cache = model.decode_step(params, cache, t(tok_col),
+                                          t(np.full((B,), i, np.int32)), cfg,
+                                          slot_mask=t(active, torch.bool))
+            g = greedy(lg).cpu().numpy()
+            for r in range(B):
+                if plens[r] == i + 1:
+                    first[r] = g[r]
+        tok = t(first)
+        pos = np.asarray(plens, np.int32)
+        ragged = []
+        for j in range(n_new):
+            lg, cache = model.decode_step(params, cache, tok, t(pos + j), cfg,
+                                          slot_mask=torch.ones((B,), dtype=torch.bool,
+                                                               device=dev))
+            ragged.append(lg[:, -1, :])
+            tok = greedy(lg)
+    return fidelity(torch.stack(solo_logits), torch.stack(ragged, dim=1))
+
+
+def bucket_report(stats: Any) -> str:
+    """One-line summary of a BucketedModule's BucketStats (the JAX
+    package's line, given equal stats)."""
+    per = ", ".join(f"{k}:{v}" for k, v in sorted(stats.per_bucket_calls.items()))
+    pool = ""
+    if stats.pool_hits or stats.pool_misses:
+        pool = (f" pool={stats.pool_hits}h/{stats.pool_misses}m "
+                f"(hit_rate={stats.pool_hit_rate:.1%}, "
+                f"reused={stats.pool_bytes_reused / 1e6:.1f}MB)")
+    evic = f" evictions={stats.evictions}" if stats.evictions else ""
+    # async-compile split: request-visible stall vs worker-absorbed time
+    async_note = ""
+    if stats.compile_background_s or stats.fallback_calls:
+        async_note = (f" wait_s={stats.compile_wait_s:.2f}"
+                      f" bg_s={stats.compile_background_s:.2f}"
+                      f" fallbacks={stats.fallback_calls}"
+                      f" (+{stats.fallback_cells_padded} padded cells)")
+    return (f"buckets: compiles={stats.compiles} hits={stats.bucket_hits} "
+            f"(hit_rate={stats.hit_rate:.1%}) calls={stats.calls} "
+            f"pad_waste={stats.pad_waste:.1%} compile_s={stats.compile_s:.2f}"
+            f"{async_note}{evic}{pool} [{per}]")
 
 
 def check_backend_fidelity(

@@ -42,6 +42,8 @@ class PipelineConfig:
     swiglu_fusion: bool = True
     #: Phase-4 code generator: 'interpret' | 'segment_jit' | 'reference'
     backend: str = "interpret"
+    #: memoize backend builds in the content-addressed compile cache
+    compile_cache: bool = True
     #: enable individual passes (ablation hooks, paper Table 14)
     enable: dict = field(default_factory=dict)
 

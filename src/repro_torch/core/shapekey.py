@@ -1,34 +1,39 @@
-"""Shape generalization — ShapeKeys and bucket policies (the port of the
-JAX package's ``core/shapekey.py``, the part the paged serve fronts use).
+"""Shape generalization — ShapeKeys, bucket policies, pad-and-mask plans
+and bucket counters (the port of the JAX package's ``core/shapekey.py``).
 
 A server sees a stream of calls whose polymorphic extents vary — the
 batch size and, for prefill, the prompt length — but a Forge program is
 specialised to its shapes (``torch.export`` freezes them).  This module
 makes that specialisation an explicit, bounded compilation axis:
 
-* a :class:`PolyAxis` names one polymorphic dimension of a program: an
-  axis spec (``vmap``-``in_axes``-style tree prefix) marking which input
-  dims carry it, and its own :class:`BucketPolicy` (``exact`` | ``pow2``
-  | fixed ``ladder``) mapping a concrete extent to a canonical bucket
-  extent;
+* a :class:`PolyAxis` names one polymorphic dimension of a program: axis
+  specs (``vmap``-``in_axes``-style tree prefixes) marking which input
+  and output dims carry it, and its own :class:`BucketPolicy` (``exact``
+  | ``pow2`` | fixed ``ladder``) mapping a concrete extent to a
+  canonical bucket extent;
 * a :class:`ShapeKey` is the per-axis tuple of :class:`AxisKey` (policy,
   bucket extent, label) that keys a
   :class:`~repro_torch.core.compiler.BucketedModule`'s program table: one
-  cell's program serves every call whose state is padded into it.
+  cell's program serves every call that pads into it;
+* a :class:`PadPlan` pads a call's flat inputs up to the bucket extents
+  along every polymorphic axis and slices the outputs back (the
+  pad-and-mask call; ``pad_args`` pads a whole argument tree).
 
 ``infer_poly_axes`` derives a state tree's per-leaf batch axes by
 differencing two instantiations (the contiguous fronts' cache axes).
-The JAX module's pad-and-mask plans (``PadPlan``, ``pad_args``) are not
-ported: the serve fronts hold bucket-shaped state themselves.  Axis
-specs follow ``torch.utils._pytree``'s flatten order: a dict's leaves
-come in insertion order (JAX sorts the keys).
+Axis specs follow ``torch.utils._pytree``'s flatten order: a dict's
+leaves come in insertion order (JAX sorts the keys).  The JAX module's
+fault counters (``note_fault``) and ladder re-fit (``propose_rungs``)
+wait for the fault-tolerant scheduler.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 from torch.utils import _pytree as pytree
 
 AxisSpec = Union[None, int, tuple, list, dict]
@@ -159,8 +164,17 @@ class ShapeKey:
         raise AttributeError(f"ShapeKey is immutable (tried to del {name!r})")
 
     @property
+    def extent(self) -> int:
+        """The first axis's extent (the 1-D view)."""
+        return self.axes[0].extent
+
+    @property
     def extents(self) -> Tuple[int, ...]:
         return tuple(a.extent for a in self.axes)
+
+    @property
+    def n_axes(self) -> int:
+        return len(self.axes)
 
     def __eq__(self, other: Any) -> bool:
         return isinstance(other, ShapeKey) and self.axes == other.axes
@@ -178,9 +192,12 @@ class ShapeKey:
 @dataclass(frozen=True)
 class PolyAxis:
     """One polymorphic dimension of a bucketed program: where it appears
-    in the inputs (``in_axes``) and the policy bounding its bucket set."""
+    in the inputs (``in_axes``) and outputs (``out_axes``, the dims the
+    pad-and-mask call slices back) and the policy bounding its bucket
+    set."""
 
     in_axes: AxisSpec = 0
+    out_axes: AxisSpec = 0
     policy: Union[str, BucketPolicy] = "pow2"
     label: str = "B"
 
@@ -242,6 +259,38 @@ def infer_extent(flat_leaves: Sequence[Any], flat_axes: Sequence[Optional[int]])
     return extent
 
 
+def flatten_axes_nd(specs: Sequence[AxisSpec], tree: Any) -> List[Tuple[Optional[int], ...]]:
+    """Per-leaf axis vectors for N polymorphic dimensions.
+
+    ``specs`` holds one ``vmap``-style axis spec per polymorphic
+    dimension; the result has one tuple per leaf of ``tree``, whose i-th
+    entry is the leaf dim carrying polymorphic axis i (or None).  Two
+    polymorphic dimensions may not claim the same dim of one leaf.
+    """
+    if not specs:
+        raise ValueError("flatten_axes_nd needs at least one axis spec")
+    per_axis = [flatten_axes(s, tree) for s in specs]
+    leaves = [tuple(v) for v in zip(*per_axis)]
+    for lv, leaf in zip(leaves, pytree.tree_leaves(tree)):
+        marked = [a for a in lv if a is not None]
+        # normalize negatives against the leaf's rank so e.g. 0 and -2 on
+        # a 2-D leaf are caught as the same dim
+        ndim = getattr(leaf, "ndim", None)
+        if ndim is None:
+            ndim = len(np.shape(leaf))
+        norm = [a % ndim if ndim else a for a in marked]
+        if len(norm) != len(set(norm)):
+            raise ValueError(f"two polymorphic axes claim the same leaf dim: {lv}")
+    return leaves
+
+
+def infer_extents(flat_leaves: Sequence[Any], flat_axes_nd: Sequence[Tuple[Optional[int], ...]],
+                  n_axes: int) -> Tuple[int, ...]:
+    """Concrete extent of each of the N polymorphic axes."""
+    return tuple(infer_extent(flat_leaves, [lv[i] for lv in flat_axes_nd])
+                 for i in range(n_axes))
+
+
 def infer_poly_axes(builder: Callable[[int], Any], n1: int = 2, n2: int = 3) -> Any:
     """Infer per-leaf batch axes of a pytree by differencing two builds.
 
@@ -275,46 +324,254 @@ def infer_poly_axes(builder: Callable[[int], Any], n1: int = 2, n2: int = 3) -> 
 
 
 # --------------------------------------------------------------------------
+# pad-and-mask execution plans
+# --------------------------------------------------------------------------
+
+
+def _pad_leaf(x: Any, axis: Optional[int], extent: int, mode: str) -> Any:
+    """``x`` padded to ``extent`` along ``axis``: ``edge`` repeats the last
+    slice, ``zero`` appends zeros (any dtype, on the tensor's device)."""
+    if axis is None:
+        return x
+    n = int(x.shape[axis])
+    if n == extent:
+        return x
+    if n > extent:
+        raise ValueError(f"extent {n} exceeds bucket extent {extent}")
+    if mode not in ("edge", "zero"):
+        raise ValueError(f"unknown pad mode {mode!r}")
+    x = torch.as_tensor(x)
+    shape = list(x.shape)
+    shape[axis] = extent - n
+    if mode == "edge":
+        tail = x.narrow(axis, n - 1, 1).expand(shape)
+    else:
+        tail = x.new_zeros(shape)
+    return torch.cat([x, tail], dim=axis)
+
+
+def _slice_leaf(x: Any, axis: Optional[int], n_valid: int) -> Any:
+    if axis is None or int(x.shape[axis]) == n_valid:
+        return x
+    return x.narrow(axis, 0, n_valid)
+
+
+def _as_axis_tuple(v: Any) -> Tuple[Any, ...]:
+    """Normalize a scalar (1-D) field to a 1-tuple."""
+    return v if isinstance(v, tuple) else (v,)
+
+
+@dataclass(frozen=True)
+class PadPlan:
+    """Pad flat inputs to the bucket extents; mask (slice) outputs back.
+
+    ``n_valid`` / ``extent`` carry one entry per polymorphic axis, and
+    each per-leaf axis entry is the tuple of leaf dims carrying those
+    axes (None = axis absent from that leaf).  The 1-D form
+    (``n_valid=3, extent=8, in_axes=(0, None)``) normalizes itself.  The
+    "mask" is output-side slicing: padded rows and columns execute but
+    their results never escape (DESIGN.md, the inertness argument).
+    """
+
+    n_valid: Tuple[int, ...]
+    extent: Tuple[int, ...]
+    in_axes: Tuple[Tuple[Optional[int], ...], ...]
+    out_axes: Tuple[Tuple[Optional[int], ...], ...]
+    mode: str = "edge"
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "n_valid", _as_axis_tuple(self.n_valid))
+        object.__setattr__(self, "extent", _as_axis_tuple(self.extent))
+        if len(self.n_valid) != len(self.extent):
+            raise ValueError(f"n_valid {self.n_valid} / extent {self.extent} axis "
+                             f"count mismatch")
+        n = len(self.extent)
+        for name in ("in_axes", "out_axes"):
+            leaves = tuple(_as_axis_tuple(lv) for lv in getattr(self, name))
+            for lv in leaves:
+                if len(lv) != n:
+                    raise ValueError(f"{name} leaf entry {lv} does not carry {n} axes")
+            object.__setattr__(self, name, leaves)
+
+    @property
+    def n_valid_cells(self) -> int:
+        """Real cells per call: product of the valid extents."""
+        return int(np.prod(self.n_valid))
+
+    @property
+    def n_padded(self) -> int:
+        """Padding cells per call (bucket cells minus real cells)."""
+        return int(np.prod(self.extent)) - self.n_valid_cells
+
+    def _pad_one(self, x: Any, leaf_axes: Tuple[Optional[int], ...]) -> Any:
+        for ext, ax in zip(self.extent, leaf_axes):
+            x = _pad_leaf(x, ax, ext, self.mode)
+        return x
+
+    def _slice_one(self, x: Any, leaf_axes: Tuple[Optional[int], ...]) -> Any:
+        for nv, ax in zip(self.n_valid, leaf_axes):
+            x = _slice_leaf(x, ax, nv)
+        return x
+
+    def pad(self, flat_inputs: Sequence[Any]) -> List[Any]:
+        if len(flat_inputs) != len(self.in_axes):
+            raise ValueError(f"pad plan expects {len(self.in_axes)} inputs, "
+                             f"got {len(flat_inputs)}")
+        return [self._pad_one(x, lv) for x, lv in zip(flat_inputs, self.in_axes)]
+
+    def unpad(self, flat_outputs: Sequence[Any]) -> List[Any]:
+        if len(flat_outputs) != len(self.out_axes):
+            raise ValueError(f"pad plan expects {len(self.out_axes)} outputs, "
+                             f"got {len(flat_outputs)}")
+        return [self._slice_one(x, lv) for x, lv in zip(flat_outputs, self.out_axes)]
+
+
+def pad_args(args: Tuple[Any, ...], in_axes: Any, extent: Union[int, Tuple[int, ...]], *,
+             mode: str = "edge") -> Tuple[Any, ...]:
+    """Pad a pytree argument tuple up to the bucket extents.
+
+    ``extent`` an int: ``in_axes`` is one ``vmap``-style spec (1-D);
+    ``extent`` a tuple: ``in_axes`` is a same-length sequence of specs,
+    one per polymorphic axis.
+    """
+    if isinstance(extent, tuple):
+        specs, extents = tuple(in_axes), extent
+    else:
+        specs, extents = (in_axes,), (extent,)
+    flat, spec = pytree.tree_flatten(args)
+    axes_nd = flatten_axes_nd(specs, args)
+    padded = []
+    for x, lv in zip(flat, axes_nd):
+        for ext, ax in zip(extents, lv):
+            x = _pad_leaf(x, ax, ext, mode)
+        padded.append(x)
+    return pytree.tree_unflatten(padded, spec)
+
+
+# --------------------------------------------------------------------------
 # bucket transparency counters
 # --------------------------------------------------------------------------
 
 
 @dataclass
 class BucketStats:
-    """Bucket-hit / pad-waste counters of one BucketedModule.
+    """Bucket-hit / pad-waste / compile-split / pool counters of one
+    BucketedModule.
 
     ``calls`` / ``rows_*`` / ``per_bucket_calls`` count dispatches;
-    ``bucket_hits`` / ``compiles`` count program-table lookups.
+    ``bucket_hits`` / ``compiles`` count program-table lookups.  Updates
+    are lock-folded: compile-service workers and the serving thread
+    update one object.
     """
 
     calls: int = 0
     bucket_hits: int = 0
     compiles: int = 0
     compile_s: float = 0.0
+    #: request-visible compile stall: seconds a *dispatching* caller spent
+    #: blocked on a cold-bucket build (an inline compile, the build-lock
+    #: convoy, or an async future it had to wait out).  Disjoint from
+    #: ``compile_background_s`` — the split the async path is judged by
+    compile_wait_s: float = 0.0
+    #: compile seconds absorbed by CompileService workers off the request
+    #: path (also folded into ``compile_s``)
+    compile_background_s: float = 0.0
+    #: dispatches served by a warm dominating bucket while the exact
+    #: bucket compiled in the background
+    fallback_calls: int = 0
+    #: extra padded cells those fallback dispatches executed beyond what
+    #: the exact bucket would have padded (the fallback premium)
+    fallback_cells_padded: int = 0
     rows_real: int = 0
     rows_padded: int = 0
     per_bucket_calls: Dict[str, int] = field(default_factory=dict)
     #: ShapeKey str -> seconds its Phase 1-4 compile took
     per_bucket_compile_s: Dict[str, float] = field(default_factory=dict)
+    #: monotonic dispatch counter — the clock of the recency trail
+    dispatch_seq: int = 0
+    #: ShapeKey str -> dispatch_seq of that bucket's latest dispatch (the
+    #: traffic signal BucketedModule.evict_cold retires against)
+    per_bucket_last_dispatch: Dict[str, int] = field(default_factory=dict)
+    #: programs retired by evict_cold (their recency trail is dropped too)
+    evictions: int = 0
+    # -- per-bucket buffer pool counters (BufferPool) ----------------------
+    #: acquisitions satisfied by a pooled buffer set
+    pool_hits: int = 0
+    #: acquisitions that had to build fresh buffers (cold bucket / overlap)
+    pool_misses: int = 0
+    #: device bytes served from the pool instead of freshly allocated
+    pool_bytes_reused: int = 0
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
 
     def note_lookup(self, *, hit: bool, key: Optional[ShapeKey] = None,
-                    compile_s: float = 0.0) -> None:
-        if hit:
-            self.bucket_hits += 1
-        else:
+                    compile_s: float = 0.0, background: bool = False) -> None:
+        with self._lock:
+            if hit:
+                self.bucket_hits += 1
+                return
             self.compiles += 1
             self.compile_s += compile_s
+            if background:
+                self.compile_background_s += compile_s
             if key is not None:
                 self.per_bucket_compile_s[str(key)] = compile_s
+
+    def note_wait(self, wait_s: float) -> None:
+        """Fold one request-visible compile stall into the split."""
+        with self._lock:
+            self.compile_wait_s += wait_s
+
+    def note_fallback(self, cells_extra: int) -> None:
+        with self._lock:
+            self.fallback_calls += 1
+            self.fallback_cells_padded += int(cells_extra)
+
+    def note_pool(self, *, hit: bool, nbytes: int = 0) -> None:
+        with self._lock:
+            if hit:
+                self.pool_hits += 1
+                self.pool_bytes_reused += nbytes
+            else:
+                self.pool_misses += 1
 
     def note_dispatch(self, key: ShapeKey, n_valid: Union[int, Tuple[int, ...]],
                       extent: Union[int, Tuple[int, ...]]) -> None:
         """Record one dispatch; ``rows_*`` count cells (the product over
         axes) for N-D fronts."""
-        valid = int(np.prod(n_valid))
-        total = int(np.prod(extent))
-        self.calls += 1
-        self.rows_real += valid
-        self.rows_padded += total - valid
-        k = str(key)
-        self.per_bucket_calls[k] = self.per_bucket_calls.get(k, 0) + 1
+        valid = int(np.prod(_as_axis_tuple(n_valid)))
+        total = int(np.prod(_as_axis_tuple(extent)))
+        with self._lock:
+            self.calls += 1
+            self.rows_real += valid
+            self.rows_padded += total - valid
+            k = str(key)
+            self.per_bucket_calls[k] = self.per_bucket_calls.get(k, 0) + 1
+            # a monotonic counter rather than wall time, so "least recently
+            # dispatched" is deterministic and testable
+            self.dispatch_seq += 1
+            self.per_bucket_last_dispatch[k] = self.dispatch_seq
+
+    def note_eviction(self, key: ShapeKey) -> None:
+        """Drop a retired bucket's recency trail (evict_cold)."""
+        with self._lock:
+            self.evictions += 1
+            self.per_bucket_last_dispatch.pop(str(key), None)
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.bucket_hits + self.compiles
+        return self.bucket_hits / total if total else 0.0
+
+    @property
+    def pad_waste(self) -> float:
+        """Fraction of executed cells (rows x ... per axis) that were
+        padding."""
+        total = self.rows_real + self.rows_padded
+        return self.rows_padded / total if total else 0.0
+
+    @property
+    def pool_hit_rate(self) -> float:
+        total = self.pool_hits + self.pool_misses
+        return self.pool_hits / total if total else 0.0

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -107,38 +107,65 @@ class LaunchCount:
     for wrappers that choose one.
 
     A launch captured into a CUDA graph runs again at every replay
-    without its wrapper: the graph's owner takes the launches its
-    capture recorded (:func:`launch_snapshot` before and after,
-    :func:`launch_delta`), takes them back off (the capture itself
-    launched nothing) and adds them at each replay (:func:`add_launches`),
-    so ``n`` keeps counting launches on the device."""
+    without its wrapper: a capture runs inside :class:`recording`, which
+    records the launches of the capturing thread instead of counting
+    them (the capture itself launched nothing), and the graph's owner
+    adds them at each replay (:func:`add_launches`), so ``n`` keeps
+    counting launches on the device."""
 
     def __init__(self) -> None:
         self.n = 0
         self.variants: Dict[str, int] = {}
+        self.index = len(COUNTERS)
         COUNTERS.append(self)
 
     def count(self, variant: Optional[str] = None) -> None:
-        self.n += 1
-        if variant is not None:
-            self.variants[variant] = self.variants.get(variant, 0) + 1
+        rec = getattr(_RECORDING, "rec", None)
+        if rec is not None:  # this thread is capturing a CUDA graph
+            rec.launches.append((self.index, variant))
+            return
+        with _COUNT_LOCK:
+            self.n += 1
+            if variant is not None:
+                self.variants[variant] = self.variants.get(variant, 0) + 1
 
     def reset(self) -> None:
         self.n = 0
         self.variants = {}
 
 
-_SCRATCH: Dict[Tuple[str, Optional[int], int], torch.Tensor] = {}
+_SCRATCH: Dict[Tuple[str, Optional[int], int, Any], torch.Tensor] = {}
 #: buffers a larger one replaced: kept, since a captured graph may hold them
 _RETIRED: List[torch.Tensor] = []
+_SCOPE = threading.local()
+
+
+class scratch_scope:
+    """Context: this thread's :func:`stream_scratch` calls inside it get
+    buffers of their own, keyed by ``key`` besides the stream.  A program
+    captured as CUDA graphs takes its warm run and captures inside its
+    own scope, so no two programs' graphs share kernel scratch (and a
+    compile worker's warm run never touches a scratch that a graph the
+    serving thread replays holds)."""
+
+    def __init__(self, key: Any):
+        self.key = key
+
+    def __enter__(self) -> None:
+        self._prev = getattr(_SCOPE, "key", None)
+        _SCOPE.key = self.key
+
+    def __exit__(self, *exc) -> None:
+        _SCOPE.key = self._prev
 
 
 def stream_scratch(name: str, device: torch.device, n: int,
                    init: Optional[Callable[[torch.Tensor], None]] = None) -> torch.Tensor:
     """Zeroed int32 device scratch of at least ``n`` elements, one per
-    (name, device, stream): the counters and flags a kernel leaves as it
-    found them after every call (tickets that re-arm, flags tagged with
-    an epoch), so calls on one stream need no memset between them.
+    (name, device, stream, :class:`scratch_scope`): the counters and
+    flags a kernel leaves as it found them after every call (tickets that
+    re-arm, flags tagged with an epoch), so calls on one stream need no
+    memset between them.
 
     Safe under CUDA graphs: a captured launch keeps the buffer's address,
     so a buffer is made only outside a capture (a capture that finds none
@@ -147,7 +174,7 @@ def stream_scratch(name: str, device: torch.device, n: int,
     old one stays alive for the graphs that hold it.  ``init`` sets a new
     buffer's first values."""
     stream = torch.cuda.current_stream(device)
-    key = (name, device.index, stream.cuda_stream)
+    key = (name, device.index, stream.cuda_stream, getattr(_SCOPE, "key", None))
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n:
         if torch.cuda.is_current_stream_capturing():
@@ -163,37 +190,53 @@ def stream_scratch(name: str, device: torch.device, n: int,
     return buf
 
 
-#: one launch count per counter, by variant too: (n, variants) each
-Snapshot = Tuple[Tuple[int, Dict[str, int]], ...]
-#: the launches between two snapshots, by counter index: (i, n, variants)
+#: the launches recorded by a capture, by counter index: (i, n, variants)
 Delta = Tuple[Tuple[int, int, Tuple[Tuple[str, int], ...]], ...]
 
 
-def launch_snapshot() -> Snapshot:
-    return tuple((c.n, dict(c.variants)) for c in COUNTERS)
+def add_launches(delta: Delta) -> None:
+    """Add the launches of ``delta`` to the counters (a graph replay)."""
+    with _COUNT_LOCK:
+        for i, dn, dv in delta:
+            c = COUNTERS[i]
+            c.n += dn
+            for k, d in dv:
+                c.variants[k] = c.variants.get(k, 0) + d
 
 
-def launch_delta(before: Snapshot, after: Snapshot) -> Delta:
-    """The launches counted between two snapshots (counters made in
-    between start from zero)."""
-    out = []
-    for i, (n, variants) in enumerate(after):
-        n0, v0 = before[i] if i < len(before) else (0, {})
-        dv = tuple((k, c - v0.get(k, 0)) for k, c in variants.items() if c != v0.get(k, 0))
-        if n != n0 or dv:
-            out.append((i, n - n0, dv))
-    return tuple(out)
+#: counters are bumped from the serving thread and compile workers alike
+_COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()
 
 
-def add_launches(delta: Delta, sign: int = 1) -> None:
-    """Add ``sign`` times the launches of ``delta`` to the counters."""
-    for i, dn, dv in delta:
-        c = COUNTERS[i]
-        c.n += sign * dn
-        for k, d in dv:
-            c.variants[k] = c.variants.get(k, 0) + sign * d
-            if not c.variants[k]:
-                del c.variants[k]
+class _Recorder:
+    def __init__(self) -> None:
+        self.launches: List[Tuple[int, Optional[str]]] = []
+
+    def delta(self) -> Delta:
+        """The recorded launches as a :data:`Delta`."""
+        per: Dict[int, Tuple[int, Dict[str, int]]] = {}
+        for i, variant in self.launches:
+            n, v = per.get(i, (0, {}))
+            if variant is not None:
+                v[variant] = v.get(variant, 0) + 1
+            per[i] = (n + 1, v)
+        return tuple((i, n, tuple(v.items())) for i, (n, v) in sorted(per.items()))
+
+
+class recording:
+    """Context: the launches this thread's wrappers make inside it are
+    recorded, not counted (a CUDA graph capture: the graph's owner adds
+    them at each replay with :func:`add_launches`).  Other threads keep
+    counting."""
+
+    def __enter__(self) -> _Recorder:
+        self._prev = getattr(_RECORDING, "rec", None)
+        _RECORDING.rec = _Recorder()
+        return _RECORDING.rec
+
+    def __exit__(self, *exc) -> None:
+        _RECORDING.rec = self._prev
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -203,7 +203,7 @@ def paged_attention_cuda(
         int(window or 0), _scale(q, scale), splits, chunk, DTYPE_CODES[q.dtype],
         torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "paged_attention")
-    LAUNCHES.n += 1
+    LAUNCHES.count()
     return out
 
 

@@ -143,7 +143,7 @@ def rg_lru_cuda(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor, *,
                 state.data_ptr() if state is not None else None,
                 DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "rg_lru")
-    LAUNCHES.n += 1
+    LAUNCHES.count()
     return (out, h_last) if last else out
 
 

@@ -68,7 +68,7 @@ def rms_norm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.
     rc = _lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), x.numel() // d, d, float(eps),
                 DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "rms_norm")
-    LAUNCHES.n += 1
+    LAUNCHES.count()
     return out
 
 

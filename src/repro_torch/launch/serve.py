@@ -34,6 +34,18 @@ slot-masked grid (or the in-loop fill path) — a recurrent row is reset
 to its init state first, a dense row's stale keys are hidden by the
 length mask — and a rung resize gathers the active rows.
 
+Compile cost (DESIGN.md §Async compilation): ``async_compile=True``
+compiles cold buckets on a :class:`~repro_torch.core.CompileService`
+while dispatches pad into the nearest warm dominating bucket (the
+scheduler's rung choice, :meth:`SlotScheduler._target_rung`, and the
+group fronts' batch and sequence extents); ``cache_dir`` attaches a
+:class:`~repro_torch.core.DiskCacheStore` so a restarted process
+rebuilds its programs' Phase 4 from disk (the forge block bodies' too,
+through the process-global cache).  The contiguous fronts park each
+generation's cache in the decode front's
+:class:`~repro_torch.core.BufferPool` and reuse it, reset in place, at
+the next admission to the same bucket.
+
 CLI (runs on the CUDA device unless ``--device cpu``)::
 
     python -m repro_torch.launch.serve --arch forge-125m [--smoke]
@@ -43,10 +55,14 @@ CLI (runs on the CUDA device unless ``--device cpu``)::
         [--prefill auto|batched|sequential] [--continuous 8 --max-slots 4]
     python -m repro_torch.launch.serve --arch forge-125m --mode forge \\
         --continuous 12 --max-slots 4 --paged --kv-kernel pallas
+    python -m repro_torch.launch.serve --arch forge-125m --mode forge \\
+        --sweep 1,3,8 --prompt-sweep 17,48 [--async-compile] \\
+        [--cache-dir DIR [--assert-no-builds]]
 """
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -93,8 +109,9 @@ class BatchedServer:
     * contiguous cache (default): :meth:`generate` edge-pads a prompt
       group to its buckets and runs the slot-signature decode program in
       lockstep; the cache (per-leaf batch axes from
-      :func:`~repro_torch.core.shapekey.infer_poly_axes`) is allocated
-      fresh per generation.  ``prefill``: ``"auto"``/``"batched"`` take
+      :func:`~repro_torch.core.shapekey.infer_poly_axes`) comes from the
+      decode front's buffer pool, reset in place, and returns to it when
+      the generation ends.  ``prefill``: ``"auto"``/``"batched"`` take
       the prefill grid when the prompt fits it, ``"sequential"`` replays
       it through the decode program (read at each call, so one server
       can time both on the same warmed decode program).
@@ -103,6 +120,14 @@ class BatchedServer:
       (``kv_pages`` pages of ``kv_page_size`` tokens, page 0 the trash
       page; default eight full-length slots' worth); only the page table,
       tokens, positions and slot mask are bucket-shaped.
+
+    ``async_compile`` (``compile_workers`` threads): cold buckets compile
+    in the background; a dispatch pads into the nearest warm dominating
+    bucket and blocks only when none exists (the first program).
+    ``cache_dir``: the persistent compile tier (fronts and, through the
+    process-global cache, the block bodies).  The contiguous cache of a
+    generation is pooled per bucket (``bucketed.pool``) and reset in
+    place at its next admission.
     """
 
     MODES = ("eager", "forge")
@@ -112,7 +137,8 @@ class BatchedServer:
                  bucket_policy: str = "pow2",
                  seq_bucket_policy: str = "ladder:16,32,64,128,256",
                  prefill: str = "auto", paged: bool = False, kv_page_size: int = 16,
-                 kv_pages: Optional[int] = None):
+                 kv_pages: Optional[int] = None, async_compile: bool = False,
+                 compile_workers: int = 2, cache_dir: Optional[str] = None):
         if mode not in self.MODES:
             raise ValueError(f"mode {mode!r} not supported; the port serves {self.MODES}")
         if prefill not in PREFILL_POLICIES:
@@ -167,6 +193,32 @@ class BatchedServer:
             if max_len % self.kv_page_size:
                 raise ValueError(f"max_len={max_len} must be a multiple of "
                                  f"kv_page_size={self.kv_page_size}")
+        if (async_compile or cache_dir is not None) and mode != "forge":
+            raise ValueError("async_compile / cache_dir act on the bucketed fronts: "
+                             "they need mode='forge'")
+        self.async_compile = bool(async_compile)
+        self.compile_service = None
+        if self.async_compile:
+            from ..core import CompileService
+
+            self.compile_service = CompileService(workers=compile_workers)
+        #: the persistent compile tier (``cache_dir``): the fronts' bucket
+        #: programs and, through the process-global cache, the forge block
+        #: bodies rebuild Phase 4 from disk after a restart
+        self.cache_dir = cache_dir
+        self.compile_cache = None
+        if cache_dir is not None:
+            from ..core import CompileCache, DiskCacheStore, get_compile_cache
+
+            store = DiskCacheStore(cache_dir)
+            self.compile_cache = CompileCache(store=store)
+            g = get_compile_cache()
+            if g.store is None:
+                g.store = store
+        self._front_lock = threading.Lock()
+        #: per-leaf init values of a one-row cache for the pooled-cache
+        #: reset (None: the leaf's init is all zeros); set with the fronts
+        self._init_leaves: List[Optional[torch.Tensor]] = []
 
     def _build_cache(self, batch: int):
         return self.model.init_cache(self.cfg, batch, self.max_len, device=self.device)
@@ -182,12 +234,18 @@ class BatchedServer:
 
     def _ensure_bucketed(self) -> None:
         """Build the fronts (and the pool state when paged) once."""
-        if self.bucketed is not None:
-            return
-        if self.paged:
-            self._build_paged_front()
-        else:
-            self._build_contiguous_front()
+        with self._front_lock:
+            if self.bucketed is not None:
+                return
+            if self.paged:
+                self._build_paged_front()
+            else:
+                self._build_contiguous_front()
+
+    def _compiler(self):
+        from ..core import ForgeCompiler
+
+        return ForgeCompiler(impl=self.impl, backend=self.backend, cache=self.compile_cache)
 
     def _build_contiguous_front(self) -> None:
         """The decode front (one program per batch bucket, slot signature
@@ -195,7 +253,7 @@ class BatchedServer:
         front ``(params, cache, tokens(B,S), pos, mask(B,)[, length(B,)])``
         with a scalar start position; only tokens carry the sequence
         axis — the cache is ``max_len``-resident on both sides."""
-        from ..core import ForgeCompiler, PolyAxis
+        from ..core import PolyAxis
         from ..core.shapekey import infer_poly_axes
         from .steps import make_slot_prefill_step, make_slot_serve_step
 
@@ -205,7 +263,11 @@ class BatchedServer:
         cache_axes = infer_poly_axes(
             lambda b: self.model.init_cache(self.cfg, b, self.max_len, device="meta"))
         self.cache_axes = cache_axes
-        compiler = ForgeCompiler(impl=self.impl, backend=self.backend)
+        # the pool's reset template, read here once (it syncs the device)
+        row = self.model.init_cache(self.cfg, 1, self.max_len, device=self.device)
+        self._init_leaves = [leaf if bool(leaf.any()) else None
+                             for leaf in pytree.tree_leaves(row)]
+        compiler = self._compiler()
         pstep = make_slot_prefill_step(self.cfg, impl=self.impl)
         b_in, s_in = (None, cache_axes, 0, None, 0), (None, None, 1, None, None)
         if self.model.prefill_takes_length:
@@ -217,14 +279,18 @@ class BatchedServer:
         prime = self.cfg.family == "dense" and self.cfg.fuse == "forge"
         self.prefill_bucketed = compiler.compile_bucketed(
             pstep,
-            axes=(PolyAxis(in_axes=b_in, policy=self.bucket_policy, label="B"),
-                  PolyAxis(in_axes=s_in, policy=self.seq_bucket_policy, label="S")),
-            prime=prime, static_argnums=(0,),
+            axes=(PolyAxis(in_axes=b_in, out_axes=(0, cache_axes),
+                           policy=self.bucket_policy, label="B"),
+                  PolyAxis(in_axes=s_in, out_axes=(1, None),
+                           policy=self.seq_bucket_policy, label="S")),
+            prime=prime, static_argnums=(0,), async_compile=self.async_compile,
+            service=self.compile_service,
         )
         self.bucketed = compiler.compile_bucketed(
             make_slot_serve_step(self.cfg, impl=self.impl),
-            in_axes=(None, cache_axes, 0, 0, 0), policy=self.bucket_policy, prime=prime,
-            static_argnums=(0,),
+            in_axes=(None, cache_axes, 0, 0, 0), out_axes=(0, cache_axes),
+            policy=self.bucket_policy, prime=prime, static_argnums=(0,),
+            async_compile=self.async_compile, service=self.compile_service,
         )
 
     def _build_paged_front(self) -> None:
@@ -236,7 +302,7 @@ class BatchedServer:
         mask are bucket-shaped, which makes swap-in and rung resizes
         O(table): the pages never move.
         """
-        from ..core import ForgeCompiler, PolyAxis
+        from ..core import PolyAxis
         from ..core.paging import PagePool, PrefixTree
         from ..models.transformer import paged_body_compiled
         from .steps import dealias_tree, make_paged_prefill_step, make_paged_serve_step
@@ -250,7 +316,7 @@ class BatchedServer:
                                            page_size=ps, device=self.device)
         self.page_store = dealias_tree({"k_pages": full["k_pages"],
                                         "v_pages": full["v_pages"]})
-        compiler = ForgeCompiler(impl=self.impl, backend=self.backend)
+        compiler = self._compiler()
         # Forge-compiled block bodies compile at their first call, which
         # cannot happen inside the front's capture: prime each cell first
         prime = paged_body_compiled(self.cfg)
@@ -260,35 +326,139 @@ class BatchedServer:
         self.prefill_bucketed = compiler.compile_bucketed(
             make_paged_prefill_step(self.cfg, impl=self.impl),
             axes=(
-                PolyAxis(in_axes=(None, None, 0, 0, 0, 0), policy=self.bucket_policy,
-                         label="B"),
-                PolyAxis(in_axes=(None, None, None, 1, None, None),
+                PolyAxis(in_axes=(None, None, 0, 0, 0, 0), out_axes=(0, None),
+                         policy=self.bucket_policy, label="B"),
+                PolyAxis(in_axes=(None, None, None, 1, None, None), out_axes=(1, None),
                          policy=self.seq_bucket_policy, label="S"),
             ),
-            prime=prime, static_argnums=(0,),
+            prime=prime, static_argnums=(0,), async_compile=self.async_compile,
+            service=self.compile_service,
         )
         self.bucketed = compiler.compile_bucketed(
             make_paged_serve_step(self.cfg, impl=self.impl),
-            in_axes=(None, None, 0, 0, 0, 0), policy=self.bucket_policy, prime=prime,
-            static_argnums=(0,),
+            in_axes=(None, None, 0, 0, 0, 0), out_axes=(0, None), policy=self.bucket_policy,
+            prime=prime, static_argnums=(0,), async_compile=self.async_compile,
+            service=self.compile_service,
         )
 
     def _bucket_extent(self, B: int) -> int:
-        """Decode bucket extent of a batch size (its program compiles at
-        the first dispatch)."""
-        self._ensure_bucketed()
-        return self.bucketed.policy.bucket(B)
+        """Decode bucket extent of a batch size.
 
-    def _seq_bucket_extent(self, P: int) -> Optional[int]:
+        Inline: the policy's bucket (its program compiles at the first
+        dispatch).  Async: the bucket when its program is warm; otherwise
+        the bucket goes to the compile service and the smallest warm
+        bucket that dominates ``B`` serves the group padded up — the call
+        blocks only when no warm bucket can hold the batch."""
+        self._ensure_bucketed()
+        exact = self.bucketed.policy.bucket(B)
+        if not self.async_compile:
+            return exact
+        return self._async_extent(exact)
+
+    def _async_extent(self, exact: int) -> int:
+        """Warm-fallback extent selection of the decode front."""
+        front = self.bucketed
+        key = front.key_for_extents(exact)
+        if front.lookup_program(key) is not None:
+            return exact
+        fut = front.submit_key(key, args_fn=lambda e=exact: self._decode_example_args(e),
+                               foreground=True)
+        warm = front.nearest_warm(exact)
+        if warm is not None:
+            # fallback premium: the extra padded rows over the exact rung
+            front.stats.note_fallback(warm.extents[0] - exact)
+            return warm.extents[0]
+        # nothing dominates: the very first program must block
+        t0 = time.perf_counter()
+        self.compile_service.result(fut)
+        front.stats.note_wait(time.perf_counter() - t0)
+        return exact
+
+    def _decode_example_args(self, extent: int):
+        """Bucket-shaped example arguments of a background decode compile,
+        built in the service worker (``submit_key(args_fn=...)``) so that
+        submission stays cheap; the throwaway cache is never served."""
+        if self.paged:
+            return (self.params, self.page_store) + self._paged_args(extent, 1)
+        tok = torch.zeros((extent, 1), dtype=torch.int32, device=self.device)
+        return (self.params, self._build_cache(extent)) + self._decode_args(extent, tok, 0)
+
+    def _prefill_example_args(self, extent: int, s_ext: int):
+        """Example arguments of a background (extent x s_ext) cell compile."""
+        if self.paged:
+            return (self.params, self.page_store) + self._paged_args(extent, s_ext)
+        tokens = torch.zeros((extent, s_ext), dtype=torch.int32, device=self.device)
+        return (self.params, self._build_cache(extent)) + self._prefill_args(extent, tokens, 0)
+
+    def _seq_bucket_extent(self, P: int, extent: Optional[int] = None) -> Optional[int]:
         """Sequence bucket of a prompt length, or None when the ladder
-        rejects it or the bucket would not fit ``max_len``."""
+        rejects it or the bucket would not fit ``max_len``.
+
+        Async, with the batch ``extent`` known: a cold cell goes to the
+        compile service and the smallest warm cell at the same batch
+        extent with ``s' >= s`` serves the prompt edge-padded further
+        right; with no such cell the result is None (the prompt takes the
+        sequential path — the decode program is warm, so nothing stalls).
+        """
         if self.prefill_bucketed is None:
             return None
         try:
             s = self.prefill_bucketed.axes[1].policy.bucket(P)
         except ValueError:
             return None
-        return s if s <= self.max_len else None
+        if s > self.max_len:
+            return None
+        if not self.async_compile or extent is None:
+            return s
+        return self._async_cell_extent(extent, s)
+
+    def _async_cell_extent(self, extent: int, s_ext: int) -> Optional[int]:
+        """Warm-fallback sequence extent at a fixed batch extent."""
+        front = self.prefill_bucketed
+        key = front.key_for_extents((extent, s_ext))
+        if front.lookup_program(key) is not None:
+            return s_ext
+        front.submit_key(key, args_fn=lambda e=extent, s=s_ext: self._prefill_example_args(e, s),
+                         foreground=True)
+        # the batch extent is pinned by the decode bucket (the cache is
+        # built at it), so only same-extent cells are legal pad targets
+        best = None
+        for k in front.warm_keys():
+            e, s = k.extents
+            if e == extent and s_ext <= s <= self.max_len and (best is None or s < best):
+                best = s
+        if best is not None:
+            front.stats.note_fallback(extent * (best - s_ext))
+        return best
+
+    # -- the contiguous cache's buffer pool -------------------------------
+
+    def _cache_reset(self, cache):
+        """Reset a pooled cache to its init values in place (the
+        counterpart of the JAX server's donating zero-fill): ``zero_()``
+        where the init is zeros, else a broadcast copy of a one-row init
+        cache (xLSTM's stabilizer starts at -1e30)."""
+        for leaf, ini in zip(pytree.tree_leaves(cache), self._init_leaves):
+            if ini is None:
+                leaf.zero_()
+            else:
+                leaf.copy_(ini)
+        return cache
+
+    def _acquire_cache(self, extent: int):
+        """A bucket-extent contiguous cache: pooled on the forge fronts
+        (keyed by the bare extent — ``compiler.bucket_pool_key`` of a 1-D
+        ShapeKey — so ``BucketedModule.evict_cold`` releases what this
+        parks), fresh otherwise."""
+        if self.bucketed is None or self.paged:
+            return self._build_cache(extent)
+        return self.bucketed.pool.acquire(extent, lambda: self._build_cache(extent),
+                                          reset=self._cache_reset)
+
+    def _release_cache(self, extent: int, cache) -> None:
+        """Park a finished generation's cache for the next admission."""
+        if self.bucketed is not None and not self.paged and cache is not None:
+            self.bucketed.pool.release(extent, cache)
 
     def _decode_args(self, extent: int, tok: torch.Tensor, pos: int):
         """The decode program's argument tail for group admission: the
@@ -334,49 +504,77 @@ class BatchedServer:
         seconds spent.  Each program's compile time is in
         ``stats.per_bucket_compile_s`` of its front.
 
-        Contiguous fronts run each program once on a throwaway cache.
-        Paged fronts use all-false slot masks and trash-only page tables,
-        which route every throwaway write to the trash page, so the
-        warmed store and the pool state are untouched.
+        Contiguous fronts run each program once on a throwaway cache, then
+        park it in the pool (the first served admission per bucket is a
+        pool hit).  Paged fronts use all-false slot masks and trash-only
+        page tables, which route every throwaway write to the trash page,
+        so the warmed store and the pool state are untouched.
+
+        Async: every program is first queued on the compile service
+        (speculative priority) and the call waits for the workers; the
+        loop below then only runs the warm programs.
         """
         if self.mode != "forge":
             return 0.0
         self._ensure_bucketed()
         t0 = time.perf_counter()
-        store = self.page_store
         extents = sorted({self.bucketed.policy.bucket(int(B)) for B in batch_sizes})
-        for extent in extents:
-            if self.paged:
-                args = (store,) + self._paged_args(extent, 1)
-            else:
-                tok = torch.zeros((extent, 1), dtype=torch.int32, device=self.device)
-                args = (self._build_cache(extent),) + self._decode_args(extent, tok, 0)
-            mod, key, _ = self.bucketed.program_for(self.params, *args)
-            _, out_state = mod(self.params, *args)
-            if self.paged:
-                store = out_state
-            # throwaway rows are all padding: none are served requests
-            self.bucketed.stats.note_dispatch(key, 0, extent)
-            self.forge_module = mod
         # a contiguous server under prefill="sequential" prefills through
         # the decode program only (the JAX server builds no prefill front)
         lens = () if not self.paged and self.prefill_policy == "sequential" else prompt_lens
         cells = sorted({(e, s) for e in extents for s in map(self._seq_bucket_extent, lens or ())
                         if s is not None})
+        if self.async_compile:
+            self._submit_warmup(extents, cells)
+        store = self.page_store
+        for extent in extents:
+            if self.paged:
+                args = (store,) + self._paged_args(extent, 1)
+            else:
+                tok = torch.zeros((extent, 1), dtype=torch.int32, device=self.device)
+                args = (self._acquire_cache(extent),) + self._decode_args(extent, tok, 0)
+            mod, key, _ = self.bucketed.program_for(self.params, *args)
+            _, out_state = mod(self.params, *args)
+            if self.paged:
+                store = out_state
+            else:
+                self._release_cache(extent, out_state)
+            # throwaway rows are all padding: none are served requests
+            self.bucketed.stats.note_dispatch(key, 0, extent)
+            self.forge_module = mod
         for extent, s_ext in cells:
             if self.paged:
                 pargs = (store,) + self._paged_args(extent, s_ext)
             else:
                 tokens = torch.zeros((extent, s_ext), dtype=torch.int32, device=self.device)
-                pargs = (self._build_cache(extent),) + self._prefill_args(extent, tokens, 0)
+                pargs = (self._acquire_cache(extent),) + self._prefill_args(extent, tokens, 0)
             pmod, pkey, _ = self.prefill_bucketed.program_for(self.params, *pargs)
             _, out_state = pmod(self.params, *pargs)
             if self.paged:
                 store = out_state
+            else:
+                self._release_cache(extent, out_state)
             self.prefill_bucketed.stats.note_dispatch(pkey, (0, 0), pkey.extents)
         self.page_store = store
         _sync(self.device)
         return time.perf_counter() - t0
+
+    def _submit_warmup(self, extents: Sequence[int], cells: Sequence[Any]) -> None:
+        """Queue every decode bucket and prefill cell on the compile
+        service at speculative priority (a foreground request finding a
+        cold bucket meanwhile jumps the queue) and wait for the workers.
+        Against a populated ``cache_dir`` the workers replay disk entries
+        instead of full builds."""
+        front, pf = self.bucketed, self.prefill_bucketed
+        for extent in extents:
+            front.submit_key(front.key_for_extents(extent),
+                             args_fn=lambda e=extent: self._decode_example_args(e),
+                             foreground=False)
+        for extent, s_ext in cells:
+            pf.submit_key(pf.key_for_extents((extent, s_ext)),
+                          args_fn=lambda e=extent, s=s_ext: self._prefill_example_args(e, s),
+                          foreground=False)
+        self.compile_service.wait_idle()
 
     # -- group serving (mode="eager" and the contiguous forge fronts) -----
 
@@ -397,9 +595,11 @@ class BatchedServer:
         self._check_prompts(prompts)
         B, P = prompts.shape
         if self.mode == "forge":
+            # the batch extent first: in async mode the sequence cell's
+            # probe needs the batch rung the group runs on
             extent = self._bucket_extent(B)
             s_ext = (None if self.prefill_policy == "sequential"
-                     else self._seq_bucket_extent(P))
+                     else self._seq_bucket_extent(P, extent=extent))
             if s_ext is not None:
                 return self._prefill_batched(prompts, s_ext, extent)
             return self._prefill_sequential(prompts, extent)
@@ -434,7 +634,7 @@ class BatchedServer:
         column's logits."""
         B, P = prompts.shape
         prompts_b = np.pad(prompts, ((0, extent - B), (0, s_ext - P)), mode="edge")
-        cache = self._build_cache(extent)
+        cache = self._acquire_cache(extent)
         tokens = torch.as_tensor(prompts_b, dtype=torch.int32, device=self.device)
         pargs = self._prefill_args(extent, tokens, 0,
                                    lengths=np.full((extent,), P, np.int32))
@@ -453,7 +653,7 @@ class BatchedServer:
         B, P = prompts.shape
         prompts_b = np.pad(prompts, ((0, extent - B), (0, 0)), mode="edge")
         tokens = torch.as_tensor(prompts_b, dtype=torch.int32, device=self.device)
-        cache = self._build_cache(extent)
+        cache = self._acquire_cache(extent)
         mod, key, _ = self.bucketed.program_for(self.params, cache,
                                                 *self._decode_args(extent, tokens[:, :1], 0))
         self.forge_module = mod
@@ -483,14 +683,20 @@ class BatchedServer:
         t_prefill = time.perf_counter() - t0
         out: List[torch.Tensor] = [tok]
         lat: List[float] = []
-        for i in range(n_new - 1):
-            t1 = time.perf_counter()
-            tok, cache = step(self.params, cache, tok, pos0 + i)
-            _sync(self.device)
-            lat.append(time.perf_counter() - t1)
-            out.append(tok)
+        try:
+            for i in range(n_new - 1):
+                t1 = time.perf_counter()
+                tok, cache = step(self.params, cache, tok, pos0 + i)
+                _sync(self.device)
+                lat.append(time.perf_counter() - t1)
+                out.append(tok)
+                if key is not None:
+                    self.bucketed.stats.note_dispatch(key, B, tok.shape[0])
+        finally:
+            # park the bucket-sized cache even after a failed step: the
+            # reset at its next acquisition makes any state reusable
             if key is not None:
-                self.bucketed.stats.note_dispatch(key, B, tok.shape[0])
+                self._release_cache(key.extent, cache)
         # slice the bucket's padded rows off the emitted token stream
         toks = torch.cat(out, dim=1)[:B].cpu().numpy().astype(np.int32)
         lat_ms = np.asarray(lat) * 1e3
@@ -604,11 +810,16 @@ class SlotScheduler:
     Phase 1-4 compiles.  The clock is the decode-dispatch counter
     (``tick``); ``Request.arrival`` is in ticks.
 
+    Async compile (``BatchedServer(async_compile=True)``): a cold rung
+    compiles in the background while the tick runs on a warm rung
+    (:meth:`_target_rung`, counted in ``warm_fallbacks``).  The contiguous
+    cache of each rung comes from and returns to the decode front's
+    buffer pool.
+
     The JAX scheduler's SLO deadlines and preemption, fault injection,
-    watchdog, dispatch retries, async compile, ladder re-fit and the
-    contiguous cache's buffer pool are not ported; with no budgets set its
-    EDF order is arrival order, which this scheduler keeps, so both give
-    the same schedule.
+    watchdog, dispatch retries and ladder re-fit are not ported; with no
+    budgets set its EDF order is arrival order, which this scheduler
+    keeps, so both give the same schedule.
     """
 
     def __init__(self, server: BatchedServer, max_slots: int = 16):
@@ -645,6 +856,9 @@ class SlotScheduler:
             "requests_failed": 0,
             #: slot rows quarantined by the non-finite logits tripwire
             "rows_quarantined": 0,
+            #: boundaries that ran a warm rung while the exact rung
+            #: compiled in the background (async compile)
+            "warm_fallbacks": 0,
         }
 
     def rungs(self) -> List[int]:
@@ -656,12 +870,50 @@ class SlotScheduler:
         """Precompile every reachable rung (and prefill grid cells)."""
         return self.server.warmup(self.rungs(), prompt_lens=prompt_lens)
 
+    def _target_rung(self, exact: int) -> int:
+        """Rung selection at a scheduling boundary.
+
+        Inline: the exact rung (resolving its program compiles it at the
+        boundary, stalling the tick).  Async: a cold exact rung compiles
+        in the background while this tick runs on the smallest warm rung
+        that dominates it; once the exact program lands, a later boundary
+        picks it.  When no warm rung dominates (growth past the warm top)
+        the tick serves what fits in the largest warm rung — the excess
+        requests stay queued — and only the very first rung, with nothing
+        warm at all, blocks.
+        """
+        srv = self.server
+        if not srv.async_compile:
+            return exact
+        front = srv.bucketed
+        key = front.key_for_extents(exact)
+        if front.lookup_program(key) is not None:
+            return exact
+        fut = front.submit_key(key, args_fn=lambda e=exact: srv._decode_example_args(e),
+                               foreground=True)
+        warm = [k.extents[0] for k in front.warm_keys()]
+        dominating = [w for w in warm if w >= exact]
+        if dominating:
+            target = min(dominating)
+            front.stats.note_fallback(target - exact)
+        elif warm:
+            # capacity-capped: no pad premium, the rung is smaller
+            target = max(warm)
+            front.stats.note_fallback(0)
+        else:
+            t0 = time.perf_counter()
+            srv.compile_service.result(fut)
+            front.stats.note_wait(time.perf_counter() - t0)
+            return exact
+        self.metrics["warm_fallbacks"] += 1
+        return target
+
     def _gather_rows(self, old_cache, new_cache, src_rows: List[int]):
         """Move the active slots' contiguous cache rows into the new
         bucket's cache: row ``src_rows[j]`` of every batch-polymorphic leaf
         lands in row ``j``; the other rows keep the new cache's init
-        values.  The new cache was just built for this resize, so the copy
-        writes into it in place."""
+        values.  The new cache was just acquired for this resize (built or
+        reset), so the copy writes into it in place."""
         srv = self.server
         flat_old, _ = pytree.tree_flatten(old_cache)
         flat_new, spec = pytree.tree_flatten(new_cache)
@@ -873,7 +1125,7 @@ class SlotScheduler:
             want = min(active + len(queue), self.max_slots)
             t_tick = time.perf_counter()
             if want > 0:
-                target = srv.bucketed.policy.bucket(want)
+                target = self._target_rung(srv.bucketed.policy.bucket(want))
                 if target != extent or (queue and any(s is None for s in slots)):
                     # a boundary: sync the pending token columns before
                     # slot rows move or dev_args is rebuilt from host state
@@ -890,11 +1142,12 @@ class SlotScheduler:
                         if extent > 0:
                             self.metrics["resizes"] += 1
                     else:
-                        new_cache = srv._build_cache(target)
+                        new_cache = srv._acquire_cache(target)
                         if keep and cache is not None:
                             new_cache = self._gather_rows(cache, new_cache,
                                                           [i for i, _ in keep])
                         if cache is not None:
+                            srv._release_cache(extent, cache)
                             self.metrics["resizes"] += 1
                         cache = new_cache
                     new_tok = np.zeros((target, 1), np.int32)
@@ -1043,6 +1296,8 @@ class SlotScheduler:
             # the store is server-resident: the next run (and the prefix
             # tree's cached pages) continue from it
             srv.page_store = cache
+        else:
+            srv._release_cache(extent, cache)
         compiles = stats.compiles + srv.prefill_bucketed.stats.compiles - compiles0
         m = self.metrics
         cap = max(m["capacity_row_steps"], 1)
@@ -1106,7 +1361,7 @@ class SlotScheduler:
             cache = self._reset_rows(cache, admitted, extent)
         Ps = [len(slots[i].req.prompt) for i in admitted]
         s_ext = (None if srv.prefill_policy == "sequential"
-                 else srv._seq_bucket_extent(max(Ps)))
+                 else srv._seq_bucket_extent(max(Ps), extent=extent))
         if s_ext is None:
             return cache
         tokens = np.zeros((extent, s_ext), np.int32)
@@ -1206,7 +1461,10 @@ class SlotScheduler:
         if not live:
             return store
         Ls = [len(slots[i].req.prompt) - slots[i].skip for i in live]
-        s_ext = srv._seq_bucket_extent(max(Ls))
+        # the paged port prefills by grid only: with no warm cell (async),
+        # the exact cell compiles at this admission
+        s_ext = (srv._seq_bucket_extent(max(Ls), extent=extent)
+                 or srv._seq_bucket_extent(max(Ls)))
         tokens = np.zeros((extent, s_ext), np.int32)
         mask = np.zeros((extent,), bool)
         pos_np = np.zeros((extent,), np.int32)
@@ -1258,7 +1516,43 @@ class SlotScheduler:
                 f"occupancy={m['occupied_row_steps'] / cap:.1%} "
                 f"pad_decode={1 - m['occupied_row_steps'] / cap:.1%} "
                 f"swaps={m['swaps']} resizes={m['resizes']} "
-                f"prefills={m['prefill_dispatches']} deferrals={m['deferrals']}")
+                f"prefills={m['prefill_dispatches']} deferrals={m['deferrals']}"
+                + (f" warm_fallbacks={m['warm_fallbacks']}" if self.server.async_compile else ""))
+
+
+def _compile_epilogue(server: BatchedServer, args) -> int:
+    """CLI report of the async and persistent compile tiers, and the
+    restart-replay gate (``--assert-no-builds``)."""
+    rc = 0
+    if server.compile_cache is not None:
+        from ..core import get_compile_cache
+
+        cs = server.compile_cache.stats
+        ds = server.compile_cache.store.stats
+        g = get_compile_cache().stats
+        # bucket-front builds + the forge block bodies that compile through
+        # the process-global cache (same disk tier): every full Phase-4 build
+        builds = cs.misses + g.misses
+        print(f"[serve] disk cache: builds={builds} disk_hits={cs.disk_hits + g.disk_hits} "
+              f"mem_hits={cs.hits} writes={ds.writes} corrupt={ds.corrupt} "
+              f"bytes_written={ds.bytes_written}")
+        if args.assert_no_builds and builds > 0:
+            print(f"[serve] ASSERT FAILED: {builds} full builds ran against "
+                  f"--cache-dir={args.cache_dir} (expected a pure disk replay)")
+            rc = 1
+    if server.compile_service is not None:
+        ss = server.compile_service.stats.snapshot()
+        extra = ""
+        if server.bucketed is not None:
+            bs = server.bucketed.stats
+            extra = (f" wait_s={bs.compile_wait_s:.2f} bg_s={bs.compile_background_s:.2f} "
+                     f"fallbacks={bs.fallback_calls}(+{bs.fallback_cells_padded} cells)")
+        print(f"[serve] compile service: submitted={ss['submitted']} "
+              f"completed={ss['completed']} dedup={ss['dedup_hits']} "
+              f"promoted={ss['promoted']} failed={ss['failed']} "
+              f"busy_s={ss['busy_s']:.2f}" + extra)
+        server.compile_service.shutdown()
+    return rc
 
 
 def main(argv=None) -> int:
@@ -1283,6 +1577,12 @@ def main(argv=None) -> int:
                     help="prefill strategy of the contiguous --mode forge fronts: auto / "
                          "batched = whole-prompt (the chunked state scan for the "
                          "recurrent family), sequential = token-at-a-time baseline")
+    ap.add_argument("--sweep", default=None,
+                    help="comma-separated batch sizes to serve as a workload sweep, e.g. "
+                         "1,2,3,5,8,13 (default: --batch)")
+    ap.add_argument("--prompt-sweep", default=None,
+                    help="comma-separated prompt lengths to cross with --sweep, e.g. "
+                         "17,32,48,100 (default: --prompt-len)")
     ap.add_argument("--continuous", type=int, default=0, metavar="N",
                     help="serve N mixed-length requests through the slot scheduler "
                          "(--mode forge; over the paged KV pool with --paged, else over "
@@ -1301,6 +1601,18 @@ def main(argv=None) -> int:
                     help="paged attend implementation (--paged): ref = page gather + "
                          "unfused sdpa, pallas = the hand-written paged-attention "
                          "kernel (its plain version on the CPU)")
+    ap.add_argument("--async-compile", action="store_true",
+                    help="compile cold buckets on a background worker pool; dispatches "
+                         "pad into the nearest warm dominating bucket instead of "
+                         "blocking (--mode forge)")
+    ap.add_argument("--compile-workers", type=int, default=2,
+                    help="background compile worker threads (--async-compile)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="persistent on-disk compile cache: the programs' Phase-4 "
+                         "analysis replays across process restarts (--mode forge)")
+    ap.add_argument("--assert-no-builds", action="store_true",
+                    help="exit nonzero if any full build ran (compile-cache misses > 0): "
+                         "the restart-replay gate against a populated --cache-dir")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a CUDA device) or cpu")
@@ -1311,14 +1623,26 @@ def main(argv=None) -> int:
     if args.paged and not args.continuous:
         ap.error("--paged needs --continuous N: the paged KV pool is served through the "
                  "slot scheduler (the contiguous fronts also serve groups)")
+    if (args.async_compile or args.cache_dir) and args.mode != "forge":
+        ap.error("--async-compile / --cache-dir need --mode forge "
+                 "(they act on the bucketed fronts)")
+    if args.assert_no_builds and not args.cache_dir:
+        ap.error("--assert-no-builds needs --cache-dir (it gates the restart-replay path)")
+    try:
+        sweep = [int(x) for x in args.sweep.split(",")] if args.sweep else [args.batch]
+        prompt_sweep = ([int(x) for x in args.prompt_sweep.split(",")] if args.prompt_sweep
+                        else [args.prompt_len])
+    except ValueError as e:
+        ap.error(f"--sweep / --prompt-sweep take comma-separated integers: {e}")
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.mode == "forge":
         from ..core.backends import get_backend
 
         try:  # fail fast, before paying model init
             get_backend(args.backend)
-            get_bucket_policy(args.bucket_policy).bucket(
-                args.max_slots if args.continuous else args.batch)
+            policy = get_bucket_policy(args.bucket_policy)
+            for B in ([args.max_slots] if args.continuous else sweep):
+                policy.bucket(B)  # admission bounds (e.g. ladder overflow)
             get_bucket_policy(args.seq_bucket_policy)
         except ValueError as e:
             ap.error(str(e))
@@ -1330,14 +1654,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(cfg, gen, device)
     rng = np.random.default_rng(args.seed)
+    compile_kw = dict(async_compile=args.async_compile, compile_workers=args.compile_workers,
+                      cache_dir=args.cache_dir)
 
     if args.continuous:
         server = BatchedServer(cfg, params, max_len=args.max_len, mode="forge",
                                backend=args.backend, bucket_policy=args.bucket_policy,
                                seq_bucket_policy=args.seq_bucket_policy, prefill=args.prefill,
                                paged=args.paged, kv_page_size=args.kv_page_size,
-                               kv_pages=args.kv_pages or None)
-        lens = sorted({max(2, args.prompt_len // (2 ** k)) for k in range(2)})
+                               kv_pages=args.kv_pages or None, **compile_kw)
+        lens = sorted({max(2, p // (2 ** k)) for p in prompt_sweep for k in range(2)})
         reqs = [
             Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab,
@@ -1368,27 +1694,39 @@ def main(argv=None) -> int:
               f"tick p50={res['tick_ms_p50']:.1f}ms p99={res['tick_ms_p99']:.1f}ms "
               + (f"kv_kernel={cfg.kv_kernel}" if args.paged else "cache=contiguous"))
         bad = [rid for rid, r in res["results"].items() if "error" in r]
+        rc = _compile_epilogue(server, args)
         if bad:
             raise SystemExit(f"requests failed: {bad}")
-        return 0
+        return rc
 
     server = BatchedServer(cfg, params, max_len=args.max_len, mode=args.mode,
                            backend=args.backend, bucket_policy=args.bucket_policy,
-                           seq_bucket_policy=args.seq_bucket_policy, prefill=args.prefill)
-    warmup_s = server.warmup([args.batch], [args.prompt_len])
-    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
-    res = server.generate(prompts, args.gen)
-    print(f"[serve] {cfg.name} batch={args.batch} prompt={args.prompt_len} "
-          f"ttft={res['ttft_s'] * 1e3:.1f}ms (prefill={res['prefill_mode']}) "
-          f"decode mean={res['decode_ms_mean']:.1f}ms p50={res['decode_ms_p50']:.1f} "
-          f"p99={res['decode_ms_p99']:.1f} ({res['tok_per_s']:.0f} tok/s steady-state) "
-          f"device={device}")
+                           seq_bucket_policy=args.seq_bucket_policy, prefill=args.prefill,
+                           **(compile_kw if args.mode == "forge" else {}))
+    warmup_s = server.warmup(sweep, prompt_sweep)
+    compile_after = 0.0
+    for B in sweep:
+        for P in prompt_sweep:
+            prompts = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
+            res = server.generate(prompts, args.gen)
+            compile_after += res["compile_s"]
+            print(f"[serve] {cfg.name} batch={B} prompt={P} "
+                  f"ttft={res['ttft_s'] * 1e3:.1f}ms (prefill={res['prefill_mode']}) "
+                  f"compile={res['compile_s']:.2f}s "
+                  f"decode mean={res['decode_ms_mean']:.1f}ms p50={res['decode_ms_p50']:.1f} "
+                  f"p99={res['decode_ms_p99']:.1f} ({res['tok_per_s']:.0f} tok/s "
+                  f"steady-state) device={device}")
+            if res["tokens"].shape != (B, args.gen):
+                raise SystemExit(f"unexpected token shape {res['tokens'].shape}")
     if args.mode == "forge":
+        from ..core.metrics import bucket_report
+
         print(f"[serve] decode programs={len(server.bucketed.programs)} "
               f"prefill programs={len(server.prefill_bucketed.programs)} "
-              f"warmup={warmup_s:.2f}s compile_s_after_warmup={res['compile_s']:.2f}")
-    if res["tokens"].shape != (args.batch, args.gen):
-        raise SystemExit(f"unexpected token shape {res['tokens'].shape}")
+              f"warmup={warmup_s:.2f}s compile_s_after_warmup={compile_after:.2f}")
+        print(f"[serve] decode {bucket_report(server.bucketed.stats)}")
+        print(f"[serve] prefill grid {bucket_report(server.prefill_bucketed.stats)}")
+        return _compile_epilogue(server, args)
     return 0
 
 

@@ -6,6 +6,14 @@ configuration, input structure, shapes, dtypes, devices) and returns the
 compiled module's callable; families call it when ``cfg.fuse == 'forge'``.
 ``torch.export`` specialises on shapes, so a new shape is a new compile,
 and two pipeline configurations never share a body.
+
+Bodies compile through the process-global compile cache
+(``core/cache.py``): identical layers share one Phase-4 build, and with
+a disk store attached (``BatchedServer(cache_dir=...)``) a restarted
+process replays them from disk.  Compile-service workers compile steps
+whose bodies compile at their first call, so a miss compiles under the
+compiler's process-wide build lock (``core.compiler.BUILD_LOCK``),
+which also guards ``_CACHE``; a hit is one dictionary read.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ def forge_body(
     if not enabled:
         return raw_fn
     from ..core import ForgeCompiler, PipelineConfig
+    from ..core.compiler import BUILD_LOCK
 
     config = config or PipelineConfig()
     if impl is not None:
@@ -54,15 +63,21 @@ def forge_body(
     key = f"{key_prefix}/{config!r}/{_shape_key(example_args)}"
     hit = _CACHE.get(key)
     if hit is None:
-        hit = ForgeCompiler(config).compile(raw_fn, *example_args)
-        _CACHE[key] = hit
+        with BUILD_LOCK:
+            hit = _CACHE.get(key)
+            if hit is None:
+                hit = ForgeCompiler(config).compile(raw_fn, *example_args)
+                _CACHE[key] = hit
     return hit.as_fn()
 
 
 def compiled_bodies() -> List[Any]:
     """The CompilationResult of every body compiled so far (transparency)."""
-    return [mod.result for mod in _CACHE.values()]
+    return [mod.result for mod in list(_CACHE.values())]
 
 
 def clear_cache() -> None:
-    _CACHE.clear()
+    from ..core.compiler import BUILD_LOCK
+
+    with BUILD_LOCK:
+        _CACHE.clear()

@@ -946,3 +946,158 @@ def test_folded_and_promoted_constants_survive_replays(cuda_device):
             torch.testing.assert_close(mod(x), f(x), **TOL_F32)
         assert [c.data_ptr() for c in mod.program.constants.values()] == ptrs
         assert mod.executor.captured
+
+
+# --------------------------------------------------------------------------
+# the compile cache and the compile service on the card
+# --------------------------------------------------------------------------
+
+
+def _linear_gelu(x, w, b):
+    return torch.nn.functional.gelu(x @ w + b)
+
+
+def _causal_attn(q, k, v):
+    """Causal attention written unfused: Phase 2 fuses it into
+    ``forge.sdpa`` (flash attention on the card)."""
+    S = q.shape[2]
+    s = torch.matmul(q, k.transpose(-2, -1)) * (1.0 / q.shape[-1] ** 0.5)
+    row = torch.arange(S, device=q.device).view(S, 1)
+    col = torch.arange(S, device=q.device).view(1, S)
+    s = torch.where(row >= col, s, torch.finfo(s.dtype).min)
+    return torch.matmul(torch.softmax(s, dim=-1), v)
+
+
+@pytest.mark.cuda
+def test_background_capture_while_replaying(cuda_device):
+    """A compile-service worker captures one program (flash attention) on
+    its own stream while the main thread replays another (fused linear)
+    and checks every result: the replays stay bitwise, the worker's
+    capture records only its own launches, and its program then replays
+    bitwise equal to its interpret twin."""
+    from repro_torch.core import CompileCache, CompileService, ForgeCompiler, PipelineConfig
+
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(64, 768, generator=g, device=cuda_device).bfloat16()
+    w = (torch.randn(768, 768, generator=g, device=cuda_device) / 28).bfloat16()
+    b = torch.randn(768, generator=g, device=cuda_device).bfloat16()
+    qkv = [torch.randn(2, 4, 256, 64, generator=g, device=cuda_device).bfloat16()
+           for _ in range(3)]
+    comp = ForgeCompiler(PipelineConfig(backend="segment_jit"), cache=CompileCache())
+    lin = comp.compile(_linear_gelu, x, w, b)
+    want = lin.with_backend("interpret")(x, w, b)
+    svc = CompileService(workers=1)
+    try:
+        fut = svc.submit("attn", lambda: comp.compile(_causal_attn, *qkv))
+        replays = 0
+        while not fut.done() or replays < 3:
+            assert torch.equal(lin(x, w, b), want)
+            replays += 1
+        attn = svc.result(fut, timeout=300.0)
+    finally:
+        svc.shutdown()
+    assert attn.executor.captured and replays >= 3
+    recorded = {i for graph_launches in attn.executor._replay[0] for i, _, _ in graph_launches[1]}
+    assert recorded == {FA.LAUNCHES.index}
+    assert torch.equal(attn(*qkv), attn.with_backend("interpret")(*qkv))
+
+
+@pytest.mark.cuda
+def test_evict_cold_frees_graph_pools(cuda_device):
+    """``evict_cold`` drops the evicted programs from the table and from
+    the compile cache: their CUDA graphs and pools are freed, so the
+    reserved memory falls."""
+    import gc
+
+    from repro_torch.core import CompileCache, ForgeCompiler, PipelineConfig
+
+    w = torch.randn(2048, 2048, device=cuda_device) / 45
+
+    def f(x, w):
+        return torch.tanh(x @ w) @ w
+
+    cache = CompileCache()
+    mod = ForgeCompiler(PipelineConfig(backend="segment_jit"), cache=cache).compile_bucketed(
+        f, in_axes=(0, None), policy="pow2", static_argnums=(1,))
+    for B in (2048, 4096, 8192):
+        mod(torch.randn(B, 2048, device=cuda_device), w)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    victims = mod.evict_cold(1)
+    assert len(victims) == 2 and len(cache) == 1 and cache.stats.coherence_drops == 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    # the two smaller programs' pools hold at least their outputs
+    assert before - after >= (2048 + 4096) * 2048 * 4, (before, after)
+    y = mod(torch.ones(3000, 2048, device=cuda_device), w)  # rebuilt on dispatch
+    assert mod.stats.compiles == 4 and y.shape == (3000, 2048)
+
+
+@pytest.mark.cuda
+def test_disk_replay_graphs_equal_fresh_build(cuda_device, tmp_path):
+    """A program rebuilt from a disk entry captures its graphs again; its
+    outputs equal a fresh build's bitwise, on the served forge-125m smoke
+    prefill cell."""
+    from repro_torch.core import CompileCache, DiskCacheStore
+
+    from repro_torch.core import get_compile_cache
+
+    cfg, p, _ = _smoke_server("forge-125m", cuda_device, "segment_jit")
+    store0 = get_compile_cache().store
+    outs = []
+    for cache_dir in (tmp_path, tmp_path, None):
+        srv = BatchedServer(cfg, p, max_len=32, mode="forge", backend="segment_jit",
+                            cache_dir=None if cache_dir is None else str(cache_dir))
+        if cache_dir is None:  # a fresh build: a private memory tier, no disk
+            srv.compile_cache = CompileCache()
+        srv._ensure_bucketed()
+        toks = torch.arange(32, device=cuda_device, dtype=torch.int32).view(2, 16) % cfg.vocab
+        args = (srv._build_cache(2),) + srv._prefill_args(2, toks, 0)
+        mod, _, _ = srv.prefill_bucketed.program_for(p, *args)
+        outs.append((mod.result, mod(p, *args)))
+        srv.compile_cache.clear()  # the next server starts from disk only
+    get_compile_cache().store = store0
+    (first, a), (replay, b), (fresh, c) = outs
+    assert not first.cache_hit and replay.cache_disk_hit and not fresh.cache_disk_hit
+    for x, y in ((a, b), (b, c)):
+        assert all(torch.equal(s, t) for s, t in zip(torch.utils._pytree.tree_leaves(x),
+                                                      torch.utils._pytree.tree_leaves(y)))
+    assert isinstance(DiskCacheStore(str(tmp_path)).load_entry(replay.cache_key), dict)
+
+
+@pytest.mark.cuda
+def test_captured_programs_keep_their_own_scratch(cuda_device):
+    """Two programs that run the multi-chunk RG-LRU scan (its flags and
+    epoch live in kernel scratch): a compile worker warm-runs and captures
+    the second while the main thread replays the first; every replay
+    equals the first output bitwise, the second program equals its
+    interpret twin, and each program's graphs hold scratch of their own."""
+    from repro_torch.core import CompileCache, CompileService, ForgeCompiler, PipelineConfig
+
+    x, a, h0 = _rg_inputs(cuda_device, torch.float32, 4, 128, 2560, True, seed=3)
+    assert RG.plan(4, 128, 2560)[0] > 1  # chunks with a chained look-back
+
+    def f(x, a, h0):
+        return ops.rg_lru(x, a, h0) * 2.0
+
+    def g(x, a, h0):
+        return ops.rg_lru(x, a, h0) + 1.0
+
+    comp = ForgeCompiler(PipelineConfig(backend="segment_jit"), cache=CompileCache())
+    pf = comp.compile(f, x, a, h0)
+    want = pf.with_backend("interpret")(x, a, h0)
+    svc = CompileService(workers=1)
+    try:
+        fut = svc.submit("g", lambda: comp.compile(g, x, a, h0))
+        replays = 0
+        while not fut.done() or replays < 3:
+            assert torch.equal(pf(x, a, h0), want)
+            replays += 1
+        pg = svc.result(fut, timeout=300.0)
+    finally:
+        svc.shutdown()
+    assert torch.equal(pg(x, a, h0), pg.with_backend("interpret")(x, a, h0))
+    scopes = {k[3] for k in _build._SCRATCH if k[0] == "rg_lru"}
+    assert {id(pf.executor), id(pg.executor)} <= scopes

@@ -154,6 +154,33 @@ Phases (any failure raises and the script exits non-zero):
    replays it from the disk tier, bitwise equal to its first program.
    Between phases the process-global compile cache is cleared: on the
    card its executors hold their CUDA graphs and pools.
+11. forge-125m at full width (bf16, ``segment_jit``, paged attention
+   kernel) through fault-tolerant and SLO-aware slot serving.  (a) The
+   JAX package's ``benchmarks/fault_recovery.py`` workload (16 requests,
+   every third sharing a 16-token prefix; max_len 32, pages of 8, 4
+   slots) served clean, then under ``FaultPlan(seed=11)`` (``page.alloc``
+   0.15 x3, ``dispatch`` 0.08 x3, ``logits.nan`` at call 4): the faults
+   fire, every failure is a typed per-request outcome, the survivors are
+   bitwise the clean run's, ``pool.check()`` passes every tick and no
+   page or slot leaks; faulted and clean tok/s.  One decode rung and one
+   prefill cell (``ladder:4``, ``ladder:32``): on the card a row's bits
+   depend on the cell's row count, and faults move requests between
+   admission waves.  (b) A dispatch fault before segment k > 0 of the
+   first decode dispatch: one in-tick retry, every token bitwise.  (c)
+   ``benchmarks/slo_serving.py``'s wall-clock workload (4 background
+   requests, 10 priority-2 Poisson bursts; max_len 64) with ``slo=False``
+   and ``slo=True``: TTFT p99 of each and their ratio, preemptions >= 1,
+   shed 0, every token bitwise across the runs, no compile; then the
+   hopeless row (budgets 1e-4 s, priority 0) sheds.  (d) Contiguous
+   preempt and resume on the contiguous fronts: tokens bitwise equal to
+   the FIFO run.  (e) A ladder re-fit on a shrinking batch: refits >= 1,
+   one program evicted and the memory it freed, tokens unchanged.  (f)
+   The serve CLI with ``--chaos page.alloc=0.2,dispatch=0.05
+   --chaos-seed 3`` exits 0 and prints its chaos line.  Launches exact:
+   fused linear and paged attention = each segment's kernel ops x the
+   times it ran (``segment_runs``; a call cut by a fault counts the
+   segments before the fault), flash and the scan 0; no compile or
+   capture in any counted run.
 
 In phases 5-9, one decode and one prefill dispatch of the served
 programs under ``segment_jit`` must be bitwise equal to the same lowered
@@ -3187,6 +3214,367 @@ def phase_compile_cost(dev):
     return {"async_serve": served_async, "bucketed_call": called}
 
 
+def fault_recovery_workload(vocab, n=16):
+    """The JAX package's benchmarks/fault_recovery.py workload: every
+    third request shares a 16-token prefix plus 4 tokens, the rest have
+    3-11 tokens; budgets 3 + 3i % 6; arrivals i // 3 (ticks)."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, vocab, (16,)).astype(np.int32)
+    reqs = []
+    for i in range(n):
+        if i % 3 == 0:
+            p = np.concatenate([shared, rng.integers(0, vocab, (4,)).astype(np.int32)])
+        else:
+            p = rng.integers(0, vocab, (3 + 2 * (i % 5),)).astype(np.int32)
+        reqs.append(Request(rid=i, prompt=p, max_new=3 + (3 * i) % 6, arrival=i // 3))
+    return reqs
+
+
+def slo_workload(vocab, burst_budget_s=30.0, burst_priority=2):
+    """The JAX package's benchmarks/slo_serving.py workload (wall clock):
+    4 priority-0 background requests at t=0 (8-token prompts, 40 new
+    tokens) and 10 bursts (4-token prompts, 3 new tokens) from t=0.02 s
+    at Poisson gaps of mean 12 ms, ``default_rng(23)``."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(23)
+    reqs = [Request(rid=i, prompt=rng.integers(0, vocab, (8,)).astype(np.int32), max_new=40,
+                    arrival_s=0.0, priority=0) for i in range(4)]
+    t = 0.02
+    for j in range(10):
+        t += float(rng.exponential(0.012))
+        reqs.append(Request(rid=100 + j, prompt=rng.integers(0, vocab, (4,)).astype(np.int32),
+                            max_new=3, arrival_s=t, priority=burst_priority,
+                            ttft_budget_s=burst_budget_s))
+    return reqs
+
+
+def segment_kernel_ops(ex):
+    """Per segment of a ``segment_jit`` executor: the fused-linear and
+    paged-attention launches one run of it makes, read off its RGIR ops
+    (a ``forge.swiglu`` counts two)."""
+    per = []
+    for seg in ex.segments:
+        fl = pa = 0
+        for op in ex.prog.ops[seg.start:seg.stop]:
+            name = op.opcode.split(".", 1)[1]
+            fl += {"forge.linear_act": 1, "forge.swiglu": 2,
+                   "repro_torch.fused_linear.default": 1}.get(name, 0)
+            pa += name == "repro_torch.paged_attention.default"
+        per.append((fl, pa))
+    return per
+
+
+def segment_runs(fronts):
+    """Every program's executor and its per-segment run counters
+    (``segment_runs``), by executor id."""
+    return {id(m.executor): (m.executor, list(m.executor.segment_runs))
+            for f in fronts for m in f.programs.values()}
+
+
+def launches_from_segments(fronts, runs0):
+    """(fused linear, paged attention) launches the segments that ran
+    since ``runs0`` make: each segment's kernel ops x its runs, a call cut
+    by a dispatch fault counting the segments before the fault; programs
+    evicted since ``runs0`` count too."""
+    fl = pa = 0
+    now = segment_runs(fronts)
+    for key in set(runs0) | set(now):
+        ex, base = runs0.get(key, (now.get(key, (None,))[0], None))
+        if base is None:
+            base = [0] * len(ex.segments)
+        for (f_n, p_n), r, r0 in zip(segment_kernel_ops(ex), ex.segment_runs, base):
+            fl += f_n * (r - r0)
+            pa += p_n * (r - r0)
+    return fl, pa
+
+
+def phase_faults_slo(dev):
+    """Phase 11: fault-tolerant and SLO-aware slot serving of forge-125m at
+    full width (bf16, segment_jit): (a) the fault_recovery soak, (b) a
+    dispatch fault inside a decode program, (c) SLO against FIFO in wall
+    mode and the hopeless row, (d) contiguous preempt and resume, (e) a
+    ladder re-fit, (f) the CLI's ``--chaos``.  Returns the launches of
+    each counted run."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.metrics import bucket_report
+    from repro_torch.launch.serve import BatchedServer, Request, SlotScheduler
+    from repro_torch.models import get_model
+    from repro_torch.runtime import chaos
+
+    t_phase = time.perf_counter()
+    release_device_memory()
+    cfg = get_config("forge-125m").with_(kv_kernel="pallas")  # bf16, 12 layers
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    out = {}
+
+    def counted(name, fronts, fn):
+        """``fn()`` with the counts zeroed just before and read just after;
+        fused linear and paged attention must equal what the segments
+        that ran make (faulted calls included), flash and the scan 0; no
+        compile and no capture in the run."""
+        runs0 = segment_runs(fronts)
+        compiles0, caps = sum(f.stats.compiles for f in fronts), captures_now()
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launched = counts()
+        want_fl, want_pa = launches_from_segments(fronts, runs0)
+        check(launched["fused_linear"] == want_fl and launched["paged_attention"] == want_pa,
+              f"{name}: launches {dict(launched)} != fused_linear {want_fl}, paged "
+              f"{want_pa} from the segments that ran")
+        check(launched["flash_attention"] == 0 and launched["rg_lru"] == 0,
+              f"{name}: flash / rg_lru launched: {dict(launched)}")
+        check(sum(f.stats.compiles for f in fronts) == compiles0 and captures_now() == caps,
+              f"{name}: compiled or captured after warmup")
+        out[name] = launched
+        return res
+
+    def paged_server(max_len, seq_policy, bucket_policy, lens, rungs):
+        srv = BatchedServer(cfg, params, max_len=max_len, mode="forge", paged=True,
+                            kv_page_size=8, bucket_policy=bucket_policy,
+                            seq_bucket_policy=seq_policy)
+        warm_graphs(f"paged max_len {max_len} {bucket_policy} / {seq_policy}",
+                    lambda: srv.warmup(rungs, lens))
+        return srv
+
+    def serve_with(srv, reqs, plan=None, **kw):
+        sched = SlotScheduler(srv, max_slots=4, **kw)
+        prev = chaos.install_plan(plan)
+        try:
+            return sched.run(reqs)
+        finally:
+            chaos.install_plan(prev)
+
+    def no_leaks(srv, what, n, res):
+        pool, tree = srv.page_pool, srv.prefix_tree
+        check(len(res["results"]) == n, f"{what}: {len(res['results'])} of {n} requests ended")
+        pool.check()
+        check(pool.parked_owners == 0, f"{what}: {pool.parked_owners} parked owners left")
+        tree.clear()
+        pool.check()
+        check(pool.pages_in_use == 1, f"{what}: {pool.pages_in_use - 1} pages leaked")
+
+    # -- (a) the fault_recovery soak, clean then faulted ----------------------
+    # one decode rung and one prefill cell: on the card a row's bits
+    # depend on the cell's row count (the fused-linear and cuBLAS plans
+    # change with M), and the faults move requests between admission
+    # waves, so survivors are bitwise only when every wave runs one cell
+    reqs = fault_recovery_workload(cfg.vocab)
+    srv = paged_server(32, "ladder:32", "ladder:4", [32], [4])
+    fronts = (srv.bucketed, srv.prefill_bucketed)
+    clean = counted("faults_clean", fronts, lambda: serve_with(srv, reqs))
+    bad = [rid for rid, r in clean["results"].items() if "error" in r]
+    check(not bad, f"clean run: requests failed {bad}")
+    no_leaks(srv, "clean run", len(reqs), clean)
+
+    def soak_plan():
+        return (chaos.FaultPlan(seed=11).arm(chaos.SITE_PAGE_ALLOC, rate=0.15, max_faults=3)
+                .arm(chaos.SITE_DISPATCH, rate=0.08, max_faults=3)
+                .arm(chaos.SITE_LOGITS_NAN, times=(4,)))
+
+    plan = soak_plan()
+    checks = {"n": 0}
+    check_fn = srv.page_pool.check
+
+    def counted_check():  # the scheduler calls pool.check() every tick
+        checks["n"] += 1
+        check_fn()
+
+    srv.page_pool.check = counted_check
+    try:
+        faulted = counted("faults_faulted", fronts, lambda: serve_with(srv, reqs, plan))
+    finally:
+        del srv.page_pool.check
+    failed = {rid: r for rid, r in faulted["results"].items() if "error" in r}
+    check(plan.faults_injected >= 1 and faulted["faults_injected"] == plan.faults_injected,
+          f"faults injected {plan.faults_injected}, run says {faulted['faults_injected']}")
+    check(all(r["error_type"] in ("RequestError", "SystemError") for r in failed.values()),
+          f"untyped failures {failed}")
+    check(checks["n"] >= faulted["decode_dispatches"],
+          f"pool.check ran {checks['n']} times over {faulted['decode_dispatches']} ticks")
+    diverged = [rid for rid, r in faulted["results"].items() if rid not in failed
+                and not np.array_equal(r["tokens"], clean["results"][rid]["tokens"])]
+    check(not diverged, f"survivors diverged from the clean run: {diverged}")
+    no_leaks(srv, "faulted run", len(reqs), faulted)
+    log(f"(a) fault_recovery soak, forge-125m bf16 paged (kv_kernel=pallas, max_len 32, "
+        f"pages of 8, 4 slots, rung 4, cell S32): clean {clean['tok_per_s']:.1f} tok/s "
+        f"({clean['real_tokens']} tokens, wall {clean['wall_s'] * 1e3:.2f} ms, tick p50 "
+        f"{clean['tick_ms_p50']:.3f} ms p99 {clean['tick_ms_p99']:.3f} ms); faulted "
+        f"{faulted['tok_per_s']:.1f} tok/s ({faulted['real_tokens']} tokens, wall "
+        f"{faulted['wall_s'] * 1e3:.2f} ms, ratio "
+        f"{faulted['tok_per_s'] / max(clean['tok_per_s'], 1e-9):.3f}); plan log {plan.log}; "
+        f"failed {sorted(failed)} ({[r['error_type'] for r in failed.values()]}), survivors "
+        f"{len(reqs) - len(failed)} bitwise equal to the clean run; rows_quarantined "
+        f"{faulted['rows_quarantined']}, dispatch_retries {faulted['dispatch_retries']}, "
+        f"tick_failures {faulted['tick_failures']}, ticks_degraded "
+        f"{faulted['ticks_degraded']}, admission_failures {faulted['admission_failures']}, "
+        f"deferrals {faulted['deferrals']}; pool.check() on {checks['n']} ticks; 0 pages "
+        f"and 0 slots leaked; launches clean {dict(out['faults_clean'])}, faulted "
+        f"{dict(out['faults_faulted'])}")
+    log(f"  faulted decode {bucket_report(srv.bucketed.stats)}")
+
+    # -- (b) a dispatch fault inside a decode program -------------------------
+    dec = srv.bucketed.programs[srv.bucketed.key_for_extents(4)]
+    pre = srv.prefill_bucketed.programs[srv.prefill_bucketed.key_for_extents((4, 32))]
+    n_d, n_p = len(dec.executor.segments), len(pre.executor.segments)
+    k = n_d // 2
+    # the first tick runs the prefill program, then the decode program:
+    # ordinal n_p + k is segment k of the first decode dispatch
+    mid = chaos.FaultPlan().arm(chaos.SITE_DISPATCH, times=(n_p + k,))
+    retried = counted("faults_mid_graph", fronts, lambda: serve_with(srv, reqs, mid))
+    check(mid.faults_injected == 1 and retried["dispatch_retries"] == 1
+          and retried["tick_failures"] == 0,
+          f"mid-graph fault: injected {mid.faults_injected}, retries "
+          f"{retried['dispatch_retries']}, tick failures {retried['tick_failures']}")
+    diverged = [rid for rid, r in retried["results"].items()
+                if "error" in r or not np.array_equal(r["tokens"], clean["results"][rid]["tokens"])]
+    check(not diverged, f"after the retried mid-graph fault, requests diverged: {diverged}")
+    no_leaks(srv, "mid-graph fault", len(reqs), retried)
+    log(f"(b) dispatch fault before segment {k} of {n_d} of the first decode dispatch "
+        f"(ordinal {n_p + k}, after the {n_p}-segment prefill): retried in the tick, "
+        f"{len(reqs)} requests bitwise equal to the clean run; launches "
+        f"{dict(out['faults_mid_graph'])} (segments that ran, the cut call's included)")
+    del srv, dec, pre, fronts
+    release_device_memory()
+
+    # -- (c) SLO against FIFO, wall clock; then the hopeless row --------------
+    reqs = slo_workload(cfg.vocab)
+    srv = paged_server(64, "ladder:8,16,32", "ladder:4", [4, 8], [4])
+    fronts = (srv.bucketed, srv.prefill_bucketed)
+    runs = {}
+    for slo in (False, True):
+        srv.prefix_tree.clear()
+        name = "slo" if slo else "slo_fifo"
+        runs[slo] = counted(name, fronts, lambda: serve_with(srv, reqs, slo=slo))
+        bad = [rid for rid, r in runs[slo]["results"].items() if "error" in r]
+        check(not bad, f"{name}: requests failed {bad}")
+    fifo, slo_res = runs[False], runs[True]
+    check(slo_res["preemptions"] >= 1 and slo_res["shed"] == 0 and fifo["preemptions"] == 0,
+          f"preemptions {slo_res['preemptions']} (FIFO {fifo['preemptions']}), shed "
+          f"{slo_res['shed']}")
+    diverged = [rid for rid, r in slo_res["results"].items()
+                if not np.array_equal(r["tokens"], fifo["results"][rid]["tokens"])]
+    check(not diverged, f"SLO against FIFO: requests diverged {diverged}")
+    no_leaks(srv, "SLO run", len(reqs), slo_res)
+    ratio = slo_res["ttft_p99_s"] / max(fifo["ttft_p99_s"], 1e-12)
+    log(f"(c) SLO against FIFO, forge-125m bf16 paged (max_len 64, pages of 8, 4 slots, wall "
+        f"clock, slo_serving workload): TTFT p99 {slo_res['ttft_p99_s'] * 1e3:.3f} ms against "
+        f"{fifo['ttft_p99_s'] * 1e3:.3f} ms (ratio {ratio:.4f}); TTFT p50 "
+        f"{slo_res['ttft_p50_s'] * 1e3:.3f} / {fifo['ttft_p50_s'] * 1e3:.3f} ms; latency p99 "
+        f"{slo_res['latency_p99_s'] * 1e3:.3f} / {fifo['latency_p99_s'] * 1e3:.3f} ms; tok/s "
+        f"{slo_res['tok_per_s']:.1f} / {fifo['tok_per_s']:.1f}; preemptions "
+        f"{slo_res['preemptions']}, resumes {slo_res['resumes']}, shed {slo_res['shed']}; "
+        f"{len(reqs)} requests bitwise equal across the two runs; 0 compiles after warmup; "
+        f"launches SLO {dict(out['slo'])}, FIFO {dict(out['slo_fifo'])}")
+    hopeless = slo_workload(cfg.vocab, burst_budget_s=1e-4, burst_priority=0)
+    srv.prefix_tree.clear()
+    shed = counted("slo_hopeless", fronts, lambda: serve_with(srv, hopeless))
+    errs = [r for r in shed["results"].values() if "error" in r]
+    check(shed["shed"] >= 1 and errs and all(r["error_type"] == "RequestError" for r in errs),
+          f"hopeless budgets: shed {shed['shed']}, errors {[r.get('error') for r in errs]}")
+    no_leaks(srv, "hopeless run", len(hopeless), shed)
+    log(f"(c) hopeless budgets (1e-4 s, priority 0): shed {shed['shed']} (shed_rate "
+        f"{shed['shed_rate']:.3f}), each a typed RequestError; {shed['real_tokens']} tokens")
+    del srv, fronts
+    release_device_memory()
+
+    # -- (d) contiguous preempt and resume (phase 8's fronts) -----------------
+    def bg_burst():
+        rng = np.random.default_rng(31)
+        r = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, (8,)).astype(np.int32),
+                     max_new=24) for i in range(4)]
+        r += [Request(rid=100 + j, prompt=rng.integers(0, cfg.vocab, (4,)).astype(np.int32),
+                      max_new=3, arrival=4 + j, priority=2) for j in range(2)]
+        return r
+
+    srv = BatchedServer(cfg, params, max_len=256, mode="forge", bucket_policy="ladder:4")
+    warm_graphs("contiguous ladder:4", lambda: srv.warmup([4], [8]))
+    fronts = (srv.bucketed, srv.prefill_bucketed)
+    cruns = {slo: counted("contig_slo" if slo else "contig_fifo", fronts,
+                          lambda: serve_with(srv, bg_burst(), slo=slo))
+             for slo in (False, True)}
+    check(cruns[True]["preemptions"] >= 1 and cruns[True]["resumes"] >= 1,
+          f"contiguous: preemptions {cruns[True]['preemptions']}")
+    diverged = [rid for rid, r in cruns[True]["results"].items()
+                if "error" in r or not np.array_equal(r["tokens"],
+                                                      cruns[False]["results"][rid]["tokens"])]
+    check(not diverged, f"contiguous resume: requests diverged {diverged}")
+    pool = srv.bucketed.pool
+    check(not any(isinstance(k, tuple) and k[:1] == ("parked",) and pool.pooled(k)
+                  for k in list(pool._free)), "a parked row was left in the pool")
+    log(f"(d) contiguous preempt and resume (max_len 256, rung 4, cell S16): preemptions "
+        f"{cruns[True]['preemptions']}, resumes {cruns[True]['resumes']}; every request "
+        f"bitwise equal to the FIFO run ({[rid for rid, r in cruns[True]['results'].items() if r['preempted']]} "
+        f"parked, their rows in the bucket pool across the replays in between); "
+        f"launches {dict(out['contig_slo'])}")
+    del srv, fronts
+    release_device_memory()
+
+    # -- (e) a ladder re-fit on a shrinking batch -----------------------------
+    def shrinking():
+        rng = np.random.default_rng(41)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, (6,)).astype(np.int32),
+                        max_new=m) for i, m in enumerate((12, 12, 3, 3))]
+
+    srv = paged_server(32, "ladder:8", "pow2", [6], [4])
+    srv.warmup([2])  # decode rung 2 only: every admission runs on rung 4
+    fronts = (srv.bucketed, srv.prefill_bucketed)
+    base = counted("refit_base", fronts, lambda: serve_with(srv, shrinking()))
+    srv.prefix_tree.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_reserved()
+    refit = counted("refit", fronts, lambda: serve_with(srv, shrinking(), refit_interval=4,
+                                                        refit_max_programs=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1 = torch.cuda.memory_reserved()
+    check(refit["refits"] >= 1 and refit["refit_evictions"] >= 1,
+          f"re-fit: refits {refit['refits']}, evictions {refit['refit_evictions']}")
+    diverged = [rid for rid, r in refit["results"].items()
+                if "error" in r or not np.array_equal(r["tokens"], base["results"][rid]["tokens"])]
+    check(not diverged, f"re-fit changed tokens of {diverged}")
+    log(f"(e) re-fit (refit_interval 4, refit_max_programs 1) on 4 requests whose batch "
+        f"shrinks 4 -> 2: refits {refit['refits']}, ladder now {srv.bucketed.policy.rungs} "
+        f"(name {srv.bucketed.policy.name!r}), evicted {refit['refit_evictions']} program(s), "
+        f"programs left {sorted(map(str, srv.bucketed.programs))}; memory_reserved "
+        f"{mem0 / 2**20:.1f} -> {mem1 / 2**20:.1f} MiB ({(mem0 - mem1) / 2**20:.1f} MiB freed); "
+        f"tokens bitwise equal to the run without re-fit")
+    del srv, fronts
+    release_device_memory()
+
+    # -- (f) the CLI's --chaos ------------------------------------------------
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "forge-125m",
+           "--mode", "forge", "--continuous", "12", "--paged", "--kv-kernel", "pallas",
+           "--max-slots", "4", "--prompt-len", "8", "--gen", "4", "--max-len", "32",
+           "--kv-page-size", "8", "--chaos", "page.alloc=0.2,dispatch=0.05",
+           "--chaos-seed", "3"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    chaos_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve] chaos:")]
+    check(proc.returncode == 0 and chaos_line,
+          f"the --chaos CLI exited {proc.returncode}: {proc.stdout[-2000:]} "
+          f"{proc.stderr[-2000:]}")
+    log(f"(f) CLI --continuous 12 --paged --chaos page.alloc=0.2,dispatch=0.05 --chaos-seed 3: "
+        f"exit 0 in {time.perf_counter() - t0:.1f} s; {chaos_line[0]}")
+    del params, model
+    release_device_memory()
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         log("FAIL: src/repro_torch is not beside this script; run it from the repository")
@@ -3224,6 +3612,7 @@ def main():
     launches.update(phase_dense_contiguous(dev))
     launches.update(phase_qwen(dev))
     launches.update(phase_compile_cost(dev))
+    launches.update(phase_faults_slo(dev))
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")

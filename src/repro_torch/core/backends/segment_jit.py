@@ -47,6 +47,13 @@ tensors by address, and no live-in is copied between segments.
 * Each segment records the kernel launches its capture met (the
   ``LAUNCHES`` counters), takes them back off and adds them at every
   replay, so the counters keep counting launches on the device.
+* The ``dispatch`` fault site (``runtime/chaos.py``) fires once per
+  segment, before it runs, on the CPU closures and before each replay
+  alike.  A call that faults after segment *k* has read the caller's
+  tensors only, and its outputs are not yet copied out, so the caller's
+  cache and page store are untouched and the call may be retried; the
+  launch counters keep the replays of the segments that ran, which
+  ``segment_runs`` counts per segment.
 
 Graphs of one program are replayed in order on the caller's current
 stream.  A program's warm run and captures take the kernels' scratch
@@ -90,6 +97,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 import torch
 
 from ...kernels import _build
+from ...runtime import chaos
 from ..bufalloc import allocate
 from ..executor import (AnalyzedProgram, ExecutorStats, PaddedExecutionMixin, analyze_program,
                         analyzed_from_persisted)
@@ -255,6 +263,10 @@ class SegmentExecutor(PaddedExecutionMixin):
                              f"for {n_in} inputs")
         self._input_names = (list(input_names) if input_names is not None
                              else [f"input {i}" for i in range(n_in)])
+        #: dispatches of each segment, counted as it runs (a call that
+        #: faulted after segment k counts segments 0..k-1): what the
+        #: kernels' launch counters must add up to
+        self.segment_runs: List[int] = [0] * len(self.segments)
         #: the card's replay state, made by prepare(): (graph, launches) per
         #: segment, the program's own input tensors, the parameters'
         #: addresses and the output tensors in the pool
@@ -278,14 +290,21 @@ class SegmentExecutor(PaddedExecutionMixin):
 
     # -- the plain path: the segments' closures over the buffer file ------
 
-    def _run_file(self, flat_inputs: Sequence[Any]) -> List[Any]:
+    def _run_file(self, flat_inputs: Sequence[Any], faults: bool = True) -> List[Any]:
+        """The segments' closures in order; ``faults`` consults the
+        ``dispatch`` site before each segment (a call's dispatch, not the
+        warm run of :meth:`prepare`)."""
         file: List[Any] = [None] * self.alloc.n_buffers
         for b, v in self._const_items:
             file[b] = v
         for b, v in zip(self._input_bufs, flat_inputs):
             file[b] = v
-        for fn, in_slots, free_slots, out_slots in self._plans:
+        for si, (fn, in_slots, free_slots, out_slots) in enumerate(self._plans):
+            if faults:
+                chaos.maybe_fault(chaos.SITE_DISPATCH)
             out_vals = fn(*[file[b] for b in in_slots])
+            if faults:
+                self.segment_runs[si] += 1
             # clear BEFORE the stores: a register dying inside this segment
             # may share its slot with a live-out born later in it
             for b in free_slots:
@@ -324,7 +343,7 @@ class SegmentExecutor(PaddedExecutionMixin):
         with torch.no_grad(), torch.cuda.stream(stream), _build.scratch_scope(id(self)):
             # warm run: the kernels' libraries, cuBLAS's handles and the
             # kernels' per-stream scratch exist before any capture
-            self._run_file(values)
+            self._run_file(values, faults=False)
             stream.synchronize()
             pool = torch.cuda.graph_pool_handle()
             file: List[Any] = [None] * self.alloc.n_buffers
@@ -442,8 +461,14 @@ class SegmentExecutor(PaddedExecutionMixin):
                                  f"{tuple(buf.shape)} {buf.dtype} on {buf.device}")
         if own:  # one multi-tensor copy, not a launch per input
             torch._foreach_copy_([buf for _, buf in own], srcs)
-        for graph, launches in graphs:
+        runs = self.segment_runs
+        for si, (graph, launches) in enumerate(graphs):
+            # fires before this segment replays: the caller's tensors were
+            # only read (copied into the program's own inputs), so a
+            # retried call replays every segment from the first
+            chaos.maybe_fault(chaos.SITE_DISPATCH)
             graph.replay()
+            runs[si] += 1
             if launches:
                 _build.add_launches(launches)
         outs = [torch.empty_like(o) for o in outputs]

@@ -28,7 +28,8 @@ resolved by the call's extents (the serve fronts' shape generalization),
 called pad-and-mask, optionally compiled in the background by a
 :class:`~repro_torch.core.compile_service.CompileService` while calls
 pad into the nearest warm dominating bucket, with a per-bucket
-:class:`BufferPool`.
+:class:`BufferPool`; ``BucketedModule.refit_policy`` swaps an axis's
+ladder in place under the old policy name (the scheduler's re-fit).
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ from .shapekey import (
     ShapeKey,
     flatten_axes,
     flatten_axes_nd,
+    get_bucket_policy,
     infer_extent,
     pad_args,
 )
@@ -819,6 +821,31 @@ class BucketedModule:
             if ck is not None and self.compiler.cache is not None:
                 self.compiler.cache.drop(ck)
         return victims
+
+    def refit_policy(self, new_policy: Union[str, BucketPolicy], axis: int = 0) -> BucketPolicy:
+        """Swap one polymorphic axis's bucket policy in place (a re-fit).
+
+        The new policy keeps the old policy's name: AxisKeys embed the
+        name, so a rename would orphan every program, pooled buffer set and
+        compile-cache entry at extents both policies map to.  With the
+        name pinned, a kept rung's program, pool and cache entries stay
+        addressable, and a dropped rung's program stays a legal
+        :meth:`nearest_warm` pad-up target (domination compares extents
+        only) until :meth:`evict_cold` retires it.  Returns the installed
+        policy."""
+        new_policy = get_bucket_policy(new_policy)
+        with self._lock:
+            old_axis = self.axes[axis]
+            # pin the name (a frozen dataclass: the same escape hatch the
+            # policies' own field defaults rely on)
+            object.__setattr__(new_policy, "name", old_axis.policy.name)
+            axes = list(self.axes)
+            axes[axis] = PolyAxis(in_axes=old_axis.in_axes, out_axes=old_axis.out_axes,
+                                  policy=new_policy, label=old_axis.label)
+            self.axes = tuple(axes)
+            if axis == 0:  # keep the 1-D view coherent
+                self.policy = new_policy
+        return new_policy
 
     # -- transparency -----------------------------------------------------
 

@@ -27,6 +27,7 @@ import threading
 from dataclasses import dataclass, replace as _dc_replace
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+from ..runtime import chaos
 from .bufalloc import AllocationResult, allocate_from_liveness
 from .liveness import LivenessInfo, analyze_liveness
 from .lowering import RGIRProgram
@@ -255,6 +256,10 @@ class CompiledExecutor(PaddedExecutionMixin):
         if len(flat_inputs) != len(self._input_bufs):
             raise TypeError(f"executor expects {len(self._input_bufs)} inputs, "
                             f"got {len(flat_inputs)}")
+        # the fault site fires once per program execution (segment_jit
+        # fires it once per segment), before any register write: the
+        # caller's inputs are untouched, so the dispatch may be retried
+        chaos.maybe_fault(chaos.SITE_DISPATCH)
         file: List[Any] = [None] * self.alloc.n_buffers
         for b, v in self._const_items:
             file[b] = v

@@ -285,10 +285,23 @@ def bucket_report(stats: Any) -> str:
                       f" bg_s={stats.compile_background_s:.2f}"
                       f" fallbacks={stats.fallback_calls}"
                       f" (+{stats.fallback_cells_padded} padded cells)")
+    pages = ""
+    if stats.kv_pages_capacity:
+        pages = (f" kv_pages={stats.kv_pages_in_use}/{stats.kv_pages_capacity}"
+                 f" (peak={stats.kv_peak_pages_in_use},"
+                 f" prefix_hits={stats.kv_prefix_hits},"
+                 f" tokens_reused={stats.kv_tokens_reused})")
+    faults = ""
+    if (stats.faults_injected or stats.requests_failed or stats.ticks_degraded
+            or stats.dispatch_retries):
+        faults = (f" faults={stats.faults_injected}"
+                  f" req_failed={stats.requests_failed}"
+                  f" degraded_ticks={stats.ticks_degraded}"
+                  f" retries={stats.dispatch_retries}")
     return (f"buckets: compiles={stats.compiles} hits={stats.bucket_hits} "
             f"(hit_rate={stats.hit_rate:.1%}) calls={stats.calls} "
             f"pad_waste={stats.pad_waste:.1%} compile_s={stats.compile_s:.2f}"
-            f"{async_note}{evic}{pool} [{per}]")
+            f"{async_note}{evic}{pool}{pages}{faults} [{per}]")
 
 
 def check_backend_fidelity(

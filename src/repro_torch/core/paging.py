@@ -1,9 +1,10 @@
 """Paged KV-cache bookkeeping: refcounted page pool + shared-prefix tree.
 
 The port's copy of the JAX package's ``core/paging.py`` (numpy only),
-without its fault-injection hook and its preemption registry
-(``park``/``unpark``): the port has no fault plans and no SLO
-preemption yet.
+with its fault-injection hook (``page.alloc``, raised before any state
+moves) and its preemption registry (``park``/``unpark``): a preempted
+slot's page chain keeps its refcounts while no table row points at it,
+and :meth:`PagePool.check` verifies every parked page is still live.
 
 The serving runtime used to allocate one contiguous, bucket-sized KV
 cache per slot — every admission paid ``max_len`` rows of memory up
@@ -50,6 +51,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..runtime import chaos
+
 #: the reserved trash page: unallocated table entries point here, masked
 #: writes land here; never allocated, never freed
 TRASH_PAGE = 0
@@ -76,6 +79,13 @@ class PageStats:
     tokens_reused: int = 0
     #: prompt tokens actually prefilled (prefix-skip denominator)
     tokens_prefilled: int = 0
+    # -- preemption (park/resume) counters --------------------------------
+    #: preempted slots whose pages were parked (:meth:`PagePool.park`)
+    parks: int = 0
+    #: parked slots resumed (:meth:`PagePool.unpark`)
+    unparks: int = 0
+    #: high-water mark of simultaneously parked pages
+    peak_parked_pages: int = 0
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -109,6 +119,12 @@ class PagePool:
         #: LIFO free list — recently freed pages are re-issued first
         #: (their device rows are warm)
         self._free: List[int] = list(range(self.num_pages - 1, TRASH_PAGE, -1))
+        #: parked-page registry: owner token -> that preempted slot's
+        #: page chain.  Parking moves no refcounts — the slot's own
+        #: references simply persist while the slot itself is gone, and
+        #: this registry is what keeps them *reachable* (check() verifies
+        #: every live page is reachable from a slot, the tree, or here)
+        self._parked: Dict[object, List[int]] = {}
         self.stats = PageStats()
 
     # -- introspection ----------------------------------------------------
@@ -130,6 +146,14 @@ class PagePool:
     def refcount(self, page: int) -> int:
         return int(self._refs[page])
 
+    @property
+    def parked_owners(self) -> int:
+        return len(self._parked)
+
+    @property
+    def parked_pages(self) -> int:
+        return sum(len(v) for v in self._parked.values())
+
     def check(self) -> None:
         """Assert pool accounting: free + in-use partitions the store."""
         in_use = int(np.count_nonzero(self._refs))
@@ -143,6 +167,21 @@ class PagePool:
         )
         assert self._refs[TRASH_PAGE] >= 1, "trash page lost its pin"
         assert len(set(self._free)) == len(self._free), "free list corrupt"
+        # parked reachability: each parked chain still holds live pages,
+        # and no page is claimed by more parked owners than it has
+        # references (a parked owner's claim IS one of its refcounts)
+        claims: Dict[int, int] = {}
+        for owner, pages in self._parked.items():
+            for p in pages:
+                assert p != TRASH_PAGE, f"trash page parked by {owner!r}"
+                assert self._refs[p] >= 1, (
+                    f"parked page {p} (owner {owner!r}) is dead"
+                )
+                claims[p] = claims.get(p, 0) + 1
+        for p, c in claims.items():
+            assert c <= int(self._refs[p]), (
+                f"page {p} parked by {c} owners but refcount {self._refs[p]}"
+            )
 
     # -- lifecycle --------------------------------------------------------
 
@@ -151,6 +190,14 @@ class PagePool:
         MemoryError without allocating any."""
         if n < 0:
             raise ValueError(f"alloc({n})")
+        if chaos.should_fault(chaos.SITE_PAGE_ALLOC):
+            # injected exhaustion: raised before any state is touched, so
+            # pool accounting stays exact and callers hit their organic
+            # defer/reclaim path
+            raise MemoryError(
+                f"injected page-pool exhaustion: want {n}, "
+                f"free {len(self._free)} of {self.capacity}"
+            )
         if n > len(self._free):
             raise MemoryError(
                 f"page pool exhausted: want {n}, free {len(self._free)} "
@@ -192,6 +239,39 @@ class PagePool:
                 self._free.append(int(p))
                 released.append(int(p))
         return released
+
+    # -- preemption (park / resume) ---------------------------------------
+
+    def park(self, owner: object, pages: Sequence[int]) -> None:
+        """Register a preempted slot's page chain under ``owner``.
+
+        No refcounts move: the slot's own references stay live, the
+        registry just keeps them *reachable* while no slot row points at
+        them (the page-table row is trashed on preemption).  Parking a
+        dead/trash page or an already-parked owner raises — both would
+        mean the scheduler lost track of a preemption.
+        """
+        if owner in self._parked:
+            raise ValueError(f"owner {owner!r} already has parked pages")
+        for p in pages:
+            if p == TRASH_PAGE:
+                raise ValueError("cannot park the trash page")
+            if self._refs[p] <= 0:
+                raise ValueError(f"park of dead page {p}")
+        self._parked[owner] = [int(p) for p in pages]
+        self.stats.parks += 1
+        self.stats.peak_parked_pages = max(
+            self.stats.peak_parked_pages, self.parked_pages
+        )
+
+    def unpark(self, owner: object) -> List[int]:
+        """Release ``owner``'s parked chain, returning it in prefix
+        order.  The caller either resumes the slot (page-table row
+        write) or frees the pages (abort).  Unknown owners raise."""
+        if owner not in self._parked:
+            raise KeyError(f"no parked pages for owner {owner!r}")
+        self.stats.unparks += 1
+        return self._parked.pop(owner)
 
 
 @dataclass

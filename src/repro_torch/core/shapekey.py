@@ -21,14 +21,15 @@ makes that specialisation an explicit, bounded compilation axis:
 
 ``infer_poly_axes`` derives a state tree's per-leaf batch axes by
 differencing two instantiations (the contiguous fronts' cache axes).
-Axis specs follow ``torch.utils._pytree``'s flatten order: a dict's
-leaves come in insertion order (JAX sorts the keys).  The JAX module's
-fault counters (``note_fault``) and ladder re-fit (``propose_rungs``)
-wait for the fault-tolerant scheduler.
+``BucketStats`` keeps the bucket, pool, page and fault counters and the
+recency trail of valid extents that :func:`propose_rungs` fits a ladder
+re-fit to.  Axis specs follow ``torch.utils._pytree``'s flatten order: a
+dict's leaves come in insertion order (JAX sorts the keys).
 """
 from __future__ import annotations
 
 import threading
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -501,9 +502,45 @@ class BucketStats:
     pool_misses: int = 0
     #: device bytes served from the pool instead of freshly allocated
     pool_bytes_reused: int = 0
+    # -- paged-KV pool counters (filled by the paged slot scheduler) -------
+    #: KV pages currently referenced (PagePool.pages_in_use snapshot)
+    kv_pages_in_use: int = 0
+    #: page-pool capacity (allocatable pages; excludes the trash page)
+    kv_pages_capacity: int = 0
+    #: high-water mark of pages in use across the run
+    kv_peak_pages_in_use: int = 0
+    #: prefix-tree lookups that matched at least one full page
+    kv_prefix_hits: int = 0
+    #: prompt tokens whose prefill was skipped via shared-prefix pages
+    kv_tokens_reused: int = 0
+    # -- fault-tolerance counters (runtime.chaos + the slot scheduler) -----
+    #: faults the installed FaultPlan fired across all sites
+    faults_injected: int = 0
+    #: requests that terminated with a typed error outcome
+    requests_failed: int = 0
+    #: scheduler ticks served in degraded mode (shed admissions, warm
+    #: rungs only) after a tick failure or a watchdog trip
+    ticks_degraded: int = 0
+    #: tick dispatches re-run after a contained dispatch fault
+    dispatch_retries: int = 0
+    #: sliding window of recent valid per-axis extents (the observed
+    #: distribution :func:`propose_rungs` fits a ladder to); bounded so a
+    #: long-running server's trail stays O(1)
+    recent_extents: deque = field(default_factory=lambda: deque(maxlen=512))
 
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
+
+    def note_fault(self, *, injected: int = 0, request_failed: bool = False,
+                   tick_degraded: bool = False, retries: int = 0) -> None:
+        """Fold fault-tolerance events (scheduler-side)."""
+        with self._lock:
+            self.faults_injected += injected
+            if request_failed:
+                self.requests_failed += 1
+            if tick_degraded:
+                self.ticks_degraded += 1
+            self.dispatch_retries += retries
 
     def note_lookup(self, *, hit: bool, key: Optional[ShapeKey] = None,
                     compile_s: float = 0.0, background: bool = False) -> None:
@@ -540,9 +577,12 @@ class BucketStats:
                       extent: Union[int, Tuple[int, ...]]) -> None:
         """Record one dispatch; ``rows_*`` count cells (the product over
         axes) for N-D fronts."""
-        valid = int(np.prod(_as_axis_tuple(n_valid)))
+        valid_axes = _as_axis_tuple(n_valid)
+        valid = int(np.prod(valid_axes))
         total = int(np.prod(_as_axis_tuple(extent)))
         with self._lock:
+            if valid > 0:  # warmup / throwaway dispatches carry n_valid=0
+                self.recent_extents.append(valid_axes)
             self.calls += 1
             self.rows_real += valid
             self.rows_padded += total - valid
@@ -575,3 +615,32 @@ class BucketStats:
     def pool_hit_rate(self) -> float:
         total = self.pool_hits + self.pool_misses
         return self.pool_hits / total if total else 0.0
+
+
+def propose_rungs(observed: Sequence[int], max_rungs: int = 4, *,
+                  cap: Optional[int] = None) -> Tuple[int, ...]:
+    """Propose ladder rungs fitting an observed extent distribution.
+
+    ``observed`` is a recency trail of valid extents (one axis of
+    :attr:`BucketStats.recent_extents`).  Rungs sit at evenly spaced
+    quantiles of the distribution, so each rung absorbs about the same
+    share of recent traffic.  The top rung always covers
+    ``max(observed)``, and ``cap`` when given (the scheduler's admission
+    bound), so a re-fit never shrinks the ladder below what admission may
+    request.  Returns a strictly increasing tuple for :class:`LadderPolicy`.
+    """
+    if max_rungs < 1:
+        raise ValueError(f"max_rungs must be >= 1, got {max_rungs}")
+    vals = sorted(int(v) for v in observed if int(v) > 0)
+    if not vals:
+        if cap is None:
+            raise ValueError("propose_rungs needs observations or a cap")
+        return (int(cap),)
+    top = max(vals[-1], int(cap) if cap is not None else 0)
+    rungs = set()
+    for i in range(1, max_rungs):
+        q = vals[min(len(vals) - 1, (i * len(vals)) // max_rungs)]
+        if q < top:
+            rungs.add(q)
+    rungs.add(top)
+    return tuple(sorted(rungs))

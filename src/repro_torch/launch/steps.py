@@ -7,10 +7,12 @@
 * ``make_paged_serve_step(cfg)`` / ``make_paged_prefill_step(cfg)`` ->
   slot-level decode and slot-masked whole-prompt prefill against the
   paged KV pool (the continuous-batching fronts).
+* ``gather_cache_rows`` / ``blend_cache_rows`` -> park and resume a
+  contiguous cache row (the slot scheduler's preemption).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
@@ -25,6 +27,50 @@ def dealias_tree(tree):
     (the JAX package needs it against XLA's aliasing of equal constants;
     the paged server keeps it for its store)."""
     return pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def gather_cache_rows(cache, axes_spec, rows: Sequence[int]):
+    """Batch rows ``rows`` of a contiguous decode cache as a small tree.
+
+    Each batch-polymorphic leaf (per ``axes_spec``, a ``vmap``-style tree
+    prefix) keeps only the selected rows along its batch axis, in a new
+    tensor that owns its storage (``index_select``), so no later write to
+    ``cache`` (a program replay, a pooled reset) can reach the extract;
+    batch-free leaves pass through.  The park half of contiguous
+    preemption."""
+    from ..core.shapekey import flatten_axes
+
+    flat, spec = pytree.tree_flatten(cache)
+    axes = flatten_axes(axes_spec, cache)
+    out = []
+    for leaf, ax in zip(flat, axes):
+        if ax is None:
+            out.append(leaf)
+            continue
+        idx = torch.as_tensor(list(rows), dtype=torch.long, device=leaf.device)
+        out.append(torch.index_select(leaf, ax, idx))
+    return pytree.tree_unflatten(out, spec)
+
+
+def blend_cache_rows(cache, axes_spec, row_tree, rows: Sequence[int]):
+    """Write ``row_tree`` (a :func:`gather_cache_rows` extract) back into
+    batch rows ``rows`` of ``cache``, out of place: every other row of
+    every leaf survives bitwise, and ``cache``'s own tensors are not
+    written.  Batch-free leaves keep ``cache``'s values.  The resume half
+    of contiguous preemption."""
+    from ..core.shapekey import flatten_axes
+
+    flat, spec = pytree.tree_flatten(cache)
+    flat_src, _ = pytree.tree_flatten(row_tree)
+    axes = flatten_axes(axes_spec, cache)
+    out = []
+    for leaf, src, ax in zip(flat, flat_src, axes):
+        if ax is None:
+            out.append(leaf)
+            continue
+        idx = torch.as_tensor(list(rows), dtype=torch.long, device=leaf.device)
+        out.append(leaf.index_copy(ax, idx, src))
+    return pytree.tree_unflatten(out, spec)
 
 
 def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None) -> Callable:

@@ -1,9 +1,12 @@
 """Seeded fault injection for the serving stack (a copy of the JAX
 package's ``runtime/chaos.py``, which imports no JAX).
 
-In the port only the ``compile.*`` and ``disk.*`` sites are consulted
-(``core/compile_service.py``, ``core/cache.py``); the other sites are
-declared here and wait for the fault-tolerant scheduler.
+Where the port consults each site: ``compile.*`` in
+``core/compile_service.py``, ``disk.*`` in ``core/cache.py``,
+``page.alloc`` in ``core/paging.py``, ``dispatch`` in the ``interpret``
+executor (once per program execution) and in ``segment_jit`` (once per
+segment), ``logits.nan`` and ``preempt`` in the slot scheduler
+(``launch/serve.py``).
 
 A :class:`FaultPlan` is a deterministic, site-addressable schedule of
 failures: each *site* is a short string naming one hook point threaded

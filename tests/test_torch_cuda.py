@@ -1101,3 +1101,94 @@ def test_captured_programs_keep_their_own_scratch(cuda_device):
     assert torch.equal(pg(x, a, h0), pg.with_backend("interpret")(x, a, h0))
     scopes = {k[3] for k in _build._SCRATCH if k[0] == "rg_lru"}
     assert {id(pf.executor), id(pg.executor)} <= scopes
+
+
+# --------------------------------------------------------------------------
+# fault containment on the card: a retried mid-graph dispatch fault, and
+# a parked contiguous row across later replays
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_chaos_dispatch_fault_mid_graph_retries_bitwise(cuda_device):
+    """A dispatch fault before segment k > 0 of a captured paged decode
+    program: the call raises with the caller's store untouched, the
+    launch counters hold the replays of segments 0..k-1 only, and the
+    retry's tokens and store are an unfaulted call's, bitwise."""
+    from repro_torch.runtime import chaos
+
+    cfg = get_config("forge-125m", smoke=True).with_(dtype="float32", kv_kernel="pallas")
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    srv = BatchedServer(cfg, p, max_len=32, mode="forge", paged=True, kv_page_size=8,
+                        seq_bucket_policy="ladder:8")
+    srv.warmup([2])
+    mod = srv.bucketed.programs[srv.bucketed.key_for_extents(2)]
+    ex = mod.executor
+    n_seg = len(ex.segments)
+    k = n_seg // 2
+    assert k > 0
+    pt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32, device=cuda_device)
+    tok = torch.tensor([[11], [222]], dtype=torch.int32, device=cuda_device)
+    pos = torch.tensor([5, 9], dtype=torch.int32, device=cuda_device)
+    mask = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    store = {n: torch.randn_like(v) for n, v in srv.page_store.items()}
+    before = {n: v.clone() for n, v in store.items()}
+    want_tok, want_store = mod(p, store, pt, tok, pos, mask)
+    torch.cuda.synchronize()
+    paged_per_seg = [sum(n for i, n, _ in launches if i == PA.LAUNCHES.index)
+                     for _, launches in ex._replay[0]]
+    PA.LAUNCHES.reset()
+    runs0 = list(ex.segment_runs)
+    prev = chaos.install_plan(chaos.FaultPlan().arm(chaos.SITE_DISPATCH, times=(k,)))
+    try:
+        with pytest.raises(chaos.InjectedFault):
+            mod(p, store, pt, tok, pos, mask)
+        torch.cuda.synchronize()
+        ran = [a - b for a, b in zip(ex.segment_runs, runs0)]
+        assert ran == [1] * k + [0] * (n_seg - k)
+        assert PA.LAUNCHES.n == sum(paged_per_seg[:k])
+        assert all(torch.equal(store[n], before[n]) for n in store)
+        got_tok, got_store = mod(p, store, pt, tok, pos, mask)
+        torch.cuda.synchronize()
+    finally:
+        chaos.install_plan(prev)
+    assert PA.LAUNCHES.n == sum(paged_per_seg[:k]) + cfg.n_layers
+    assert torch.equal(got_tok, want_tok)
+    assert all(torch.equal(got_store[n], want_store[n]) for n in store)
+
+
+@pytest.mark.cuda
+def test_parked_contiguous_row_survives_graph_replays(cuda_device):
+    """A contiguous cache row parked in the bucket BufferPool owns its
+    storage: later replays of the decode program (which write the graph
+    pool and the program's own input tensors) leave it bitwise unchanged,
+    and blending it back restores the row."""
+    from repro_torch.launch.steps import blend_cache_rows, gather_cache_rows
+
+    cfg, p, srv = _smoke_server("forge-125m", cuda_device, "segment_jit")
+    srv.warmup([2])
+    mod = srv.bucketed.programs[srv.bucketed.key_for_extents(2)]
+    cache = srv._acquire_cache(2)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def step(cache, pos):
+        tok = torch.randint(0, cfg.vocab, (2, 1), dtype=torch.int32, device=cuda_device,
+                            generator=g)
+        return mod(p, cache, *srv._decode_args(2, tok, pos))[1]
+
+    for pos in range(3):
+        cache = step(cache, pos)
+    row = gather_cache_rows(cache, srv.cache_axes, [1])
+    snap = [t.clone() for t in torch.utils._pytree.tree_leaves(row)]
+    srv.bucketed.pool.release(("parked", 7), row)
+    for pos in range(3, 9):
+        cache = step(cache, pos)
+    torch.cuda.synchronize()
+    back = srv.bucketed.pool.acquire(("parked", 7), lambda: None)
+    srv.bucketed.pool.drop(("parked", 7))
+    assert all(torch.equal(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(back), snap))
+    blended = blend_cache_rows(cache, srv.cache_axes, back, [0])
+    for leaf, ax, want in zip(torch.utils._pytree.tree_leaves(blended),
+                              torch.utils._pytree.tree_leaves(srv.cache_axes), snap):
+        if ax is not None:
+            assert torch.equal(leaf.narrow(ax, 0, 1), want)

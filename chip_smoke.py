@@ -4,7 +4,8 @@ port starts on the GPU and goes through its own kernels.
 
 Run from the repository root, with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # phases 1-12
+    python3 chip_smoke.py --qwen-jit-layers 48     # phase 12's qwen2.5-14b jit step at full depth
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -38,7 +39,7 @@ Phases (any failure raises and the script exits non-zero):
    tolerance of the plain version and bitwise equal to an eager launch.
 3. Serve forge-125m at full width (12 layers, d 768, vocab 50257, bf16,
    random weights from seed 0) with the serve CLI's defaults through
-   ``BatchedServer(mode="eager")``: Forge-compiled block bodies, 36
+   ``BatchedServer(mode="interpret")``: Forge-compiled block bodies, 36
    fused-linear launches per decode step; the prefilled caches and the
    first generated step's logits and greedy tokens against the same
    server with ``impl="ref"``; a second generation's greedy tokens
@@ -61,27 +62,26 @@ Phases (any failure raises and the script exits non-zero):
    program.  One decode and one prefill dispatch under ``segment_jit``
    bitwise equal to the same lowered programs under ``interpret``; the
    host/device split of steady decode ticks under both backends.
-6. recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU and
-   8 local-attention blocks, d 2560, vocab 256000, bf16, random weights
-   from seed 0) through the contiguous forge fronts,
+6. recurrentgemma-2b at full width, depth cut to 8 of its 26 layers (6
+   RG-LRU and 2 local-attention blocks, d 2560, vocab 256000, bf16,
+   random weights from seed 0) through the contiguous forge fronts,
    ``BatchedServer(mode="forge")`` on ``segment_jit``: warmup of the B4
-   decode program and
-   the B4 x S32 prefill cell, then batch 4, prompt 32, 32 new tokens with
-   the chunked state-scan prefill (one dispatch: 18 RG-LRU launches) and
+   decode program and the B4 x S32 prefill cell, then batch 4, prompt 32, 32 new tokens with
+   the chunked state-scan prefill (one dispatch: 6 RG-LRU launches) and
    again with ``prefill="sequential"`` on the same decode program (no
    RG-LRU launch); the full-sequence ``apply`` at B=2, S=1024 through
-   the Forge bodies (18 launches) and its device time.  Launch counts exact, no compile after
-   warmup; a continuation prefill (pos 32, ragged lengths) on copies of
+   the Forge bodies (6 launches) and its device time.  Launch counts
+   exact, no compile after warmup; a continuation prefill (pos 32, ragged lengths) on copies of
    a served cache and ``apply`` against ``impl="ref"`` (relative L2
-   within 0.1: elementwise bf16 bounds do not hold at this depth, see
+   within 0.1: elementwise bf16 bounds do not hold at depth, see
    TOL_DEEP_F32), beside the spread of two kernel-free implementations;
    greedy tokens against an ``impl="ref"`` generation (rows equal
    reported); TTFT both ways, decode p50/p99, tok/s and the device busy
    share of steady decode steps under both backends.  Then the same
-   prefill program and ``apply`` in f32 at full width and depth against
-   ``impl="ref"``, elementwise within rtol 1e-3 / atol 1e-3.
-7. xlstm-350m at full width and depth (24 layers: 21 mLSTM and 3 sLSTM,
-   d 1024, 4 heads, vocab 50304, bf16, random weights from seed 0)
+   prefill program and ``apply`` in f32 against ``impl="ref"``,
+   elementwise within rtol 1e-3 / atol 1e-3.
+7. xlstm-350m at full width, depth cut to 8 of its 24 layers (7 mLSTM
+   and 1 sLSTM, d 1024, 4 heads, vocab 50304, bf16, random weights from seed 0)
    through the contiguous forge fronts (batch rungs 2 and 4, one S32
    grid cell): warmup of the B2/B4 decode programs and the B4 prefill cell,
    batch 4, prompt 32, 32 new tokens with the chunked prefill and with
@@ -112,7 +112,7 @@ Phases (any failure raises and the script exits non-zero):
    128 with 8 KV heads, d_ff 13824, vocab 152064, QKV bias, rope theta
    1e6, SwiGLU; 14.77 B parameters, 29.5 GB bf16, random weights from
    seed 0), after phases 3-8 freed their models and graph pools:
-   ``BatchedServer(mode="eager")`` at the CLI defaults (Forge-compiled
+   ``BatchedServer(mode="interpret")`` at the CLI defaults (Forge-compiled
    block bodies with ``forge.swiglu``: two fused-linear launches each),
    then the contiguous forge fronts on ``segment_jit`` (rung 4, the B4 x
    S32 cell only): batched prefill and 32 decode steps, every dispatch
@@ -142,8 +142,9 @@ Phases (any failure raises and the script exits non-zero):
    full builds (block bodies included), both warmups' split into
    export / Phase 2 / Phase 3 / Phase 4 / capture; then the serve CLI
    twice as subprocesses (``--sweep 1,3,8 --prompt-sweep 17,48 --gen 8
-   --cache-dir D``, the second with ``--assert-no-builds``), both exiting
-   0.  (c) ``BucketedModule.__call__`` on the block body at S=1024,
+   --cache-dir D``, the second with ``--assert-no-builds`` once the
+   first has exited), both exiting 0; they run beside phases 6-7, whose
+   exports leave the other CPU cores idle, and are read here.  (c) ``BucketedModule.__call__`` on the block body at S=1024,
    bucketed over batch (pow2): B 1, 3 and 5 against exact-shape compiles
    within the bf16 kernel tolerance (the fused-linear ``wgmma`` split
    depends on M), exactly 3 flash and 9 fused-linear launches, and
@@ -176,11 +177,40 @@ Phases (any failure raises and the script exits non-zero):
    the FIFO run.  (e) A ladder re-fit on a shrinking batch: refits >= 1,
    one program evicted and the memory it freed, tokens unchanged.  (f)
    The serve CLI with ``--chaos page.alloc=0.2,dispatch=0.05
-   --chaos-seed 3`` exits 0 and prints its chaos line.  Launches exact:
+   --chaos-seed 3`` exits 0 and prints its chaos line (run beside phases
+   6-7, as phase 10's CLI pair).  Launches exact:
    fused linear and paged attention = each segment's kernel ops x the
    times it ran (``segment_runs``; a call cut by a fault counts the
    segments before the fault), flash and the scan 0; no compile or
    capture in any counted run.
+
+12. The autotuner, the jit mode and qwen2.5-14b on the paged fronts.
+   On phase 9's qwen2.5-14b weights (one init), before its f32 part:
+   (a) ``SlotScheduler`` over ``BatchedServer(mode="forge", paged=True)``
+   with the paged-attention kernel at full width and depth (40 query
+   heads on 8 KV heads: groups of 5), phase 5's workload on segment_jit:
+   paged launches = 48 x decode dispatches, fused linear = the programs'
+   linear nodes x dispatches, no compile or capture after warmup,
+   ``pool.check()`` every tick, no page leaked, a decode and a prefill
+   dispatch bitwise against interpret, the host/device split; tok/s,
+   tick p50 / p99, TTFT, compile seconds per program.  (b)
+   ``BatchedServer(mode="jit")`` (batch 4, prompt 32, 32 new tokens,
+   depth QWEN_JIT_LAYERS): the step compiled whole with
+   ``torch.compile(fullgraph=True)`` and replayed as one CUDA graph;
+   one graph, launches = the graph's fused-linear nodes x steps, the
+   cache in place; greedy tokens against ``mode="interpret"``'s (a row
+   that parts at a near-tie is held at its first differing token by the
+   measured-slack rule); every step's logits, teacher-forced on
+   interpret's tokens, against the interpreted step's within
+   SPREAD_FACTOR_BF16 times the run's kernel-free spread (relative L2
+   over all steps) and, on forge-125m, within TOL_MODEL_BF16 at every
+   step; decode p50 / p99, compile seconds, the graph's nodes.  (c)
+   ``AutotuningCompiler().compile`` on the ``apply`` block body at B=1,
+   S=1024: 47 candidates on copies of one capture, the winner's launches
+   (one flash, its fused-linear nodes), within the bf16 kernel tolerance
+   of the default pipeline's body; per-candidate and export times.  After
+   phase 11, (b) and (c) on forge-125m at full width (the CLI defaults;
+   ``apply`` at B=4, S=1024).
 
 In phases 5-9, one decode and one prefill dispatch of the served
 programs under ``segment_jit`` must be bitwise equal to the same lowered
@@ -195,10 +225,11 @@ Phase 2 also holds the paged-attention kernel against its plain version
 (f32 rtol 2e-4 / atol 2e-5; bf16 3e-2 and the bf16 rounding bound) on
 random non-contiguous page tables with positions at -1 and page edges:
 forge-125m's shapes (B 1/2/4, 12 heads, D 64, page 16, 16 pages a row,
-129 pages), GQA 12/4 and 32/8, a window, every head dim of 8 to 256, and
-forced split plans (one block a row, one split per page, more splits
-than pages); it times the served shape, a long context (128 live pages a
-row) and GQA at D=128.
+129 pages), GQA 12/4, 32/8 and qwen2.5-14b's 40/8 (groups of 5), a
+window, every head dim of 8 to 256, and forced split plans (one block a
+row, one split per page, more splits than pages); it times the served
+shape, a long context (128 live pages a row), GQA at D=128, and
+qwen2.5-14b's shape at phase 12's positions and at pos 2047.
 
 In phases 6 and 7 a served first token must be a top choice of the
 plain path within a slack measured in the same run: the larger of twice
@@ -223,8 +254,11 @@ launches, by variant too, and times also split by path); the last line is
 """
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -237,16 +271,22 @@ TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
 # compound through 12 residual layers (measured on the H100: 2 of 206M
 # apply logits between 3e-2 and 3.4e-2), so twice the kernel bound
 TOL_MODEL_BF16 = dict(rtol=6e-2, atol=6e-2)
-# recurrentgemma-2b at full depth: a bf16 rounding difference between two
+# recurrentgemma-2b: a bf16 rounding difference between two
 # implementations (a fused linear rounds once where the plain path rounds
-# twice; a scan reassociates) is amplified through 26 layers and the
+# twice; a scan reassociates) is amplified through the layers and the
 # recurrent state, so no elementwise bf16 bound holds even between two
 # implementations without any kernel (phase 6 measures that spread: the
 # served program with impl="ref" against the eager plain path).  The
-# kernels are held elementwise in f32 at full width and depth, where the
-# same amplification of f32 rounding stays far below 1e-3 on logits of
-# std 1; the bf16 path is held by relative L2 error
+# kernels are held elementwise in f32 at full width, where the same amplification of f32 rounding stays far below 1e-3 on
+# logits of std 1 (at full depth too: 7.9e-5 on recurrentgemma-2b's and
+# 8.3e-5 on xlstm-350m's logits, measured on the H100); the bf16 path is
+# held by relative L2 error
 TOL_DEEP_F32 = dict(rtol=1e-3, atol=1e-3)
+# phases 6 and 7 serve recurrentgemma-2b and xlstm-350m at full width with
+# the depth cut to this many layers, in bf16 and in f32 (both layer kinds
+# of each model among them; qwen2.5-14b's f32 check in phase 9 has the
+# same depth): the script's time limit binds at full depth
+RECURRENT_LAYERS = 8
 REL_L2_DEEP_BF16 = 0.1
 # xlstm-350m at full depth is more sensitive still: two bf16
 # implementations without any kernel (the prefill cell compiled with
@@ -257,7 +297,7 @@ REL_L2_DEEP_BF16 = 0.1
 # fused-linear sites as the compiled plain path does, so phase 7 holds
 # the served bf16 results leaf by leaf within twice that kernel-free
 # spread, measured in the same run; the kernels are held elementwise in
-# f32 at full width and depth (TOL_DEEP_F32)
+# f32 at full width (TOL_DEEP_F32)
 SPREAD_FACTOR_BF16 = 2.0
 # bf16 flash attention, element by element, from bf16's unit roundoff
 # u = 2^-8: the kernel rounds its unnormalised probabilities and the
@@ -316,6 +356,12 @@ QW_LINEARS = ((5120, 5120, None), (5120, 13824, "silu"), (5120, 13824, None),
               (13824, 5120, None), (5120, 1024, None))
 # decode (M 4), the served B4 x S32 prefill cell, apply at B1 x S1024
 QW_FL_ROWS = (4, 128, 1024)
+# phase 12's jit server on qwen2.5-14b: the depth it is compiled at (full
+# width).  torch.compile's build grows with the step's nodes (400-672 s at
+# 48 layers on the H100 machine, Inductor 338 s of it), so the whole
+# script keeps 2 layers inside its time limit; ``--qwen-jit-layers 48``
+# compiles the full depth
+QWEN_JIT_LAYERS = 2
 # RMSNorm (rows, d): xlstm-350m's decode block norm, the B4 x S32
 # prefill block norm, norm_h at B4 x H4 x S32 (hd 512), apply at
 # B2 x S1024, and a ragged d
@@ -1153,7 +1199,8 @@ def phase_paged(dev, timer):
               (2, 8, 8, 16, 16, 6, 20, 9), (2, 8, 4, 32, 16, 6, 20, None),
               (2, 4, 4, 128, 16, 6, 20, None), (3, 4, 2, 8, 8, 4, 13, None),
               (2, 8, 2, 96, 16, 6, 20, None), (2, 8, 2, 112, 16, 6, 20, 40),
-              (3, 4, 1, 256, 16, 6, 20, None), (4, 32, 8, 128, 16, 16, 70, None)]
+              (3, 4, 1, 256, 16, 6, 20, None), (4, 32, 8, 128, 16, 16, 70, None),
+              (4, 40, 8, 128, 16, 16, 70, None)]  # qwen2.5-14b: groups of 5 heads
     check({c[3] for c in cases} == set(PA.HEAD_DIMS), "paged cases miss a head dim")
     worst, n = 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1191,7 +1238,8 @@ def phase_paged(dev, timer):
     # bitwise repeatable: the partials merge in split order, whichever block
     # finishes last; the tickets are back at 0 after each call
     reps = 0
-    for B, H, KVH, D, MP in ((4, 12, 12, 64, 16), (8, 12, 12, 64, 128), (4, 32, 8, 128, 128)):
+    for B, H, KVH, D, MP in ((4, 12, 12, 64, 16), (8, 12, 12, 64, 128), (4, 32, 8, 128, 128),
+                             (4, 40, 8, 128, 128)):
         q, k, v, pt, pos = paged_inputs(3, dev, torch.bfloat16, B, H, KVH, D, 16, MP,
                                         1 + B * MP, pos=[MP * 16 - 1] * B)
         check(PA.plan(B, H, KVH, D, 16, MP, None, torch.bfloat16)[0] > 1,
@@ -1228,6 +1276,13 @@ def phase_paged(dev, timer):
     rows["long"] = paged_timing(timer, dev, 8, 12, 12, 64, 16, 128, 1 + 8 * 128, [2047] * 8, 8)
     # GQA at D=128: B=4, H=32, KVH=8, 128 live pages a row (33.6 MB)
     rows["gqa128"] = paged_timing(timer, dev, 4, 32, 8, 128, 16, 128, 1 + 4 * 128, [2047] * 4, 9)
+    # qwen2.5-14b's served shape, H=40 on KVH=8 (groups of 5: a quad of
+    # heads and a tail of one): at the positions phase 12's scheduler
+    # reaches (16 pages a row, max_len 256) and with 128 live pages a row
+    rows["qwen_served"] = paged_timing(timer, dev, 4, 40, 8, 128, 16, 16, 1 + 4 * 16,
+                                       [44, 52, 60, 71], 10)
+    rows["qwen_pos2047"] = paged_timing(timer, dev, 4, 40, 8, 128, 16, 128, 1 + 4 * 128,
+                                        [2047] * 4, 12)
     return rows
 
 
@@ -1250,7 +1305,7 @@ def phase_main_path(dev):
     Ba, S = 4, 1024  # the full-sequence forward
     tokens = torch.randint(0, cfg.vocab, (Ba, S), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(3))
-    server = BatchedServer(cfg, params, max_len=max_len, mode="eager")
+    server = BatchedServer(cfg, params, max_len=max_len, mode="interpret")
 
     reset_counts()
     res = server.generate(prompts, n_new)
@@ -1396,7 +1451,7 @@ def compare_served_step(model, cfg, server, prompts, server_cls):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_linear as FL
 
-    ref_server = server_cls(cfg, server.params, max_len=server.max_len, mode="eager",
+    ref_server = server_cls(cfg, server.params, max_len=server.max_len, mode="interpret",
                             impl="ref")
     with torch.no_grad():
         cache, tok, pos, _, _ = server.prefill(prompts)
@@ -1738,8 +1793,9 @@ def program_log(front, name):
 
 
 def phase_rglru(dev):
-    """recurrentgemma-2b at full width and depth through the contiguous
-    forge fronts, then ``apply``; returns the launches of each path."""
+    """recurrentgemma-2b at full width, RECURRENT_LAYERS deep, through the
+    contiguous forge fronts, then ``apply``; returns the launches of each
+    path."""
     import numpy as np
     import torch
     from torch.utils import _pytree as pytree
@@ -1747,11 +1803,12 @@ def phase_rglru(dev):
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import _forge, get_model
 
-    cfg = get_config("recurrentgemma-2b")  # 26 layers, d 2560, vocab 256000, bf16
+    # d 2560, vocab 256000, bf16; 8 of the 26 layers
+    cfg = get_config("recurrentgemma-2b").with_(n_layers=RECURRENT_LAYERS)
     check(cfg.fuse == "forge" and cfg.dtype == "bfloat16", "recurrentgemma-2b defaults changed")
     model = get_model(cfg)
     n_rec = sum(k == "rec" for k in model.module._pattern(cfg))
-    check(n_rec == 18 and cfg.n_layers == 26, f"{n_rec} rec layers of {cfg.n_layers}")
+    check(n_rec == 6 and cfg.n_layers == 8, f"{n_rec} rec layers of {cfg.n_layers}")
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     n_params = sum(t.numel() for t in {id(t): t for t in pytree.tree_leaves(params)}.values())
     B, P, n_new, max_len = 4, 32, 32, 256
@@ -1988,17 +2045,18 @@ def check_contiguous_prefill(model, cfg, params, server, dev, eager=True,
 
 
 def phase_f32_deep(dev, arch, eager=True):
-    """The kernels of a recurrent path held elementwise at full width and
-    depth in f32 (random weights from seed 0): the served B4 x S32
-    prefill program and ``apply`` (B=2, S=1024, Forge bodies) against
-    ``impl="ref"``, within TOL_DEEP_F32.  Comparison launches: they count
-    on no path."""
+    """The kernels of a recurrent path held elementwise in f32 at full
+    width, depth cut to RECURRENT_LAYERS (random weights from seed 0): the
+    served B4 x S32 prefill program and ``apply`` (B=2, S=1024, Forge
+    bodies) against ``impl="ref"``, within TOL_DEEP_F32.  Comparison
+    launches: they count on no path."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import get_model
 
-    cfg = get_config(arch).with_(dtype="float32")
+    full = get_config(arch)
+    cfg = full.with_(dtype="float32", n_layers=RECURRENT_LAYERS)
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     server = BatchedServer(cfg, params, max_len=256, mode="forge")
@@ -2027,7 +2085,8 @@ def phase_f32_deep(dev, arch, eager=True):
         got = model.apply(params, tokens, cfg)
         want = model.apply(params, tokens, cfg, impl="ref")
     err_apply = assert_close(got, want, torch.float32, "f32 apply logits", TOL_DEEP_F32)
-    log(f"f32 {arch} (full width and depth): the prefill program {key} "
+    log(f"f32 {arch} (full width, depth cut to {cfg.n_layers} of {full.n_layers} layers): "
+        f"the prefill program {key} "
         f"(compiled in {compile_s:.1f} s) at pos 32 with lengths {lengths.tolist()} against "
         f"impl='ref' on copies of a served cache, max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -2121,8 +2180,8 @@ def xlstm_workload(vocab):
 
 
 def phase_xlstm(dev):
-    """xlstm-350m at full width and depth through the contiguous forge
-    fronts (chunked and sequential prefill), the contiguous SlotScheduler
+    """xlstm-350m at full width, RECURRENT_LAYERS deep, through the
+    contiguous forge fronts (chunked and sequential prefill), the contiguous SlotScheduler
     and ``apply``; returns the launches of each path."""
     import numpy as np
     import torch
@@ -2131,12 +2190,13 @@ def phase_xlstm(dev):
     from repro_torch.launch.serve import BatchedServer, SlotScheduler
     from repro_torch.models import _forge, get_model
 
-    cfg = get_config("xlstm-350m")  # 24 layers, d 1024, 4 heads, vocab 50304, bf16
+    # d 1024, 4 heads, vocab 50304, bf16; 8 of the 24 layers
+    cfg = get_config("xlstm-350m").with_(n_layers=RECURRENT_LAYERS)
     check(cfg.fuse == "forge" and cfg.dtype == "bfloat16", "xlstm-350m defaults changed")
     model = get_model(cfg)
     kinds = model.module._kinds(cfg)
     n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
-    check((n_m, n_s) == (21, 3), f"{n_m} mLSTM and {n_s} sLSTM layers")
+    check((n_m, n_s) == (7, 1), f"{n_m} mLSTM and {n_s} sLSTM layers")
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     n_params = sum(t.numel() for t in {id(t): t for t in pytree.tree_leaves(params)}.values())
     B, P, n_new, max_len = 4, 32, 32, 256
@@ -2452,14 +2512,15 @@ def fused_counts(mod):
     return {op: ops_.count(op) for op in ("forge.sdpa", "forge.linear_act", "forge.swiglu")}
 
 
-def phase_qwen(dev):
+def phase_qwen(dev, more=None):
     """qwen2.5-14b at full width and depth (48 layers, d 5120, 40 heads of
     128 with 8 KV heads, d_ff 13824, vocab 152064, QKV bias, SwiGLU; bf16,
-    random weights from seed 0): the eager server, the contiguous forge
+    random weights from seed 0): the interpret server, the contiguous forge
     fronts on segment_jit (rung 4, the B4 x S32 cell) held bitwise against
-    interpret, and ``apply`` at B=1, S=1024; then the served prefill
-    program and ``apply`` in f32 at 8 layers against ``impl="ref"``.
-    Returns the launches of each path."""
+    interpret, and ``apply`` at B=1, S=1024; then ``more(cfg, model,
+    params, prompts)`` on the same weights (phase 12's qwen paths), then
+    the served prefill program and ``apply`` in f32 at 8 layers against
+    ``impl="ref"``.  Returns the launches of each path."""
     import gc
 
     import numpy as np
@@ -2498,7 +2559,7 @@ def phase_qwen(dev):
                 if k.startswith(f"{cfg!r}/{mode}/") and "impl=None" in k]
 
     # -- the eager server: Forge-compiled block bodies --------------------
-    eager = BatchedServer(cfg, params, max_len=max_len, mode="eager")
+    eager = BatchedServer(cfg, params, max_len=max_len, mode="interpret")
     reset_counts()
     res_e = eager.generate(prompts, n_new)
     torch.cuda.synchronize()
@@ -2622,11 +2683,15 @@ def phase_qwen(dev):
     log(f"qwen2.5-14b apply logits against impl='ref': {got_r:.3e} relative L2 (max abs "
         f"{(logits - ref).abs().max().item():.3e}); two kernel-free implementations (compiled "
         f"and unfused) differ by {spread:.3e}; bound {bound:.3e}")
-    del logits, ref, raw, params, model
+    del logits, ref, raw
+    out = {"qwen_eager": served_eager, "qwen_serve": served, "qwen_apply": applied}
+    if more is not None:  # further paths on the same weights (one init)
+        out.update(more(cfg, model, params, prompts))
+    del params, model
     gc.collect()
     release_device_memory()
     phase_qwen_f32(dev, cfg, prompts)
-    return {"qwen_eager": served_eager, "qwen_serve": served, "qwen_apply": applied}
+    return out
 
 
 def phase_qwen_f32(dev, cfg, prompts):
@@ -2989,27 +3054,21 @@ def release_device_memory():
     torch.cuda.empty_cache()
 
 
-def phase_compile_cost(dev):
+def phase_compile_cost(dev, cli_runs):
     """Phase 10: forge-125m at full width, bf16, segment_jit, through the
     compile-cost layer: (a) async serving against inline, (b) restart
     replay from a disk cache in one process and through the CLI, (c)
     ``BucketedModule.__call__`` on the block body at S=1024, (d) the
     buffer pool, (e) ``evict_cold``.  Returns the launches of (a)'s async
     run and (c)'s calls."""
-    import gc
-    import os
-    import tempfile
-
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import (CompileCache, DiskCacheStore, ForgeCompiler, PipelineConfig,
-                                  get_compile_cache)
-    from repro_torch.core.metrics import bucket_report, check_bucketed_fidelity
+    from repro_torch.core.metrics import bucket_report
     from repro_torch.launch.serve import BatchedServer, SlotScheduler
-    from repro_torch.models import _forge, get_model
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
 
+    t0 = time.perf_counter()
     release_device_memory()
     cfg = get_config("forge-125m")
     model = get_model(cfg)
@@ -3104,7 +3163,119 @@ def phase_compile_cost(dev):
     del runs, srv_in, srv_as
     release_device_memory()
 
-    # -- (b) restart replay in one process, then through the CLI -------------
+    # -- (b) restart replay in one process, (c) and (e); then the CLI pair,
+    # which ran as subprocesses beside phases 6-7 (start_cli_runs)
+    called = compile_cost_replay(dev, cfg, params)
+    runs = cli_runs["restart"].join()
+    check(len(runs) == 2, f"the cold CLI run failed, so the replay did not run: {runs}")
+    for (code, stdout, stderr, seconds), what in zip(runs, ("cold", "--assert-no-builds")):
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("[serve]")]
+        log(f"CLI {what} (beside phases 6-7): exit {code} in {seconds:.1f} s; "
+            + "; ".join(ln for ln in lines if "disk cache" in ln or "programs=" in ln))
+        check(code == 0, f"the serve CLI ({what}) exited {code}: {stdout[-2000:]} "
+                         f"{stderr[-2000:]}")
+    del params, model
+    release_device_memory()
+    return {"async_serve": served_async, "bucketed_call": called}
+
+
+# The serve CLI's subprocesses (phase 10's restart pair, phase 11's
+# --chaos run) start beside phases 6-7, whose exports leave the other CPU
+# cores idle, and are read where their phase checks them; run() stops
+# any that is still running when the script ends.
+_CHILDREN = []
+_CHILDREN_LOCK = threading.Lock()
+_STOPPING = threading.Event()
+
+
+class CliRuns:
+    """Serve CLI commands run one after another in subprocesses on a
+    thread of their own; a command runs only if the one before it exited
+    0.  ``join`` returns ``(exit code, stdout, stderr, seconds)`` per
+    command that ran."""
+
+    def __init__(self, name, argvs, env):
+        self.name, self.results, self.error = name, [], None
+        self._thread = threading.Thread(target=self._run, args=(argvs, env), name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, argvs, env):
+        try:
+            for argv in argvs:
+                with tempfile.TemporaryFile("w+") as out, tempfile.TemporaryFile("w+") as err:
+                    t0 = time.perf_counter()
+                    with _CHILDREN_LOCK:
+                        if _STOPPING.is_set():
+                            return
+                        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out,
+                                                stderr=err, text=True)
+                        _CHILDREN.append(proc)
+                    try:
+                        code = proc.wait(timeout=600)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        code = proc.wait()
+                    out.seek(0)
+                    err.seek(0)
+                    self.results.append((code, out.read(), err.read(),
+                                         time.perf_counter() - t0))
+                if code != 0:
+                    return
+        except BaseException as e:  # re-raised by join()
+            self.error = e
+
+    def join(self):
+        self._thread.join(1300)
+        check(not self._thread.is_alive(), f"the {self.name} CLI runs did not end")
+        if self.error is not None:
+            raise self.error
+        return self.results
+
+
+def start_cli_runs():
+    """Phase 10 (b)'s CLI pair (a cold run against a fresh cache
+    directory, then ``--assert-no-builds`` on it) and phase 11 (f)'s
+    ``--chaos`` run, started now."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    serve = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "forge-125m",
+             "--mode", "forge"]
+    cli_dir = tempfile.mkdtemp(prefix="forge-cli-cache-", dir=os.environ.get("TMPDIR"))
+    pair = serve + ["--sweep", "1,3,8", "--prompt-sweep", "17,48", "--gen", "8",
+                    "--cache-dir", cli_dir]
+    chaos = serve + ["--continuous", "12", "--paged", "--kv-kernel", "pallas",
+                     "--max-slots", "4", "--prompt-len", "8", "--gen", "4", "--max-len", "32",
+                     "--kv-page-size", "8", "--chaos", "page.alloc=0.2,dispatch=0.05",
+                     "--chaos-seed", "3"]
+    return {"restart": CliRuns("restart", [pair, pair + ["--assert-no-builds"]], env),
+            "chaos": CliRuns("chaos", [chaos], env)}
+
+
+def stop_children():
+    """Kill every CLI subprocess still running and wait for it."""
+    with _CHILDREN_LOCK:
+        _STOPPING.set()
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def compile_cost_replay(dev, cfg, params):
+    """Phase 10 (b)'s restart replay in one process, (c) and (e) (see
+    :func:`phase_compile_cost`); returns (c)'s launches."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core import (CompileCache, DiskCacheStore, ForgeCompiler, PipelineConfig,
+                                  get_compile_cache)
+    from repro_torch.core.metrics import check_bucketed_fidelity
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import _forge
+    from repro_torch.models import transformer as T
+
     g = get_compile_cache()
     store0 = g.store
     cache_dir = tempfile.mkdtemp(prefix="forge-cache-", dir=os.environ.get("TMPDIR"))
@@ -3133,21 +3304,6 @@ def phase_compile_cost(dev):
     g.clear()
     g.store = store0
     release_device_memory()
-    cli_dir = tempfile.mkdtemp(prefix="forge-cli-cache-", dir=os.environ.get("TMPDIR"))
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for extra in ((), ("--assert-no-builds",)):
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "forge-125m",
-               "--mode", "forge", "--sweep", "1,3,8", "--prompt-sweep", "17,48", "--gen", "8",
-               "--cache-dir", cli_dir, *extra]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                              timeout=600)
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
-        log(f"CLI {' '.join(extra) or '(cold)'}: exit {proc.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s; "
-            + "; ".join(ln for ln in lines if "disk cache" in ln or "programs=" in ln))
-        check(proc.returncode == 0, f"the serve CLI {extra} exited {proc.returncode}: "
-                                    f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
 
     # -- (c) BucketedModule.__call__ on the block body at S=1024 -------------
     x_of = {B: torch.randn(B, 1024, cfg.d_model, device=dev,
@@ -3209,9 +3365,9 @@ def phase_compile_cost(dev):
     log(f"evict_cold(1): evicted {sorted(map(str, victims))}; memory_reserved "
         f"{before / 2**30:.3f} -> {after / 2**30:.3f} GiB; the evicted pow2:B2 replayed from "
         f"disk (disk hits {cache.stats.disk_hits}) bitwise equal to its first program")
-    del bucketed, got, again, params, model
+    del bucketed, got, again
     release_device_memory()
-    return {"async_serve": served_async, "bucketed_call": called}
+    return called
 
 
 def fault_recovery_workload(vocab, n=16):
@@ -3293,7 +3449,7 @@ def launches_from_segments(fronts, runs0):
     return fl, pa
 
 
-def phase_faults_slo(dev):
+def phase_faults_slo(dev, cli_runs):
     """Phase 11: fault-tolerant and SLO-aware slot serving of forge-125m at
     full width (bf16, segment_jit): (a) the fault_recovery soak, (b) a
     dispatch fault inside a decode program, (c) SLO against FIFO in wall
@@ -3301,7 +3457,6 @@ def phase_faults_slo(dev):
     ladder re-fit, (f) the CLI's ``--chaos``.  Returns the launches of
     each counted run."""
     import gc
-    import os
 
     import numpy as np
     import torch
@@ -3311,7 +3466,6 @@ def phase_faults_slo(dev):
     from repro_torch.models import get_model
     from repro_torch.runtime import chaos
 
-    t_phase = time.perf_counter()
     release_device_memory()
     cfg = get_config("forge-125m").with_(kv_kernel="pallas")  # bf16, 12 layers
     model = get_model(cfg)
@@ -3554,32 +3708,364 @@ def phase_faults_slo(dev):
     del srv, fronts
     release_device_memory()
 
-    # -- (f) the CLI's --chaos ------------------------------------------------
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "forge-125m",
-           "--mode", "forge", "--continuous", "12", "--paged", "--kv-kernel", "pallas",
-           "--max-slots", "4", "--prompt-len", "8", "--gen", "4", "--max-len", "32",
-           "--kv-page-size", "8", "--chaos", "page.alloc=0.2,dispatch=0.05",
-           "--chaos-seed", "3"]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    chaos_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve] chaos:")]
-    check(proc.returncode == 0 and chaos_line,
-          f"the --chaos CLI exited {proc.returncode}: {proc.stdout[-2000:]} "
-          f"{proc.stderr[-2000:]}")
-    log(f"(f) CLI --continuous 12 --paged --chaos page.alloc=0.2,dispatch=0.05 --chaos-seed 3: "
-        f"exit 0 in {time.perf_counter() - t0:.1f} s; {chaos_line[0]}")
+    # -- (f) the CLI's --chaos, run beside phases 6-7 (start_cli_runs) --------
+    (code, stdout, stderr, seconds), = cli_runs["chaos"].join()
+    chaos_line = [ln for ln in stdout.splitlines() if ln.startswith("[serve] chaos:")]
+    check(code == 0 and chaos_line,
+          f"the --chaos CLI exited {code}: {stdout[-2000:]} {stderr[-2000:]}")
+    log(f"(f) CLI --continuous 12 --paged --chaos page.alloc=0.2,dispatch=0.05 --chaos-seed 3 "
+        f"(beside phases 6-7): exit 0 in {seconds:.1f} s; {chaos_line[0]}")
     del params, model
     release_device_memory()
-    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
-def main():
+def phase12_qwen(dev, cfg, model, params, prompts):
+    """Phase 12 on qwen2.5-14b's weights (phase 9's, one init): (a) the
+    paged ``SlotScheduler`` with the paged-attention kernel at G = 5, (b)
+    ``mode="jit"`` (depth QWEN_JIT_LAYERS), (c) the autotuner on the
+    ``apply`` block body at B=1, S=1024.  Returns the paths' launches."""
+    t0 = time.perf_counter()
+    out = {"qwen_paged": qwen_paged(dev, cfg, model, params)}
+    log(f"phase 12 (a) took {time.perf_counter() - t0:.1f} s")
+    release_device_memory()
+    L_ = QWEN_JIT_LAYERS
+    jcfg, jparams = cfg, params
+    if L_ != cfg.n_layers:
+        jcfg = cfg.with_(n_layers=L_)
+        jparams = dict(params, blocks=params["blocks"][:L_])
+    out["jit_qwen"] = jit_path(dev, jcfg, model, jparams, prompts)
+    release_device_memory()
+    out["autotune_qwen"] = autotune_body(dev, cfg, params, 1, 1024)
+    log(f"phase 12 on qwen2.5-14b took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase12_forge(dev):
+    """Phase 12 on forge-125m at full width: (b) ``mode="jit"`` at the
+    CLI defaults against ``mode="interpret"``, (c) the autotuner on the
+    ``apply`` block body at B=4, S=1024."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    release_device_memory()
+    cfg = get_config("forge-125m")
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    out = {"jit_forge": jit_path(dev, cfg, model, params, prompts, elementwise=True)}
+    release_device_memory()
+    out["autotune_forge"] = autotune_body(dev, cfg, params, 4, 1024)
+    return out
+
+
+def qwen_paged(dev, cfg, model, params):
+    """Phase 12a: qwen2.5-14b at full width and depth through
+    ``SlotScheduler`` over ``BatchedServer(mode="forge", paged=True)``
+    with the paged-attention kernel (``kv_kernel="pallas"``: 40 query
+    heads on 8 KV heads, groups of 5) on segment_jit, phase 5's workload
+    (12 requests, a shared prefix, pages of 16, pow2 rungs of 4 slots).
+    Launches exact (paged = 48 x decode dispatches, fused linear = the
+    programs' linear nodes x dispatches, flash 0), no compile or capture
+    after warmup, ``pool.check()`` every tick (the scheduler's), no page
+    leaked; one decode and one prefill dispatch bitwise against
+    interpret, and the host/device split of steady ticks."""
+    import numpy as np
+    import torch
+    from repro_torch.core.paging import build_row_table
+    from repro_torch.launch.serve import BatchedServer, SlotScheduler
+
+    pcfg = cfg.with_(kv_kernel="pallas")
+    server = BatchedServer(pcfg, params, max_len=256, mode="forge", paged=True,
+                           kv_page_size=16, seq_bucket_policy="ladder:16,32,64,128,256")
+    sched = SlotScheduler(server, max_slots=4)
+    reqs = paged_workload(cfg.vocab)
+    t0 = time.perf_counter()
+    warm_s = warm_graphs("qwen2.5-14b paged", lambda: server.warmup([2]) + server.warmup(
+        [4], sorted({len(r.prompt) for r in reqs})))
+    fronts = (server.bucketed, server.prefill_bucketed)
+    program_log(server.bucketed, "qwen2.5-14b paged decode")
+    program_log(server.prefill_bucketed, "qwen2.5-14b paged prefill")
+    n_prog = sum(len(f.programs) for f in fronts)
+    log(f"qwen2.5-14b paged warmup: {n_prog} programs in {warm_s:.1f} s (wall "
+        f"{time.perf_counter() - t0:.1f} s; {warm_s / n_prog:.1f} s a program)")
+    caps = captures_now()
+    calls0 = [dict(f.stats.per_bucket_calls) for f in fronts]
+    reset_counts()
+    res = sched.run(reqs)
+    torch.cuda.synchronize()
+    launched = counts()
+
+    pool, tree = server.page_pool, server.prefix_tree
+    for r in reqs:
+        got = res["results"][r.rid]
+        check("error" not in got, f"qwen paged request {r.rid} failed: {got.get('error')}")
+        check(len(got["tokens"]) == r.max_new,
+              f"qwen paged request {r.rid}: {len(got['tokens'])} tokens, budget {r.max_new}")
+    check(res["swaps"] >= 1 and res["prefix_hits"] >= 1,
+          f"qwen paged: swaps {res['swaps']}, prefix hits {res['prefix_hits']}")
+    pool.check()
+    check(pool.pages_in_use == 1 + tree.cached_pages,
+          f"qwen paged: pages in use {pool.pages_in_use} != 1 + {tree.cached_pages} cached "
+          f"(a page leaked)")
+    check(res["compiles"] == 0 and captures_now() == caps,
+          f"qwen paged: {res['compiles']} compiles after warmup, captures {captures_now()} "
+          f"after {caps}")
+    check(launched["paged_attention"] == cfg.n_layers * res["decode_dispatches"] > 0,
+          f"qwen paged: paged launches {launched['paged_attention']} != {cfg.n_layers} x "
+          f"{res['decode_dispatches']} decode dispatches")
+    want_fl = sum(linear_nodes(mod) * (f.stats.per_bucket_calls.get(str(key), 0)
+                                       - c0.get(str(key), 0))
+                  for f, c0 in zip(fronts, calls0) for key, mod in f.programs.items())
+    check(launched["fused_linear"] == want_fl > 0,
+          f"qwen paged: fused_linear launches {launched['fused_linear']} != {want_fl} "
+          f"predicted from the programs' linear nodes x dispatches")
+    check(launched["flash_attention"] == 0 and launched["rg_lru"] == 0,
+          f"qwen paged: flash {launched['flash_attention']}, rg_lru {launched['rg_lru']}")
+    per_prog = {str(k): round(v, 2) for f in fronts
+                for k, v in f.stats.per_bucket_compile_s.items()}
+    log(f"paged serve qwen2.5-14b (bf16, 48 layers, kv_kernel=pallas, G=5, max_slots 4, "
+        f"page 16, {pool.num_pages} pages): {len(reqs)} requests, {res['real_tokens']} "
+        f"tokens, {res['tok_per_s']:.1f} tok/s, tick p50 {res['tick_ms_p50']:.2f} ms p99 "
+        f"{res['tick_ms_p99']:.2f} ms, TTFT p50 {res['ttft_p50_ticks']:.1f} ticks "
+        f"{res['ttft_p50_s'] * 1e3:.2f} ms; decode dispatches {res['decode_dispatches']}, "
+        f"prefill dispatches {res['prefill_dispatches']}, swaps {res['swaps']}, prefix hits "
+        f"{res['prefix_hits']}, peak pages {res['kv_peak_pages_in_use']}; compile s per "
+        f"program {per_prog}; 0 pages leaked, pool.check() on every tick; launches "
+        f"{launched}, {launched.variants}")
+
+    # segment_jit against interpret: a decode tick on the cached shared
+    # prefix plus a fresh page a row (positions 32..35), and a B4 x S16
+    # prefill dispatch on the same rows at 32
+    chain, n_tok = tree.match(reqs[0].prompt, max_tokens=32)
+    check(n_tok == 32, f"qwen paged: the shared prefix is not cached ({n_tok} tokens)")
+    B, MP = 4, server.max_pages_per_slot
+    own = [pool.alloc(2) for _ in range(B)]
+    pt = torch.from_numpy(np.stack([build_row_table(chain + o, MP) for o in own])).to(dev)
+    pos = torch.tensor([32, 33, 34, 35], dtype=torch.int32, device=dev)
+    tok = torch.tensor([[t % cfg.vocab] for t in (11, 222, 3333, 44444)], dtype=torch.int32,
+                       device=dev)
+    mask = torch.ones(B, dtype=torch.bool, device=dev)
+    store = server.page_store
+    twins = interpret_twins(fronts)
+    ptoks = torch.randint(0, cfg.vocab, (B, 16), dtype=torch.int32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(13))
+    ppos = torch.full((B,), 32, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        hold_against_interpret("qwen2.5-14b paged", [
+            ("decode", server.bucketed.key_for_extents(B), 0,
+             (params, store, pt, tok, pos, mask)),
+            ("prefill", server.prefill_bucketed.key_for_extents((B, 16)), 1,
+             (params, store, pt, ptoks, ppos, mask))], fronts, twins)
+    dmod = server.bucketed.lookup_program(server.bucketed.key_for_extents(B))
+
+    def ticks():
+        st = {"tok": tok, "pos": pos, "store": store}
+
+        def one():
+            st["tok"], st["store"] = dmod(params, st["store"], pt, st["tok"], st["pos"], mask)
+            st["pos"] = st["pos"] + 1
+
+        return one
+
+    backend_split("qwen2.5-14b paged decode tick (B=4)", fronts, twins, ticks, dmod)
+    for o in own:
+        pool.free(o)
+    pool.check()
+    return launched
+
+
+def jit_path(dev, cfg, model, params, prompts, elementwise=False):
+    """Phase 12b: ``BatchedServer(mode="jit")`` at batch 4, prompt 32, 32
+    new tokens: the step compiled whole (``torch.compile(fullgraph=True)``,
+    one CUDA graph a batch size, built in warmup), then one generation.
+    Launches exact (the graph's fused-linear nodes x steps, recorded at
+    capture and added per replay; nothing else), one graph, no compile in
+    the generation, the cache in place.  Greedy tokens against
+    ``mode="interpret"``'s: equal, or a row held at its first differing
+    token by the measured-slack rule (``first_token_slack``).  Every
+    step's logits, teacher-forced on interpret's tokens, against the
+    interpreted step's, each path on a cache of its own: within
+    SPREAD_FACTOR_BF16 times the run's spread between two kernel-free
+    implementations in relative L2 over all steps, and with
+    ``elementwise`` (forge-125m, phase 3's model) within TOL_MODEL_BF16
+    at every step.  Returns the launches."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch.serve import BatchedServer
+
+    B, P = prompts.shape
+    n_new, max_len = 32, 256
+    what = f"jit {cfg.name} ({cfg.n_layers} layers)"
+    server = BatchedServer(cfg, params, max_len=max_len, mode="jit")
+    warm_s = server.warmup([B])
+    step = server.jit_steps[B]
+    check(step.graphs == 1, f"{what}: {step.graphs} graphs compiled, not 1")
+    ptrs = [t.data_ptr() for t in pytree.tree_leaves(step.cache)]
+    reset_counts()
+    res = server.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    launched = counts()
+    steps = P + n_new - 1
+    per_step = step.kernel_nodes.get("fused_linear", 0)
+    check(res["compile_s"] == 0.0 and step.graphs == 1,
+          f"{what}: compiled in the generation ({res['compile_s']} s, {step.graphs} graphs)")
+    check(launched["fused_linear"] == per_step * steps > 0,
+          f"{what}: fused_linear launches {launched['fused_linear']} != {per_step} graph "
+          f"nodes x {steps} steps")
+    check(not any(v for k, v in launched.items() if k != "fused_linear"),
+          f"{what}: launched {launched}")
+    check([t.data_ptr() for t in pytree.tree_leaves(step.cache)] == ptrs,
+          f"{what}: the cache moved")
+    interp_tokens = BatchedServer(cfg, params, max_len=max_len,
+                                  mode="interpret").generate(prompts, n_new)["tokens"]
+    same_rows = int((res["tokens"] == interp_tokens).all(axis=1).sum())
+    same = int((res["tokens"] == interp_tokens).sum())
+    # Inductor's reductions (softmax, the norms) and its erf and exp are
+    # not the eager kernels', so bf16 rows can part at a near-tie: a row
+    # that differs is held at its first differing token, where both picks
+    # must be top choices of the plain path within the measured slack
+    diverged = []
+    for b in np.flatnonzero((res["tokens"] != interp_tokens).any(axis=1)):
+        j = int(np.flatnonzero(res["tokens"][b] != interp_tokens[b])[0])
+        ctx = np.concatenate([prompts[b], res["tokens"][b, :j]])
+        picks = [int(res["tokens"][b, j]), int(interp_tokens[b, j])]
+        spread, slack, margins = first_token_slack(model, cfg, params, ctx, picks, dev,
+                                                   f"{what} row {b} token {j}")
+        diverged.append(f"row {b} from token {j}: picks {picks} margins "
+                        f"{[round(m, 4) for m in margins]} within slack {slack:.4f}")
+
+    # every step's logits, teacher-forced: the prompt, then interpret's
+    # tokens, fed to the jit step and, each on a cache of its own, to the
+    # interpreted step and to two kernel-free implementations (impl="ref",
+    # fused and unfused), whose difference is the run's spread
+    feed = torch.as_tensor(np.concatenate([prompts, interp_tokens[:, :-1]], axis=1),
+                           dtype=torch.int64, device=dev)
+    paths = {"interp": (cfg, None), "ref": (cfg, "ref"), "raw": (cfg.with_(fuse="none"), "ref")}
+    caches = {name: model.init_cache(cfg, B, max_len, device=dev) for name in paths}
+    rows = {name: [] for name in ("jit", *paths)}
+    jcache = step.reset()
+    with torch.no_grad():
+        for t in range(feed.shape[1]):
+            tok_t = feed[:, t:t + 1]
+            step(params, jcache, tok_t, t)
+            rows["jit"].append(step.last_logits().float())
+            for name, (c, impl) in paths.items():
+                n0 = sum(counts().values())
+                lg, caches[name] = model.decode_step(params, caches[name], tok_t, t, c, impl=impl)
+                rows[name].append(lg[:, -1].float())
+                check(impl is None or sum(counts().values()) == n0,
+                      f"{what}: the impl='ref' step launched a kernel")
+    got, interp, ref, raw = (torch.stack(rows[k]) for k in ("jit", "interp", "ref", "raw"))
+    del rows, caches
+    check(torch.isfinite(got).all().item(), f"{what}: non-finite logits")
+    spread = rel_l2(ref, raw)
+    got_r = rel_l2(got, interp)
+    per_step = [rel_l2(got[t], interp[t]) for t in range(got.shape[0])]
+    check(got_r <= SPREAD_FACTOR_BF16 * spread,
+          f"{what}: teacher-forced logits over {got.shape[0]} steps: relative L2 {got_r:.3e} of "
+          f"the interpreted step above {SPREAD_FACTOR_BF16} x the spread {spread:.3e}")
+    if elementwise:
+        assert_close(got, interp, torch.bfloat16,
+                           f"{what}: teacher-forced logits against the interpreted step",
+                           TOL_MODEL_BF16)
+    split = ", ".join(f"{k} {v:.1f} s" for k, v in step.compile_split.items())
+    log(f"{what} batch={B} prompt={P} gen={n_new}: warmup {warm_s:.1f} s ({split}; the rest "
+        f"is Triton's kernel loads, the warm runs and the CUDA graph); {step.graphs} graph "
+        f"of {step.graph_nodes} "
+        f"nodes, kernel nodes {step.kernel_nodes}; ttft {res['ttft_s'] * 1e3:.2f} ms, decode "
+        f"p50 {res['decode_ms_p50']:.3f} ms p99 {res['decode_ms_p99']:.3f} ms, "
+        f"{res['tok_per_s']:.1f} tok/s; launches {launched}, {launched.variants}; cache in "
+        f"place; greedy tokens equal to mode='interpret' in {same_rows}/{B} rows "
+        f"({same}/{res['tokens'].size} tokens)"
+        + (f"; diverged rows held at their first differing token: {diverged}"
+           if diverged else ""))
+    log(f"{what} logits at every one of {got.shape[0]} teacher-forced steps: "
+        f"{got_r:.3e} relative L2 of the interpreted step (bound {SPREAD_FACTOR_BF16} x the "
+        f"spread {spread:.3e} between two kernel-free implementations; per step max "
+        f"{max(per_step):.3e} at step {int(np.argmax(per_step))}), {rel_l2(got, ref):.3e} of "
+        f"impl='ref'; max abs {(got - interp).abs().max().item():.3e}"
+        + (" within TOL_MODEL_BF16 at every step" if elementwise else "")
+        + f"; argmax equal in {int((got.argmax(-1) == interp.argmax(-1)).sum())}/"
+        f"{got.shape[0] * B} (step, row) pairs")
+    return launched
+
+
+def autotune_body(dev, cfg, params, B, S):
+    """Phase 12c: ``AutotuningCompiler().compile`` on the block body
+    ``apply`` compiles (layer 0's weights, the embedded tokens, RoPE at
+    S positions; unmasked causal attention, so flash launches): 47
+    candidates scored on copies of one capture, the winner compiled and
+    run (its launches the path's), within the bf16 kernel tolerance of
+    the default pipeline's body."""
+    import numpy as np
+    import torch
+    from repro_torch.core import AutotuningCompiler, ForgeCompiler
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    what = f"autotune {cfg.name} block body B={B} S={S}"
+    p0 = params["blocks"][0]
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(23))
+
+    def body(*a):
+        return T.block_apply(*a, cfg=cfg)
+
+    with torch.no_grad():
+        x = L.embed(tokens, params["embed"])
+        cos, sin = T._rope_for(cfg, torch.arange(S, device=dev))
+        args = (p0, x, cos, sin)
+        t0 = time.perf_counter()
+        mod = AutotuningCompiler().compile(body, *args)
+        total_s = time.perf_counter() - t0
+        default = ForgeCompiler().compile(body, *args)
+        want = default(*args)
+        reset_counts()
+        got = mod(*args)
+        torch.cuda.synchronize()
+        launched = counts()
+    tr = mod.tune_result
+    best = tr.best
+    ms = [c.time_ms for c in tr.candidates]
+    check(len(tr.candidates) == 47 and best.score <= min(c.score for c in tr.candidates),
+          f"{what}: {len(tr.candidates)} candidates, best {best}")
+    check(launched["flash_attention"] == flash_nodes(mod) == 1,
+          f"{what}: flash launches {launched['flash_attention']}, nodes {flash_nodes(mod)}")
+    check(launched["fused_linear"] == linear_nodes(mod) > 0,
+          f"{what}: fused_linear launches {launched['fused_linear']} != {linear_nodes(mod)}")
+    err = assert_close(got, want, torch.bfloat16, f"{what}: winner against the default body")
+    log(f"{what}: winner alpha={best.alpha} layout={best.layout} precision={best.precision} "
+        f"rounds={best.max_rounds} (score {best.score:.4f}, {best.nodes_after} nodes; the "
+        f"default pipeline's {default.result.cost.score:.4f}, {default.result.nodes_after} "
+        f"nodes); {len(tr.candidates)} candidates, passes + score per candidate mean "
+        f"{np.mean(ms):.2f} ms max {max(ms):.2f} ms ({sum(ms):.1f} ms in all); the one export "
+        f"{tr.capture_ms / 1e3:.2f} s; tune {tr.total_ms / 1e3:.2f} s, tune + compile "
+        f"{total_s:.2f} s; winner within bf16 tolerance of the default body (max abs err "
+        f"{err:.3e}); launches {launched}, {launched.variants}")
+    return launched
+
+
+def main(argv=None):
+    import argparse
+
+    global QWEN_JIT_LAYERS
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port")
+    ap.add_argument("--qwen-jit-layers", type=int, default=QWEN_JIT_LAYERS,
+                    help="the depth phase 12 compiles qwen2.5-14b's jit step at")
+    args = ap.parse_args(argv)
+    QWEN_JIT_LAYERS = args.qwen_jit_layers
     if not (ROOT / "src" / "repro_torch").is_dir():
         log("FAIL: src/repro_torch is not beside this script; run it from the repository")
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # phase 12's torch.compile writes its Inductor and Triton caches under
+    # the repository's build directory, beside the kernels' libraries
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "torchinductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     import torch
 
     if not torch.cuda.is_available():
@@ -3597,27 +4083,38 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    phase_build()
+    took = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t, 1)
+        log(f"{name} took {took[name]:.1f} s")
+        return out
+
+    timed("phase 1 (build)", phase_build)
     timer = Timer(dev)
-    fl_rows = phase_fused_linear(dev, timer)
-    fa_rows = phase_flash(dev, timer)
-    pa_rows = phase_paged(dev, timer)
-    rg_rows = phase_rg_lru(dev, timer)
-    rms_rows = phase_rms_norm(dev, timer)
-    launches = phase_main_path(dev)
-    launches["paged"] = phase_paged_serve(dev)
+    fl_rows, fa_rows, pa_rows, rg_rows, rms_rows = timed("phase 2", lambda: (
+        phase_fused_linear(dev, timer), phase_flash(dev, timer), phase_paged(dev, timer),
+        phase_rg_lru(dev, timer), phase_rms_norm(dev, timer)))
+    launches = timed("phases 3-4", phase_main_path, dev)
+    launches["paged"] = timed("phase 5", phase_paged_serve, dev)
     release_device_memory()
-    launches.update(phase_rglru(dev))
-    launches.update(phase_xlstm(dev))
-    launches.update(phase_dense_contiguous(dev))
-    launches.update(phase_qwen(dev))
-    launches.update(phase_compile_cost(dev))
-    launches.update(phase_faults_slo(dev))
+    cli_runs = start_cli_runs()
+    launches.update(timed("phase 6", phase_rglru, dev))
+    launches.update(timed("phase 7", phase_xlstm, dev))
+    launches.update(timed("phase 8", phase_dense_contiguous, dev))
+    # phase 9, with phase 12's qwen2.5-14b paths on its weights
+    launches.update(timed("phases 9 and 12 on qwen2.5-14b", phase_qwen, dev,
+                          lambda *a: phase12_qwen(dev, *a)))
+    launches.update(timed("phase 10", phase_compile_cost, dev, cli_runs))
+    launches.update(timed("phase 11", phase_faults_slo, dev, cli_runs))
+    launches.update(timed("phase 12 on forge-125m", phase12_forge, dev))
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
     check_variants(launches)
-    log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
+    log(f"all phases passed in {time.perf_counter() - t0:.1f}s: {json.dumps(took)}")
 
     def timing(t):
         return {"max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3668,11 +4165,14 @@ def main():
              "dense_serve": fl_rows[128], "dense_sequential": fl_rows[4],
              "dense_sched": fl_rows[4],
              "qwen_eager": fl_rows[("qwen", 4)], "qwen_serve": fl_rows[("qwen", 128)],
-             "qwen_apply": fl_rows[("qwen", 1024)]}),
+             "qwen_apply": fl_rows[("qwen", 1024)], "qwen_paged": fl_rows[("qwen", 4)],
+             "jit_qwen": fl_rows[("qwen", 4)], "autotune_qwen": fl_rows[("qwen", 1024)],
+             "jit_forge": fl_rows[4], "autotune_forge": fl_rows[4096]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
-            {"apply": fa_rows["apply"], "qwen_apply": fa_rows["qwen"]}),
+            {"apply": fa_rows["apply"], "qwen_apply": fa_rows["qwen"],
+             "autotune_forge": fa_rows["apply"], "autotune_qwen": fa_rows["qwen"]}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
-            {"paged": pa_rows["served"]}),
+            {"paged": pa_rows["served"], "qwen_paged": pa_rows["qwen_served"]}),
         row("rg_lru", "src/repro/kernels/rg_lru.py:130", "rglru_serve",
             {"rglru_serve": rg_rows[(4, 32)], "rglru_apply": rg_rows[(2, 1024)]}),
     ]
@@ -3691,7 +4191,9 @@ def main():
     kernels[2]["head_dims"] = list(PA.HEAD_DIMS)
     kernels[2]["per_shape"] = {"B4-H12-D64-served": timing(pa_rows["served"]),
                                "B8-H12-D64-pos2047": timing(pa_rows["long"]),
-                               "B4-H32-KVH8-D128-pos2047": timing(pa_rows["gqa128"])}
+                               "B4-H32-KVH8-D128-pos2047": timing(pa_rows["gqa128"]),
+                               "B4-H40-KVH8-D128-served": timing(pa_rows["qwen_served"]),
+                               "B4-H40-KVH8-D128-pos2047": timing(pa_rows["qwen_pos2047"])}
     kernels[3]["per_shape"] = {f"B{b}xT{t}": timing(rg_rows[(b, t)])
                                for b, t in ((4, 32), (4, 64), (2, 1024))}
     # the same source serves rg_lru_chunked (its `last` output), which no
@@ -3713,5 +4215,17 @@ def main():
     return 0
 
 
+def run():
+    """``main()``, then the CLI subprocesses that still run killed and
+    Inductor's compile workers stopped (phase 12's torch.compile starts
+    them)."""
+    try:
+        return main()
+    finally:
+        stop_children()
+        if "torch._inductor.async_compile" in sys.modules:
+            sys.modules["torch._inductor.async_compile"].shutdown_compile_workers()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -1,8 +1,9 @@
 """Forge-UGC core: the four-phase compiler (capture, passes, RGIR
-lowering, Phase-4 scheduling/liveness/allocation/executors), the compile
-cache (memory and disk tiers) and the background compile service, the
-bucketed multi-program front with its buffer pool, and the paged-KV page
-pool."""
+lowering, Phase-4 scheduling/liveness/allocation/executors) and its
+autotuner, the compile cache (memory and disk tiers) and the background
+compile service, the bucketed multi-program front with its buffer pool,
+and the paged-KV page pool."""
+from .autotune import AutotuningCompiler, TuneCandidate, TuneResult
 from .backends import available_backends, get_backend
 from .cache import CompileCache, DiskCacheStore, get_compile_cache
 from .capture import CaptureResult, trace_to_graph
@@ -24,6 +25,9 @@ from .passes import PipelineConfig, default_passes, run_forge_passes
 from .shapekey import PolyAxis, ShapeKey, get_bucket_policy
 
 __all__ = [
+    "AutotuningCompiler",
+    "TuneCandidate",
+    "TuneResult",
     "available_backends",
     "BucketedModule",
     "BufferPool",

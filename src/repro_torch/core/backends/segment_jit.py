@@ -88,6 +88,7 @@ Not ported: buffer donation.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import warnings
@@ -121,6 +122,62 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     if s is None:
         s = _CAPTURE_STREAMS[key] = torch.cuda.Stream(device)
     return s
+
+
+@contextlib.contextmanager
+def capture_scope(device: torch.device, owner: int):
+    """This thread's side stream (:func:`_capture_stream`), entered after
+    the current stream's work, with a kernel-scratch scope of ``owner``'s
+    own: an owner's warm runs and captures run inside one scope, so the
+    scratch a warm run makes is the one its capture finds.  Yields the
+    stream; on exit the current stream waits for it."""
+    stream = _capture_stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream), _build.scratch_scope(owner):
+        yield stream
+    torch.cuda.current_stream(device).wait_stream(stream)
+
+
+def capture_graph(fn: Callable[[], Any], pool=None,
+                  on_error: Optional[Callable[[Exception], Exception]] = None):
+    """``fn()`` captured as one CUDA graph on the current stream; returns
+    (graph, ``fn``'s outputs in the graph's pool, the kernel launches the
+    capture recorded).  A capture launches nothing: the wrappers it runs
+    count into this thread's recorder, and the owner adds the delta at
+    each replay.  When ``fn`` or the capture's end fails, the void
+    capture is ended quietly and that first error raised (as
+    ``on_error(error)`` when given)."""
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording() as rec:
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            outs = fn()
+        except Exception as e:
+            try:
+                graph.capture_end()
+            except Exception:  # noqa: BLE001 — the capture is void already
+                pass
+            if on_error is None:
+                raise
+            raise on_error(e) from e
+        try:
+            with warnings.catch_warnings():
+                # a capture of views and reshapes launches no kernel: its
+                # graph is empty, and replaying it costs nothing
+                warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+                graph.capture_end()
+        except Exception as e:
+            if on_error is None:
+                raise
+            raise on_error(e) from e
+    return graph, outs, rec.delta()
+
+
+def count_capture(graphs: int, seconds: float) -> None:
+    """Add one captured program of ``graphs`` graphs to :data:`CAPTURES`."""
+    CAPTURES["programs"] += 1
+    CAPTURES["graphs"] += graphs
+    CAPTURES["seconds"] += seconds
 
 
 class SegmentCaptureError(RuntimeError):
@@ -338,9 +395,7 @@ class SegmentExecutor(PaddedExecutionMixin):
             if i not in static:
                 values[i] = x.clone()  # the program's own input tensor
                 own.append((i, values[i]))
-        stream = _capture_stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.no_grad(), torch.cuda.stream(stream), _build.scratch_scope(id(self)):
+        with torch.no_grad(), capture_scope(dev, id(self)) as stream:
             # warm run: the kernels' libraries, cuBLAS's handles and the
             # kernels' per-stream scratch exist before any capture
             self._run_file(values, faults=False)
@@ -361,40 +416,17 @@ class SegmentExecutor(PaddedExecutionMixin):
                 for b, v in zip(seg.out_slots, outs):
                     file[b] = v
             outputs = [file[b] for b in self._output_bufs]
-        torch.cuda.current_stream(dev).wait_stream(stream)
         params = tuple((i, flat_inputs[i].data_ptr()) for i in self._static_inputs)
         self._replay = (tuple(graphs), tuple(own), params, outputs)
         seconds = time.perf_counter() - t0
         self.stats.capture_s = seconds
-        CAPTURES["programs"] += 1
-        CAPTURES["graphs"] += len(graphs)
-        CAPTURES["seconds"] += seconds
+        count_capture(len(graphs), seconds)
 
     def _capture(self, seg: CompiledSegment, args: List[Any], pool, stream):
-        """One segment as one CUDA graph; returns (graph, outputs in the
-        pool, the kernel launches its capture recorded)."""
-        graph = torch.cuda.CUDAGraph()
-        # a capture launches nothing: the wrappers it runs count into this
-        # thread's recorder, and the graph adds them at each replay
-        with _build.recording() as rec:
-            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                outs = seg.fn(*args)
-            except Exception as e:
-                try:
-                    graph.capture_end()
-                except Exception:  # noqa: BLE001 — the capture is void already
-                    pass
-                raise self._capture_error(seg, args, stream, e) from e
-            try:
-                with warnings.catch_warnings():
-                    # a segment of views and reshapes launches no kernel: its
-                    # graph is empty, and replaying it costs nothing
-                    warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
-                    graph.capture_end()
-            except Exception as e:
-                raise self._capture_error(seg, args, stream, e) from e
-        return graph, outs, rec.delta()
+        """One segment as one CUDA graph (:func:`capture_graph`); a failure
+        names the segment's first op that cannot be captured."""
+        return capture_graph(lambda: seg.fn(*args), pool,
+                             lambda e: self._capture_error(seg, args, stream, e))
 
     def _capture_error(self, seg: CompiledSegment, args: List[Any], stream,
                        cause: Exception) -> SegmentCaptureError:

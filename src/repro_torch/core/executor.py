@@ -27,6 +27,8 @@ import threading
 from dataclasses import dataclass, replace as _dc_replace
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+import torch
+
 from ..runtime import chaos
 from .bufalloc import AllocationResult, allocate_from_liveness
 from .liveness import LivenessInfo, analyze_liveness
@@ -258,8 +260,12 @@ class CompiledExecutor(PaddedExecutionMixin):
                             f"got {len(flat_inputs)}")
         # the fault site fires once per program execution (segment_jit
         # fires it once per segment), before any register write: the
-        # caller's inputs are untouched, so the dispatch may be retried
-        chaos.maybe_fault(chaos.SITE_DISPATCH)
+        # caller's inputs are untouched, so the dispatch may be retried.
+        # A torch.compile trace of the call (a jit-mode serve step) is no
+        # execution: it fires no fault and counts no call
+        tracing = torch.compiler.is_dynamo_compiling()
+        if not tracing:
+            chaos.maybe_fault(chaos.SITE_DISPATCH)
         file: List[Any] = [None] * self.alloc.n_buffers
         for b, v in self._const_items:
             file[b] = v
@@ -274,7 +280,8 @@ class CompiledExecutor(PaddedExecutionMixin):
             for b in free_slots:  # eager GC
                 file[b] = None
         outs = [file[b] for b in self._output_bufs]
-        self.stats.note_call(self._static_peak)
+        if not tracing:
+            self.stats.note_call(self._static_peak)
         return outs
 
     def as_fn(self) -> Callable:

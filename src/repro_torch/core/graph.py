@@ -211,6 +211,44 @@ class Graph:
             self.users_of.setdefault(iv.vid, set()).add(nid)
         return node
 
+    def copy(self) -> "Graph":
+        """A copy whose passes leave this graph as it is (the autotuner
+        runs each candidate's passes on one copy of a single capture).
+
+        Nodes, values, their avals, the node params' top level and
+        ``kwargs``, metadata and the use lists are new; constant tensors
+        and node targets are shared: passes add and replace constants but
+        never write one (``passes/fold.py``, ``passes/device_const.py``).
+        Ids are kept, so the copy's maps read as the original's."""
+        g = Graph()
+        vmap: Dict[int, GVar] = {}
+
+        def var(v: GVar) -> GVar:
+            nv = vmap.get(v.vid)
+            if nv is None:
+                nv = vmap[v.vid] = GVar(v.vid, Aval(v.aval.shape, v.aval.dtype), v.name)
+            return nv
+
+        g.invars = [var(v) for v in self.invars]
+        g.constvars = [var(v) for v in self.constvars]
+        g.consts = list(self.consts)
+        for nid, n in self.nodes.items():
+            params = dict(n.params)
+            if isinstance(params.get("kwargs"), dict):
+                params["kwargs"] = dict(params["kwargs"])
+            g.nodes[nid] = GNode(nid, n.op, n.target, params, [var(v) for v in n.invars],
+                                 [var(v) for v in n.outvars], dict(n.meta))
+        g.outvars = [var(v) for v in self.outvars]
+        g.producer_of = dict(self.producer_of)
+        g.users_of = {vid: set(users) for vid, users in self.users_of.items()}
+        vids = list(g.users_of) + list(g.producer_of) + list(vmap)
+        g._vid = itertools.count(max(vids, default=-1) + 1)
+        # past every node id a use list or producer entry may still name
+        nids = (list(self.nodes) + [nid for users in self.users_of.values() for nid in users]
+                + [nid for nid, _ in self.producer_of.values()])
+        g._nid = itertools.count(max(nids, default=-1) + 1)
+        return g
+
     # -- queries -------------------------------------------------------------
 
     def producer(self, v: Operand) -> Optional[GNode]:

@@ -156,10 +156,20 @@ def node_flops(node: GNode) -> float:
     return float(math.prod(node.outvars[0].shape))
 
 
+def _plain(t: Any) -> Any:
+    """A template with export's immutable lists and dicts made plain ones
+    (a torch.compile trace of the call takes no ``immutable_list``)."""
+    if isinstance(t, (list, tuple)):
+        return (list if isinstance(t, list) else type(t))(_plain(e) for e in t)
+    if isinstance(t, dict):
+        return {k: _plain(v) for k, v in t.items()}
+    return t
+
+
 def _aten_target(node: GNode) -> Callable:
     """The node's ATen call with its argument template pre-bound."""
     fn = node.target
-    args_t, kwargs_t = node.params["args"], node.params["kwargs"]
+    args_t, kwargs_t = _plain(node.params["args"]), _plain(node.params["kwargs"])
     # positions of top-level tensor operands; nested ones take the slow path
     flat = all(not isinstance(a, (list, tuple)) or not any(isinstance(e, Ref) for e in a)
                for a in args_t) and not any(isinstance(v, (Ref, list, tuple))

@@ -1,12 +1,25 @@
 """Batched greedy serving — the port of ``repro.launch.serve``.
 
-``BatchedServer(mode="eager")`` is the counterpart of the JAX server's
-``--mode jit``: the serve step runs directly (PyTorch executes eagerly),
-and when ``cfg.fuse == "forge"`` every transformer block body inside it
-is Forge-compiled once per shape through all four phases — so the fused
-``forge.linear_act`` and ``forge.sdpa`` nodes reach the CUDA kernels.
-The prompt is prefilled token by token through the decode step, as the
-JAX server does in jit mode.
+The three modes of the JAX server, under its names:
+
+* ``BatchedServer(mode="jit")`` (the default, as in the JAX package):
+  the serve step compiled whole, the paper's compile-then-run baseline.
+  The JAX server runs it under ``jax.jit(serve_step, donate_argnums=(1,))``;
+  here ``torch.compile(..., fullgraph=True, dynamic=False)`` compiles the
+  step ``interpret`` runs (Forge-compiled block bodies included: their
+  RGIR ops, the kernels' custom ops among them, are traced into the one
+  graph) once per batch extent, and the step writes the new K/V into the
+  cache it was given (the donation analogue: the cache stays in place).
+  On the card the compiled step runs as one CUDA graph
+  (:class:`JitServeStep`).
+* ``BatchedServer(mode="interpret")``: the same step run op by op
+  (PyTorch executes eagerly); when ``cfg.fuse == "forge"`` every block
+  body inside it is Forge-compiled once per shape through all four
+  phases, so the fused ``forge.linear_act`` and ``forge.sdpa`` nodes
+  reach the CUDA kernels.
+
+Both prefill the prompt token by token through the decode step, as the
+JAX server does in these modes.
 
 ``BatchedServer(mode="forge")`` with the contiguous cache serves groups
 through two multi-program fronts: the whole decode step (embedding,
@@ -63,7 +76,7 @@ run only.
 
 CLI (runs on the CUDA device unless ``--device cpu``)::
 
-    python -m repro_torch.launch.serve --arch forge-125m [--smoke]
+    python -m repro_torch.launch.serve --arch forge-125m [--smoke] [--mode jit|interpret]
     python -m repro_torch.launch.serve --arch forge-125m --mode forge \\
         [--backend segment_jit|interpret|reference] [--continuous 8 --max-slots 4]
     python -m repro_torch.launch.serve --arch xlstm-350m --mode forge \\
@@ -118,8 +131,11 @@ class BatchedServer:
     dispatches by device (the CUDA kernels on the card), ``"ref"`` runs
     the kernels' plain versions — the oracle a kernel run is held against.
 
-    ``mode="eager"``: group admission, sequential prefill through the
-    decode step (:meth:`generate`).
+    ``mode="jit"``: group admission, sequential prefill through the
+    decode step compiled whole per batch extent (:class:`JitServeStep`,
+    which owns the extent's cache and updates it in place).
+
+    ``mode="interpret"``: the same, with the decode step run op by op.
 
     ``mode="forge"``: the decode step compiled through Phases 1-4 behind
     a :class:`~repro_torch.core.compiler.BucketedModule` (one program per
@@ -150,9 +166,9 @@ class BatchedServer:
     place at its next admission.
     """
 
-    MODES = ("eager", "forge")
+    MODES = ("jit", "interpret", "forge")
 
-    def __init__(self, cfg, params, max_len: int = 256, mode: str = "eager",
+    def __init__(self, cfg, params, max_len: int = 256, mode: str = "jit",
                  impl: Optional[str] = None, *, backend: str = "segment_jit",
                  bucket_policy: str = "pow2",
                  seq_bucket_policy: str = "ladder:16,32,64,128,256",
@@ -199,6 +215,8 @@ class BatchedServer:
         self.max_pages_per_slot = 0
         #: most recently resolved bucket program (transparency)
         self.forge_module = None
+        #: mode="jit": the compiled step of each batch size served
+        self.jit_steps: Dict[int, JitServeStep] = {}
         if mode == "forge":
             from ..core.backends import get_backend
 
@@ -533,7 +551,19 @@ class BatchedServer:
         Async: every program is first queued on the compile service
         (speculative priority) and the call waits for the workers; the
         loop below then only runs the warm programs.
+
+        ``mode="jit"`` builds the compiled step of each batch size (one
+        step on a zero token at position 0; the next prefill resets the
+        cache); ``mode="interpret"`` has nothing to warm.
         """
+        if self.mode == "jit":
+            t0 = time.perf_counter()
+            for B in sorted(set(int(b) for b in batch_sizes)):
+                step = self.jit_step(B)
+                if step.calls == 0:
+                    tok = torch.zeros((B, 1), dtype=torch.int64, device=self.device)
+                    step(self.params, step.cache, tok, 0)
+            return time.perf_counter() - t0
         if self.mode != "forge":
             return 0.0
         self._ensure_bucketed()
@@ -596,7 +626,7 @@ class BatchedServer:
                           foreground=False)
         self.compile_service.wait_idle()
 
-    # -- group serving (mode="eager" and the contiguous forge fronts) -----
+    # -- group serving (jit, interpret and the contiguous forge fronts) ----
 
     @torch.no_grad()
     def prefill(self, prompts: np.ndarray):
@@ -605,10 +635,11 @@ class BatchedServer:
         Forge mode: the whole-prompt program of the group's grid cell
         when the policy and the ladder allow it, else the decode program
         replayed token by token; the state is bucket-shaped (the first
-        ``B`` rows are the real requests).  Eager mode: token by token
-        through the decode step.  Returns ``(cache, next_tok, pos,
-        step_fn, key)``, ``key`` the decode program's ShapeKey (None in
-        eager mode)."""
+        ``B`` rows are the real requests).  Jit and interpret modes: token
+        by token through the decode step (jit: the batch's compiled step
+        and the cache it owns, reset first).  Returns ``(cache, next_tok,
+        pos, step_fn, key)``, ``key`` the decode program's ShapeKey (None
+        outside forge mode)."""
         if self.paged:
             raise NotImplementedError("paged KV serving is slot-scheduled: drive it "
                                       "through SlotScheduler.run")
@@ -624,12 +655,24 @@ class BatchedServer:
                 return self._prefill_batched(prompts, s_ext, extent)
             return self._prefill_sequential(prompts, extent)
         tokens = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
-        cache = self._build_cache(B)
+        if self.mode == "jit":
+            step = self.jit_step(B)
+            cache = step.reset()
+        else:
+            step, cache = self.serve_step, self._build_cache(B)
         next_tok = None
         for i in range(P):
-            next_tok, cache = self.serve_step(self.params, cache, tokens[:, i:i + 1], i)
+            next_tok, cache = step(self.params, cache, tokens[:, i:i + 1], i)
         self.last_prefill_mode = "sequential"
-        return cache, next_tok, P, self.serve_step, None
+        return cache, next_tok, P, step, None
+
+    def jit_step(self, batch: int) -> "JitServeStep":
+        """The compiled step of a ``batch``-row group (``mode="jit"``),
+        built at its first use."""
+        step = self.jit_steps.get(batch)
+        if step is None:
+            step = self.jit_steps[batch] = JitServeStep(self, batch)
+        return step
 
     def _group_step(self, mod, extent: int):
         """Adapt a slot-signature bucket program to the lockstep loop of
@@ -686,9 +729,11 @@ class BatchedServer:
         return cache, next_tok, P, step, key
 
     def _compile_s_total(self) -> float:
-        """Phase 1-4 seconds accumulated across both forge fronts."""
-        return sum(f.stats.compile_s for f in (self.bucketed, self.prefill_bucketed)
-                   if f is not None)
+        """Compile seconds accumulated: Phases 1-4 across both forge
+        fronts, or the jit steps' builds."""
+        return (sum(f.stats.compile_s for f in (self.bucketed, self.prefill_bucketed)
+                    if f is not None)
+                + sum(j.compile_s for j in self.jit_steps.values()))
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, n_new: int) -> Dict[str, Any]:
@@ -754,6 +799,167 @@ class BatchedServer:
                     self.bucketed.stats.note_fault(request_failed=True)
         return out
 
+
+class JitServeStep:
+    """``mode="jit"``: the serve step compiled whole for one batch size.
+
+    ``torch.compile(fullgraph=True, dynamic=False)`` of the step
+    ``mode="interpret"`` runs (``make_serve_step``, its last-position
+    logits kept as a second output: :meth:`last_logits`), which writes
+    its new cache into the cache it was given (``copy_``): the
+    counterpart of the JAX server's ``jax.jit(serve_step,
+    donate_argnums=(1,))``.  The step owns that cache (:attr:`cache`;
+    :meth:`reset` puts its init values back in place), so no step
+    allocates a cache and its storage never moves.  Inductor rounds where
+    the op-by-op step rounds (``emulate_precision_casts``), but its
+    reductions and transcendentals are its own: in bf16 a greedy token
+    can part from ``interpret``'s at a near-tie.  The block bodies
+    compile once eagerly first (a traced call finds them compiled);
+    ``fullgraph=True`` makes a graph break an error, never a quiet eager
+    fallback.  Positions enter as a tensor, so one graph serves every
+    position.
+
+    On the card the compiled step runs as one CUDA graph (what
+    ``torch.compile``'s ``mode="reduce-overhead"`` adds), captured here so
+    that the kernels' launches are recorded at capture and added at each
+    replay (``_build.recording``), and the warm runs and the capture share
+    a side stream and a kernel-scratch scope of their own; each call
+    copies the token and the position into the graph's inputs, replays
+    it and clones the token out (the next replay overwrites it).
+
+    ``graphs`` counts the graphs Dynamo handed to Inductor (1 unless a
+    guard failed), ``kernel_nodes`` the kernel custom-op nodes in them,
+    ``compile_s`` the seconds of priming, compiling and capturing
+    (``compile_split`` divides them).
+    """
+
+    def __init__(self, server: "BatchedServer", batch: int):
+        self.device = server.device
+        self.batch = int(batch)
+        self.serve_step = make_serve_step(server.cfg, impl=server.impl, logits=True)
+        self._init_cache = lambda: server._build_cache(self.batch)
+        self.cache = self._init_cache()
+        self.graphs = 0
+        self.graph_nodes = 0
+        self.kernel_nodes: Dict[str, int] = {}
+        self.compile_s = 0.0
+        #: seconds of the build: the eager step (the block bodies'
+        #: compiles), Dynamo's trace, Inductor, and the rest (Triton's
+        #: lazy kernel loads, the warm runs and the CUDA graph capture)
+        self.compile_split: Dict[str, float] = {}
+        self.calls = 0
+        self._fn = None
+        self._t_trace = 0.0  # when the first traced call started
+        #: the step's own token column and position (filled per call)
+        self._tok: Optional[torch.Tensor] = None
+        self._pos: Optional[torch.Tensor] = None
+        #: the CUDA graph, its outputs and its recorded launches (the card)
+        self._replay = None
+        #: the latest step's logits (in the graph's pool on the card)
+        self._logits: Optional[torch.Tensor] = None
+
+    def reset(self):
+        """The owned cache, set back to its init values in place."""
+        for dst, src in zip(pytree.tree_leaves(self.cache),
+                            pytree.tree_leaves(self._init_cache())):
+            dst.copy_(src)
+        return self.cache
+
+    def _step(self, params, cache, tok, pos):
+        next_tok, new_cache, logits = self.serve_step(params, cache, tok, pos)
+        for dst, src in zip(pytree.tree_leaves(cache), pytree.tree_leaves(new_cache)):
+            dst.copy_(src)
+        return next_tok, logits
+
+    def last_logits(self) -> torch.Tensor:
+        """The most recent step's last-position logits (B, vocab), a copy."""
+        if self._logits is None:
+            raise RuntimeError("the jit step has not run")
+        return self._logits.clone()
+
+    def _backend(self, gm: torch.fx.GraphModule, example_inputs):
+        from torch._inductor.compile_fx import compile_fx
+
+        t0 = time.perf_counter()
+        self.compile_split["trace"] = self.compile_split.get("trace", 0.0) + t0 - self._t_trace
+        self.graphs += 1
+        self.graph_nodes += len(gm.graph.nodes)
+        for node in gm.graph.nodes:
+            name = str(node.target)
+            if node.op == "call_function" and name.startswith("repro_torch."):
+                op = name.split(".")[1]
+                self.kernel_nodes[op] = self.kernel_nodes.get(op, 0) + 1
+        with torch._inductor.config.patch(emulate_precision_casts=True):
+            out = compile_fx(gm, example_inputs)
+        self.compile_split["inductor"] = (self.compile_split.get("inductor", 0.0)
+                                          + time.perf_counter() - t0)
+        return out
+
+    def _build(self, params) -> None:
+        t0 = time.perf_counter()
+        # the build runs the step more than once on the first token: a
+        # K/V write is idempotent, a recurrent state's update is not, so
+        # the cache is put back as it was before the call runs the step
+        leaves = pytree.tree_leaves(self.cache)
+        saved = [t.clone() for t in leaves]
+        # the eager step compiles the Forge block bodies the trace finds
+        self.serve_step(params, self.cache, self._tok, self._pos)
+        self.compile_split["eager"] = time.perf_counter() - t0
+        fn = torch.compile(self._step, fullgraph=True, dynamic=False, backend=self._backend)
+        self._t_trace = time.perf_counter()
+        if self.device.type == "cuda":
+            self._capture(fn, params)
+        else:  # compiles
+            fn(params, self.cache, self._tok, self._pos)
+        for dst, src in zip(leaves, saved):
+            dst.copy_(src)
+        self._fn = fn  # only a step that built and captured serves
+        self.compile_s += time.perf_counter() - t0
+        split = self.compile_split
+        split["rest"] = self.compile_s - split["eager"] - split["trace"] - split["inductor"]
+
+    def _capture(self, fn, params) -> None:
+        from ..core.backends.segment_jit import capture_graph, capture_scope, count_capture
+
+        t0 = time.perf_counter()
+        with capture_scope(self.device, id(self)) as stream:
+            # warm runs: Inductor's kernels load, the kernels' libraries
+            # and per-stream scratch exist before the capture
+            for _ in range(2):
+                fn(params, self.cache, self._tok, self._pos)
+            stream.synchronize()
+            self._replay = capture_graph(lambda: fn(params, self.cache, self._tok, self._pos))
+        count_capture(1, time.perf_counter() - t0)
+
+    def __call__(self, params, cache, tok: torch.Tensor, pos):
+        """``(next_tok, cache)`` after one step; ``cache`` must be the
+        owned one (it is updated in place and returned).  ``tok`` and
+        ``pos`` are copied into the step's own input tensors, so every
+        call meets the graph's guards (no recompile for a strided token
+        column or another integer type)."""
+        if cache is not self.cache:
+            raise ValueError("a jit step updates the cache it owns: pass JitServeStep.cache")
+        if self._tok is None:
+            self._tok = torch.zeros((self.batch, 1), dtype=torch.int64, device=self.device)
+            self._pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._tok.copy_(tok)
+        if isinstance(pos, torch.Tensor):
+            self._pos.copy_(pos)
+        else:
+            self._pos.fill_(int(pos))
+        if self._fn is None:
+            self._build(params)
+        self.calls += 1
+        if self._replay is None:
+            next_tok, self._logits = self._fn(params, cache, self._tok, self._pos)
+            return next_tok, cache
+        from ..kernels import _build
+
+        graph, (next_tok, self._logits), launches = self._replay
+        graph.replay()
+        if launches:
+            _build.add_launches(launches)
+        return next_tok.clone(), cache
 
 
 # --------------------------------------------------------------------------
@@ -2088,7 +2294,7 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=256)
-    ap.add_argument("--mode", choices=list(BatchedServer.MODES), default="eager")
+    ap.add_argument("--mode", choices=list(BatchedServer.MODES), default="jit")
     ap.add_argument("--backend", default="segment_jit",
                     help="Phase-4 backend of the --mode forge programs (segment_jit: each "
                          "device-affine segment one CUDA graph on the card | interpret | "
@@ -2278,6 +2484,12 @@ def main(argv=None) -> int:
                   f"steady-state) device={device}")
             if res["tokens"].shape != (B, args.gen):
                 raise SystemExit(f"unexpected token shape {res['tokens'].shape}")
+    if args.mode == "jit":
+        for B, step in sorted(server.jit_steps.items()):
+            print(f"[serve] jit batch={B}: graphs={step.graphs} nodes={step.graph_nodes} "
+                  f"kernel nodes={step.kernel_nodes} compile_s={step.compile_s:.2f} "
+                  f"({', '.join(f'{k}={v:.2f}' for k, v in step.compile_split.items())}; "
+                  f"warmup={warmup_s:.2f}s)")
     if args.mode == "forge":
         from ..core.metrics import bucket_report
 

@@ -73,18 +73,21 @@ def blend_cache_rows(cache, axes_spec, row_tree, rows: Sequence[int]):
     return pytree.tree_unflatten(out, spec)
 
 
-def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None) -> Callable:
+def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None,
+                    logits: bool = False) -> Callable:
     """``(params, cache, token(B, 1), pos) -> (next_tok(B, 1), new_cache)``.
 
     ``impl`` is forwarded into the Forge-compiled block bodies: None runs
     the kernels on the card (their plain versions on the CPU), ``"ref"``
-    runs the plain versions everywhere."""
+    runs the plain versions everywhere.  ``logits=True`` appends the
+    last position's logits (B, vocab) to the result."""
     model = get_model(cfg)
 
     def serve_step(params, cache, token, pos):
-        logits, new_cache = model.decode_step(params, cache, token, pos, cfg, impl=impl)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1)
-        return next_tok[:, None], new_cache
+        out, new_cache = model.decode_step(params, cache, token, pos, cfg, impl=impl)
+        last = out[:, -1, :]
+        next_tok = torch.argmax(last, dim=-1)[:, None]
+        return (next_tok, new_cache, last) if logits else (next_tok, new_cache)
 
     return serve_step
 

@@ -7,6 +7,15 @@ compiled module's callable; families call it when ``cfg.fuse == 'forge'``.
 ``torch.export`` specialises on shapes, so a new shape is a new compile,
 and two pipeline configurations never share a body.
 
+Under ``torch.compile`` (``BatchedServer(mode="jit")`` compiles the
+whole serve step) Dynamo traces the lookup and the compiled body's
+executor: the body an earlier eager call compiled for these shapes is
+found again, and its RGIR ops (the fused kernels' custom ops among them)
+become nodes of the step's one graph, as ``jax.jit`` traces the
+reference's bodies into the jitted step.  A dataclass ``repr`` is not
+traceable, so the config parts of the key are strings taken once per
+config object (:func:`config_key`) and per ``impl``.
+
 Bodies compile through the process-global compile cache
 (``core/cache.py``): identical layers share one Phase-4 build, and with
 a disk store attached (``BatchedServer(cache_dir=...)``) a restarted
@@ -24,6 +33,20 @@ import torch
 from torch.utils import _pytree as pytree
 
 _CACHE: Dict[str, Any] = {}  # key -> CompiledModule
+#: id(config) -> (config, repr(config)): the config is kept so its id
+#: stays its own
+_CONFIG_KEYS: Dict[int, Tuple[Any, str]] = {}
+#: impl -> repr of the default pipeline with that impl
+_PIPELINE_KEYS: Dict[Optional[str], str] = {}
+
+
+def config_key(cfg: Any) -> str:
+    """``repr(cfg)``, taken once per config object (a dictionary read
+    under Dynamo, which cannot trace a dataclass ``repr``)."""
+    hit = _CONFIG_KEYS.get(id(cfg))
+    if hit is None or hit[0] is not cfg:
+        hit = _CONFIG_KEYS[id(cfg)] = (cfg, repr(cfg))
+    return hit[1]
 
 
 def _shape_key(tree) -> str:
@@ -54,21 +77,35 @@ def forge_body(
     """
     if not enabled:
         return raw_fn
-    from ..core import ForgeCompiler, PipelineConfig
-    from ..core.compiler import BUILD_LOCK
-
-    config = config or PipelineConfig()
-    if impl is not None:
-        config = dataclasses.replace(config, impl=impl)
-    key = f"{key_prefix}/{config!r}/{_shape_key(example_args)}"
+    if config is None:
+        pipe_key = _PIPELINE_KEYS.get(impl)
+        if pipe_key is None:
+            pipe_key = _PIPELINE_KEYS[impl] = repr(_pipeline(None, impl))
+    else:
+        pipe_key = repr(_pipeline(config, impl))
+    key = f"{key_prefix}/{pipe_key}/{_shape_key(example_args)}"
     hit = _CACHE.get(key)
     if hit is None:
+        if torch.compiler.is_dynamo_compiling():
+            raise RuntimeError(f"forge body {key_prefix!r} at these shapes was never "
+                               f"compiled: run the step once before torch.compile traces it")
+        from ..core import ForgeCompiler
+        from ..core.compiler import BUILD_LOCK
+
         with BUILD_LOCK:
             hit = _CACHE.get(key)
             if hit is None:
-                hit = ForgeCompiler(config).compile(raw_fn, *example_args)
+                hit = ForgeCompiler(_pipeline(config, impl)).compile(raw_fn, *example_args)
                 _CACHE[key] = hit
     return hit.as_fn()
+
+
+def _pipeline(config: Optional[Any], impl: Optional[str]) -> Any:
+    """``config`` (default: the paper's pipeline) with ``impl`` set."""
+    from ..core import PipelineConfig
+
+    config = config or PipelineConfig()
+    return dataclasses.replace(config, impl=impl) if impl is not None else config
 
 
 def compiled_bodies() -> List[Any]:

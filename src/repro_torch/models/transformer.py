@@ -32,7 +32,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as A
 from . import layers as L
-from ._forge import forge_body
+from ._forge import config_key, forge_body
 
 Params = Dict[str, Any]
 
@@ -166,7 +166,7 @@ def _body_fn(cfg: ModelConfig, mode: str, example_args, impl: Optional[str] = No
 
     # the whole config keys the body: two configs can share a name and
     # every parameter shape yet split heads differently
-    return forge_body(raw, f"{cfg!r}/{mode}", example_args, enabled=enabled, impl=impl)
+    return forge_body(raw, f"{config_key(cfg)}/{mode}", example_args, enabled=enabled, impl=impl)
 
 
 # --------------------------------------------------------------------------

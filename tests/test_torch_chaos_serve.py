@@ -10,7 +10,7 @@ forge-125m with the JAX package's parameters and ``backend="interpret"``
 match backend against the same backend only, and the JAX package's
 ``segment_jit`` fails on jax 0.9.0).  Held equal under one plan seed:
 every request's tokens, typed outcome and ticks, and the containment
-metrics.  Port-only: ``segment_jit`` survivors on the CPU bitwise equal
+metrics; the fault_recovery soak also on qwen2.5-14b smoke, paged.  Port-only: ``segment_jit`` survivors on the CPU bitwise equal
 to the clean run, a mid-program dispatch fault retried state-safely, the
 watchdog and the abort giving typed outcomes, and the CLI's ``--chaos``.
 """
@@ -95,6 +95,10 @@ def setup():
 def servers(setup):
     """One warmed server per (package, paged, backend), reused across runs
     (each run starts from an empty prefix tree)."""
+    return _server_factory(setup)
+
+
+def _server_factory(setup):
     made = {}
 
     def get(pkg, paged, backend="interpret"):
@@ -173,6 +177,35 @@ def test_fault_recovery_soak_matches_jax(setup, servers, paged):
     if paged:
         assert got["rows_quarantined"] == 1 and got["requests_failed"] >= 1
         _assert_no_leaks(srv, 16, got)
+
+
+@pytest.fixture(scope="module")
+def qwen_setup():
+    cfg = get_config("qwen2.5-14b", smoke=True).with_(dtype="float32")
+    jcfg = jax_get_config("qwen2.5-14b", smoke=True).with_(dtype="float32")
+    jp = jax_params(jcfg)
+    return {"port": (serve, chaos, cfg, port_params(jp)), "jax": (jserve, jchaos, jcfg, jp)}
+
+
+def test_fault_recovery_soak_qwen_paged_matches_jax(qwen_setup):
+    """The same soak on qwen2.5-14b smoke (GQA 4 on 2, QKV bias, SwiGLU)
+    over the paged pool under FaultPlan(seed=11): every request's tokens,
+    typed outcome and ticks, the containment metrics and the plan log
+    equal the JAX scheduler's; survivors equal the clean run bitwise,
+    nothing leaks."""
+    servers = _server_factory(qwen_setup)
+    clean, _, _ = _serve(qwen_setup, servers, "port", True, _fr)
+    assert all("error" not in r for r in clean["results"].values())
+    want, _, jplan = _serve(qwen_setup, servers, "jax", True, _fr, soak_plan)
+    got, srv, plan = _serve(qwen_setup, servers, "port", True, _fr, soak_plan)
+    _assert_same(got, want)
+    assert plan.log == jplan.log and got["faults_injected"] == plan.faults_injected >= 1
+    for rid, r in got["results"].items():
+        if "error" in r:
+            assert r["error_type"] in ("RequestError", "SystemError")
+        else:
+            np.testing.assert_array_equal(r["tokens"], clean["results"][rid]["tokens"])
+    _assert_no_leaks(srv, 16, got)
 
 
 def _abort_plan(ch):

@@ -308,7 +308,7 @@ def test_serve_on_card_launches_kernels(cuda_device):
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 4)).astype(np.int32)
     FL.LAUNCHES.reset()
     FA.LAUNCHES.reset()
-    r = BatchedServer(cfg, p, max_len=16).generate(prompts, 3)
+    r = BatchedServer(cfg, p, max_len=16, mode="interpret").generate(prompts, 3)
     assert r["tokens"].shape == (2, 3)
     assert FL.LAUNCHES.n == 3 * cfg.n_layers * (4 + 3 - 1) and FA.LAUNCHES.n == 0
 
@@ -329,15 +329,16 @@ def paged_case(seed, B, H, KVH, D, ps, MP, NP, dtype, device):
             torch.from_numpy(pos).to(device))
 
 
-#: (B, H, KVH, D, ps, MP, NP, window): forge-125m's served shapes, GQA,
-#: a window, and the other head dims
+#: (B, H, KVH, D, ps, MP, NP, window): forge-125m's served shapes, GQA
+#: (qwen2.5-14b's 40 on 8: groups of 5 heads), a window, and the other
+#: head dims
 PAGED_CASES = [(1, 12, 12, 64, 16, 16, 129, None), (2, 12, 12, 64, 16, 16, 129, None),
                (4, 12, 12, 64, 16, 16, 129, None), (4, 12, 4, 64, 16, 16, 129, None),
                (4, 12, 12, 64, 16, 16, 129, 20), (3, 4, 2, 8, 8, 4, 13, None),
                (2, 8, 8, 16, 16, 6, 20, 9), (2, 8, 4, 32, 16, 6, 20, None),
                (2, 4, 4, 128, 16, 6, 20, None), (2, 8, 2, 96, 16, 6, 20, None),
                (2, 8, 2, 112, 16, 6, 20, 40), (3, 4, 1, 256, 16, 6, 20, None),
-               (4, 32, 8, 128, 16, 16, 70, None)]
+               (4, 32, 8, 128, 16, 16, 70, None), (4, 40, 8, 128, 16, 16, 70, None)]
 
 
 @pytest.mark.cuda
@@ -383,7 +384,7 @@ class TestPagedAttentionOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("B,H,KVH,D,MP", [(4, 12, 12, 64, 16), (8, 12, 12, 64, 128),
-                                              (4, 32, 8, 128, 128)])
+                                              (4, 32, 8, 128, 128), (4, 40, 8, 128, 128)])
     def test_bitwise_repeatable(self, cuda_device, dtype, B, H, KVH, D, MP):
         """The partials are merged in split order, whichever block finishes
         last: calls on the same inputs agree bit for bit, and the tickets
@@ -1192,3 +1193,69 @@ def test_parked_contiguous_row_survives_graph_replays(cuda_device):
                               torch.utils._pytree.tree_leaves(srv.cache_axes), snap):
         if ax is not None:
             assert torch.equal(leaf.narrow(ax, 0, 1), want)
+
+
+# --------------------------------------------------------------------------
+# the jit serve mode and the autotuner on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_jit_server_on_card(cuda_device):
+    """``mode="jit"`` on forge-125m smoke (f32): the step compiled whole
+    and replayed as one CUDA graph.  Greedy tokens equal the interpret
+    server's, fused-linear launches = the graph's kernel nodes x steps
+    (recorded at capture, added at each replay), no other kernel, one
+    graph built in warmup, and the cache's storage never moves."""
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config("forge-125m", smoke=True).with_(dtype="float32")
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 6)).astype(np.int32)
+    want = BatchedServer(cfg, p, max_len=32, mode="interpret").generate(prompts, 4)
+    srv = BatchedServer(cfg, p, max_len=32, mode="jit")
+    srv.warmup([3])
+    step = srv.jit_steps[3]
+    ptrs = [t.data_ptr() for t in pytree.tree_leaves(step.cache)]
+    for mod in (FL, FA, PA):
+        mod.LAUNCHES.reset()
+    got = srv.generate(prompts, 4)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    assert step.graphs == 1 and step._replay is not None and got["compile_s"] == 0.0
+    assert FL.LAUNCHES.n == step.kernel_nodes["fused_linear"] * (6 + 4 - 1) > 0
+    assert FA.LAUNCHES.n == PA.LAUNCHES.n == 0
+    assert [t.data_ptr() for t in pytree.tree_leaves(step.cache)] == ptrs
+
+
+@pytest.mark.cuda
+def test_autotuner_compile_on_card(cuda_device):
+    """``AutotuningCompiler().compile`` on forge-125m smoke's block body
+    at S=64 (unmasked causal attention): 47 candidates, and the winner
+    runs its kernels (one flash, three fused-linear launches) within the
+    f32 tolerance of the raw body."""
+    from repro_torch.core import AutotuningCompiler
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("forge-125m", smoke=True).with_(dtype="float32")
+    p = get_model(cfg).init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                            cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(1))
+    x = L.embed(tokens, p["embed"])
+    cos, sin = T._rope_for(cfg, torch.arange(64, device=cuda_device))
+    args = (p["blocks"][0], x, cos, sin)
+
+    def body(*a):
+        return T.block_apply(*a, cfg=cfg)
+
+    mod = AutotuningCompiler().compile(body, *args)
+    assert len(mod.tune_result.candidates) == 47
+    FL.LAUNCHES.reset()
+    FA.LAUNCHES.reset()
+    got = mod(*args)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES.n == 1 and FL.LAUNCHES.n == 3
+    torch.testing.assert_close(got, body(*args), **TOL_F32)

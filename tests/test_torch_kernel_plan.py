@@ -196,13 +196,15 @@ def test_launch_count_by_variant():
 
 #: paged decode shapes (B, H, KVH, D, ps, MP, window): forge-125m's served
 #: rungs (B 1, 2, 4; 16 pages of 16 a row), the long-context row (B 8,
-#: 128 live pages), GQA at D = 128, the new head dims, a window
+#: 128 live pages), GQA at D = 128 (groups of 4, and qwen2.5-14b's of 5),
+#: the new head dims, a window
 PAGED_SHAPES = [(1, 12, 12, 64, 16, 16, None), (2, 12, 12, 64, 16, 16, None),
                 (4, 12, 12, 64, 16, 16, None), (8, 12, 12, 64, 16, 128, None),
                 (4, 32, 8, 128, 16, 128, None), (4, 12, 12, 64, 16, 16, 20),
                 (2, 8, 2, 96, 16, 6, None), (2, 8, 2, 112, 16, 6, 40),
                 (3, 4, 1, 256, 16, 6, None), (64, 32, 8, 128, 16, 256, None),
-                (1, 1, 1, 8, 8, 4, None), (2, 10, 1, 256, 16, 128, 2048)]
+                (1, 1, 1, 8, 8, 4, None), (2, 10, 1, 256, 16, 128, 2048),
+                (4, 40, 8, 128, 16, 16, None), (4, 40, 8, 128, 16, 128, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -233,6 +235,28 @@ def test_paged_live_pages(MP, ps, window, want):
         worst = max(min(p // ps, MP - 1) - max(0, p - window + 1) // ps + 1
                     for p in range(MP * ps) if max(0, p - window + 1) // ps <= MP - 1)
         assert worst == want
+
+
+def test_paged_plan_groups_of_five():
+    """qwen2.5-14b decodes 40 query heads on 8 KV heads: one block scores
+    a group of 5 heads as a quad and a one-head tail (csrc: ``hq =
+    min(4, G - g0)``).  The plan at the served table (16 pages a row) and
+    at 128 live pages, and the shared memory of G = 5 from the csrc
+    layout: fp32 q and accumulators (2 G D), the chunk's scores and m / l
+    / alpha (G keys + 3 G, to a multiple of 4), the slice sums (4 x
+    threads), then two stages of K and V rows."""
+    G, D, ps = 40 // 8, 128, 16
+    assert [min(4, G - g0) for g0 in range(0, G, 4)] == [4, 1]
+    assert PA.plan(4, 40, 8, D, ps, 16, None, torch.bfloat16) == (16, 1)
+    assert PA.plan(4, 40, 8, D, ps, 128, None, torch.bfloat16) == (20, 2)
+    assert PA.plan(4, 40, 8, D, ps, 128, None, torch.float32) == (20, 1)
+    for chunk, esize, dtype in ((1, 2, torch.bfloat16), (2, 2, torch.bfloat16),
+                                (1, 4, torch.float32)):
+        keys = chunk * ps
+        words = 2 * G * D + ((G * keys + 3 * G + 3) & ~3) + 4 * PA.THREADS
+        assert PA.smem_bytes(40, 8, D, ps, chunk, dtype) == \
+            words * 4 + PA.STAGES * 2 * keys * D * esize
+    assert 4 * 8 * 20 >= SMS  # 128 live pages: the grid fills the card
 
 
 def test_paged_plan_is_cached():

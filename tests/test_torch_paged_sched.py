@@ -129,11 +129,11 @@ def test_server_guards(setup):
     cfg, _, _, p = setup
     assert not BatchedServer(cfg, p, mode="forge").paged  # the contiguous fronts serve it
     with pytest.raises(ValueError):
-        BatchedServer(cfg, p, paged=True)  # paged needs mode="forge"
+        BatchedServer(cfg, p, mode="interpret", paged=True)  # paged needs mode="forge"
     with pytest.raises(ValueError):
         BatchedServer(cfg, p, max_len=30, mode="forge", paged=True, kv_page_size=8)
     srv = BatchedServer(cfg, p, max_len=32, mode="forge", paged=True, kv_page_size=8)
     with pytest.raises(NotImplementedError):
         srv.generate(np.zeros((1, 4), np.int32), 2)
     with pytest.raises(ValueError):
-        SlotScheduler(BatchedServer(cfg, p, max_len=32), max_slots=4)
+        SlotScheduler(BatchedServer(cfg, p, max_len=32, mode="interpret"), max_slots=4)

@@ -35,7 +35,7 @@ def prompts():
 @pytest.fixture(scope="module")
 def port_result(setup, prompts):
     cfg, _, _, p = setup
-    return BatchedServer(cfg, p, max_len=64, mode="eager").generate(prompts, 3)
+    return BatchedServer(cfg, p, max_len=64, mode="interpret").generate(prompts, 3)
 
 
 def test_tokens_identical_to_jax_jit_server(setup, prompts, port_result):
@@ -54,7 +54,7 @@ def test_generate_result_fields(port_result):
 
 def test_impl_ref_server_same_tokens(setup, prompts, port_result):
     cfg, _, _, p = setup
-    r = BatchedServer(cfg, p, max_len=64, impl="ref").generate(prompts, 3)
+    r = BatchedServer(cfg, p, max_len=64, mode="interpret", impl="ref").generate(prompts, 3)
     np.testing.assert_array_equal(r["tokens"], port_result["tokens"])
 
 
@@ -70,7 +70,7 @@ def test_serve_step_matches_decode_argmax(setup, prompts):
 
 def test_run_workload_isolates_bad_groups(setup, prompts):
     cfg, _, _, p = setup
-    server = BatchedServer(cfg, p, max_len=64)
+    server = BatchedServer(cfg, p, max_len=64, mode="interpret")
     bad = np.full((2, 4), cfg.vocab + 7, np.int32)
     out = server.run_workload([prompts, bad, prompts[:1]], 2)
     assert [("error" in o) for o in out] == [False, True, False]
@@ -81,7 +81,7 @@ def test_run_workload_isolates_bad_groups(setup, prompts):
 def test_max_len_guard(setup, prompts):
     cfg, _, _, p = setup
     with pytest.raises(serve.RequestError):
-        BatchedServer(cfg, p, max_len=8).generate(prompts, 4)
+        BatchedServer(cfg, p, max_len=8, mode="interpret").generate(prompts, 4)
 
 
 def test_unknown_mode_rejected(setup):
@@ -93,7 +93,7 @@ def test_unknown_mode_rejected(setup):
 def test_forge_mode_needs_paged(setup, prompts, port_result):
     """mode="forge" no longer needs paged=True: the dense decoder serves
     on the contiguous forge fronts (its whole-prompt prefill is ported),
-    with the eager server's greedy tokens."""
+    with the interpret server's greedy tokens."""
     cfg, _, _, p = setup
     srv = BatchedServer(cfg, p, max_len=64, mode="forge")
     assert not srv.paged

@@ -107,7 +107,7 @@ def test_contiguous_scheduler_guards():
     cfg = get_config("xlstm-350m", smoke=True)
     p = get_model(cfg).init(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="forge"):
-        SlotScheduler(BatchedServer(cfg, p, max_len=32), max_slots=2)
+        SlotScheduler(BatchedServer(cfg, p, max_len=32, mode="interpret"), max_slots=2)
     srv = BatchedServer(cfg, p, max_len=16, mode="forge")
     out = SlotScheduler(srv, max_slots=2).run([
         Request(rid=0, prompt=_prompt(10, 1), max_new=10),  # 10 + 10 > max_len

@@ -9,7 +9,7 @@ For each config:
 * the Forge-compiled block bodies (``apply`` and decode) fuse the same
   nodes as the JAX compiler's, ``forge.swiglu`` among them;
 * greedy tokens equal to the JAX ``mode="jit"`` server's through the
-  eager server, and to the JAX ``mode="forge"`` (interpret) server's
+  interpret server, and to the JAX ``mode="forge"`` (interpret) server's
   through the contiguous forge fronts (``segment_jit`` on the CPU);
 * a served decode and prefill dispatch under ``segment_jit`` bitwise
   equal to the same lowered program under ``interpret``.
@@ -162,7 +162,7 @@ def jax_tokens(setup):
 
 def test_eager_server_tokens_equal_jax(setup, jax_tokens):
     cfg, _, _, p = setup
-    r = BatchedServer(cfg, p, max_len=MAX_LEN, mode="eager").generate(_tokens((3, 6), 0), 4)
+    r = BatchedServer(cfg, p, max_len=MAX_LEN, mode="interpret").generate(_tokens((3, 6), 0), 4)
     np.testing.assert_array_equal(r["tokens"], jax_tokens[0])
 
 

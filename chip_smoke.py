@@ -4,7 +4,7 @@ port starts on the GPU and goes through its own kernels.
 
 Run from the repository root, with one CUDA card:
 
-    python3 chip_smoke.py                          # phases 1-12
+    python3 chip_smoke.py                          # phases 1-13
     python3 chip_smoke.py --qwen-jit-layers 48     # phase 12's qwen2.5-14b jit step at full depth
 
 Phases (any failure raises and the script exits non-zero):
@@ -212,6 +212,38 @@ Phases (any failure raises and the script exits non-zero):
    phase 11, (b) and (c) on forge-125m at full width (the CLI defaults;
    ``apply`` at B=4, S=1024).
 
+13. The MoE and VLM families at full width, bf16, random weights from
+   seed 0, each model freed before the next.  (a) phi3.5-moe-42b-a6.6b
+   (d 4096, 32 heads on 8 KV heads, 16 experts of d_ff 6400, top-2,
+   vocab 32064) at MOE_LAYERS of 32 layers (83.8 GB at full depth, above
+   the card's 80 GB): the paged ``SlotScheduler`` with the paged kernel
+   (groups of 4) over phase 5's workload, and the contiguous fronts at
+   the CLI's defaults; neither has a prefill front (capacity routing
+   couples the tokens of a block), so prompts replay through the decode
+   program; on both a decode dispatch (and on the contiguous path the
+   served tokens) bitwise against interpret, launches exact, 0 pages
+   leaked; ``apply`` at B=1, S=1024 within max(REL_L2_DEEP_BF16,
+   SPREAD_FACTOR_BF16 x spread) relative L2 of impl="ref" (the rule of
+   a routed bf16 model: two kernel-free implementations already send
+   near-tied tokens to other experts); the jit step at MOE_JIT_LAYERS
+   layers held by the teacher-forced logits check (its rows share the
+   experts' capacity, so a row that differs is reported, not held
+   alone); in f32 (42.6 GB) the served decode program's prefill of 8
+   tokens and ``apply`` at B=1, S=256 within TOL_DEEP_F32 of impl="ref".
+   (b) qwen2-vl-72b (d 8192, 64 heads on 8 KV heads, d_ff 29568, vocab
+   152064, QKV bias, M-RoPE sections 16/24/24) at VLM_LAYERS of 80: the
+   interpret server and the contiguous fronts (the lockstep decode
+   program: one shared position) at the CLI's defaults, segment_jit
+   bitwise interpret; ``apply`` with 16 patch embeddings at B=1, S=1024.
+   (c) kimi-k2-1t-a32b (d 7168, 64 heads of 112 on 8 KV heads, 384
+   experts of d_ff 2048, top-8, one shared expert, vocab 163840) at
+   KIMI_LAYERS layer (38.8 GB): ``apply`` at B=1, S=256 (flash at D=112)
+   against impl="ref", ``memory_allocated`` before and after the body's
+   compile; 8 greedy decode steps through the interpret server and the
+   next step's logits against impl="ref".  Phase 2 times fused linear at
+   the three models' layers, flash at their ``apply`` shapes and paged
+   attention at phi3.5-moe's groups of 4.
+
 In phases 5-9, one decode and one prefill dispatch of the served
 programs under ``segment_jit`` must be bitwise equal to the same lowered
 programs under ``interpret`` (built without a second ``torch.export``),
@@ -362,6 +394,34 @@ QW_FL_ROWS = (4, 128, 1024)
 # script keeps 2 layers inside its time limit; ``--qwen-jit-layers 48``
 # compiles the full depth
 QWEN_JIT_LAYERS = 2
+# phase 13: the MoE and VLM families at full width, each model's depth
+# cut to what the card holds beside the script's time limit.
+# phi3.5-moe-42b-a6.6b: 32 layers are 83.8 GB in bf16, above the card's
+# 80 GB; 8 layers are 21.3 GB (42.6 GB in f32)
+MOE_LAYERS = 8
+# qwen2-vl-72b: 80 layers are 145 GB; 8 layers 19.0 GB
+VLM_LAYERS = 8
+# kimi-k2-1t-a32b: one layer's 384 experts are 34.1 GB, 38.8 GB with the
+# embedding and the head
+KIMI_LAYERS = 1
+# phi3.5-moe's jit step (torch.compile's build grows with the layers)
+MOE_JIT_LAYERS = 2
+# each model's fused-linear nodes (K, N, act) and the width of its k / v
+# projections, checked though they stay plain matmuls (as in the JAX
+# package): phi3.5-moe's attention output projection (with the residual;
+# the experts are batched products outside any kernel), kimi-k2's output
+# projection and shared SwiGLU expert (7168 -> 2048, its down projection
+# with the routed experts' sum as the residual), qwen2-vl-72b's output
+# projection and SwiGLU (8192 -> 29568)
+PHI_LINEARS = ((4096, 4096, None), (4096, 1024, None))
+KIMI_LINEARS = ((7168, 7168, None), (7168, 2048, "silu"), (7168, 2048, None),
+                (2048, 7168, None), (7168, 896, None))
+VL_LINEARS = ((8192, 8192, None), (8192, 29568, "silu"), (8192, 29568, None),
+              (29568, 8192, None), (8192, 1024, None))
+# decode (M 4) and each model's apply (B1 x S1024; kimi-k2 B1 x S256)
+PHI_FL_ROWS = (4, 1024)
+KIMI_FL_ROWS = (4, 256)
+VL_FL_ROWS = (4, 1024)
 # RMSNorm (rows, d): xlstm-350m's decode block norm, the B4 x S32
 # prefill block norm, norm_h at B4 x H4 x S32 (hd 512), apply at
 # B2 x S1024, and a ragged d
@@ -606,17 +666,41 @@ def phase_fused_linear(dev, timer):
             f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
     rows.update(xlstm_fused_linear(dev, timer, g))
     rows.update(qwen_fused_linear(dev, timer, g))
+    rows.update(moe_vlm_fused_linear(dev, timer, g))
     return rows
 
 
 def qwen_fused_linear(dev, timer, g):
-    """fused_linear at qwen2.5-14b's widths: every width checked in f32 and
-    bf16 at the path's M; one layer's launches (the output projection with
-    the residual, ``ops.swiglu``'s gate + silu and up projection, the down
-    projection with the residual) timed in bf16 at M 4, 128 and 1024, as
-    the path runs them (the residual add and the gate product included),
-    beside the plain version and the library calls ``addmm`` (residual as
-    the added term), ``mm`` + ``silu`` + ``mm`` + ``mul`` and ``addmm``."""
+    """fused_linear at qwen2.5-14b's widths (:func:`layer_fused_linear`):
+    the output projection with the residual, the SwiGLU, the down
+    projection with the residual, at M 4, 128 and 1024."""
+    return layer_fused_linear(dev, timer, g, "qwen", "qwen2.5-14b", QW_LINEARS, 5120, 5120,
+                              13824, QW_FL_ROWS)
+
+
+def moe_vlm_fused_linear(dev, timer, g):
+    """fused_linear at phase 13's widths (:func:`layer_fused_linear`):
+    phi3.5-moe's output projection, kimi-k2's output projection and
+    shared expert, qwen2-vl-72b's output projection and SwiGLU."""
+    rows = layer_fused_linear(dev, timer, g, "phi", "phi3.5-moe", PHI_LINEARS, 4096, 4096,
+                              None, PHI_FL_ROWS)
+    rows.update(layer_fused_linear(dev, timer, g, "kimi", "kimi-k2", KIMI_LINEARS, 7168, 7168,
+                                   2048, KIMI_FL_ROWS))
+    rows.update(layer_fused_linear(dev, timer, g, "vl", "qwen2-vl-72b", VL_LINEARS, 8192, 8192,
+                                   29568, VL_FL_ROWS))
+    return rows
+
+
+def layer_fused_linear(dev, timer, g, tag, name, linears, q_width, d, ff, rows_m):
+    """fused_linear at one model's widths: every width of ``linears`` checked
+    in f32 and bf16 at the path's M; one layer's launches (the output
+    projection q_width -> d with the residual and, with ``ff``,
+    ``ops.swiglu``'s gate + silu and up projection and the down projection
+    with the residual) timed in bf16 at each M of ``rows_m``, as the path
+    runs them (the residual add and the gate product included), beside the
+    plain version and the library calls ``addmm`` (residual as the added
+    term), ``mm`` + ``silu`` + ``mm`` + ``mul`` and ``addmm``.  Returns
+    the rows keyed ``(tag, M)``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fused_linear as FL
@@ -624,51 +708,55 @@ def qwen_fused_linear(dev, timer, g):
 
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for M in QW_FL_ROWS:
-            for K, N, act in QW_LINEARS:
+        for M in rows_m:
+            for K, N, act in linears:
                 x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dtype)
                 w = (torch.randn(K, N, generator=g, device=dev) / K ** 0.5).to(dtype)
                 assert_close(FL.fused_linear_cuda(x, w, None, act=act),
                              FL.fused_linear_plain(x, w, None, act=act), dtype,
-                             f"fused_linear (qwen2.5-14b) {dtype} M={M} K={K} N={N} act={act}")
+                             f"fused_linear ({name}) {dtype} M={M} K={K} N={N} act={act}")
                 n += 1
     torch.cuda.synchronize()
-    log(f"fused_linear: {n} qwen2.5-14b cases within tolerance of the plain version")
+    log(f"fused_linear: {n} {name} cases within tolerance of the plain version")
     rows = {}
     dt = torch.bfloat16
-    d, ff = 5120, 13824
-    for M in QW_FL_ROWS:
+    for M in rows_m:
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
                    err=0.0)
 
         def mat(r, c, scale):
             return (torch.randn(r, c, generator=g, device=dev) * scale).to(dt)
 
-        x, h, res = mat(M, d, 0.5), mat(M, ff, 0.5), mat(M, d, 1.0)
-        wo, wg, wu, wd = mat(d, d, d ** -0.5), mat(d, ff, d ** -0.5), mat(d, ff, d ** -0.5), \
-            mat(ff, d, ff ** -0.5)
-        cases = (
-            ("o + residual", lambda impl=None: ops.fused_linear(x, wo, residual=res, impl=impl),
-             lambda: torch.addmm(res, x, wo), 2 * (M * d + d * d + 2 * M * d), 2.0 * M * d * d),
-            ("swiglu", lambda impl=None: ops.swiglu(x, wg, wu, impl=impl),
-             lambda: F.silu(torch.mm(x, wg)) * torch.mm(x, wu),
-             2 * (M * d + 2 * d * ff + M * ff), 4.0 * M * d * ff),
-            ("down + residual", lambda impl=None: ops.fused_linear(h, wd, residual=res,
-                                                                   impl=impl),
-             lambda: torch.addmm(res, h, wd), 2 * (M * ff + ff * d + 2 * M * d),
-             2.0 * M * ff * d),
-        )
-        for name, fn, lib_fn, nbytes, flops in cases:
-            err = assert_close(fn(), fn("ref"), dt, f"qwen2.5-14b {name} timing input")
+        xo, x, res = mat(M, q_width, 0.5), mat(M, d, 0.5), mat(M, d, 1.0)
+        wo = mat(q_width, d, q_width ** -0.5)
+        cases = [
+            ("o + residual", lambda impl=None: ops.fused_linear(xo, wo, residual=res, impl=impl),
+             lambda: torch.addmm(res, xo, wo), 2 * (M * q_width + q_width * d + 2 * M * d),
+             2.0 * M * q_width * d)]
+        if ff:
+            h = mat(M, ff, 0.5)
+            wg, wu, wd = mat(d, ff, d ** -0.5), mat(d, ff, d ** -0.5), mat(ff, d, ff ** -0.5)
+            cases += [
+                ("swiglu", lambda impl=None: ops.swiglu(x, wg, wu, impl=impl),
+                 lambda: F.silu(torch.mm(x, wg)) * torch.mm(x, wu),
+                 2 * (M * d + 2 * d * ff + M * ff), 4.0 * M * d * ff),
+                ("down + residual", lambda impl=None: ops.fused_linear(h, wd, residual=res,
+                                                                       impl=impl),
+                 lambda: torch.addmm(res, h, wd), 2 * (M * ff + ff * d + 2 * M * d),
+                 2.0 * M * ff * d)]
+        for case, fn, lib_fn, nbytes, flops in cases:
+            err = assert_close(fn(), fn("ref"), dt, f"{name} {case} timing input")
             for k, v in (("ms", timer.ms(fn)), ("plain_ms", timer.ms(lambda: fn("ref"))),
                          ("library_ms", timer.ms(lib_fn)),
                          ("bound_ms", max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3),
                          ("flops", flops), ("bytes", nbytes)):
                 tot[k] += v
             tot["err"] = max(tot["err"], err)
-        rows[("qwen", M)] = tot
-        log(f"fused_linear one qwen2.5-14b layer (4 launches: o + residual, swiglu gate + "
-            f"silu and up, down + residual) M={M}: kernel {tot['ms']:.4f} ms, plain "
+        rows[(tag, M)] = tot
+        log(f"fused_linear one {name} layer ("
+            + ("4 launches: o + residual, swiglu gate + silu and up, down + residual"
+               if ff else "1 launch: o + residual")
+            + f") M={M}: kernel {tot['ms']:.4f} ms, plain "
             f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
             f"{tot['bound_ms']:.5f} ms "
             f"({'bytes' if tot['bytes'] / HBM_BYTES_PER_S > tot['flops'] / BF16_FLOPS else 'operations'})")
@@ -912,25 +1000,42 @@ def phase_flash(dev, timer):
     rows["d128"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, flops=flops,
                         bytes=nbytes, err=err)
 
-    # qwen2.5-14b's apply: B=1, H=40, KVH=8 (5 query heads a KV head),
-    # D=128, causal; checked in f32 and bf16 (and at a ragged S), then
-    # timed in bf16 beside the library call
-    B, H, KVH, S, D = 1, 40, 8, 1024, 128
+    # the served models' apply shapes, causal: qwen2.5-14b (H=40 on KVH=8,
+    # 5 query heads a KV head), phi3.5-moe (32 on 8), qwen2-vl-72b (64 on
+    # 8: groups of 8) at B=1, S=1024, D=128, and kimi-k2 (64 on 8, D=112,
+    # padded to 128 in shared memory) at S=256
+    for name, (B, H, KVH, S, D) in (("qwen", (1, 40, 8, 1024, 128)),
+                                     ("phi", (1, 32, 8, 1024, 128)),
+                                     ("vl", (1, 64, 8, 1024, 128)),
+                                     ("kimi", (1, 64, 8, 256, 112))):
+        rows[name] = gqa_flash_row(g, dev, timer, B, H, KVH, S, D, name)
+    return rows
+
+
+def gqa_flash_row(g, dev, timer, B, H, KVH, S, D, name):
+    """Flash at one model's ``apply`` shape, causal: checked in f32 and
+    bf16 (and at a ragged S), then timed in bf16 beside the library call
+    ``F.scaled_dot_product_attention`` with ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    dt = torch.bfloat16
     scale = D ** -0.5
     for dtype in (torch.float32, torch.bfloat16):
         for Sq in (S, 300):
             q, k, v = flash_inputs(g, dev, dtype, B, H, KVH, Sq, Sq, D)
             got = FA.flash_attention_cuda(q, k, v, scale=scale, causal=True)
             want = FA.flash_attention_plain(q, k, v, scale=scale, causal=True)
-            what = f"flash {dtype} B={B} H={H} KVH={KVH} S={Sq} D={D} causal (qwen2.5-14b)"
+            what = f"flash {dtype} B={B} H={H} KVH={KVH} S={Sq} D={D} causal ({name})"
             assert_close(got, want, dtype, what)
             if dtype == torch.bfloat16:
                 assert_flash_rounding(got, want, q, k, v, scale, True, what)
     q, k, v = flash_inputs(g, dev, dt, B, H, KVH, S, S, D)
     got = FA.flash_attention_cuda(q, k, v, scale=scale, causal=True)
     err = assert_close(got, FA.flash_attention_plain(q, k, v, scale=scale, causal=True), dt,
-                       "qwen2.5-14b timing input")
-    check(FA.variant(q, k, v) == "wgmma", "qwen2.5-14b flash does not take the warpgroup kernel")
+                       f"{name} timing input")
+    check(FA.variant(q, k, v) == "wgmma", f"{name} flash does not take the warpgroup kernel")
     ms = timer.ms(lambda: FA.flash_attention_cuda(q, k, v, scale=scale, causal=True))
     plain = timer.ms(lambda: FA.flash_attention_plain(q, k, v, scale=scale, causal=True))
     lib = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
@@ -938,13 +1043,12 @@ def phase_flash(dev, timer):
     flops = 4.0 * B * H * D * S * (S + 1) / 2
     nbytes = 2 * (2 * B * H * S * D + 2 * B * KVH * S * D)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    log(f"flash_attention bf16 B={B} H={H} KVH={KVH} S={S} D={D} causal (qwen2.5-14b apply): "
+    log(f"flash_attention bf16 B={B} H={H} KVH={KVH} S={S} D={D} causal ({name} apply): "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound {bound:.5f} ms "
         f"({'bytes' if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else 'operations'}), "
         f"max abs err {err:.3e}")
-    rows["qwen"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, flops=flops,
-                        bytes=nbytes, err=err)
-    return rows
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, flops=flops,
+                bytes=nbytes, err=err)
 
 
 def rg_inputs(g, dev, dtype, B, T, D, with_h0):
@@ -1283,6 +1387,9 @@ def phase_paged(dev, timer):
                                        [44, 52, 60, 71], 10)
     rows["qwen_pos2047"] = paged_timing(timer, dev, 4, 40, 8, 128, 16, 128, 1 + 4 * 128,
                                         [2047] * 4, 12)
+    # phi3.5-moe's served shape, H=32 on KVH=8, at the same positions
+    rows["phi_served"] = paged_timing(timer, dev, 4, 32, 8, 128, 16, 16, 1 + 4 * 16,
+                                      [44, 52, 60, 71], 14)
     return rows
 
 
@@ -2529,7 +2636,7 @@ def phase_qwen(dev, more=None):
     from repro_torch.configs import get_config
     from repro_torch.core.metrics import fusion_gain_ratio
     from repro_torch.launch.serve import BatchedServer
-    from repro_torch.models import _forge, get_model
+    from repro_torch.models import get_model
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
@@ -2554,34 +2661,11 @@ def phase_qwen(dev, more=None):
     B, P, n_new, max_len = 4, 32, 32, 256  # the serve CLI's defaults
     prompts = np.random.default_rng(18).integers(0, cfg.vocab, (B, P)).astype(np.int32)
 
-    def bodies_of(mode):
-        return [m for k, m in _forge._CACHE.items()
-                if k.startswith(f"{cfg!r}/{mode}/") and "impl=None" in k]
-
     # -- the eager server: Forge-compiled block bodies --------------------
-    eager = BatchedServer(cfg, params, max_len=max_len, mode="interpret")
-    reset_counts()
-    res_e = eager.generate(prompts, n_new)
-    torch.cuda.synchronize()
-    served_eager = counts()
-    (dbody,) = bodies_of("decode")
-    steps = P + n_new - 1
-    per_step = linear_nodes(dbody) * cfg.n_layers
-    check(res_e["tokens"].shape == (B, n_new), f"eager token shape {res_e['tokens'].shape}")
-    check(served_eager["fused_linear"] == per_step * steps,
-          f"eager: fused_linear launches {served_eager['fused_linear']} != {per_step} per "
-          f"step (the body's linear nodes x {cfg.n_layers} layers) x {steps} steps")
-    check(not any(v for k, v in served_eager.items() if k != "fused_linear"),
-          f"eager: launched {served_eager}")
+    served_eager, _ = interpret_path(dev, cfg, params, prompts, n_new, "qwen2.5-14b")
+    (dbody,) = forge_bodies(cfg, "decode")
     check(fused_counts(dbody) == {"forge.sdpa": 1, "forge.linear_act": 2, "forge.swiglu": 1},
           f"decode body fused {fused_counts(dbody)}")
-    log(f"serve qwen2.5-14b eager (bf16, 48 layers) batch={B} prompt={P} gen={n_new}: ttft "
-        f"{res_e['ttft_s'] * 1e3:.1f} ms (sequential prefill, body compile included), decode "
-        f"p50 {res_e['decode_ms_p50']:.2f} ms p99 {res_e['decode_ms_p99']:.2f} ms, "
-        f"{res_e['tok_per_s']:.1f} tok/s; fused_linear launches {served_eager['fused_linear']} "
-        f"= {per_step} per step; fused nodes of the body {fused_counts(dbody)}")
-    log_pass_table("qwen2.5-14b decode block body", dbody.result)
-    del eager
 
     # FGR on the block body (Eq. 22): two captures, alpha 0 and 1
     p0 = params["blocks"][0]
@@ -2642,48 +2726,7 @@ def phase_qwen(dev, more=None):
     release_device_memory()
 
     # -- apply at B=1, S=1024: flash at H=40, KVH=8, D=128 -----------------
-    tokens = torch.randint(0, cfg.vocab, (1, 1024), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(19))
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        model.apply(params, tokens, cfg)  # compiles the apply body
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        reset_counts()
-        t0 = time.perf_counter()
-        logits = model.apply(params, tokens, cfg)
-        torch.cuda.synchronize()
-        apply_ms = (time.perf_counter() - t0) * 1e3
-        applied = counts()
-    (abody,) = bodies_of("apply")
-    check(applied["flash_attention"] == flash_nodes(abody) * cfg.n_layers == cfg.n_layers,
-          f"apply: flash launches {applied['flash_attention']} != {cfg.n_layers}")
-    check(applied["fused_linear"] == linear_nodes(abody) * cfg.n_layers,
-          f"apply: fused_linear launches {applied['fused_linear']} != "
-          f"{linear_nodes(abody) * cfg.n_layers}")
-    check(applied.variants["flash_attention"] == {"wgmma": cfg.n_layers},
-          f"apply: flash variants {applied.variants['flash_attention']}")
-    check(tuple(logits.shape) == (1, 1024, cfg.vocab) and torch.isfinite(logits).all().item(),
-          "qwen2.5-14b apply logits: shape or non-finite values")
-    log(f"apply qwen2.5-14b B=1 S=1024: flash launches {applied['flash_attention']}, "
-        f"fused_linear {applied['fused_linear']} ({applied.variants}); first call "
-        f"{first_s:.1f} s (body compile included), steady call {apply_ms:.1f} ms host wall; "
-        f"fused nodes of the body {fused_counts(abody)}")
-    log_pass_table("qwen2.5-14b apply block body", abody.result)
-    log_device_time(lambda: model.apply(params, tokens, cfg), "qwen2.5-14b apply B=1 S=1024")
-    with torch.no_grad():
-        reset_counts()
-        ref = model.apply(params, tokens, cfg, impl="ref")
-        raw = model.apply(params, tokens, cfg.with_(fuse="none"), impl="ref")
-        check(not any(counts().values()), "the impl='ref' apply launched a kernel")
-    got_r, spread = rel_l2(logits, ref), rel_l2(ref, raw)
-    bound = max(REL_L2_DEEP_BF16, SPREAD_FACTOR_BF16 * spread)
-    check(got_r <= bound, f"qwen2.5-14b apply logits: relative L2 {got_r:.3e} of impl='ref' "
-                          f"above {bound:.3e}")
-    log(f"qwen2.5-14b apply logits against impl='ref': {got_r:.3e} relative L2 (max abs "
-        f"{(logits - ref).abs().max().item():.3e}); two kernel-free implementations (compiled "
-        f"and unfused) differ by {spread:.3e}; bound {bound:.3e}")
-    del logits, ref, raw
+    applied = apply_path(dev, cfg, model, params, "qwen2.5-14b", 1024, 19)
     out = {"qwen_eager": served_eager, "qwen_serve": served, "qwen_apply": applied}
     if more is not None:  # further paths on the same weights (one init)
         out.update(more(cfg, model, params, prompts))
@@ -2907,22 +2950,25 @@ def hold_against_interpret(what, dispatches, fronts, twins, generate=None):
 
 def contiguous_backends(what, server, prompts, n_new, floor_ms=None):
     """segment_jit against interpret on a contiguous forge path: one decode
-    and one prefill dispatch of the group's cells on the same inputs, the
-    served greedy tokens, then the host/device split of steady decode
-    steps under both backends."""
+    and (where the family has a prefill front) one prefill dispatch of
+    the group's cells on the same inputs, the served greedy tokens, then
+    the host/device split of steady decode steps under both backends."""
     import torch
 
-    fronts = (server.bucketed, server.prefill_bucketed)
+    fronts = tuple(f for f in (server.bucketed, server.prefill_bucketed) if f is not None)
     twins = interpret_twins(fronts)
     B, P = prompts.shape
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=server.device)
     with torch.no_grad():
         cache, tok, pos, _, dkey = server.prefill(prompts)
-        hold_against_interpret(what, [
-            ("decode", dkey, 0, (server.params, cache) + server._decode_args(B, tok, pos)),
-            ("prefill", server.prefill_bucketed.key_for_extents((B, P)), 1,
-             (server.params, server._build_cache(B)) + server._prefill_args(B, toks, 0))],
-            fronts, twins, generate=lambda: server.generate(prompts, n_new)["tokens"])
+        dispatches = [("decode", dkey, 0,
+                       (server.params, cache) + server._decode_args(B, tok, pos))]
+        if server.prefill_bucketed is not None:
+            dispatches.append(
+                ("prefill", server.prefill_bucketed.key_for_extents((B, P)), 1,
+                 (server.params, server._build_cache(B)) + server._prefill_args(B, toks, 0)))
+        hold_against_interpret(what, dispatches, fronts, twins,
+                               generate=lambda: server.generate(prompts, n_new)["tokens"])
     return backend_split(what, fronts, twins, lambda: decode_steps(server, prompts),
                          server.bucketed.lookup_program(dkey), floor_ms)
 
@@ -3726,7 +3772,7 @@ def phase12_qwen(dev, cfg, model, params, prompts):
     ``mode="jit"`` (depth QWEN_JIT_LAYERS), (c) the autotuner on the
     ``apply`` block body at B=1, S=1024.  Returns the paths' launches."""
     t0 = time.perf_counter()
-    out = {"qwen_paged": qwen_paged(dev, cfg, model, params)}
+    out = {"qwen_paged": paged_path(dev, cfg, params, "qwen2.5-14b")}
     log(f"phase 12 (a) took {time.perf_counter() - t0:.1f} s")
     release_device_memory()
     L_ = QWEN_JIT_LAYERS
@@ -3761,17 +3807,21 @@ def phase12_forge(dev):
     return out
 
 
-def qwen_paged(dev, cfg, model, params):
-    """Phase 12a: qwen2.5-14b at full width and depth through
-    ``SlotScheduler`` over ``BatchedServer(mode="forge", paged=True)``
-    with the paged-attention kernel (``kv_kernel="pallas"``: 40 query
-    heads on 8 KV heads, groups of 5) on segment_jit, phase 5's workload
-    (12 requests, a shared prefix, pages of 16, pow2 rungs of 4 slots).
-    Launches exact (paged = 48 x decode dispatches, fused linear = the
-    programs' linear nodes x dispatches, flash 0), no compile or capture
-    after warmup, ``pool.check()`` every tick (the scheduler's), no page
-    leaked; one decode and one prefill dispatch bitwise against
-    interpret, and the host/device split of steady ticks."""
+def paged_path(dev, cfg, params, what):
+    """Phase 12a (qwen2.5-14b at full width and depth) and 13a
+    (phi3.5-moe): the model through ``SlotScheduler`` over
+    ``BatchedServer(mode="forge", paged=True)`` with the paged-attention
+    kernel (``kv_kernel="pallas"``: qwen's 40 query heads on 8 KV heads,
+    groups of 5; phi3.5-moe's groups of 4) on segment_jit, phase 5's
+    workload (12 requests, a shared prefix, pages of 16, pow2 rungs of 4
+    slots).  Launches exact (paged = layers x decode dispatches, fused
+    linear = the programs' linear nodes x dispatches, flash 0), no compile
+    or capture after warmup, ``pool.check()`` every tick (the
+    scheduler's), no page leaked; one decode dispatch (and a prefill
+    dispatch, where the family has a prefill front) bitwise against
+    interpret, and the host/device split of steady ticks.  MoE has no
+    batched prefill (capacity routing couples a block's tokens): its
+    slots fill through the decode program, and no prefix is reused."""
     import numpy as np
     import torch
     from repro_torch.core.paging import build_row_table
@@ -3783,13 +3833,16 @@ def qwen_paged(dev, cfg, model, params):
     sched = SlotScheduler(server, max_slots=4)
     reqs = paged_workload(cfg.vocab)
     t0 = time.perf_counter()
-    warm_s = warm_graphs("qwen2.5-14b paged", lambda: server.warmup([2]) + server.warmup(
+    warm_s = warm_graphs(f"{what} paged", lambda: server.warmup([2]) + server.warmup(
         [4], sorted({len(r.prompt) for r in reqs})))
-    fronts = (server.bucketed, server.prefill_bucketed)
-    program_log(server.bucketed, "qwen2.5-14b paged decode")
-    program_log(server.prefill_bucketed, "qwen2.5-14b paged prefill")
+    fronts = tuple(f for f in (server.bucketed, server.prefill_bucketed) if f is not None)
+    batched_prefill = server.prefill_bucketed is not None
+    check(batched_prefill == (cfg.family != "moe"),
+          f"{what} paged: a prefill front for family {cfg.family}")
+    for f, name in zip(fronts, ("decode", "prefill")):
+        program_log(f, f"{what} paged {name}")
     n_prog = sum(len(f.programs) for f in fronts)
-    log(f"qwen2.5-14b paged warmup: {n_prog} programs in {warm_s:.1f} s (wall "
+    log(f"{what} paged warmup: {n_prog} programs in {warm_s:.1f} s (wall "
         f"{time.perf_counter() - t0:.1f} s; {warm_s / n_prog:.1f} s a program)")
     caps = captures_now()
     calls0 = [dict(f.stats.per_bucket_calls) for f in fronts]
@@ -3801,32 +3854,35 @@ def qwen_paged(dev, cfg, model, params):
     pool, tree = server.page_pool, server.prefix_tree
     for r in reqs:
         got = res["results"][r.rid]
-        check("error" not in got, f"qwen paged request {r.rid} failed: {got.get('error')}")
+        check("error" not in got, f"{what} paged request {r.rid} failed: {got.get('error')}")
         check(len(got["tokens"]) == r.max_new,
-              f"qwen paged request {r.rid}: {len(got['tokens'])} tokens, budget {r.max_new}")
-    check(res["swaps"] >= 1 and res["prefix_hits"] >= 1,
-          f"qwen paged: swaps {res['swaps']}, prefix hits {res['prefix_hits']}")
+              f"{what} paged request {r.rid}: {len(got['tokens'])} tokens, budget {r.max_new}")
+    check(res["swaps"] >= 1 and (res["prefix_hits"] >= 1) == batched_prefill
+          and (res["prefill_dispatches"] > 0) == batched_prefill,
+          f"{what} paged: swaps {res['swaps']}, prefix hits {res['prefix_hits']}, prefill "
+          f"dispatches {res['prefill_dispatches']}")
     pool.check()
     check(pool.pages_in_use == 1 + tree.cached_pages,
-          f"qwen paged: pages in use {pool.pages_in_use} != 1 + {tree.cached_pages} cached "
+          f"{what} paged: pages in use {pool.pages_in_use} != 1 + {tree.cached_pages} cached "
           f"(a page leaked)")
     check(res["compiles"] == 0 and captures_now() == caps,
-          f"qwen paged: {res['compiles']} compiles after warmup, captures {captures_now()} "
+          f"{what} paged: {res['compiles']} compiles after warmup, captures {captures_now()} "
           f"after {caps}")
     check(launched["paged_attention"] == cfg.n_layers * res["decode_dispatches"] > 0,
-          f"qwen paged: paged launches {launched['paged_attention']} != {cfg.n_layers} x "
+          f"{what} paged: paged launches {launched['paged_attention']} != {cfg.n_layers} x "
           f"{res['decode_dispatches']} decode dispatches")
     want_fl = sum(linear_nodes(mod) * (f.stats.per_bucket_calls.get(str(key), 0)
                                        - c0.get(str(key), 0))
                   for f, c0 in zip(fronts, calls0) for key, mod in f.programs.items())
     check(launched["fused_linear"] == want_fl > 0,
-          f"qwen paged: fused_linear launches {launched['fused_linear']} != {want_fl} "
+          f"{what} paged: fused_linear launches {launched['fused_linear']} != {want_fl} "
           f"predicted from the programs' linear nodes x dispatches")
     check(launched["flash_attention"] == 0 and launched["rg_lru"] == 0,
-          f"qwen paged: flash {launched['flash_attention']}, rg_lru {launched['rg_lru']}")
+          f"{what} paged: flash {launched['flash_attention']}, rg_lru {launched['rg_lru']}")
     per_prog = {str(k): round(v, 2) for f in fronts
                 for k, v in f.stats.per_bucket_compile_s.items()}
-    log(f"paged serve qwen2.5-14b (bf16, 48 layers, kv_kernel=pallas, G=5, max_slots 4, "
+    log(f"paged serve {what} (bf16, {cfg.n_layers} layers, kv_kernel=pallas, "
+        f"G={cfg.n_heads // cfg.n_kv_heads}, max_slots 4, "
         f"page 16, {pool.num_pages} pages): {len(reqs)} requests, {res['real_tokens']} "
         f"tokens, {res['tok_per_s']:.1f} tok/s, tick p50 {res['tick_ms_p50']:.2f} ms p99 "
         f"{res['tick_ms_p99']:.2f} ms, TTFT p50 {res['ttft_p50_ticks']:.1f} ticks "
@@ -3838,11 +3894,14 @@ def qwen_paged(dev, cfg, model, params):
 
     # segment_jit against interpret: a decode tick on the cached shared
     # prefix plus a fresh page a row (positions 32..35), and a B4 x S16
-    # prefill dispatch on the same rows at 32
-    chain, n_tok = tree.match(reqs[0].prompt, max_tokens=32)
-    check(n_tok == 32, f"qwen paged: the shared prefix is not cached ({n_tok} tokens)")
+    # prefill dispatch on the same rows at 32; without a prefill front
+    # (MoE) the rows' first two pages are fresh too
     B, MP = 4, server.max_pages_per_slot
-    own = [pool.alloc(2) for _ in range(B)]
+    chain = []
+    if batched_prefill:
+        chain, n_tok = tree.match(reqs[0].prompt, max_tokens=32)
+        check(n_tok == 32, f"{what} paged: the shared prefix is not cached ({n_tok} tokens)")
+    own = [pool.alloc(2 if chain else 4) for _ in range(B)]
     pt = torch.from_numpy(np.stack([build_row_table(chain + o, MP) for o in own])).to(dev)
     pos = torch.tensor([32, 33, 34, 35], dtype=torch.int32, device=dev)
     tok = torch.tensor([[t % cfg.vocab] for t in (11, 222, 3333, 44444)], dtype=torch.int32,
@@ -3853,12 +3912,13 @@ def qwen_paged(dev, cfg, model, params):
     ptoks = torch.randint(0, cfg.vocab, (B, 16), dtype=torch.int32, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(13))
     ppos = torch.full((B,), 32, dtype=torch.int32, device=dev)
+    dispatches = [("decode", server.bucketed.key_for_extents(B), 0,
+                   (params, store, pt, tok, pos, mask))]
+    if batched_prefill:
+        dispatches.append(("prefill", server.prefill_bucketed.key_for_extents((B, 16)), 1,
+                           (params, store, pt, ptoks, ppos, mask)))
     with torch.no_grad():
-        hold_against_interpret("qwen2.5-14b paged", [
-            ("decode", server.bucketed.key_for_extents(B), 0,
-             (params, store, pt, tok, pos, mask)),
-            ("prefill", server.prefill_bucketed.key_for_extents((B, 16)), 1,
-             (params, store, pt, ptoks, ppos, mask))], fronts, twins)
+        hold_against_interpret(f"{what} paged", dispatches, fronts, twins)
     dmod = server.bucketed.lookup_program(server.bucketed.key_for_extents(B))
 
     def ticks():
@@ -3870,14 +3930,14 @@ def qwen_paged(dev, cfg, model, params):
 
         return one
 
-    backend_split("qwen2.5-14b paged decode tick (B=4)", fronts, twins, ticks, dmod)
+    backend_split(f"{what} paged decode tick (B=4)", fronts, twins, ticks, dmod)
     for o in own:
         pool.free(o)
     pool.check()
     return launched
 
 
-def jit_path(dev, cfg, model, params, prompts, elementwise=False):
+def jit_path(dev, cfg, model, params, prompts, elementwise=False, rows_independent=True):
     """Phase 12b: ``BatchedServer(mode="jit")`` at batch 4, prompt 32, 32
     new tokens: the step compiled whole (``torch.compile(fullgraph=True)``,
     one CUDA graph a batch size, built in warmup), then one generation.
@@ -3891,7 +3951,9 @@ def jit_path(dev, cfg, model, params, prompts, elementwise=False):
     SPREAD_FACTOR_BF16 times the run's spread between two kernel-free
     implementations in relative L2 over all steps, and with
     ``elementwise`` (forge-125m, phase 3's model) within TOL_MODEL_BF16
-    at every step.  Returns the launches."""
+    at every step.  A MoE step couples its rows (capacity routing), so
+    with ``rows_independent=False`` a differing row is only reported: the
+    teacher-forced logits hold the step.  Returns the launches."""
     import numpy as np
     import torch
     from torch.utils import _pytree as pytree
@@ -3933,6 +3995,9 @@ def jit_path(dev, cfg, model, params, prompts, elementwise=False):
         j = int(np.flatnonzero(res["tokens"][b] != interp_tokens[b])[0])
         ctx = np.concatenate([prompts[b], res["tokens"][b, :j]])
         picks = [int(res["tokens"][b, j]), int(interp_tokens[b, j])]
+        if not rows_independent:
+            diverged.append(f"row {b} from token {j}: picks {picks}")
+            continue
         spread, slack, margins = first_token_slack(model, cfg, params, ctx, picks, dev,
                                                    f"{what} row {b} token {j}")
         diverged.append(f"row {b} from token {j}: picks {picks} margins "
@@ -4049,6 +4114,344 @@ def autotune_body(dev, cfg, params, B, S):
     return launched
 
 
+def phase13(dev):
+    """Phase 13: the MoE and VLM families at full width, each model freed
+    before the next.  Returns the paths' launches."""
+    out = {}
+    for name, fn in (("(a) phi3.5-moe", phase13_phi), ("(b) qwen2-vl-72b", phase13_vl),
+                     ("(c) kimi-k2", phase13_kimi)):
+        t0 = time.perf_counter()
+        out.update(fn(dev))
+        release_device_memory()
+        log(f"phase 13 {name} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def full_width_model(dev, arch, n_layers, widths, dtype="bfloat16"):
+    """``arch`` at its published widths (``widths``, checked field by field)
+    with the depth cut to ``n_layers``, random weights from seed 0."""
+    import gc
+
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    gc.collect()
+    release_device_memory()
+    full = get_config(arch)
+    check({k: getattr(full, k) for k in widths} == widths, f"{arch} is {full}")
+    cfg = full.with_(n_layers=n_layers, dtype=dtype)
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    leaves = {id(t): t for t in pytree.tree_leaves(params)}.values()
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"{arch} ({dtype}): {n_layers} of {full.n_layers} layers at full width, "
+        f"{sum(t.numel() for t in leaves) / 1e9:.3f} B parameters ({nbytes / 1e9:.2f} GB; "
+        f"{2 * full.param_count() / 1e9:.1f} GB in bf16 at full depth) made in "
+        f"{time.perf_counter() - t0:.1f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, model, params, nbytes
+
+
+def forge_bodies(cfg, mode):
+    """The Forge-compiled block bodies of ``cfg`` in ``mode`` (kernels on)."""
+    from repro_torch.models import _forge
+
+    return [m for k, m in _forge._CACHE.items()
+            if k.startswith(f"{cfg!r}/{mode}/") and "impl=None" in k]
+
+
+def within_spread(what, got, ref, raw):
+    """The bf16 rule of a deep or routed model: ``got`` within max(
+    REL_L2_DEEP_BF16, SPREAD_FACTOR_BF16 x the spread between two
+    kernel-free implementations) relative L2 of ``ref``; a routed model
+    can send a near-tied token to another expert in any two of them."""
+    import torch
+
+    got_r, spread = rel_l2(got, ref), rel_l2(ref, raw)
+    bound = max(REL_L2_DEEP_BF16, SPREAD_FACTOR_BF16 * spread)
+    check(bool(torch.isfinite(got).all().item()), f"{what}: non-finite values")
+    check(got_r <= bound, f"{what}: relative L2 {got_r:.3e} of impl='ref' above {bound:.3e}")
+    log(f"{what} against impl='ref': {got_r:.3e} relative L2 (max abs "
+        f"{(got.float() - ref.float()).abs().max().item():.3e}); two kernel-free "
+        f"implementations (compiled and unfused) differ by {spread:.3e}; bound {bound:.3e}"
+        + (f" ({bound / got_r:.2f}x the error)" if got_r > 0 else ""))
+
+
+def apply_path(dev, cfg, model, params, what, S, seed, patches=0):
+    """``apply`` at B=1 over S positions through the compiler (for the VLM:
+    ``patches`` patch embeddings ahead of S - patches text tokens, the
+    stub frontend): flash launches = layers (``wgmma``), fused linear =
+    the body's linear nodes x layers; logits finite, of shape (1, S,
+    vocab), and within :func:`within_spread` of impl="ref";
+    ``memory_allocated`` before and after the body's compile and the
+    peak.  Returns the launches."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (1, S - patches), device=dev, generator=g)
+    kw = {}
+    if patches:
+        kw["patch_embeds"] = (torch.randn(1, patches, cfg.d_model, generator=g, device=dev)
+                              * 0.02).to(torch.bfloat16)
+    with torch.no_grad():
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model.apply(params, tokens, cfg, **kw)  # compiles the apply body
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        mem1, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = model.apply(params, tokens, cfg, **kw)
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        applied = counts()
+    (abody,) = forge_bodies(cfg, "apply")
+    check(applied["flash_attention"] == flash_nodes(abody) * cfg.n_layers == cfg.n_layers,
+          f"{what} apply: flash launches {applied['flash_attention']} != {cfg.n_layers}")
+    check(applied["fused_linear"] == linear_nodes(abody) * cfg.n_layers > 0,
+          f"{what} apply: fused_linear launches {applied['fused_linear']} != "
+          f"{linear_nodes(abody) * cfg.n_layers}")
+    check(applied.variants["flash_attention"] == {"wgmma": cfg.n_layers},
+          f"{what} apply: flash variants {applied.variants['flash_attention']}")
+    check(not applied["paged_attention"] and not applied["rg_lru"],
+          f"{what} apply: launched {applied}")
+    check(tuple(logits.shape) == (1, S, cfg.vocab), f"{what} apply logits {logits.shape}")
+    log(f"apply {what} B=1 S={S}" + (f" ({patches} patch embeddings)" if patches else "")
+        + f": flash launches {applied['flash_attention']}, fused_linear "
+        f"{applied['fused_linear']} ({applied.variants}); first call {first_s:.1f} s (body "
+        f"compile included), steady call {apply_ms:.1f} ms host wall; memory_allocated "
+        f"{mem0 / 2**30:.2f} GiB before the compile, {mem1 / 2**30:.2f} GiB after, peak "
+        f"{peak / 2**30:.2f} GiB; fused nodes of the body {fused_counts(abody)}")
+    log_pass_table(f"{what} apply block body", abody.result)
+    log_device_time(lambda: model.apply(params, tokens, cfg, **kw), f"{what} apply B=1 S={S}")
+    with torch.no_grad():
+        reset_counts()
+        ref = model.apply(params, tokens, cfg, impl="ref", **kw)
+        raw = model.apply(params, tokens, cfg.with_(fuse="none"), impl="ref", **kw)
+        check(not any(counts().values()), f"{what}: the impl='ref' apply launched a kernel")
+    within_spread(f"{what} apply logits", logits, ref, raw)
+    return applied
+
+
+def interpret_path(dev, cfg, params, prompts, n_new, what):
+    """``BatchedServer(mode="interpret")`` (sequential prefill through the
+    decode step, Forge-compiled block bodies): tokens of shape (B, n_new),
+    fused linear = the decode body's linear nodes x layers x steps and no
+    other launch.  Returns (launches, result)."""
+    import torch
+    from repro_torch.launch.serve import BatchedServer
+
+    B, P = prompts.shape
+    eager = BatchedServer(cfg, params, max_len=256, mode="interpret")
+    reset_counts()
+    res = eager.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    served = counts()
+    (dbody,) = forge_bodies(cfg, "decode")
+    steps = P + n_new - 1
+    per_step = linear_nodes(dbody) * cfg.n_layers
+    check(res["tokens"].shape == (B, n_new), f"{what} eager token shape {res['tokens'].shape}")
+    check(served["fused_linear"] == per_step * steps > 0,
+          f"{what} eager: fused_linear launches {served['fused_linear']} != {per_step} per "
+          f"step x {steps} steps")
+    check(not any(v for k, v in served.items() if k != "fused_linear"),
+          f"{what} eager: launched {served}")
+    log(f"serve {what} interpret (bf16, {cfg.n_layers} layers) batch={B} prompt={P} "
+        f"gen={n_new}: ttft {res['ttft_s'] * 1e3:.1f} ms (sequential prefill, body compile "
+        f"included), decode p50 {res['decode_ms_p50']:.2f} ms p99 {res['decode_ms_p99']:.2f} "
+        f"ms, {res['tok_per_s']:.1f} tok/s; fused_linear launches {served['fused_linear']} = "
+        f"{per_step} per step ({served.variants}); fused nodes of the body "
+        f"{fused_counts(dbody)}")
+    log_pass_table(f"{what} decode block body", dbody.result)
+    return served, res
+
+
+def contiguous_path(dev, cfg, params, prompts, n_new, what, floor_ms):
+    """The contiguous forge fronts at the CLI's defaults on segment_jit:
+    one decode program (rung 4), no prefill front (MoE capacity routing
+    couples a block's tokens; the VLM has none), so the prompt replays
+    through the decode program; no compile or capture in the generation,
+    fused linear = the program's linear nodes x dispatches; one decode
+    dispatch and the served tokens bitwise against interpret, and the
+    host/device split.  Returns the launches."""
+    import torch
+    from repro_torch.launch.serve import BatchedServer
+
+    B, P = prompts.shape
+    server = BatchedServer(cfg, params, max_len=256, mode="forge", bucket_policy="ladder:4")
+    warm_s = warm_graphs(f"{what} contiguous", lambda: server.warmup([B], prompt_lens=[P]))
+    front = server.bucketed
+    check(server.prefill_bucketed is None and len(front.programs) == 1,
+          f"{what}: warmup built {len(front.programs)} decode programs and a prefill front "
+          f"{server.prefill_bucketed}")
+    program_log(front, f"{what} decode")
+    for key, mod in front.programs.items():
+        log_pass_table(f"{what} decode program {key}", mod.result)
+    caps, compiles0 = captures_now(), front.stats.compiles
+    calls0 = dict(front.stats.per_bucket_calls)
+    reset_counts()
+    res = server.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    served = counts()
+    calls = {k: v - calls0.get(k, 0) for k, v in front.stats.per_bucket_calls.items()}
+    want_fl = sum(linear_nodes(mod) * calls.get(str(key), 0) for key, mod in front.programs.items())
+    check(front.stats.compiles == compiles0 and captures_now() == caps,
+          f"{what}: a program compiled or captured after warmup")
+    check(res["prefill_mode"] == "sequential" and res["tokens"].shape == (B, n_new)
+          and res["compile_s"] == 0.0, f"{what}: served {res['prefill_mode']} "
+                                       f"{res['tokens'].shape}")
+    check(served["fused_linear"] == want_fl > 0,
+          f"{what}: fused_linear launches {served['fused_linear']} != {want_fl} predicted "
+          f"from the program's linear nodes x dispatches")
+    check(not any(v for k, v in served.items() if k != "fused_linear"),
+          f"{what}: launched {served}")
+    log(f"serve {what} contiguous (segment_jit, bf16, {cfg.n_layers} layers) batch={B} "
+        f"prompt={P} gen={n_new}: warmup {warm_s:.1f} s; ttft {res['ttft_s'] * 1e3:.2f} ms "
+        f"(sequential prefill), decode p50 {res['decode_ms_p50']:.2f} ms p99 "
+        f"{res['decode_ms_p99']:.2f} ms, {res['tok_per_s']:.1f} tok/s (the weights' byte "
+        f"bound {floor_ms:.3f} ms a step); {sum(calls.values())} decode dispatches; launches "
+        f"{served}, {served.variants}")
+    contiguous_backends(f"{what} contiguous", server, prompts, n_new, floor_ms=floor_ms)
+    return served
+
+
+def phase13_phi(dev):
+    """Phase 13 (a): phi3.5-moe-42b-a6.6b at full width (d 4096, 32 heads
+    on 8 KV heads, 16 experts of d_ff 6400, top-2, vocab 32064), MOE_LAYERS
+    layers: the paged ``SlotScheduler`` with the paged kernel over phase
+    5's workload, the contiguous fronts at the CLI's defaults, ``apply``
+    at B=1, S=1024, the jit step at MOE_JIT_LAYERS layers; then f32."""
+    import numpy as np
+
+    cfg, model, params, nbytes = full_width_model(dev, "phi3.5-moe-42b-a6.6b", MOE_LAYERS, {
+        "d_model": 4096, "n_heads": 32, "n_kv_heads": 8, "n_experts": 16, "d_ff": 6400,
+        "top_k": 2, "vocab": 32064, "n_layers": 32})
+    prompts = np.random.default_rng(21).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    out = {"phi_paged": paged_path(dev, cfg, params, "phi3.5-moe")}
+    release_device_memory()
+    out["phi_serve"] = contiguous_path(dev, cfg, params, prompts, 32, "phi3.5-moe",
+                                       nbytes / HBM_BYTES_PER_S * 1e3)
+    release_device_memory()
+    out["phi_apply"] = apply_path(dev, cfg, model, params, "phi3.5-moe", 1024, 22)
+    release_device_memory()
+    jcfg = cfg.with_(n_layers=MOE_JIT_LAYERS)
+    out["jit_phi"] = jit_path(dev, jcfg, model, dict(params, blocks=params["blocks"][:2]),
+                              prompts, rows_independent=False)
+    del params
+    release_device_memory()
+    phase13_phi_f32(dev, prompts)
+    return out
+
+
+def phase13_phi_f32(dev, prompts):
+    """phi3.5-moe's kernels held elementwise in f32 (MOE_LAYERS layers,
+    42.6 GB): the served decode program's sequential prefill of 8 prompt
+    tokens (the written cache and the first token) against the
+    ``impl="ref"`` interpret server, and ``apply`` at B=1, S=256 against
+    impl="ref", within TOL_DEEP_F32.  S is 256 (the bf16 apply's 1024
+    above): an f32 comparison of a routed model holds elementwise only
+    where no router logit pair lies within rounding of a tie, and fewer
+    tokens give fewer such chances."""
+    import torch
+    from repro_torch.launch.serve import BatchedServer
+
+    cfg, model, params, _ = full_width_model(dev, "phi3.5-moe-42b-a6.6b", MOE_LAYERS, {
+        "d_model": 4096, "n_experts": 16}, dtype="float32")
+    short = prompts[:, :8]
+    P = short.shape[1]
+    server = BatchedServer(cfg, params, max_len=256, mode="forge", bucket_policy="ladder:4")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cache, tok, _, _, key = server.prefill(short)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        ref_cache, ref_tok, _, _, _ = BatchedServer(cfg, params, max_len=256, mode="interpret",
+                                                    impl="ref").prefill(short)
+    check(torch.equal(tok.long().cpu(), ref_tok.long().cpu()),
+          f"phi3.5-moe f32: first tokens {tok.flatten().tolist()} against impl='ref' "
+          f"{ref_tok.flatten().tolist()}")
+    errs = {name: assert_close(cache[name][:, :, :, :P], ref_cache[name][:, :, :, :P],
+                               torch.float32, f"phi3.5-moe f32 prefilled {name} cache",
+                               TOL_DEEP_F32) for name in ("k", "v")}
+    del server, cache, ref_cache
+    tokens = torch.randint(0, cfg.vocab, (1, 256), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(23))
+    with torch.no_grad():
+        got = model.apply(params, tokens, cfg)
+        want = model.apply(params, tokens, cfg, impl="ref")
+    errs["apply"] = assert_close(got, want, torch.float32, "phi3.5-moe f32 apply logits",
+                                 TOL_DEEP_F32)
+    log(f"f32 phi3.5-moe (full width, {MOE_LAYERS} of 32 layers): the served decode program "
+        f"{key} (prefill of {P} tokens, compiled in {compile_s:.1f} s) against the "
+        f"impl='ref' interpret server, first tokens equal, max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (apply B=1 S=256, {rel_l2(got, want):.3e} relative L2); all within rtol "
+          f"{TOL_DEEP_F32['rtol']} atol {TOL_DEEP_F32['atol']}")
+    del params, got, want
+
+
+def phase13_vl(dev):
+    """Phase 13 (b): qwen2-vl-72b at full width (d 8192, 64 heads on 8 KV
+    heads, d_ff 29568, vocab 152064, QKV bias, M-RoPE sections 16/24/24),
+    VLM_LAYERS layers: the interpret server and the contiguous fronts at
+    the CLI's defaults, ``apply`` with 16 patch embeddings at B=1,
+    S=1024."""
+    import numpy as np
+
+    cfg, model, params, nbytes = full_width_model(dev, "qwen2-vl-72b", VLM_LAYERS, {
+        "d_model": 8192, "n_heads": 64, "n_kv_heads": 8, "d_ff": 29568, "vocab": 152064,
+        "qkv_bias": True, "mrope_sections": (16, 24, 24), "n_layers": 80})
+    prompts = np.random.default_rng(24).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    out = {"vl_eager": interpret_path(dev, cfg, params, prompts, 32, "qwen2-vl-72b")[0]}
+    out["vl_serve"] = contiguous_path(dev, cfg, params, prompts, 32, "qwen2-vl-72b",
+                                      nbytes / HBM_BYTES_PER_S * 1e3)
+    release_device_memory()
+    out["vl_apply"] = apply_path(dev, cfg, model, params, "qwen2-vl-72b", 1024, 25, patches=16)
+    del params
+    return out
+
+
+def phase13_kimi(dev):
+    """Phase 13 (c): kimi-k2-1t-a32b at full width (d 7168, 64 heads of 112
+    on 8 KV heads, 384 experts of d_ff 2048, top-8, one shared expert,
+    vocab 163840), KIMI_LAYERS layer: ``apply`` at B=1, S=256 against
+    impl="ref", and 8 greedy decode steps through the interpret server,
+    whose last step's logits are held against impl="ref" by the same
+    rule."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import BatchedServer
+
+    cfg, model, params, _ = full_width_model(dev, "kimi-k2-1t-a32b", KIMI_LAYERS, {
+        "d_model": 7168, "n_heads": 64, "n_kv_heads": 8, "head_dim": 112, "n_experts": 384,
+        "top_k": 8, "d_ff": 2048, "shared_experts": 1, "shared_d_ff": 2048, "vocab": 163840,
+        "n_layers": 61})
+    out = {"kimi_apply": apply_path(dev, cfg, model, params, "kimi-k2", 256, 26)}
+    prompts = np.random.default_rng(27).integers(0, cfg.vocab, (4, 8)).astype(np.int32)
+    out["kimi_eager"], res = interpret_path(dev, cfg, params, prompts, 8, "kimi-k2")
+    # the next step after the served tokens, on caches of the kernel path
+    # and of two kernel-free ones fed the same context
+    ctx = np.concatenate([prompts, res["tokens"][:, :-1]], axis=1)
+    last = torch.as_tensor(res["tokens"][:, -1:], dtype=torch.int64, device=dev)
+    logits = {}
+    with torch.no_grad():
+        for name, c, impl in (("kernels", cfg, None), ("ref", cfg, "ref"),
+                              ("raw", cfg.with_(fuse="none"), "ref")):
+            srv = BatchedServer(c, params, max_len=256, mode="interpret", impl=impl)
+            cache, _, pos, _, _ = srv.prefill(ctx)
+            logits[name] = model.decode_step(params, cache, last, pos, c, impl=impl)[0]
+    within_spread(f"kimi-k2 decode logits at pos {ctx.shape[1]}", logits["kernels"],
+                  logits["ref"], logits["raw"])
+    del params
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -4110,6 +4513,7 @@ def main(argv=None):
     launches.update(timed("phase 10", phase_compile_cost, dev, cli_runs))
     launches.update(timed("phase 11", phase_faults_slo, dev, cli_runs))
     launches.update(timed("phase 12 on forge-125m", phase12_forge, dev))
+    launches.update(timed("phase 13", phase13, dev))
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
@@ -4167,12 +4571,20 @@ def main(argv=None):
              "qwen_eager": fl_rows[("qwen", 4)], "qwen_serve": fl_rows[("qwen", 128)],
              "qwen_apply": fl_rows[("qwen", 1024)], "qwen_paged": fl_rows[("qwen", 4)],
              "jit_qwen": fl_rows[("qwen", 4)], "autotune_qwen": fl_rows[("qwen", 1024)],
-             "jit_forge": fl_rows[4], "autotune_forge": fl_rows[4096]}),
+             "jit_forge": fl_rows[4], "autotune_forge": fl_rows[4096],
+             "phi_paged": fl_rows[("phi", 4)], "phi_serve": fl_rows[("phi", 4)],
+             "phi_apply": fl_rows[("phi", 1024)], "jit_phi": fl_rows[("phi", 4)],
+             "vl_eager": fl_rows[("vl", 4)], "vl_serve": fl_rows[("vl", 4)],
+             "vl_apply": fl_rows[("vl", 1024)], "kimi_apply": fl_rows[("kimi", 256)],
+             "kimi_eager": fl_rows[("kimi", 4)]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
             {"apply": fa_rows["apply"], "qwen_apply": fa_rows["qwen"],
-             "autotune_forge": fa_rows["apply"], "autotune_qwen": fa_rows["qwen"]}),
+             "autotune_forge": fa_rows["apply"], "autotune_qwen": fa_rows["qwen"],
+             "phi_apply": fa_rows["phi"], "vl_apply": fa_rows["vl"],
+             "kimi_apply": fa_rows["kimi"]}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
-            {"paged": pa_rows["served"], "qwen_paged": pa_rows["qwen_served"]}),
+            {"paged": pa_rows["served"], "qwen_paged": pa_rows["qwen_served"],
+             "phi_paged": pa_rows["phi_served"]}),
         row("rg_lru", "src/repro/kernels/rg_lru.py:130", "rglru_serve",
             {"rglru_serve": rg_rows[(4, 32)], "rglru_apply": rg_rows[(2, 1024)]}),
     ]
@@ -4185,15 +4597,23 @@ def main(argv=None):
     kernels[1]["head_dims"] = list(FA.HEAD_DIMS)
     kernels[1]["per_shape"] = {"B4-H12-S1024-D64": timing(fa_rows["apply"]),
                                "B4-H32-KVH8-S1024-D128": timing(fa_rows["d128"]),
-                               "B1-H40-KVH8-S1024-D128": timing(fa_rows["qwen"])}
-    kernels[0]["per_shape"] = {f"qwen2.5-14b-layer-M{M}": timing(fl_rows[("qwen", M)])
-                               for M in QW_FL_ROWS}
+                               "B1-H40-KVH8-S1024-D128": timing(fa_rows["qwen"]),
+                               "B1-H32-KVH8-S1024-D128": timing(fa_rows["phi"]),
+                               "B1-H64-KVH8-S1024-D128": timing(fa_rows["vl"]),
+                               "B1-H64-KVH8-S256-D112": timing(fa_rows["kimi"])}
+    kernels[0]["per_shape"] = {f"{name}-layer-M{M}": timing(fl_rows[(tag, M)])
+                               for tag, name, ms in (("qwen", "qwen2.5-14b", QW_FL_ROWS),
+                                                     ("phi", "phi3.5-moe", PHI_FL_ROWS),
+                                                     ("kimi", "kimi-k2", KIMI_FL_ROWS),
+                                                     ("vl", "qwen2-vl-72b", VL_FL_ROWS))
+                               for M in ms}
     kernels[2]["head_dims"] = list(PA.HEAD_DIMS)
     kernels[2]["per_shape"] = {"B4-H12-D64-served": timing(pa_rows["served"]),
                                "B8-H12-D64-pos2047": timing(pa_rows["long"]),
                                "B4-H32-KVH8-D128-pos2047": timing(pa_rows["gqa128"]),
                                "B4-H40-KVH8-D128-served": timing(pa_rows["qwen_served"]),
-                               "B4-H40-KVH8-D128-pos2047": timing(pa_rows["qwen_pos2047"])}
+                               "B4-H40-KVH8-D128-pos2047": timing(pa_rows["qwen_pos2047"]),
+                               "B4-H32-KVH8-D128-served": timing(pa_rows["phi_served"])}
     kernels[3]["per_shape"] = {f"B{b}xT{t}": timing(rg_rows[(b, t)])
                                for b, t in ((4, 32), (4, 64), (2, 1024))}
     # the same source serves rg_lru_chunked (its `last` output), which no

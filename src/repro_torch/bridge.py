@@ -8,7 +8,9 @@ and returns the port's parameter dict:
 * layer-stacked ``blocks`` (a leading ``n_layers`` axis on every leaf,
   the JAX package's ``scan_layers`` layout) or a list of per-layer dicts
   become a list of per-layer dicts;
-* every other leaf converts as is;
+* every other leaf converts as is: among them the MoE family's fp32
+  ``router``, its (E, d, f) / (E, f, d) expert stacks and kimi-k2's
+  ``shared`` SwiGLU, which keep their dtypes and shapes;
 * leaves that are one numpy object (a tied embedding / LM head) become
   ONE tensor, so the tie survives into Phase-1 capture.
 

@@ -4,20 +4,23 @@ The port carries ``forge-125m`` (a GPT-2-class dense decoder, the serve
 CLI's default), the SwiGLU dense decoders ``deepseek-7b``,
 ``phi3-mini-3.8b``, ``qwen1.5-32b`` and ``qwen2.5-14b`` (GQA 40/8),
 ``recurrentgemma-2b`` (the RG-LRU / local-attention hybrid),
-``xlstm-350m`` (mLSTM + sLSTM blocks) and their smoke variants; the MoE,
-encoder-decoder and VLM architectures of the JAX package follow in later
-slices.
+``xlstm-350m`` (mLSTM + sLSTM blocks), the MoE decoders
+``phi3.5-moe-42b-a6.6b`` (16 experts, top-2) and ``kimi-k2-1t-a32b`` (384
+experts, top-8, one shared expert), the M-RoPE VLM backbone
+``qwen2-vl-72b`` and their smoke variants; the encoder-decoder
+architecture of the JAX package follows in a later slice.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
-from . import (deepseek_7b, phi3_mini_38b, qwen15_32b, qwen25_14b, recurrentgemma_2b,
-               xlstm_350m)
+from . import (deepseek_7b, kimi_k2_1t_a32b, phi3_mini_38b, phi35_moe_42b_a66b, qwen2_vl_72b,
+               qwen15_32b, qwen25_14b, recurrentgemma_2b, xlstm_350m)
 from .base import ModelConfig
 
 REGISTRY: Dict[str, object] = {m.ARCH_ID: m for m in (
-    deepseek_7b, phi3_mini_38b, qwen15_32b, qwen25_14b, recurrentgemma_2b, xlstm_350m)}
+    deepseek_7b, phi3_mini_38b, qwen15_32b, qwen25_14b, recurrentgemma_2b, xlstm_350m,
+    phi35_moe_42b_a66b, kimi_k2_1t_a32b, qwen2_vl_72b)}
 ARCH_IDS: List[str] = ["forge-125m"] + list(REGISTRY)
 
 

@@ -287,12 +287,17 @@ class BatchedServer:
 
     def _build_contiguous_front(self) -> None:
         """The decode front (one program per batch bucket, slot signature
-        ``(params, cache, token, pos(B,), mask(B,))``) and the 2-D prefill
-        front ``(params, cache, tokens(B,S), pos, mask(B,)[, length(B,)])``
-        with a scalar start position; only tokens carry the sequence
-        axis — the cache is ``max_len``-resident on both sides."""
+        ``(params, cache, token, pos(B,), mask(B,))``; the lockstep
+        ``(params, cache, token, pos)`` for a family without slot decode)
+        and the 2-D prefill front ``(params, cache, tokens(B,S), pos,
+        mask(B,)[, length(B,)])`` with a scalar start position; only
+        tokens carry the sequence axis — the cache is ``max_len``-resident
+        on both sides.  A family without batched prefill (MoE capacity
+        routing; the VLM) gets no prefill front: its prompts replay
+        through the decode program."""
         from ..core import PolyAxis
         from ..core.shapekey import infer_poly_axes
+        from ..models.transformer import FAMILIES as TRANSFORMER_FAMILIES
         from .steps import make_slot_prefill_step, make_slot_serve_step
 
         # per-leaf cache batch axes differ across families (transformer:
@@ -306,27 +311,34 @@ class BatchedServer:
         self._init_leaves = [leaf if bool(leaf.any()) else None
                              for leaf in pytree.tree_leaves(row)]
         compiler = self._compiler()
+        # the transformer backbones' steps (dense, moe, vlm) call
+        # Forge-compiled block bodies, which compile at their first call
+        # and cannot inside the front's capture: prime each cell first
+        # (see BucketedModule).  Every step takes params first: the
+        # parameters (static_argnums)
+        prime = self.cfg.family in TRANSFORMER_FAMILIES and self.cfg.fuse == "forge"
         pstep = make_slot_prefill_step(self.cfg, impl=self.impl)
-        b_in, s_in = (None, cache_axes, 0, None, 0), (None, None, 1, None, None)
-        if self.model.prefill_takes_length:
-            b_in, s_in = b_in + (0,), s_in + (None,)
-        # the dense decoder's steps call Forge-compiled block bodies, which
-        # compile at their first call and cannot inside the front's
-        # capture: prime each cell first (see BucketedModule).  Every step
-        # takes params first: the parameters (static_argnums)
-        prime = self.cfg.family == "dense" and self.cfg.fuse == "forge"
-        self.prefill_bucketed = compiler.compile_bucketed(
-            pstep,
-            axes=(PolyAxis(in_axes=b_in, out_axes=(0, cache_axes),
-                           policy=self.bucket_policy, label="B"),
-                  PolyAxis(in_axes=s_in, out_axes=(1, None),
-                           policy=self.seq_bucket_policy, label="S")),
-            prime=prime, static_argnums=(0,), async_compile=self.async_compile,
-            service=self.compile_service,
-        )
+        if pstep is not None:
+            b_in, s_in = (None, cache_axes, 0, None, 0), (None, None, 1, None, None)
+            if self.model.prefill_takes_length:
+                b_in, s_in = b_in + (0,), s_in + (None,)
+            self.prefill_bucketed = compiler.compile_bucketed(
+                pstep,
+                axes=(PolyAxis(in_axes=b_in, out_axes=(0, cache_axes),
+                               policy=self.bucket_policy, label="B"),
+                      PolyAxis(in_axes=s_in, out_axes=(1, None),
+                               policy=self.seq_bucket_policy, label="S")),
+                prime=prime, static_argnums=(0,), async_compile=self.async_compile,
+                service=self.compile_service,
+            )
+        if self.slot_capable:
+            step = make_slot_serve_step(self.cfg, impl=self.impl)
+            in_axes = (None, cache_axes, 0, 0, 0)
+        else:  # every row at the one position (the VLM's M-RoPE streams)
+            step = make_serve_step(self.cfg, impl=self.impl)
+            in_axes = (None, cache_axes, 0, None)
         self.bucketed = compiler.compile_bucketed(
-            make_slot_serve_step(self.cfg, impl=self.impl),
-            in_axes=(None, cache_axes, 0, 0, 0), out_axes=(0, cache_axes),
+            step, in_axes=in_axes, out_axes=(0, cache_axes),
             policy=self.bucket_policy, prime=prime, static_argnums=(0,),
             async_compile=self.async_compile, service=self.compile_service,
         )
@@ -360,18 +372,21 @@ class BatchedServer:
         prime = paged_body_compiled(self.cfg)
         # (params, store, page_table(B,MP), tokens(B,S), pos(B,), mask(B,)):
         # per-row pos lets prefix-hit rows anchor their chunk at the skip
-        # offset in the same dispatch as cold rows
-        self.prefill_bucketed = compiler.compile_bucketed(
-            make_paged_prefill_step(self.cfg, impl=self.impl),
-            axes=(
-                PolyAxis(in_axes=(None, None, 0, 0, 0, 0), out_axes=(0, None),
-                         policy=self.bucket_policy, label="B"),
-                PolyAxis(in_axes=(None, None, None, 1, None, None), out_axes=(1, None),
-                         policy=self.seq_bucket_policy, label="S"),
-            ),
-            prime=prime, static_argnums=(0,), async_compile=self.async_compile,
-            service=self.compile_service,
-        )
+        # offset in the same dispatch as cold rows.  None for MoE: its
+        # slots fill through the decode program
+        pstep = make_paged_prefill_step(self.cfg, impl=self.impl)
+        if pstep is not None:
+            self.prefill_bucketed = compiler.compile_bucketed(
+                pstep,
+                axes=(
+                    PolyAxis(in_axes=(None, None, 0, 0, 0, 0), out_axes=(0, None),
+                             policy=self.bucket_policy, label="B"),
+                    PolyAxis(in_axes=(None, None, None, 1, None, None), out_axes=(1, None),
+                             policy=self.seq_bucket_policy, label="S"),
+                ),
+                prime=prime, static_argnums=(0,), async_compile=self.async_compile,
+                service=self.compile_service,
+            )
         self.bucketed = compiler.compile_bucketed(
             make_paged_serve_step(self.cfg, impl=self.impl),
             in_axes=(None, None, 0, 0, 0, 0), out_axes=(0, None), policy=self.bucket_policy,
@@ -501,8 +516,10 @@ class BatchedServer:
     def _decode_args(self, extent: int, tok: torch.Tensor, pos: int):
         """The decode program's argument tail for group admission: the
         token column, the position broadcast to a per-row int32 vector and
-        an all-true slot mask."""
+        an all-true slot mask (a lockstep front: the 0-d int32 position)."""
         dev = self.device
+        if not self.slot_capable:
+            return (tok, torch.tensor(int(pos), dtype=torch.int32, device=dev))
         return (tok, torch.full((extent,), int(pos), dtype=torch.int32, device=dev),
                 torch.ones((extent,), dtype=torch.bool, device=dev))
 
@@ -678,7 +695,14 @@ class BatchedServer:
         """Adapt a slot-signature bucket program to the lockstep loop of
         :meth:`generate`: one scalar position broadcast to every row and
         an all-true slot mask (group admission is the slot schedule where
-        every slot shares one request lifetime)."""
+        every slot shares one request lifetime).  A lockstep program takes
+        the position as a 0-d tensor."""
+        if not self.slot_capable:
+            def lockstep(params, cache, tok, pos):
+                return mod(params, cache, tok,
+                           torch.tensor(int(pos), dtype=torch.int32, device=self.device))
+
+            return lockstep
         ones = torch.ones((extent,), dtype=torch.bool, device=self.device)
 
         def step(params, cache, tok, pos):
@@ -727,6 +751,10 @@ class BatchedServer:
             self.bucketed.stats.note_dispatch(key, B, extent)
         self.last_prefill_mode = "sequential"
         return cache, next_tok, P, step, key
+
+    def prefill_compiles(self) -> int:
+        """Programs the prefill front compiled (0 without one)."""
+        return 0 if self.prefill_bucketed is None else self.prefill_bucketed.stats.compiles
 
     def _compile_s_total(self) -> float:
         """Compile seconds accumulated: Phases 1-4 across both forge
@@ -1375,7 +1403,7 @@ class SlotScheduler:
         paged = self.paged
         stats = srv.bucketed.stats
         self._reset_metrics()
-        compiles0 = stats.compiles + srv.prefill_bucketed.stats.compiles
+        compiles0 = stats.compiles + srv.prefill_compiles()
         results: Dict[int, Dict[str, Any]] = {}
         plan = chaos.current_plan()
         faults0 = plan.faults_injected if plan is not None else 0
@@ -1436,7 +1464,10 @@ class SlotScheduler:
         t0 = time.perf_counter()
 
         def to_dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            # a copy on the CPU too: the host arrays are edited later
+            # (a retired row's table goes to trash), which must not reach
+            # the tensors the device already holds, as on the card
+            return torch.from_numpy(np.array(a)).to(dev)
 
         def active_count() -> int:
             return sum(s is not None for s in slots)
@@ -1976,7 +2007,7 @@ class SlotScheduler:
             srv.page_store = cache
         elif cache is not None:
             srv._release_cache(extent, cache)
-        compiles = stats.compiles + srv.prefill_bucketed.stats.compiles - compiles0
+        compiles = stats.compiles + srv.prefill_compiles() - compiles0
         m = self.metrics
         cap = max(m["capacity_row_steps"], 1)
         real_tokens = sum(len(r["tokens"]) for r in results.values())
@@ -2251,6 +2282,10 @@ class SlotScheduler:
                 + (f" warm_fallbacks={m['warm_fallbacks']}" if self.server.async_compile else ""))
 
 
+def _prefill_programs(server: BatchedServer) -> int:
+    return 0 if server.prefill_bucketed is None else len(server.prefill_bucketed.programs)
+
+
 def _compile_epilogue(server: BatchedServer, args) -> int:
     """CLI report of the async and persistent compile tiers, and the
     restart-replay gate (``--assert-no-builds``)."""
@@ -2448,10 +2483,9 @@ def main(argv=None) -> int:
                   f"prefix hit_rate={res['prefix_hit_rate']:.1%} "
                   f"skip_rate={res['prefill_skip_rate']:.1%} "
                   f"tokens_reused={res['tokens_reused']} reclaimed={res['pages_reclaimed']}")
-        bs = server.bucketed.stats
         print(f"[serve] decode programs={len(server.bucketed.programs)} "
-              f"prefill programs={len(server.prefill_bucketed.programs)} "
-              f"compile_s={bs.compile_s + server.prefill_bucketed.stats.compile_s:.2f} "
+              f"prefill programs={_prefill_programs(server)} "
+              f"compile_s={server._compile_s_total():.2f} "
               f"tick p50={res['tick_ms_p50']:.1f}ms p99={res['tick_ms_p99']:.1f}ms "
               + (f"kv_kernel={cfg.kv_kernel}" if args.paged else "cache=contiguous"))
         if args.paged:
@@ -2494,10 +2528,11 @@ def main(argv=None) -> int:
         from ..core.metrics import bucket_report
 
         print(f"[serve] decode programs={len(server.bucketed.programs)} "
-              f"prefill programs={len(server.prefill_bucketed.programs)} "
+              f"prefill programs={_prefill_programs(server)} "
               f"warmup={warmup_s:.2f}s compile_s_after_warmup={compile_after:.2f}")
         print(f"[serve] decode {bucket_report(server.bucketed.stats)}")
-        print(f"[serve] prefill grid {bucket_report(server.prefill_bucketed.stats)}")
+        if server.prefill_bucketed is not None:
+            print(f"[serve] prefill grid {bucket_report(server.prefill_bucketed.stats)}")
         return _compile_epilogue(server, args)
     return 0
 

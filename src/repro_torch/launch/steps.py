@@ -75,7 +75,7 @@ def blend_cache_rows(cache, axes_spec, row_tree, rows: Sequence[int]):
 
 def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None,
                     logits: bool = False) -> Callable:
-    """``(params, cache, token(B, 1), pos) -> (next_tok(B, 1), new_cache)``.
+    """``(params, cache, token(B, 1), pos) -> (next_tok(B, 1) int32, new_cache)``.
 
     ``impl`` is forwarded into the Forge-compiled block bodies: None runs
     the kernels on the card (their plain versions on the CPU), ``"ref"``
@@ -86,7 +86,7 @@ def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None,
     def serve_step(params, cache, token, pos):
         out, new_cache = model.decode_step(params, cache, token, pos, cfg, impl=impl)
         last = out[:, -1, :]
-        next_tok = torch.argmax(last, dim=-1)[:, None]
+        next_tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
         return (next_tok, new_cache, last) if logits else (next_tok, new_cache)
 
     return serve_step
@@ -109,9 +109,9 @@ def guarded_argmax(last_logits: torch.Tensor) -> torch.Tensor:
 
 
 #: families whose decode step takes per-row positions and slot masks —
-#: the slot-level continuous-batching contract (the port has the dense,
-#: hybrid and ssm families so far; the JAX package adds moe)
-SLOT_FAMILIES = ("dense", "hybrid", "ssm")
+#: the slot-level continuous-batching contract (vlm's M-RoPE streams
+#: share one position, as in the JAX package)
+SLOT_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def supports_slot_decode(cfg: ModelConfig) -> bool:
@@ -158,7 +158,8 @@ def make_slot_prefill_step(cfg: ModelConfig, impl: Optional[str] = None
     ``prefill_takes_length`` (recurrent state consumes every chunk token,
     so the scan must know where each row's real prompt ends).  The
     masked-out rows' cache survives bitwise.  None for families without
-    a batched prefill."""
+    a batched prefill (MoE capacity routing): those swap in through
+    masked decode-step replay."""
     model = get_model(cfg)
     if not supports_batched_prefill(cfg) or not supports_slot_decode(cfg):
         return None

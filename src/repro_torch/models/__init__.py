@@ -10,8 +10,9 @@
 * ``paged_decode_step`` / ``paged_prefill_step`` / ``init_paged_cache``
   the same against a flat page pool (continuous batching)
 
-The port carries the dense family (``transformer``), the RG-LRU hybrid
-(``rglru``) and the xLSTM family (``ssm``: ``xlstm``) so far.
+The port carries the dense and MoE families (``transformer``), the VLM
+backbone (``vlm``), the RG-LRU hybrid (``rglru``) and the xLSTM family
+(``ssm``: ``xlstm``); the encoder-decoder family follows.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from ..configs.base import ModelConfig
-from . import attention, layers, rglru, transformer, xlstm
+from . import attention, layers, moe, rglru, transformer, vlm, xlstm
 
 
 @dataclass(frozen=True)
@@ -31,7 +32,8 @@ class ModelAPI:
     #: whole-prompt batched prefill — (params, cache, tokens(B,S), pos)
     #: -> ((B,S,V) logits, cache); the recurrent families fold the chunk
     #: into state through a scan (see prefill_takes_length); None where a
-    #: family cannot reproduce sequential decode in one pass
+    #: family cannot reproduce sequential decode in one pass (MoE
+    #: capacity routing): those prefill sequentially
     prefill_step: Optional[Callable]
     init_cache: Callable
     module: Any
@@ -53,15 +55,17 @@ class ModelAPI:
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         m = transformer
     elif cfg.family == "hybrid":
         m = rglru
     elif cfg.family == "ssm":
         m = xlstm
+    elif cfg.family == "vlm":
+        m = vlm
     else:
         raise NotImplementedError(f"family {cfg.family!r}: the port carries the dense, "
-                                  f"hybrid and ssm families so far")
+                                  f"moe, vlm, hybrid and ssm families so far")
     # a family module owns the knowledge of when a whole-block prefill
     # pass reproduces sequential decode; the registry stays family-agnostic
     prefill = getattr(m, "prefill_step", None)
@@ -88,4 +92,5 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     )
 
 
-__all__ = ["ModelAPI", "get_model", "attention", "layers", "rglru", "transformer", "xlstm"]
+__all__ = ["ModelAPI", "get_model", "attention", "layers", "moe", "rglru", "transformer",
+           "vlm", "xlstm"]

@@ -117,6 +117,24 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_tables(positions: torch.Tensor, head_dim: int, sections: Tuple[int, int, int],
+                 theta: float = 1_000_000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE: positions (3, B, S) of the temporal,
+    height and width streams; the head_dim/2 frequency slots split into
+    ``sections``, each rotated by its own stream -> (B, S, head_dim/2)."""
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang_all = positions.float()[..., None] * freqs  # (3, B, S, half)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang_all[i, ..., start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x: (B, H, S, D); cos/sin: (S, D/2) or (B, S, D/2)."""
     half = x.shape[-1] // 2

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (dense).
+"""Decoder-only transformer LM (dense + MoE + VLM backbones).
 
 The block body is written unfused; when ``cfg.fuse == 'forge'`` it is
 captured and optimized by the Forge pipeline once per (config, shape)
@@ -9,7 +9,9 @@ parameters instead).
 Entry points:
 
 * ``init(cfg, generator, device)``                — parameter dict
-* ``apply(params, tokens, cfg)``                  — full-sequence logits
+* ``apply(params, tokens, cfg, embeds=, mrope_positions=)`` — full-sequence
+  logits (from tokens or from (B, S, D) embeddings; M-RoPE positions
+  (3, B, S) for the VLM backbone)
 * ``init_cache(cfg, batch, max_len, device)``     — stacked KV cache
 * ``decode_step(params, cache, tok, pos, cfg)``   — one-token serve step
 * ``prefill_step(params, cache, tokens, pos, cfg)`` — whole-prompt prefill
@@ -32,6 +34,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as A
 from . import layers as L
+from . import moe as MOE
 from ._forge import config_key, forge_body
 
 Params = Dict[str, Any]
@@ -41,10 +44,14 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+#: the backbones this module carries (``models/vlm.py`` wraps it for vlm)
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: the port carries the dense "
-                                  f"decoder so far")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r}: this module carries the "
+                                  f"{', '.join(FAMILIES)} backbones")
 
 
 # --------------------------------------------------------------------------
@@ -55,16 +62,22 @@ def _check_family(cfg: ModelConfig) -> None:
 def block_init(generator: Optional[torch.Generator], cfg: ModelConfig,
                device: torch.device) -> Params:
     dt = _dtype(cfg)
-    return {
+    p: Params = {
         "norm1": L.norm_init(cfg.d_model, cfg.norm, device=device),
         "attn": A.attn_init(
             generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
             qkv_bias=cfg.qkv_bias, dtype=dt, device=device,
         ),
         "norm2": L.norm_init(cfg.d_model, cfg.norm, device=device),
-        "ffn": L.ffn_init(generator, cfg.d_model, cfg.d_ff, cfg.ffn,
-                          bias=cfg.ffn_bias, dtype=dt, device=device),
     }
+    if cfg.family == "moe":
+        p["moe"] = MOE.moe_init(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                shared_experts=cfg.shared_experts,
+                                shared_d_ff=cfg.shared_d_ff, dtype=dt, device=device)
+    else:
+        p["ffn"] = L.ffn_init(generator, cfg.d_model, cfg.d_ff, cfg.ffn,
+                              bias=cfg.ffn_bias, dtype=dt, device=device)
+    return p
 
 
 def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -91,6 +104,13 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # --------------------------------------------------------------------------
 
 
+def _ffn(h: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.family == "moe":
+        return MOE.moe_ffn(h, p["moe"], n_experts=cfg.n_experts, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor)
+    return L.apply_ffn(h, p["ffn"], cfg.ffn)
+
+
 def block_apply(p: Params, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     h = L.apply_norm(x, p["norm1"], cfg.norm)
@@ -100,7 +120,7 @@ def block_apply(p: Params, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     )
     x = x + attn_out
     h = L.apply_norm(x, p["norm2"], cfg.norm)
-    return x + L.apply_ffn(h, p["ffn"], cfg.ffn)
+    return x + _ffn(h, p, cfg)
 
 
 def block_decode(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
@@ -115,7 +135,7 @@ def block_decode(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     )
     x = x + attn_out
     h = L.apply_norm(x, p["norm2"], cfg.norm)
-    return x + L.apply_ffn(h, p["ffn"], cfg.ffn), new_cache["k"], new_cache["v"]
+    return x + _ffn(h, p, cfg), new_cache["k"], new_cache["v"]
 
 
 def block_paged_decode(p: Params, x: torch.Tensor, k_pages: torch.Tensor,
@@ -140,8 +160,7 @@ def block_paged_decode(p: Params, x: torch.Tensor, k_pages: torch.Tensor,
     )
     x = x + attn_out
     h = L.apply_norm(x, p["norm2"], cfg.norm)
-    return (x + L.apply_ffn(h, p["ffn"], cfg.ffn), new_cache["k_pages"],
-            new_cache["v_pages"])
+    return x + _ffn(h, p, cfg), new_cache["k_pages"], new_cache["v_pages"]
 
 
 def paged_body_compiled(cfg: ModelConfig) -> bool:
@@ -174,17 +193,29 @@ def _body_fn(cfg: ModelConfig, mode: str, example_args, impl: Optional[str] = No
 # --------------------------------------------------------------------------
 
 
-def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
+def _rope_for(cfg: ModelConfig, positions: torch.Tensor,
+              mrope_positions: Optional[torch.Tensor] = None):
+    if cfg.family == "vlm" and mrope_positions is not None:
+        return L.mrope_tables(mrope_positions, cfg.head_dim_, cfg.mrope_sections,
+                              cfg.rope_theta)
     return L.rope_tables(positions, cfg.head_dim_, cfg.rope_theta)
 
 
-def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+def _embed_or(tokens: Optional[torch.Tensor], embeds: Optional[torch.Tensor],
+              params: Params) -> torch.Tensor:
+    return L.embed(tokens, params["embed"]) if embeds is None else embeds
+
+
+def apply(params: Params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
+          embeds: Optional[torch.Tensor] = None,
+          mrope_positions: Optional[torch.Tensor] = None,
           impl: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence forward: (B, S) tokens → (B, S, vocab) fp32 logits."""
+    """Full-sequence forward: (B, S) tokens [or (B, S, D) embeds] →
+    (B, S, vocab) fp32 logits."""
     _check_family(cfg)
-    x = L.embed(tokens, params["embed"])
+    x = _embed_or(tokens, embeds, params)
     B, S, _ = x.shape
-    cos, sin = _rope_for(cfg, torch.arange(S, device=x.device))
+    cos, sin = _rope_for(cfg, torch.arange(S, device=x.device), mrope_positions)
     blocks = params["blocks"]
     body = _body_fn(cfg, "apply", (blocks[0], x, cos, sin), impl)
     for p_layer in blocks:
@@ -206,7 +237,7 @@ def supports_batched_prefill(cfg: ModelConfig) -> bool:
     """Whole-block prefill reproduces sequential decode only when no op
     couples tokens across the (B, S) block — false for MoE, whose
     capacity routing is first-come-first-served over the flattened
-    token stream (the port carries no MoE family yet)."""
+    token stream (see :func:`prefill_step`)."""
     return cfg.family != "moe"
 
 
@@ -249,6 +280,8 @@ def decode_step(
     cfg: ModelConfig,
     *,
     slot_mask: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
+    mrope_positions: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One serve step: logits for the next token + updated cache.
@@ -257,11 +290,20 @@ def decode_step(
     position (per-row RoPE rotation, KV write and length mask);
     ``slot_mask`` additionally freezes inactive rows' cache updates."""
     _check_family(cfg)
-    x = L.embed(token, params["embed"])
+    x = _embed_or(token, embeds, params)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
-    cos, sin = _rope_for(cfg, L.decode_positions(pos))
+    cos, sin = _rope_for(cfg, L.decode_positions(pos), mrope_positions)
     return _cached_forward(params, cache, x, pos, cos, sin, cfg, "decode",
                            slot_mask=slot_mask, impl=impl)
+
+
+def _no_moe_prefill(cfg: ModelConfig, instead: str) -> None:
+    # capacity routing is first come first served over the flattened
+    # token stream: a (B, S) block routes and drops differently than S
+    # single steps
+    if cfg.family == "moe":
+        raise NotImplementedError("MoE capacity routing couples tokens across the block; "
+                                  f"prefill sequentially through {instead}")
 
 
 def prefill_step(
@@ -284,6 +326,7 @@ def prefill_step(
     restricts the cache write to the marked rows: every other row's KV
     stays bitwise untouched (the slot scheduler's swap-in)."""
     _check_family(cfg)
+    _no_moe_prefill(cfg, "decode_step")
     x = L.embed(tokens, params["embed"])
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     if pos.dim() != 0:
@@ -365,14 +408,16 @@ def paged_decode_step(
     cfg: ModelConfig,
     *,
     slot_mask: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
+    mrope_positions: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`decode_step` against the paged KV pool: the same logits,
     bitwise, on active rows with ``cfg.kv_kernel == "ref"``."""
     _check_family(cfg)
-    x = L.embed(token, params["embed"])
+    x = _embed_or(token, embeds, params)
     pos = torch.as_tensor(pos, device=x.device)
-    cos, sin = _rope_for(cfg, L.decode_positions(pos))
+    cos, sin = _rope_for(cfg, L.decode_positions(pos), mrope_positions)
     return _paged_cached_forward(params, cache, x, pos, cos, sin, cfg, "paged_decode",
                                  slot_mask=slot_mask, impl=impl)
 
@@ -394,6 +439,7 @@ def paged_prefill_step(
     tree prefills only its suffix, in the same dispatch as rows starting
     from zero.  Returns the (B, S, vocab) logits and the new pools."""
     _check_family(cfg)
+    _no_moe_prefill(cfg, "paged_decode_step")
     x = L.embed(tokens, params["embed"])
     pos = torch.as_tensor(pos, device=x.device)
     offs = torch.arange(x.shape[1], device=x.device)

@@ -796,7 +796,8 @@ def _reset_counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["forge-125m", "recurrentgemma-2b", "xlstm-350m",
-                                  "qwen2.5-14b"])
+                                  "qwen2.5-14b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
+                                  "qwen2-vl-72b"])
 def test_segment_jit_equals_interpret_on_card(cuda_device, arch):
     """The smoke server's tokens under segment_jit are interpret's,
     bitwise; every launch the interpret run counts, by kernel and
@@ -1259,3 +1260,89 @@ def test_autotuner_compile_on_card(cuda_device):
     torch.cuda.synchronize()
     assert FA.LAUNCHES.n == 1 and FL.LAUNCHES.n == 3
     torch.testing.assert_close(got, body(*args), **TOL_F32)
+
+
+# --------------------------------------------------------------------------
+# the MoE and VLM families: phi3.5-moe, kimi-k2 and qwen2-vl-72b smoke
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D,S", [(64, 128, 300), (64, 112, 256), (32, 128, 256)])
+def test_flash_gqa8_and_d112(cuda_device, dtype, H, D, S):
+    """Flash at the new models' apply shapes: 64 query heads on 8 KV heads
+    (qwen2-vl-72b, kimi-k2's D=112 padded to 128) and phi3.5-moe's 32 on 8."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(H + D, 1, H, 8, S, S, D))
+    got = FA.flash_attention_cuda(q, k, v, scale=D ** -0.5, causal=True)
+    if dtype == torch.bfloat16:
+        assert FA.variant(q, k, v) == "wgmma"
+        _assert_flash_bf16(got, q, k, v, D ** -0.5, True)
+    else:
+        want = FA.flash_attention_plain(q, k, v, scale=D ** -0.5, causal=True)
+        torch.testing.assert_close(got, want, **TOL_F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "qwen2-vl-72b"])
+def test_moe_vlm_apply_on_card_matches_plain(cuda_device, arch):
+    """``apply`` (the VLM with 4 patch embeddings) through the kernels,
+    within the f32 tolerance of ``impl="ref"``; flash once a layer."""
+    cfg = get_config(arch, smoke=True).with_(dtype="float32")
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 12), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    kw = ({"patch_embeds": torch.randn(2, 4, cfg.d_model, device=cuda_device) * 0.02}
+          if cfg.family == "vlm" else {})
+    _reset_counts()
+    got = m.apply(p, toks, cfg, **kw)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES.n == cfg.n_layers and FL.LAUNCHES.n > 0
+    torch.testing.assert_close(got, m.apply(p, toks, cfg, impl="ref", **kw), **TOL_F32)
+
+
+@pytest.mark.cuda
+def test_moe_paged_scheduler_on_card(cuda_device):
+    """phi3.5-moe smoke (f32) through the paged ``SlotScheduler`` with the
+    paged kernel: every request served, the sequential fill through the
+    decode program (no prefill dispatch), paged launches = layers x decode
+    dispatches, and the same tokens under segment_jit and interpret."""
+    cfg = get_config("phi3.5-moe-42b-a6.6b", smoke=True).with_(dtype="float32",
+                                                               kv_kernel="pallas")
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    runs = {}
+    for backend in ("interpret", "segment_jit"):
+        srv = BatchedServer(cfg, p, max_len=32, mode="forge", backend=backend, paged=True,
+                            kv_page_size=8, seq_bucket_policy="ladder:8,16,32")
+        sched = SlotScheduler(srv, max_slots=4)
+        sched.warmup(prompt_lens=[4, 8, 16, 24])
+        _reset_counts()
+        res = sched.run(paged_workload(Request, cfg.vocab))
+        torch.cuda.synchronize()
+        assert res["prefill_dispatches"] == 0 and srv.prefill_bucketed is None
+        assert PA.LAUNCHES.n == cfg.n_layers * res["decode_dispatches"] > 0
+        srv.page_pool.check()
+        assert srv.page_pool.pages_in_use == 1
+        runs[backend] = {rid: r["tokens"] for rid, r in res["results"].items()}
+    assert runs["segment_jit"].keys() == runs["interpret"].keys()
+    for rid, toks in runs["interpret"].items():
+        np.testing.assert_array_equal(runs["segment_jit"][rid], toks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "qwen2-vl-72b"])
+def test_moe_vlm_jit_server_on_card(cuda_device, arch):
+    """``mode="jit"`` on the MoE and VLM smoke configs (f32): one graph, the
+    interpret server's greedy tokens."""
+    cfg = get_config(arch, smoke=True).with_(dtype="float32")
+    m = get_model(cfg)
+    p = m.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 6)).astype(np.int32)
+    want = BatchedServer(cfg, p, max_len=32, mode="interpret").generate(prompts, 4)
+    srv = BatchedServer(cfg, p, max_len=32, mode="jit")
+    got = srv.generate(prompts, 4)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    assert srv.jit_steps[3].graphs == 1

@@ -244,6 +244,6 @@ class TestEntryPointsNeedCuda:
             bridge.params_from_numpy({"blocks": []})
 
     def test_unported_family_raises(self):
-        cfg = get_config("forge-125m", smoke=True).with_(family="moe")
+        cfg = get_config("forge-125m", smoke=True).with_(family="encdec")
         with pytest.raises(NotImplementedError):
             get_model(cfg)

@@ -4,7 +4,7 @@ port starts on the GPU and goes through its own kernels.
 
 Run from the repository root, with one CUDA card:
 
-    python3 chip_smoke.py                          # phases 1-13
+    python3 chip_smoke.py                          # phases 1-14
     python3 chip_smoke.py --qwen-jit-layers 48     # phase 12's qwen2.5-14b jit step at full depth
 
 Phases (any failure raises and the script exits non-zero):
@@ -123,7 +123,7 @@ Phases (any failure raises and the script exits non-zero):
    ``forge.swiglu`` counting two, x dispatches; flash = the apply body's
    unmasked attention x 48); each program's seven-pass table, node
    reduction and fused counts; FGR of the decode block body.  Then in
-   f32 at full width, depth cut to 8 layers (48 layers in f32 are 59 GB),
+   f32 at full width, depth cut to 4 layers (48 layers in f32 are 59 GB),
    the served prefill program and ``apply`` against ``impl="ref"``
    elementwise within TOL_DEEP_F32.
 
@@ -187,9 +187,10 @@ Phases (any failure raises and the script exits non-zero):
 12. The autotuner, the jit mode and qwen2.5-14b on the paged fronts.
    On phase 9's qwen2.5-14b weights (one init), before its f32 part:
    (a) ``SlotScheduler`` over ``BatchedServer(mode="forge", paged=True)``
-   with the paged-attention kernel at full width and depth (40 query
-   heads on 8 KV heads: groups of 5), phase 5's workload on segment_jit:
-   paged launches = 48 x decode dispatches, fused linear = the programs'
+   with the paged-attention kernel at full width, QWEN_PAGED_LAYERS of
+   the 48 layers (40 query heads on 8 KV heads: groups of 5), phase 5's
+   workload on segment_jit: paged launches = layers x decode dispatches,
+   fused linear = the programs'
    linear nodes x dispatches, no compile or capture after warmup,
    ``pool.check()`` every tick, no page leaked, a decode and a prefill
    dispatch bitwise against interpret, the host/device split; tok/s,
@@ -228,7 +229,7 @@ Phases (any failure raises and the script exits non-zero):
    near-tied tokens to other experts); the jit step at MOE_JIT_LAYERS
    layers held by the teacher-forced logits check (its rows share the
    experts' capacity, so a row that differs is reported, not held
-   alone); in f32 (42.6 GB) the served decode program's prefill of 8
+   alone); in f32 at 4 layers (21.3 GB) the served decode program's prefill of 8
    tokens and ``apply`` at B=1, S=256 within TOL_DEEP_F32 of impl="ref".
    (b) qwen2-vl-72b (d 8192, 64 heads on 8 KV heads, d_ff 29568, vocab
    152064, QKV bias, M-RoPE sections 16/24/24) at VLM_LAYERS of 80: the
@@ -243,6 +244,36 @@ Phases (any failure raises and the script exits non-zero):
    next step's logits against impl="ref".  Phase 2 times fused linear at
    the three models' layers, flash at their ``apply`` shapes and paged
    attention at phi3.5-moe's groups of 4.
+
+14. The encoder-decoder family: seamless-m4t-large-v2 at full width and
+   depth (24 encoder + 24 decoder layers, d 1024, 16 heads of 64, GELU
+   d_ff 8192 with biases, LayerNorm, vocab 256206 with the head tied to
+   the embedding; 1.37 B parameters, 2.74 GB bf16, random weights from
+   seed 0; the audio frontend a stub, frame embeddings N(0, 1)).  (a)
+   ``apply`` at B2, T1024 frames, S256 tokens through the Forge-compiled
+   encoder and decoder bodies: flash 72 times (the encoder's non-causal
+   Sq = Sk, the decoder's causal self-attention and non-causal
+   cross-attention at Sq < Sk), fused linear 3 + 4 a layer, all
+   ``wgmma`` / ``gemv``; the device time by kernel; logits within
+   :func:`within_spread` of impl="ref".  (c) Greedy serving at B4 over
+   T500 frames (ragged key tiles), an 8-token decoder prompt and 32
+   generated tokens: ``init_cache`` (the encoder, then every layer's cross
+   K/V, plain products), then ``steps.make_serve_step`` compiled whole by
+   ``ForgeCompiler`` on segment_jit (the position a tensor), the prompt
+   replayed through it; launches exact (flash once a decoder layer a
+   step: the cross-attention at one query row against the frames), the
+   same lowered program on interpret bitwise equal (tokens, every step's
+   logits, the cache), every step's logits teacher-forced against the
+   kernel-free eager step by :func:`within_spread` (the spread against
+   the unfused kernel-free ``apply``); encode and init_cache ms, decode
+   p50 / p99, tok/s against the step's byte bound, compile seconds split,
+   the host/device split of a step.  (b) ``apply`` in f32 (5.5 GB) at
+   B1 T256 S64 within TOL_DEEP_F32 of impl="ref".  Phase 2 holds flash
+   at every shape (a) and (c) give it, in f32 and bf16, and times each
+   (D64: non-causal B2 H16 S1024, Sq256 Sk1024, Sq1024 Sk300, B4 Sq1
+   Sk500 and B4 S500; causal B2 H16 S256), and fused linear at its widths
+   with and without biases at M 4, 512, 2000 and 2048 (timed at 4 and
+   2048).
 
 In phases 5-9, one decode and one prefill dispatch of the served
 programs under ``segment_jit`` must be bitwise equal to the same lowered
@@ -316,9 +347,16 @@ TOL_MODEL_BF16 = dict(rtol=6e-2, atol=6e-2)
 TOL_DEEP_F32 = dict(rtol=1e-3, atol=1e-3)
 # phases 6 and 7 serve recurrentgemma-2b and xlstm-350m at full width with
 # the depth cut to this many layers, in bf16 and in f32 (both layer kinds
-# of each model among them; qwen2.5-14b's f32 check in phase 9 has the
-# same depth): the script's time limit binds at full depth
+# of each model among them): the script's time limit binds at full depth
 RECURRENT_LAYERS = 8
+# the f32 checks of phase 9 (qwen2.5-14b) and 13 (a) (phi3.5-moe): full
+# width at this depth (8 before phase 14 took its time out of the cut)
+F32_CHECK_LAYERS = 4
+# phase 12 (a): qwen2.5-14b through the paged SlotScheduler at full width
+# and this depth.  At all 48 layers the whole script took 976.6 s on the
+# H100 (phase 12 (a) 87.1 s, its five programs exported in 15 s each),
+# past its 920 s budget; each layer costs it about 2 s
+QWEN_PAGED_LAYERS = 24
 REL_L2_DEEP_BF16 = 0.1
 # xlstm-350m at full depth is more sensitive still: two bf16
 # implementations without any kernel (the prefill cell compiled with
@@ -422,6 +460,26 @@ VL_LINEARS = ((8192, 8192, None), (8192, 29568, "silu"), (8192, 29568, None),
 PHI_FL_ROWS = (4, 1024)
 KIMI_FL_ROWS = (4, 256)
 VL_FL_ROWS = (4, 1024)
+# phase 14: seamless-m4t-large-v2 at full width and depth (24 + 24 layers,
+# 1.37 B parameters, 2.74 GB in bf16).  Its fused-linear nodes (K, N,
+# act): the attention output projections with the residual (1024 x 1024),
+# the FFN's fc + bias + gelu (1024 x 8192) and down projection + bias +
+# residual (8192 x 1024); at decode (M 4: a decoder layer's four launches)
+# and in apply's encoder (B2 x T1024 = 2048 rows: an encoder layer's three)
+ED_LINEARS = ((1024, 1024, None), (1024, 8192, "gelu"), (8192, 1024, None))
+ED_FL_ROWS = (4, 2048)
+# every M phase 14 gives these widths, checked against the plain version:
+# the timed rows, apply's decoder (B2 x S256) and serving's encoder
+# (B4 x T500)
+ED_FL_CHECK_ROWS = (4, 512, 2000, 2048)
+# flash at its shapes (B, H, Sq, Sk, causal), 16 heads of 64: the encoder
+# over T1024 frames, cross-attention with fewer (S256) and more (S1024
+# over T300) queries than keys, the decode step's one query row against
+# T500 frames at B4, apply's causal decoder self-attention over S256 and
+# serving's encoder over T500 frames (a ragged query tile)
+ED_FLASH = (("enc", (2, 16, 1024, 1024, False)), ("cross", (2, 16, 256, 1024, False)),
+            ("cross_long", (2, 16, 1024, 300, False)), ("decode", (4, 16, 1, 500, False)),
+            ("dec_self", (2, 16, 256, 256, True)), ("enc_serve", (4, 16, 500, 500, False)))
 # RMSNorm (rows, d): xlstm-350m's decode block norm, the B4 x S32
 # prefill block norm, norm_h at B4 x H4 x S32 (hd 512), apply at
 # B2 x S1024, and a ragged d
@@ -667,6 +725,82 @@ def phase_fused_linear(dev, timer):
     rows.update(xlstm_fused_linear(dev, timer, g))
     rows.update(qwen_fused_linear(dev, timer, g))
     rows.update(moe_vlm_fused_linear(dev, timer, g))
+    rows.update(encdec_fused_linear(dev, timer, g))
+    return rows
+
+
+def encdec_fused_linear(dev, timer, g):
+    """fused_linear at seamless-m4t-large-v2's widths: every width of
+    ED_LINEARS (and the 1024 x 1024 q, k, v products, which stay plain)
+    checked in f32 and bf16, with and without a bias, at every M of
+    ED_FL_CHECK_ROWS;
+    then timed in bf16 as the paths run them: a decoder layer's four
+    launches at decode (M 4: the self- and cross-attention output
+    projections with the residual, fc + bias + gelu, down + bias +
+    residual) and an encoder layer's three in apply (M 2048), beside the
+    plain version and the library calls ``addmm`` (+ the residual) and
+    ``gelu(addmm)``.  Returns the rows keyed ``("encdec", M)``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_linear as FL
+    from repro_torch.kernels import ops
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for M in ED_FL_CHECK_ROWS:
+            for K, N, act in ED_LINEARS:
+                x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dtype)
+                w = (torch.randn(K, N, generator=g, device=dev) / K ** 0.5).to(dtype)
+                b = (torch.randn(N, generator=g, device=dev) * 0.1).to(dtype)
+                for bias in (None, b):
+                    assert_close(FL.fused_linear_cuda(x, w, bias, act=act),
+                                 FL.fused_linear_plain(x, w, bias, act=act), dtype,
+                                 f"fused_linear (seamless-m4t) {dtype} M={M} K={K} N={N} "
+                                 f"act={act} bias={bias is not None}")
+                    n += 1
+    torch.cuda.synchronize()
+    log(f"fused_linear: {n} seamless-m4t-large-v2 cases within tolerance of the plain version")
+    dt, d, ff = torch.bfloat16, 1024, 8192
+
+    def mat(r, c, scale):
+        return (torch.randn(r, c, generator=g, device=dev) * scale).to(dt)
+
+    rows = {}
+    for M in ED_FL_ROWS:
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
+                   err=0.0)
+        xo, x, h, res = mat(M, d, 0.5), mat(M, d, 0.5), mat(M, ff, 0.5), mat(M, d, 1.0)
+        wo, wf, wd = mat(d, d, d ** -0.5), mat(d, ff, d ** -0.5), mat(ff, d, ff ** -0.5)
+        bf, bd = mat(1, ff, 0.1)[0], mat(1, d, 0.1)[0]
+        o_case = ("o + residual",
+                  lambda impl=None: ops.fused_linear(xo, wo, residual=res, impl=impl),
+                  lambda: torch.addmm(res, xo, wo), 2 * (2 * M * d + d * d + M * d),
+                  2.0 * M * d * d)
+        cases = [o_case] * (2 if M == 4 else 1) + [
+            ("fc + bias + gelu",
+             lambda impl=None: ops.fused_linear(x, wf, bf, act="gelu", impl=impl),
+             lambda: F.gelu(torch.addmm(bf, x, wf), approximate="tanh"),
+             2 * (M * d + d * ff + ff + M * ff), 2.0 * M * d * ff),
+            ("down + bias + residual",
+             lambda impl=None: ops.fused_linear(h, wd, bd, residual=res, impl=impl),
+             lambda: torch.addmm(bd, h, wd).add_(res), 2 * (M * ff + ff * d + d + 2 * M * d),
+             2.0 * M * ff * d)]
+        for case, fn, lib_fn, nbytes, flops in cases:
+            err = assert_close(fn(), fn("ref"), dt, f"seamless-m4t {case} M={M} timing input")
+            for k, v in (("ms", timer.ms(fn)), ("plain_ms", timer.ms(lambda: fn("ref"))),
+                         ("library_ms", timer.ms(lib_fn)),
+                         ("bound_ms", max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3),
+                         ("flops", flops), ("bytes", nbytes)):
+                tot[k] += v
+            tot["err"] = max(tot["err"], err)
+        rows[("encdec", M)] = tot
+        log(f"fused_linear one seamless-m4t-large-v2 "
+            + ("decoder layer at decode (4 launches: self o + residual, cross o + residual, "
+               if M == 4 else "encoder layer in apply (3 launches: o + residual, ")
+            + f"fc + bias + gelu, down + bias + residual) M={M}: kernel {tot['ms']:.4f} ms, "
+            f"plain {tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
+            f"{tot['bound_ms']:.5f} ms "
+            f"({'bytes' if tot['bytes'] / HBM_BYTES_PER_S > tot['flops'] / BF16_FLOPS else 'operations'})")
     return rows
 
 
@@ -1009,7 +1143,44 @@ def phase_flash(dev, timer):
                                      ("vl", (1, 64, 8, 1024, 128)),
                                      ("kimi", (1, 64, 8, 256, 112))):
         rows[name] = gqa_flash_row(g, dev, timer, B, H, KVH, S, D, name)
+    for name, shape in ED_FLASH:
+        rows[f"encdec_{name}"] = encdec_flash_row(g, dev, timer, *shape, name)
     return rows
+
+
+def encdec_flash_row(g, dev, timer, B, H, Sq, Sk, causal, name):
+    """Flash at one of seamless-m4t-large-v2's shapes (D 64, H = KVH; causal
+    only at Sq = Sk): checked in f32 and bf16 (the bf16 rounding bound
+    too), then timed in bf16 beside the library call
+    ``F.scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    D, scale = 64, 0.125
+    kind = "causal" if causal else "non-causal"
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(g, dev, dtype, B, H, H, Sq, Sk, D)
+        got = FA.flash_attention_cuda(q, k, v, scale=scale, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, scale=scale, causal=causal)
+        what = f"flash {dtype} B={B} H={H} Sq={Sq} Sk={Sk} D={D} {kind} (encdec {name})"
+        err = assert_close(got, want, dtype, what)
+        if dtype == torch.bfloat16:
+            assert_flash_rounding(got, want, q, k, v, scale, causal, what)
+            check(FA.variant(q, k, v) == "wgmma", f"{what}: not the warpgroup kernel")
+    ms = timer.ms(lambda: FA.flash_attention_cuda(q, k, v, scale=scale, causal=causal))
+    plain = timer.ms(lambda: FA.flash_attention_plain(q, k, v, scale=scale, causal=causal))
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                          scale=scale))
+    flops = 4.0 * B * H * D * (Sq * (Sq + 1) / 2 if causal else Sq * Sk)
+    nbytes = 2 * (2 * B * H * Sq * D + 2 * B * H * Sk * D)  # q and out; k and v once
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    log(f"flash_attention bf16 B={B} H={H} Sq={Sq} Sk={Sk} D={D} {kind} (encdec {name}): "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound {bound:.5f} ms "
+        f"({'bytes' if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else 'operations'}), "
+        f"max abs err {err:.3e}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, flops=flops,
+                bytes=nbytes, err=err)
 
 
 def gqa_flash_row(g, dev, timer, B, H, KVH, S, D, name):
@@ -1606,10 +1777,10 @@ def linear_nodes(mod):
 
 def flash_nodes(mod):
     """Flash launches one call of a compiled program makes: its unmasked
-    ``forge.sdpa`` nodes over more than one query row (``ops.sdpa``
-    routes them to the kernel) plus the kernel calls the capture met."""
-    return sum((n.op == "forge.sdpa" and not n.params["has_mask"]
-                and n.invars[0].shape[-2] > 1) or n.op == "repro_torch.flash_attention.default"
+    ``forge.sdpa`` nodes (``ops.sdpa`` routes them to the kernel, one
+    query row included) plus the kernel calls the capture met."""
+    return sum((n.op == "forge.sdpa" and not n.params["has_mask"])
+               or n.op == "repro_torch.flash_attention.default"
                for n in mod.graph.nodes.values())
 
 
@@ -2037,7 +2208,7 @@ def phase_rglru(dev):
                         floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
     del server, params
     release_device_memory()
-    phase_f32_deep(dev, "recurrentgemma-2b")
+    phase_f32_deep(dev, cfg)
     return {"rglru_serve": served, "rglru_sequential": sequential, "rglru_apply": applied}
 
 
@@ -2151,9 +2322,10 @@ def check_contiguous_prefill(model, cfg, params, server, dev, eager=True,
     return ref_mod
 
 
-def phase_f32_deep(dev, arch, eager=True):
+def phase_f32_deep(dev, served, eager=True):
     """The kernels of a recurrent path held elementwise in f32 at full
-    width, depth cut to RECURRENT_LAYERS (random weights from seed 0): the
+    width and the depth of ``served`` (its bf16 config; random weights
+    from seed 0): the
     served B4 x S32 prefill program and ``apply`` (B=2, S=1024, Forge
     bodies) against ``impl="ref"``, within TOL_DEEP_F32.  Comparison
     launches: they count on no path."""
@@ -2162,8 +2334,9 @@ def phase_f32_deep(dev, arch, eager=True):
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import get_model
 
+    arch = served.name
     full = get_config(arch)
-    cfg = full.with_(dtype="float32", n_layers=RECURRENT_LAYERS)
+    cfg = served.with_(dtype="float32")
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     server = BatchedServer(cfg, params, max_len=256, mode="forge")
@@ -2446,7 +2619,7 @@ def phase_xlstm(dev):
                         floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
     del server, sched, params
     release_device_memory()
-    phase_f32_deep(dev, "xlstm-350m", eager=False)
+    phase_f32_deep(dev, cfg, eager=False)
     return {"xlstm_serve": served, "xlstm_sequential": sequential, "xlstm_sched": scheduled,
             "xlstm_apply": applied}
 
@@ -2626,7 +2799,7 @@ def phase_qwen(dev, more=None):
     fronts on segment_jit (rung 4, the B4 x S32 cell) held bitwise against
     interpret, and ``apply`` at B=1, S=1024; then ``more(cfg, model,
     params, prompts)`` on the same weights (phase 12's qwen paths), then
-    the served prefill program and ``apply`` in f32 at 8 layers against
+    the served prefill program and ``apply`` in f32 at F32_CHECK_LAYERS against
     ``impl="ref"``.  Returns the launches of each path."""
     import gc
 
@@ -2739,7 +2912,7 @@ def phase_qwen(dev, more=None):
 
 def phase_qwen_f32(dev, cfg, prompts):
     """qwen2.5-14b's kernels held elementwise in f32 at full width, depth
-    cut to 8 layers (48 in f32 is 59 GB): the served B4 x S32 prefill
+    cut to F32_CHECK_LAYERS (48 in f32 is 59 GB): the served B4 x S32 prefill
     program (logits and written cache) and ``apply`` (B=1, S=1024) against
     ``impl="ref"`` within TOL_DEEP_F32.  Comparison launches: they count
     on no path."""
@@ -2747,7 +2920,7 @@ def phase_qwen_f32(dev, cfg, prompts):
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import get_model
 
-    cfg = cfg.with_(dtype="float32", n_layers=8)
+    cfg = cfg.with_(dtype="float32", n_layers=F32_CHECK_LAYERS)
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     server = BatchedServer(cfg, params, max_len=256, mode="forge")
@@ -2776,7 +2949,7 @@ def phase_qwen_f32(dev, cfg, prompts):
         want = model.apply(params, tokens, cfg, impl="ref")
     err_apply = assert_close(got, want, torch.float32, "qwen2.5-14b f32 apply logits",
                              TOL_DEEP_F32)
-    log(f"f32 qwen2.5-14b (full width, depth cut to 8 of 48 layers: 48 layers in f32 are "
+    log(f"f32 qwen2.5-14b (full width, depth cut to {cfg.n_layers} of 48 layers: 48 layers in f32 are "
         f"59 GB): the prefill program {key} (compiled in {compile_s:.1f} s) against "
         f"impl='ref', max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"; apply B=1 S=1024 logits {err_apply:.3e} ({rel_l2(got, want):.3e} relative L2); "
@@ -2785,9 +2958,10 @@ def phase_qwen_f32(dev, cfg, prompts):
     release_device_memory()
 
 
-def log_device_time(fn, what):
+def log_device_time(fn, what, top=0):
     """Device time of one call's kernels under the profiler, in all and
-    for the fused-linear and flash kernels (the names they launch)."""
+    for the fused-linear and flash kernels (the names they launch); with
+    ``top``, the ``top`` kernels that took the most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2805,6 +2979,8 @@ def log_device_time(fn, what):
 
     log(f"{what} device time {total:.3f} ms: fused_linear kernels {part('fused_linear'):.3f} ms, "
         f"flash kernels {part('flash_'):.3f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:.4f} ms, {e.count} launches: {e.key[:90]}")
 
 
 def step_split(step, what, steps=8, floor_ms=None):
@@ -3768,11 +3944,14 @@ def phase_faults_slo(dev, cli_runs):
 
 def phase12_qwen(dev, cfg, model, params, prompts):
     """Phase 12 on qwen2.5-14b's weights (phase 9's, one init): (a) the
-    paged ``SlotScheduler`` with the paged-attention kernel at G = 5, (b)
+    paged ``SlotScheduler`` with the paged-attention kernel at G = 5
+    (depth QWEN_PAGED_LAYERS), (b)
     ``mode="jit"`` (depth QWEN_JIT_LAYERS), (c) the autotuner on the
     ``apply`` block body at B=1, S=1024.  Returns the paths' launches."""
     t0 = time.perf_counter()
-    out = {"qwen_paged": paged_path(dev, cfg, params, "qwen2.5-14b")}
+    out = {"qwen_paged": paged_path(dev, cfg.with_(n_layers=QWEN_PAGED_LAYERS),
+                                    dict(params, blocks=params["blocks"][:QWEN_PAGED_LAYERS]),
+                                    "qwen2.5-14b")}
     log(f"phase 12 (a) took {time.perf_counter() - t0:.1f} s")
     release_device_memory()
     L_ = QWEN_JIT_LAYERS
@@ -3808,7 +3987,7 @@ def phase12_forge(dev):
 
 
 def paged_path(dev, cfg, params, what):
-    """Phase 12a (qwen2.5-14b at full width and depth) and 13a
+    """Phase 12a (qwen2.5-14b at full width, QWEN_PAGED_LAYERS deep) and 13a
     (phi3.5-moe): the model through ``SlotScheduler`` over
     ``BatchedServer(mode="forge", paged=True)`` with the paged-attention
     kernel (``kv_kernel="pallas"``: qwen's 40 query heads on 8 KV heads,
@@ -4156,12 +4335,14 @@ def full_width_model(dev, arch, n_layers, widths, dtype="bfloat16"):
     return cfg, model, params, nbytes
 
 
-def forge_bodies(cfg, mode):
-    """The Forge-compiled block bodies of ``cfg`` in ``mode`` (kernels on)."""
+def forge_bodies(cfg, mode, shape=None):
+    """The Forge-compiled block bodies of ``cfg`` in ``mode`` (kernels on),
+    with ``shape``, only those with an input of that shape."""
     from repro_torch.models import _forge
 
     return [m for k, m in _forge._CACHE.items()
-            if k.startswith(f"{cfg!r}/{mode}/") and "impl=None" in k]
+            if k.startswith(f"{cfg!r}/{mode}/") and "impl=None" in k
+            and (shape is None or str(tuple(shape)) in k)]
 
 
 def within_spread(what, got, ref, raw):
@@ -4350,8 +4531,8 @@ def phase13_phi(dev):
 
 
 def phase13_phi_f32(dev, prompts):
-    """phi3.5-moe's kernels held elementwise in f32 (MOE_LAYERS layers,
-    42.6 GB): the served decode program's sequential prefill of 8 prompt
+    """phi3.5-moe's kernels held elementwise in f32 (F32_CHECK_LAYERS
+    layers, 21.3 GB): the served decode program's sequential prefill of 8 prompt
     tokens (the written cache and the first token) against the
     ``impl="ref"`` interpret server, and ``apply`` at B=1, S=256 against
     impl="ref", within TOL_DEEP_F32.  S is 256 (the bf16 apply's 1024
@@ -4361,7 +4542,7 @@ def phase13_phi_f32(dev, prompts):
     import torch
     from repro_torch.launch.serve import BatchedServer
 
-    cfg, model, params, _ = full_width_model(dev, "phi3.5-moe-42b-a6.6b", MOE_LAYERS, {
+    cfg, model, params, _ = full_width_model(dev, "phi3.5-moe-42b-a6.6b", F32_CHECK_LAYERS, {
         "d_model": 4096, "n_experts": 16}, dtype="float32")
     short = prompts[:, :8]
     P = short.shape[1]
@@ -4387,7 +4568,7 @@ def phase13_phi_f32(dev, prompts):
         want = model.apply(params, tokens, cfg, impl="ref")
     errs["apply"] = assert_close(got, want, torch.float32, "phi3.5-moe f32 apply logits",
                                  TOL_DEEP_F32)
-    log(f"f32 phi3.5-moe (full width, {MOE_LAYERS} of 32 layers): the served decode program "
+    log(f"f32 phi3.5-moe (full width, {cfg.n_layers} of 32 layers): the served decode program "
         f"{key} (prefill of {P} tokens, compiled in {compile_s:.1f} s) against the "
         f"impl='ref' interpret server, first tokens equal, max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -4452,6 +4633,265 @@ def phase13_kimi(dev):
     return out
 
 
+ED_ARCH = "seamless-m4t-large-v2"
+ED_WIDTHS = {"d_model": 1024, "n_heads": 16, "n_kv_heads": 16, "d_ff": 8192, "vocab": 256206,
+             "n_enc_layers": 24, "n_dec_layers": 24, "ffn": "gelu", "ffn_bias": True,
+             "tie_embeddings": True}
+
+
+def phase14(dev):
+    """Phase 14: seamless-m4t-large-v2 at full width and depth (24 + 24
+    layers, bf16, random weights from seed 0): (a) ``apply`` at B2, T1024
+    frames, S256 tokens; (c) greedy serving at B4 through the serve step
+    compiled whole; then (b) ``apply`` in f32 at B1 T256 S64.  Returns the
+    launches of (a) and (c)."""
+    t0 = time.perf_counter()
+    cfg, model, params, _ = full_width_model(dev, ED_ARCH, 24, ED_WIDTHS)
+    out = {"encdec_apply": phase14_apply(dev, cfg, model, params)}
+    log(f"phase 14 (a) apply took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["encdec_serve"] = phase14_serve(dev, cfg, model, params)
+    log(f"phase 14 (c) serve took {time.perf_counter() - t0:.1f} s")
+    del params
+    release_device_memory()
+    t0 = time.perf_counter()
+    phase14_f32(dev)
+    log(f"phase 14 (b) f32 apply took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def encdec_inputs(dev, cfg, B, T, S, seed, dtype):
+    """Frame embeddings (the stub audio frontend: N(0, 1) in the model's
+    dtype) and decoder tokens, from ``seed``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.randn(B, T, cfg.d_model, generator=g, device=dev).to(dtype)
+    return frames, torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+
+
+def phase14_apply(dev, cfg, model, params):
+    """Phase 14 (a): ``apply`` at B2, T1024 frames, S256 tokens through the
+    Forge-compiled encoder and decoder bodies: flash once an encoder layer
+    (non-causal, Sq = Sk) and twice a decoder layer (causal self-attention,
+    non-causal cross-attention at Sq < Sk), all ``wgmma``; fused linear =
+    the bodies' linear nodes x layers; the device time by kernel; logits
+    finite, (B, S, vocab), within :func:`within_spread` of impl="ref"."""
+    import torch
+
+    B, T, S = 2, 1024, 256
+    frames, tokens = encdec_inputs(dev, cfg, B, T, S, 41, torch.bfloat16)
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_dec_layers
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.apply(params, frames, tokens, cfg)  # compiles the two bodies
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = model.apply(params, frames, tokens, cfg)
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        applied = counts()
+    (ebody,), (dbody,) = forge_bodies(cfg, "enc"), forge_bodies(cfg, "dec")
+    want_fa = flash_nodes(ebody) * n_enc + flash_nodes(dbody) * n_dec
+    want_fl = linear_nodes(ebody) * n_enc + linear_nodes(dbody) * n_dec
+    check(applied["flash_attention"] == want_fa == n_enc + 2 * n_dec,
+          f"seamless-m4t apply: flash launches {applied['flash_attention']} != {want_fa}")
+    check(applied["fused_linear"] == want_fl == 3 * n_enc + 4 * n_dec,
+          f"seamless-m4t apply: fused_linear launches {applied['fused_linear']} != {want_fl}")
+    check(applied.variants["flash_attention"] == {"wgmma": want_fa},
+          f"seamless-m4t apply: flash variants {applied.variants['flash_attention']}")
+    check(not applied["paged_attention"] and not applied["rg_lru"] and not applied["rms_norm"],
+          f"seamless-m4t apply: launched {applied}")
+    check(tuple(logits.shape) == (B, S, cfg.vocab), f"seamless-m4t apply logits {logits.shape}")
+    log(f"apply seamless-m4t-large-v2 B={B} T={T} S={S}: flash launches "
+        f"{applied['flash_attention']}, fused_linear {applied['fused_linear']} "
+        f"({applied.variants}); first call {first_s:.1f} s (two body compiles included), steady "
+        f"call {apply_ms:.1f} ms host wall; fused nodes of the bodies: encoder "
+        f"{fused_counts(ebody)}, decoder {fused_counts(dbody)}")
+    log_pass_table("seamless-m4t-large-v2 encoder body", ebody.result)
+    log_pass_table("seamless-m4t-large-v2 decoder body", dbody.result)
+    log_device_time(lambda: model.apply(params, frames, tokens, cfg),
+                    f"seamless-m4t-large-v2 apply B={B} T={T} S={S}", top=8)
+    with torch.no_grad():
+        reset_counts()
+        ref = model.apply(params, frames, tokens, cfg, impl="ref")
+        raw = model.apply(params, frames, tokens, cfg.with_(fuse="none"), impl="ref")
+        check(not any(counts().values()), "the impl='ref' seamless-m4t apply launched a kernel")
+    within_spread("seamless-m4t-large-v2 apply logits", logits, ref, raw)
+    return applied
+
+
+def greedy_run(step, params, cache, prompt, n_new, positions):
+    """Greedy decode through a serve step that also returns its logits: the
+    prompt replays through the step (the family has no prefill step), then
+    ``n_new`` tokens.  Returns the tokens (B, n_new), every step's last
+    logits (steps, B, vocab), each step's host wall in ms (ended by a
+    synchronize) and the final cache."""
+    import torch
+
+    P = prompt.shape[1]
+    tok, toks, logits, ms = prompt[:, :1], [], [], []
+    for t in range(P + n_new - 1):
+        t0 = time.perf_counter()
+        nxt, cache, last = step(params, cache, tok, positions[t])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(last.float())
+        if t + 1 < P:
+            tok = prompt[:, t + 1:t + 2]
+        else:
+            tok = nxt.long()
+            toks.append(tok)
+    return torch.cat(toks, 1), torch.stack(logits), ms, cache
+
+
+def phase14_serve(dev, cfg, model, params):
+    """Phase 14 (c): greedy serving at B4 over T500 frames (ragged key
+    tiles), an 8-token decoder prompt and 32 generated tokens: ``encode``
+    and ``init_cache`` (cross K/V precomputed once), then
+    ``steps.make_serve_step(cfg)`` compiled whole by ``ForgeCompiler`` on
+    segment_jit (parameters static, the position a tensor), the prompt
+    replayed through it.  Launches exact: the encoder body's once per
+    layer, then per step flash once a decoder layer (cross-attention at
+    one query row) and the program's linear nodes; no capture in the
+    served run.  The same lowered program on interpret: tokens, every
+    step's logits and the final cache bitwise equal.  Every step's logits,
+    teacher-forced, against the kernel-free eager step within
+    :func:`within_spread`, the spread taken against the unfused
+    kernel-free ``apply`` over the same tokens.  Reports encode and
+    init_cache ms, decode p50 / p99, tok/s against the step's byte bound,
+    compile seconds split, and the host/device split of a step."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core import ForgeCompiler
+    from repro_torch.launch.steps import make_serve_step
+
+    B, T, P, N = 4, 500, 8, 32
+    max_len = P + N
+    what = "seamless-m4t-large-v2 serve"
+    frames, prompt = encdec_inputs(dev, cfg, B, T, P, 42, torch.bfloat16)
+    positions = torch.arange(max_len, device=dev)
+    step = make_serve_step(cfg, logits=True)
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_dec_layers
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        example = model.init_cache(params, frames, cfg, max_len)  # compiles the encoder body
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seg = ForgeCompiler(backend="segment_jit").compile(
+            step, params, example, prompt[:, :1], positions[0], static_argnums=(0,))
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        interp = seg.with_backend("interpret")
+        t0 = time.perf_counter()
+        model.module.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        caps = captures_now()
+        reset_counts()
+        t0 = time.perf_counter()
+        cache = model.init_cache(params, frames, cfg, max_len)
+        torch.cuda.synchronize()
+        init_ms = (time.perf_counter() - t0) * 1e3
+        toks, logits, ms, final = greedy_run(seg, params, cache, prompt, N, positions)
+        served = counts()
+    steps = P + N - 1
+    (ebody,) = forge_bodies(cfg, "enc", frames.shape)
+    want_fa = flash_nodes(ebody) * n_enc + flash_nodes(seg) * steps
+    want_fl = linear_nodes(ebody) * n_enc + linear_nodes(seg) * steps
+    check(flash_nodes(seg) == n_dec and linear_nodes(seg) == 4 * n_dec,
+          f"{what}: the step program has {flash_nodes(seg)} flash and {linear_nodes(seg)} "
+          f"fused-linear nodes")
+    check(served["flash_attention"] == want_fa and served["fused_linear"] == want_fl,
+          f"{what}: launches {dict(served)} against flash {want_fa}, fused_linear {want_fl} "
+          f"predicted from the programs' nodes")
+    check(not served["paged_attention"] and not served["rg_lru"] and not served["rms_norm"],
+          f"{what}: launched {served}")
+    check(captures_now() == caps, f"{what}: a program was captured in the served run")
+    check(tuple(toks.shape) == (B, N) and bool(torch.isfinite(logits).all()),
+          f"{what}: tokens {tuple(toks.shape)}, finite logits {bool(torch.isfinite(logits).all())}")
+    # the same lowered program on interpret: bitwise
+    with torch.no_grad():
+        cache_i = model.init_cache(params, frames, cfg, max_len)
+        toks_i, logits_i, _, final_i = greedy_run(interp, params, cache_i, prompt, N, positions)
+    check(torch.equal(toks, toks_i) and torch.equal(logits, logits_i)
+          and all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(final),
+                                                    pytree.tree_leaves(final_i))),
+          f"{what}: segment_jit is not bitwise interpret (tokens equal "
+          f"{int((toks == toks_i).sum())}/{toks.numel()})")
+    # teacher-forced against the kernel-free step, and the spread against
+    # the unfused kernel-free apply over the same tokens
+    feed = torch.cat([prompt, toks[:, :-1]], 1)
+    with torch.no_grad():
+        reset_counts()
+        cache_r = model.init_cache(params, frames, cfg, max_len, impl="ref")
+        ref = []
+        for t in range(steps):
+            lg, cache_r = model.decode_step(params, cache_r, feed[:, t:t + 1], positions[t], cfg)
+            ref.append(lg[:, -1].float())
+        raw = model.apply(params, frames, feed, cfg.with_(fuse="none"), impl="ref")
+        check(not any(counts().values()), f"{what}: a kernel-free path launched a kernel")
+    within_spread(f"{what} teacher-forced logits over {steps} steps", logits, torch.stack(ref),
+                  raw.transpose(0, 1))
+    del ref, raw, cache_r
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    # the least bytes a step moves: the weights it reads (the decoder
+    # layers without the cross-attention K/V projections, which init_cache
+    # applied, the final norm, the tied head), every cache input once, the
+    # new self-attention K/V and the logits written once
+    weights = [params["embed"], *pytree.tree_leaves(params["dec_norm"])]
+    for layer in params["dec_blocks"]:
+        for path, t in pytree.tree_flatten_with_path(layer)[0]:
+            keys = [k.key for k in path]
+            if not (keys[0] == "cross_attn" and keys[1] in ("wk", "wv")):
+                weights.append(t)
+    w_bytes, c_bytes = nbytes(weights), nbytes(cache.values())
+    o_bytes = nbytes([cache["self_k"], cache["self_v"]]) + B * cfg.vocab * 4
+    bound_ms = (w_bytes + c_bytes + o_bytes) / HBM_BYTES_PER_S * 1e3
+    gen_ms = ms[P - 1:]
+    split = compile_split([seg.result])
+    log(f"{what} (segment_jit, bf16, {n_enc} + {n_dec} layers) batch={B} frames={T} "
+        f"prompt={P} gen={N} max_len={max_len}: encode {encode_ms:.2f} ms, init_cache "
+        f"{init_ms:.2f} ms (encode and the cross K/V; first call {first_s:.1f} s with the body "
+        f"compile); decode p50 {np.percentile(ms, 50):.3f} ms p99 {np.percentile(ms, 99):.3f} ms "
+        f"over {steps} steps, {B * N / (sum(gen_ms) / 1e3):.1f} tok/s; the step's byte bound "
+        f"{bound_ms:.3f} ms ({w_bytes / 1e9:.3f} GB of weights, {c_bytes / 1e9:.3f} GB of cache "
+        f"inputs, {o_bytes / 1e9:.3f} GB of outputs: {B / bound_ms * 1e3:.1f} tok/s); step "
+        f"compiled in {compile_s:.1f} s ({split}); launches {dict(served)}, {served.variants}; "
+        f"segment_jit bitwise equal to interpret (tokens, {steps} steps' logits, the cache)")
+    log(f"{what} step program: {seg.result.executor_stats.n_segments} segments, fused nodes "
+        f"{fused_counts(seg)}")
+    log_pass_table(f"{what} step program", seg.result)
+    step_split(lambda: seg(params, final, toks[:, -1:], positions[P]), f"{what} [segment_jit]",
+               floor_ms=bound_ms)
+    return served
+
+
+def phase14_f32(dev):
+    """Phase 14 (b): the kernels held elementwise in f32 at full width and
+    depth (5.5 GB): ``apply`` at B1, T256, S64 against impl="ref" within
+    TOL_DEEP_F32.  Comparison launches: they count on no path."""
+    import torch
+
+    cfg, model, params, _ = full_width_model(dev, ED_ARCH, 24, ED_WIDTHS, dtype="float32")
+    frames, tokens = encdec_inputs(dev, cfg, 1, 256, 64, 43, torch.float32)
+    with torch.no_grad():
+        got = model.apply(params, frames, tokens, cfg)
+        want = model.apply(params, frames, tokens, cfg, impl="ref")
+    err = assert_close(got, want, torch.float32, "seamless-m4t f32 apply logits", TOL_DEEP_F32)
+    log(f"f32 seamless-m4t-large-v2 (full width and depth): apply B=1 T=256 S=64 against "
+        f"impl='ref', max abs err {err:.3e} ({rel_l2(got, want):.3e} relative L2), within rtol "
+        f"{TOL_DEEP_F32['rtol']} atol {TOL_DEEP_F32['atol']}")
+    del params
+
+
 def main(argv=None):
     import argparse
 
@@ -4514,6 +4954,7 @@ def main(argv=None):
     launches.update(timed("phase 11", phase_faults_slo, dev, cli_runs))
     launches.update(timed("phase 12 on forge-125m", phase12_forge, dev))
     launches.update(timed("phase 13", phase13, dev))
+    launches.update(timed("phase 14", phase14, dev))
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
@@ -4554,8 +4995,10 @@ def main(argv=None):
     # for forge-125m (4 at decode, B*S = 4096 in apply; the paged path's
     # decode M is 4; 4 x 32 = 128 in the contiguous prefill cell), four for a recurrentgemma-2b rec layer (4 at decode,
     # 4 x 32 = 128 in the prefill cell, 2 x 1024 = 2048 in apply); flash
-    # runs in the forge-125m apply only, paged attention in the paged path
-    # only, rg_lru in recurrentgemma-2b's prefill and apply (f32 inputs)
+    # runs in the apply bodies and in seamless-m4t-large-v2's serving (its
+    # encoder body and the decode step's cross-attention at one query
+    # row), paged attention in the paged paths only, rg_lru in
+    # recurrentgemma-2b's prefill and apply (f32 inputs)
     kernels = [
         row("fused_linear", "src/repro/kernels/fused_linear.py:134", "serve",
             {"serve": fl_rows[4], "apply": fl_rows[4096], "paged": fl_rows[4],
@@ -4576,12 +5019,14 @@ def main(argv=None):
              "phi_apply": fl_rows[("phi", 1024)], "jit_phi": fl_rows[("phi", 4)],
              "vl_eager": fl_rows[("vl", 4)], "vl_serve": fl_rows[("vl", 4)],
              "vl_apply": fl_rows[("vl", 1024)], "kimi_apply": fl_rows[("kimi", 256)],
-             "kimi_eager": fl_rows[("kimi", 4)]}),
+             "kimi_eager": fl_rows[("kimi", 4)], "encdec_apply": fl_rows[("encdec", 2048)],
+             "encdec_serve": fl_rows[("encdec", 4)]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
             {"apply": fa_rows["apply"], "qwen_apply": fa_rows["qwen"],
              "autotune_forge": fa_rows["apply"], "autotune_qwen": fa_rows["qwen"],
              "phi_apply": fa_rows["phi"], "vl_apply": fa_rows["vl"],
-             "kimi_apply": fa_rows["kimi"]}),
+             "kimi_apply": fa_rows["kimi"], "encdec_apply": fa_rows["encdec_enc"],
+             "encdec_serve": fa_rows["encdec_decode"]}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
             {"paged": pa_rows["served"], "qwen_paged": pa_rows["qwen_served"],
              "phi_paged": pa_rows["phi_served"]}),
@@ -4600,12 +5045,18 @@ def main(argv=None):
                                "B1-H40-KVH8-S1024-D128": timing(fa_rows["qwen"]),
                                "B1-H32-KVH8-S1024-D128": timing(fa_rows["phi"]),
                                "B1-H64-KVH8-S1024-D128": timing(fa_rows["vl"]),
-                               "B1-H64-KVH8-S256-D112": timing(fa_rows["kimi"])}
+                               "B1-H64-KVH8-S256-D112": timing(fa_rows["kimi"]),
+                               **{f"B{b}-H{h}-Sq{sq}-Sk{sk}-D64-"
+                                  f"{'causal' if c else 'noncausal'}": timing(
+                                      fa_rows[f"encdec_{name}"])
+                                  for name, (b, h, sq, sk, c) in ED_FLASH}}
     kernels[0]["per_shape"] = {f"{name}-layer-M{M}": timing(fl_rows[(tag, M)])
                                for tag, name, ms in (("qwen", "qwen2.5-14b", QW_FL_ROWS),
                                                      ("phi", "phi3.5-moe", PHI_FL_ROWS),
                                                      ("kimi", "kimi-k2", KIMI_FL_ROWS),
-                                                     ("vl", "qwen2-vl-72b", VL_FL_ROWS))
+                                                     ("vl", "qwen2-vl-72b", VL_FL_ROWS),
+                                                     ("encdec", "seamless-m4t-large-v2",
+                                                      ED_FL_ROWS))
                                for M in ms}
     kernels[2]["head_dims"] = list(PA.HEAD_DIMS)
     kernels[2]["per_shape"] = {"B4-H12-D64-served": timing(pa_rows["served"]),

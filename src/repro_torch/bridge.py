@@ -7,7 +7,8 @@ and returns the port's parameter dict:
 
 * layer-stacked ``blocks`` (a leading ``n_layers`` axis on every leaf,
   the JAX package's ``scan_layers`` layout) or a list of per-layer dicts
-  become a list of per-layer dicts;
+  become a list of per-layer dicts; so do the encoder-decoder family's
+  ``enc_blocks`` and ``dec_blocks``;
 * every other leaf converts as is: among them the MoE family's fp32
   ``router``, its (E, d, f) / (E, f, d) expert stacks and kimi-k2's
   ``shared`` SwiGLU, which keep their dtypes and shapes;
@@ -35,6 +36,11 @@ def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+#: the layer lists: the decoder-only families' ``blocks``, the
+#: encoder-decoder family's ``enc_blocks`` and ``dec_blocks``
+LAYER_KEYS = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def params_from_numpy(tree: Dict[str, Any],
                       device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     device = resolve_device(device)
@@ -50,14 +56,17 @@ def params_from_numpy(tree: Dict[str, Any],
             t = memo[id(x)] = _to_tensor(x, device)
         return t
 
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    if isinstance(blocks, dict):  # layer-stacked leaves
-        stacked = conv(blocks)
-        n = len(next(iter(_leaves(stacked))))
-        out["blocks"] = [_index(stacked, i) for i in range(n)]
-    else:
-        out["blocks"] = [conv(b) for b in blocks]
+    out = {k: conv(v) for k, v in tree.items() if k not in LAYER_KEYS}
+    for key in LAYER_KEYS:
+        if key not in tree:
+            continue
+        blocks = tree[key]
+        if isinstance(blocks, dict):  # layer-stacked leaves
+            stacked = conv(blocks)
+            n = len(next(iter(_leaves(stacked))))
+            out[key] = [_index(stacked, i) for i in range(n)]
+        else:
+            out[key] = [conv(b) for b in blocks]
     return out
 
 

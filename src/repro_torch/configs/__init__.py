@@ -7,20 +7,21 @@ CLI's default), the SwiGLU dense decoders ``deepseek-7b``,
 ``xlstm-350m`` (mLSTM + sLSTM blocks), the MoE decoders
 ``phi3.5-moe-42b-a6.6b`` (16 experts, top-2) and ``kimi-k2-1t-a32b`` (384
 experts, top-8, one shared expert), the M-RoPE VLM backbone
-``qwen2-vl-72b`` and their smoke variants; the encoder-decoder
-architecture of the JAX package follows in a later slice.
+``qwen2-vl-72b``, the encoder-decoder ``seamless-m4t-large-v2`` (24 + 24
+layers, GELU, tied 256 206-entry head) and their smoke variants: every
+architecture of the JAX package.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from . import (deepseek_7b, kimi_k2_1t_a32b, phi3_mini_38b, phi35_moe_42b_a66b, qwen2_vl_72b,
-               qwen15_32b, qwen25_14b, recurrentgemma_2b, xlstm_350m)
+               qwen15_32b, qwen25_14b, recurrentgemma_2b, seamless_m4t_large_v2, xlstm_350m)
 from .base import ModelConfig
 
 REGISTRY: Dict[str, object] = {m.ARCH_ID: m for m in (
     deepseek_7b, phi3_mini_38b, qwen15_32b, qwen25_14b, recurrentgemma_2b, xlstm_350m,
-    phi35_moe_42b_a66b, kimi_k2_1t_a32b, qwen2_vl_72b)}
+    phi35_moe_42b_a66b, kimi_k2_1t_a32b, qwen2_vl_72b, seamless_m4t_large_v2)}
 ARCH_IDS: List[str] = ["forge-125m"] + list(REGISTRY)
 
 

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention -> _flash_forward -> _flash_kernel), the dispatch
-// target of `forge.sdpa` nodes with no mask and Sq > 1: the causal
-// full-sequence forward of the dense decoder.
+// target of `forge.sdpa` nodes with no mask: the causal full-sequence
+// forward of the decoders, the encoder's non-causal self-attention and
+// the cross-attention of the encoder-decoder family, a single query row
+// at decode included (one 128-row tile holding one live row).
 //
 // Semantics kept from the Pallas kernel: running (m, l, acc) in fp32;
 // causal masking aligned at offset Sk - Sq (query row r sees keys

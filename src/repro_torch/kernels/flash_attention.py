@@ -1,5 +1,6 @@
-"""Flash attention (forward): the ``forge.sdpa`` dispatch target for the
-unmasked full-sequence forward.
+"""Flash attention (forward): the ``forge.sdpa`` dispatch target for
+unmasked attention (the full-sequence forward, cross-attention, and a
+single query row against cached cross-attention keys at decode).
 
 Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``) to hand-written CUDA kernels for Hopper,

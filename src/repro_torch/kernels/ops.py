@@ -13,10 +13,12 @@ implementation follows the tensors' device:
 * ``impl="ref"`` runs the plain version on any device (the oracle that
   ``chip_smoke.py`` and the tests hold the kernels against).
 
-Routing mirrors the JAX package's ``kernels/ops.py``: flash attention
-only for unmasked attention with Sq > 1; masked or single-query
-attention is plain masked-softmax attention in torch (XLA in the JAX
-package, never a Pallas kernel there either).
+Routing follows the JAX package's ``kernels/ops.py`` with one change:
+flash attention takes every unmasked attention, a single query row
+included (the encoder-decoder family's cross-attention at decode, Sq = 1
+against the encoder frames); the JAX package sends Sq = 1 to XLA.
+Masked attention is plain masked-softmax attention in torch (XLA in the
+JAX package, never a Pallas kernel there either).
 """
 from __future__ import annotations
 
@@ -163,7 +165,7 @@ def sdpa(
         raise ValueError(f"sdpa: H={q.shape[1]} != KVH={k.shape[1]} * groups={groups}")
     if scale is None:
         scale, scale_mode = 1.0 / (q.shape[-1] ** 0.5), "mul"
-    if impl is None and mask is None and q.shape[-2] > 1:
+    if impl is None and mask is None:
         return flash_attention(q, k, v, scale=scale, scale_mode=scale_mode,
                                causal=causal).to(out_dtype)
     kx, vx = _ref._expand_kv(k, groups), _ref._expand_kv(v, groups)

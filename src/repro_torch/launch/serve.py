@@ -657,6 +657,8 @@ class BatchedServer:
         and the cache it owns, reset first).  Returns ``(cache, next_tok,
         pos, step_fn, key)``, ``key`` the decode program's ShapeKey (None
         outside forge mode)."""
+        if self.cfg.family == "encdec":
+            raise NotImplementedError("use examples/ for enc-dec serving")
         if self.paged:
             raise NotImplementedError("paged KV serving is slot-scheduled: drive it "
                                       "through SlotScheduler.run")
@@ -2418,6 +2420,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         ap.error(f"--sweep / --prompt-sweep take comma-separated integers: {e}")
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":
+        raise SystemExit("use examples/ for enc-dec serving")
     if args.mode == "forge":
         from ..core.backends import get_backend
 

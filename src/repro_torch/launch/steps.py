@@ -1,5 +1,10 @@
-"""Step-function builders shared by the serve fronts.
+"""Step-function builders shared by the serve fronts and the eval path.
 
+* ``make_forward(cfg)`` / ``make_loss_fn(cfg)`` / ``make_eval_step(cfg)`` /
+  ``make_prefill_step(cfg)`` -> the full-sequence forward over a batch
+  dict (``tokens``; ``frames`` for the encoder-decoder family,
+  ``patches`` for the VLM), its cross-entropy against ``labels``, the
+  eval metrics ``{loss, ppl}`` and the forward as a prefill step.
 * ``make_serve_step(cfg)`` -> one-token greedy decode against the KV cache.
 * ``make_slot_serve_step(cfg)`` / ``make_slot_prefill_step(cfg)`` /
   ``make_batched_prefill_step(cfg)`` -> slot-level decode and whole-prompt
@@ -18,7 +23,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
-from ..models import get_model
+from ..models import get_model, losses
 
 
 def dealias_tree(tree):
@@ -71,6 +76,56 @@ def blend_cache_rows(cache, axes_spec, row_tree, rows: Sequence[int]):
         idx = torch.as_tensor(list(rows), dtype=torch.long, device=leaf.device)
         out.append(leaf.index_copy(ax, idx, src))
     return pytree.tree_unflatten(out, spec)
+
+
+def make_forward(cfg: ModelConfig) -> Callable:
+    """``(params, batch) -> (B, S, vocab) logits``: the family's ``apply``
+    on ``batch["tokens"]`` (with ``batch["frames"]`` for the
+    encoder-decoder family, ``batch["patches"]`` for the VLM)."""
+    model = get_model(cfg)
+    if cfg.family == "encdec":
+        def fwd(params, batch):
+            return model.apply(params, batch["frames"], batch["tokens"], cfg)
+    elif cfg.family == "vlm":
+        def fwd(params, batch):
+            return model.module.apply(params, batch["tokens"], cfg,
+                                      patch_embeds=batch["patches"])
+    else:
+        def fwd(params, batch):
+            return model.apply(params, batch["tokens"], cfg)
+    return fwd
+
+
+def make_loss_fn(cfg: ModelConfig) -> Callable:
+    """``(params, batch) -> loss``: the mean fp32 cross-entropy of the
+    forward's logits against ``batch["labels"]``."""
+    fwd = make_forward(cfg)
+
+    def loss_fn(params, batch):
+        return losses.cross_entropy(fwd(params, batch), batch["labels"])
+
+    return loss_fn
+
+
+def make_eval_step(cfg: ModelConfig) -> Callable:
+    """``(params, batch) -> {"loss", "ppl"}``."""
+    loss_fn = make_loss_fn(cfg)
+
+    def eval_step(params, batch):
+        loss = loss_fn(params, batch)
+        return {"loss": loss, "ppl": torch.exp(loss)}
+
+    return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """``(params, batch) -> logits``: the forward as a prefill step."""
+    fwd = make_forward(cfg)
+
+    def prefill_step(params, batch):
+        return fwd(params, batch)
+
+    return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None,

@@ -10,9 +10,13 @@
 * ``paged_decode_step`` / ``paged_prefill_step`` / ``init_paged_cache``
   the same against a flat page pool (continuous batching)
 
-The port carries the dense and MoE families (``transformer``), the VLM
-backbone (``vlm``), the RG-LRU hybrid (``rglru``) and the xLSTM family
-(``ssm``: ``xlstm``); the encoder-decoder family follows.
+The port carries every family of the JAX package: the dense and MoE
+decoders (``transformer``), the VLM backbone (``vlm``), the RG-LRU hybrid
+(``rglru``), the xLSTM family (``ssm``: ``xlstm``) and the
+encoder-decoder family (``encdec``), whose ``apply(params, frames,
+tokens, cfg)`` and ``init_cache(params, frames, cfg, max_len)`` take the
+frame embeddings, as the reference's do.  An unknown family raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from ..configs.base import ModelConfig
-from . import attention, layers, moe, rglru, transformer, vlm, xlstm
+from . import attention, encdec, layers, losses, moe, rglru, transformer, vlm, xlstm
 
 
 @dataclass(frozen=True)
@@ -61,11 +65,12 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         m = rglru
     elif cfg.family == "ssm":
         m = xlstm
+    elif cfg.family == "encdec":
+        m = encdec
     elif cfg.family == "vlm":
         m = vlm
     else:
-        raise NotImplementedError(f"family {cfg.family!r}: the port carries the dense, "
-                                  f"moe, vlm, hybrid and ssm families so far")
+        raise ValueError(f"unknown family {cfg.family!r}")
     # a family module owns the knowledge of when a whole-block prefill
     # pass reproduces sequential decode; the registry stays family-agnostic
     prefill = getattr(m, "prefill_step", None)
@@ -92,5 +97,5 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     )
 
 
-__all__ = ["ModelAPI", "get_model", "attention", "layers", "moe", "rglru", "transformer",
-           "vlm", "xlstm"]
+__all__ = ["ModelAPI", "get_model", "attention", "encdec", "layers", "losses", "moe", "rglru",
+           "transformer", "vlm", "xlstm"]

@@ -5,8 +5,9 @@ The decomposed chain below (projections → RoPE → GQA expansion → matmul
 what the Forge attention-fusion pass matches; after Phase 2 the middle
 collapses into one ``forge.sdpa`` dispatch.
 
-Carries the no-cache branch (full causal self-attention: the
-full-sequence forward, optionally banded to a local window), the
+Carries the no-cache branch (full self-attention, causal or not: the
+full-sequence forward, optionally banded to a local window, and
+cross-attention to a ``kv`` source), the
 contiguous-cache branch (single-token decode at a scalar or per-row
 position, optionally windowed, or over a rotating window buffer masked
 by ``cache_valid_len``), whole-chunk prefill into the contiguous cache
@@ -183,6 +184,7 @@ def attention(
     rope_sin: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: Optional[int] = None,
+    kv: Optional[torch.Tensor] = None,  # cross-attention source
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_pos: Optional[torch.Tensor] = None,
     cache_valid_len: Optional[torch.Tensor] = None,
@@ -203,18 +205,22 @@ def attention(
     write).  A cache holding ``k_pages`` is paged: ``write_mask``,
     ``kv_kernel`` and ``impl`` apply to it (see
     :func:`_paged_update_attend`).  Without a cache, ``window`` bands the
-    causal full-sequence attention.
+    causal full-sequence attention.  With ``kv`` (B, Sk, d) the keys and
+    values are projected from it instead of ``x`` (cross-attention) and
+    only the queries rotate.
     """
+    src = kv if kv is not None else x
     q = L.linear(x, p["wq"], p.get("bq"))
-    k = L.linear(x, p["wk"], p.get("bk"))
-    v = L.linear(x, p["wv"], p.get("bv"))
+    k = L.linear(src, p["wk"], p.get("bk"))
+    v = L.linear(src, p["wv"], p.get("bv"))
     q = _split_heads(q, n_heads)
     k = _split_heads(k, n_kv_heads)
     v = _split_heads(v, n_kv_heads)
 
     if rope_cos is not None:
         q = L.apply_rope(q, rope_cos, rope_sin)
-        k = L.apply_rope(k, rope_cos, rope_sin)
+        if kv is None:  # self-attention: the keys rotate too
+            k = L.apply_rope(k, rope_cos, rope_sin)
 
     new_cache = None
     if cache is not None and "k_pages" in cache:

@@ -1,0 +1,31 @@
+"""Training losses: a port of the JAX package's ``models/losses.py``."""
+from __future__ import annotations
+
+import torch
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32.  logits: (..., V).
+
+    The reference's formulation: ``lse - Σ logits·onehot``, with the max
+    subtracted for the log-sum-exp (outside the gradient); labels equal
+    to ``ignore_id`` count neither in the sum nor in the mean.
+    """
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    # one_hot of an out-of-range id (ignore_id) is a row of zeros, as
+    # jax.nn.one_hot gives it
+    valid = (labels >= 0) & (labels < logits.shape[-1])
+    onehot = torch.nn.functional.one_hot(torch.where(valid, labels, 0).long(),
+                                         logits.shape[-1]).to(logits.dtype)
+    onehot = onehot * valid[..., None].to(logits.dtype)
+    label_logit = torch.sum(logits * onehot, dim=-1)
+    ll = label_logit - lse
+    mask = (labels != ignore_id).to(torch.float32)
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def perplexity(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.exp(cross_entropy(logits, labels))

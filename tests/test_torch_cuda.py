@@ -1346,3 +1346,61 @@ def test_moe_vlm_jit_server_on_card(cuda_device, arch):
     got = srv.generate(prompts, 4)
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
     assert srv.jit_steps[3].graphs == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk", [(2, 300, 300), (2, 100, 260), (2, 260, 100), (4, 1, 500)])
+def test_flash_encdec_noncausal(cuda_device, dtype, B, Sq, Sk):
+    """Flash without a mask at the encoder-decoder family's shapes (16
+    heads of 64): the encoder's Sq = Sk, cross-attention with fewer and
+    with more queries than keys (ragged tiles of both), and the decode
+    step's single query row against the encoder frames."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(Sq + Sk, B, 16, 16, Sq, Sk, 64))
+    got = FA.flash_attention_cuda(q, k, v, scale=0.125, causal=False)
+    if dtype == torch.bfloat16:
+        assert FA.variant(q, k, v) == "wgmma"
+        _assert_flash_bf16(got, q, k, v, 0.125, False)
+    else:
+        want = FA.flash_attention_plain(q, k, v, scale=0.125, causal=False)
+        torch.testing.assert_close(got, want, **TOL_F32)
+
+
+@pytest.mark.cuda
+def test_encdec_compiled_step_on_card(cuda_device):
+    """seamless-m4t-large-v2 smoke (f32): the serve step compiled whole,
+    on segment_jit bitwise equal to interpret over 6 greedy steps (tokens,
+    logits, cache), within the f32 tolerance of the eager step (which runs
+    no kernel); each step launches flash once a decoder layer (the
+    cross-attention at one query row) and four fused linears a layer."""
+    from repro_torch.core import ForgeCompiler
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import encdec
+
+    cfg = get_config("seamless-m4t-large-v2", smoke=True).with_(dtype="float32")
+    p = encdec.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    frames = torch.randn(2, 37, cfg.d_model, device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    cache = encdec.init_cache(p, frames, cfg, 16)
+    step = make_serve_step(cfg, logits=True)
+    tok = torch.tensor([[3], [5]], device=cuda_device)
+    pos = torch.tensor(0, device=cuda_device)
+    seg = ForgeCompiler(backend="segment_jit").compile(step, p, cache, tok, pos,
+                                                       static_argnums=(0,))
+    interp = seg.with_backend("interpret")
+    caches = {"seg": cache, "interp": cache, "eager": cache}
+    for i in range(6):
+        pos = torch.tensor(i, device=cuda_device)
+        _reset_counts()
+        got = seg(p, caches["seg"], tok, pos)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES.n == cfg.n_dec_layers and FL.LAUNCHES.n == 4 * cfg.n_dec_layers
+        want = interp(p, caches["interp"], tok, pos)
+        for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(want)):
+            assert torch.equal(g, w)
+        eager = step(p, caches["eager"], tok, pos)
+        torch.testing.assert_close(got[2], eager[2], **TOL_F32)
+        caches = {"seg": got[1], "interp": want[1], "eager": eager[1]}
+        tok = got[0].long()

@@ -125,6 +125,23 @@ class TestF32Parity:
                                    rtol=1e-5, atol=1e-6)
         assert not np.allclose(a.numpy(), b.numpy())
 
+    def test_forward_and_eval_steps_match_jax(self, f32):
+        """``steps.make_forward`` / ``make_eval_step`` on the dense branch
+        against the JAX package's, labels with ignored positions."""
+        from repro.launch import steps as jax_steps
+        from repro_torch.launch import steps
+
+        cfg, jcfg, jp, p = f32
+        toks, labels = _tokens(cfg, 2, 12), _tokens(cfg, 2, 12, seed=5)
+        labels[1, :4] = -1
+        batch = {"tokens": torch.from_numpy(toks).long(), "labels": torch.from_numpy(labels).long()}
+        jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+        np.testing.assert_allclose(as_np(steps.make_forward(cfg)(p, batch)),
+                                   as_np(jax_steps.make_forward(jcfg)(jp, jbatch)), **TOL_F32)
+        got, want = steps.make_eval_step(cfg)(p, batch), jax_steps.make_eval_step(jcfg)(jp, jbatch)
+        for k in ("loss", "ppl"):
+            np.testing.assert_allclose(float(got[k]), float(want[k]), **TOL_F32)
+
     def test_unfused_config_matches(self, f32):
         cfg, _, _, p = f32
         toks = torch.from_numpy(_tokens(cfg, 2, 5)).long()
@@ -243,7 +260,13 @@ class TestEntryPointsNeedCuda:
         with pytest.raises(RuntimeError, match="CUDA"):
             bridge.params_from_numpy({"blocks": []})
 
-    def test_unported_family_raises(self):
-        cfg = get_config("forge-125m", smoke=True).with_(family="encdec")
-        with pytest.raises(NotImplementedError):
+    def test_unknown_family_raises(self):
+        cfg = get_config("forge-125m", smoke=True).with_(family="rnn")
+        with pytest.raises(ValueError, match="unknown family 'rnn'"):
             get_model(cfg)
+
+    def test_serve_cli_refuses_encdec(self):
+        from repro_torch.launch import serve
+
+        with pytest.raises(SystemExit, match="use examples/ for enc-dec serving"):
+            serve.main(["--arch", "seamless-m4t-large-v2", "--smoke", "--device", "cpu"])

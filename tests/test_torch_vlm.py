@@ -116,6 +116,26 @@ def test_apply_logits_match_jax(setup, patches):
     np.testing.assert_allclose(as_np(got), as_np(want), **TOL_F32)
 
 
+def test_forward_and_eval_steps_match_jax(setup):
+    """``steps.make_forward`` / ``make_eval_step`` on the VLM branch (the
+    patch embeddings from ``batch["patches"]``) against the JAX package's."""
+    from repro.launch import steps as jax_steps
+    from repro_torch.launch import steps
+
+    cfg, jcfg, jp, p = setup
+    toks, pe = _tokens((2, 8), 1), _normal((2, 4, cfg.d_model), 5)
+    labels = _tokens((2, 12), 6)
+    batch = {"tokens": torch.from_numpy(toks).long(), "patches": torch.from_numpy(pe),
+             "labels": torch.from_numpy(labels).long()}
+    jbatch = {"tokens": jnp.asarray(toks), "patches": jnp.asarray(pe),
+              "labels": jnp.asarray(labels)}
+    np.testing.assert_allclose(as_np(steps.make_forward(cfg)(p, batch)),
+                               as_np(jax_steps.make_forward(jcfg)(jp, jbatch)), **TOL_F32)
+    got, want = steps.make_eval_step(cfg)(p, batch), jax_steps.make_eval_step(jcfg)(jp, jbatch)
+    for k in ("loss", "ppl"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), **TOL_F32)
+
+
 def test_decode_steps_match_jax(setup):
     cfg, jcfg, jp, p = setup
     cache, jcache = vlm.init_cache(cfg, 2, 16, device="cpu"), jax_vlm.init_cache(jcfg, 2, 16)

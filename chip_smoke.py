@@ -4,7 +4,7 @@ port starts on the GPU and goes through its own kernels.
 
 Run from the repository root, with one CUDA card:
 
-    python3 chip_smoke.py                          # phases 1-14
+    python3 chip_smoke.py                          # phases 1-15
     python3 chip_smoke.py --qwen-jit-layers 48     # phase 12's qwen2.5-14b jit step at full depth
 
 Phases (any failure raises and the script exits non-zero):
@@ -275,6 +275,33 @@ Phases (any failure raises and the script exits non-zero):
    with and without biases at M 4, 512, 2000 and 2048 (timed at 4 and
    2048).
 
+15. Training at full size: forge-125m (12 layers, d 768, vocab 50257,
+   bf16, ``remat=True`` as its config says).  (a) The train CLI
+   in-process, ``repro_torch.launch.train.main(["--arch", "forge-125m",
+   "--batch", "8", "--seq", "128", "--steps", "12", "--ckpt-every", "6",
+   "--simulate-fault", "8", ...])``: one failure, one restore from the
+   step-6 checkpoint, the replayed steps 6-7's losses equal to the first
+   pass's (bitwise, or within 1e-3 relative where a backward op adds with
+   atomics), the CLI's "loss diverged" check; launches of the whole run
+   exact (14 steps).  (b) One step's launches: flash and fused linear run
+   in every block body twice a step (the forward, and the rerun in
+   backward under remat), ``wgmma`` at M = 1024 rows, and the plain
+   backward launches none.  (c) One step against impl="ref" on the same
+   params and batch: the loss and every gradient leaf within
+   SPREAD_FACTOR_BF16 x the spread of two kernel-free implementations
+   (:func:`within_spread`); at F32_CHECK_LAYERS layers in f32, elementwise
+   within rtol 2e-4 / atol 2e-5.  (d) Adafactor: 3 steps of
+   ``make_train_step(cfg, Adafactor().for_config(cfg))``, finite losses, every >= 2-D leaf
+   of the stacked view factored.  (e) Reported: median step ms and tok/s,
+   the host/device split of a step, the AdamW update's ms, checkpoint
+   save and restore seconds, ``max_memory_allocated``, beside the step's
+   bound (its FLOPs at the bf16 peak plus AdamW's bytes at the HBM rate).
+   Phase 2 holds each path kernel's gradient through its custom op (the
+   kernel forward, the registered plain backward) against autograd
+   through the plain version: fused linear (GELU with a bias, SiLU
+   without; f32 and bf16; M = 1024), flash (causal B8 H12 S128 D64, f32
+   and bf16) and the RG-LRU scan (B2 T128 D2560 f32).
+
 In phases 5-9, one decode and one prefill dispatch of the served
 programs under ``segment_jit`` must be bitwise equal to the same lowered
 programs under ``interpret`` (built without a second ``torch.export``),
@@ -484,6 +511,18 @@ ED_FLASH = (("enc", (2, 16, 1024, 1024, False)), ("cross", (2, 16, 256, 1024, Fa
 # prefill block norm, norm_h at B4 x H4 x S32 (hd 512), apply at
 # B2 x S1024, and a ragged d
 RMS_SHAPES = ((4, 1024), (128, 1024), (512, 512), (2048, 1024), (3, 1000))
+# phase 15: forge-125m trained through the train CLI at B8 x S128 (the
+# reference CLI's defaults), 12 steps with a checkpoint every 6 and one
+# fault at step 8; the fused-linear rows and the flash shape it gives the
+# kernels (B, H, KVH, S, D)
+TRAIN_ARGS = ["--arch", "forge-125m", "--batch", "8", "--seq", "128", "--steps", "12",
+              "--ckpt-every", "6", "--simulate-fault", "8"]
+TRAIN_ROWS = 8 * 128
+TRAIN_FLASH = (8, 12, 12, 128, 64)
+# phase 2's gradient rows: fused linear at the training M (K, N, act,
+# bias), flash at the training shape, the RG-LRU scan (B, T, D)
+GRAD_LINEARS = ((768, 3072, "gelu", True), (768, 3072, "silu", False))
+GRAD_RG = (2, 128, 2560)
 
 
 def log(msg):
@@ -656,10 +695,11 @@ def phase_fused_linear(dev, timer):
 
     # timing at the main path's shapes and dtype: one layer's three
     # launches (o-proj, FFN up + gelu, FFN down), at decode (M=4), in the
-    # contiguous fronts' B4 x S32 prefill cell (M=128) and in the
-    # full-sequence forward (M=4096)
+    # contiguous fronts' B4 x S32 prefill cell (M=128), in phase 15's
+    # training step (B8 x S128: M=1024) and in the full-sequence forward
+    # (M=4096)
     rows = {}
-    for M in (4, 128, 4096):
+    for M in (4, 128, TRAIN_ROWS, 4096):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
                    err=0.0)
         for K, N, act, has_b in ((768, 768, None, False), (768, 3072, "gelu", True),
@@ -1145,6 +1185,8 @@ def phase_flash(dev, timer):
         rows[name] = gqa_flash_row(g, dev, timer, B, H, KVH, S, D, name)
     for name, shape in ED_FLASH:
         rows[f"encdec_{name}"] = encdec_flash_row(g, dev, timer, *shape, name)
+    # phase 15's training forward: B8 H12 S128 D64, causal
+    rows["train"] = gqa_flash_row(g, dev, timer, *TRAIN_FLASH, "forge-125m train")
     return rows
 
 
@@ -4892,6 +4934,342 @@ def phase14_f32(dev):
     del params
 
 
+def phase_kernel_grads(dev):
+    """Phase 2's gradient rows: each path kernel's custom op under
+    ``torch.autograd.grad`` (the kernel forward, the registered backward
+    through the plain version) against autograd through the plain
+    version on the same inputs and output gradient, within the kernel
+    tolerances; each forward launches its kernel once, the backward none.
+    Comparison launches: they count on no path."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_linear as FL
+    from repro_torch.kernels import rg_lru as RG
+
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def grads(fn, inputs, gout):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, gout)
+
+    def hold(mod, kernel, plain, inputs, gout, names, dtype, what):
+        mod.LAUNCHES.reset()
+        got = grads(kernel, inputs, gout)
+        torch.cuda.synchronize()
+        check(mod.LAUNCHES.n == 1, f"{what}: {mod.LAUNCHES.n} launches in forward and backward")
+        want = grads(plain, inputs, gout)
+        errs = [assert_close(a, b, dtype, f"{what} d{n}") for a, b, n in zip(got, want, names)]
+        log(f"gradient {what} through the kernel's custom op: max abs err "
+            f"{', '.join(f'd{n} {e:.3e}' for n, e in zip(names, errs))} against autograd "
+            f"through the plain version")
+
+    M = TRAIN_ROWS
+    B, H, _, S, D = TRAIN_FLASH
+    for dtype in (torch.float32, torch.bfloat16):
+        for K, N, act, bias in GRAD_LINEARS:
+            x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dtype)
+            w = (torch.randn(K, N, generator=g, device=dev) / K ** 0.5).to(dtype)
+            b = (torch.randn(N, generator=g, device=dev) * 0.1).to(dtype) if bias else None
+            gy = torch.randn(M, N, generator=g, device=dev).to(dtype)
+            ins = [x, w] + ([b] if bias else [])
+            hold(FL, lambda x, w, *b: FL.fused_linear(x, w, *b, act=act),
+                 lambda x, w, *b: FL.fused_linear_plain(x, w, *b, act=act), ins, gy,
+                 ("x", "w", "b"), dtype,
+                 f"fused_linear {dtype} M={M} K={K} N={N} act={act} bias={bias}")
+        q, k, v = flash_inputs(g, dev, dtype, B, H, H, S, S, D)
+        go = torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
+        hold(FA, lambda q, k, v: FA.flash_attention(q, k, v, scale=D ** -0.5, causal=True),
+             lambda q, k, v: FA.flash_attention_plain(q, k, v, scale=D ** -0.5, causal=True),
+             [q, k, v], go, ("q", "k", "v"), dtype,
+             f"flash {dtype} B={B} H={H} S={S} D={D} causal")
+    Bl, T, Dl = GRAD_RG
+    x, a, h0 = rg_inputs(g, dev, torch.float32, Bl, T, Dl, True)
+    gh = torch.randn(Bl, T, Dl, generator=g, device=dev)
+    hold(RG, RG.rg_lru, RG.rg_lru_plain, [x, a, h0], gh, ("x", "a", "h0"), torch.float32,
+         f"rg_lru float32 B={Bl} T={T} D={Dl}")
+
+
+def phase15(dev):
+    """Phase 15: forge-125m trained at full size (bf16, 12 layers,
+    ``remat=True``) through the train CLI, then one step's launches, one
+    step against impl="ref" (bf16 by the spread rule, f32 at
+    F32_CHECK_LAYERS layers elementwise), 3 Adafactor steps, and the
+    step's numbers beside its bound.  Returns the launches of the CLI run
+    ("train") and of one step ("train_step")."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.launch import steps, train
+    from repro_torch.models import _forge
+
+    release_device_memory()
+    cfg = get_config("forge-125m")
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.n_layers == 12 and cfg.d_model == 768
+          and cfg.vocab == 50257, f"forge-125m is {cfg}")
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="forge_ckpt_") as ckpt_dir:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rc = train.main(TRAIN_ARGS + ["--ckpt-dir", ckpt_dir, "--device", "cuda"], out=out)
+        torch.cuda.synchronize()
+        cli = counts()
+        peak = torch.cuda.max_memory_allocated()
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"train CLI returned {rc}")
+    rep, ckpt = out["report"], out["ckpt"]
+    hist = [(h["step"], h["loss"]) for h in rep.history]
+    check(rep.failures == 1 and rep.restores == 1, f"failures {rep.failures}, restores "
+          f"{rep.restores}")
+    check([s for s, _ in hist] == list(range(8)) + list(range(6, 12)), f"steps run {hist}")
+    first, replay = [loss for _, loss in hist[6:8]], [loss for _, loss in hist[8:10]]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(first, replay))
+    check(rel <= 1e-3, f"replayed steps 6-7 losses {replay} vs the first pass's {first}")
+    losses = [loss for _, loss in hist]
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    log(f"train CLI {' '.join(TRAIN_ARGS)}: {len(hist)} steps run ({rep.failures} failure, "
+        f"{rep.restores} restore from step 6) in {cli_s:.1f} s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; replayed steps 6-7 "
+        f"{'bitwise equal to' if first == replay else f'within {rel:.2e} relative of'} the "
+        f"first pass ({first})")
+
+    # (b) one step's launches, counted exactly
+    (body,) = forge_bodies(cfg, "apply", (8, 128, cfg.d_model))
+    per_body = {"flash_attention": flash_nodes(body), "fused_linear": linear_nodes(body)}
+    runs = (1 + cfg.remat) * cfg.n_layers  # the forward, and the rerun in backward
+    _, optimizer, step_fn = train.build_trainer(cfg)
+    params, opt_state = out["state"]
+    data = TokenDataset(DataConfig(seq_len=128, global_batch=8, vocab=cfg.vocab, seed=0))
+
+    def batch(step):
+        return {k: torch.from_numpy(v).to(dev) for k, v in data.batch(step).items()}
+
+    b = batch(12)
+    reset_counts()
+    new_params, new_state, m = step_fn(params, opt_state, b)
+    torch.cuda.synchronize()
+    one = counts()
+    for name, n in per_body.items():
+        check(one[name] == n * runs, f"one train step: {name} launches {one[name]} != "
+              f"{n} a body x {runs} body runs")
+        check(cli[name] == n * runs * len(hist), f"train CLI: {name} launches {cli[name]} != "
+              f"{n * runs} a step x {len(hist)} steps")
+    check(one.variants["flash_attention"] == {"wgmma": per_body["flash_attention"] * runs}
+          and one.variants["fused_linear"] == {"wgmma": per_body["fused_linear"] * runs},
+          f"one train step: launches by variant {one.variants}")
+    check(not one["paged_attention"] and not one["rg_lru"] and not one["rms_norm"],
+          f"one train step launched {dict(one)}")
+    log(f"one train step (B8 x S128, remat): flash {one['flash_attention']} and fused_linear "
+        f"{one['fused_linear']} launches = ({per_body['flash_attention']} and "
+        f"{per_body['fused_linear']} a body) x {runs} body runs (12 forward, 12 reruns in "
+        f"backward); by variant {one.variants}; the whole CLI run: {cli['flash_attention']} "
+        f"and {cli['fused_linear']} over {len(hist)} steps")
+
+    # (e) the step's numbers
+    walls = [t * 1e3 for t in out["step_s"][1:]]  # the first step compiles the body
+    step_ms = float(np.median(walls))
+    toks = 8 * 128
+    flops = train_step_flops(cfg, params, 8, 128)
+    n_params = sum(p.numel() for p in pytree.tree_leaves(params))
+    adamw_bytes = n_params * (2 + 2 + 2 + 4 * 4)  # read p, g; write p; read/write m, v
+    bound_ms = (flops / BF16_FLOPS + adamw_bytes / HBM_BYTES_PER_S) * 1e3
+    split = train_split(step_fn, params, opt_state, b)
+    loss_fn = steps.make_loss_fn(cfg)
+    loss, grads = steps.loss_and_grads(loss_fn, params, b)
+    update_ms = cuda_ms(lambda: optimizer.update(grads, opt_state, params))
+    tm = ckpt.timings
+    log(f"train step forge-125m B8 x S128 (bf16, remat, AdamW; {n_params / 1e6:.1f}M params): "
+        f"median {step_ms:.1f} ms host wall over steps 2-{len(hist)} ({toks / step_ms * 1e3:.0f} "
+        f"tok/s); bound {bound_ms:.3f} ms = {flops / 1e12:.3f} TFLOP at the bf16 peak "
+        f"({flops / BF16_FLOPS * 1e3:.3f} ms) + {adamw_bytes / 1e9:.2f} GB of AdamW at the HBM "
+        f"rate ({adamw_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms), {step_ms / bound_ms:.1f}x; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB over the CLI run")
+    log(f"AdamW update: {update_ms:.3f} ms (CUDA events, mean of 10) against its byte bound "
+        f"{adamw_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    log(f"checkpoints of {sum(p.numel() * p.element_size() for p in pytree.tree_leaves(out['state'])) / 1e9:.2f} GB: "
+        f"snapshot to host {', '.join(f'{x:.2f}' for x in tm['snapshot_s'])} s, write "
+        f"{', '.join(f'{x:.2f}' for x in tm['write_s'])} s (its thread), restore "
+        f"{', '.join(f'{x:.2f}' for x in tm['restore_s'])} s")
+    log(f"train step host/device split: host wall {split['wall_ms']:.1f} ms a step, of it "
+        f"{split['enqueue_ms']:.1f} ms before the loss's read; under the profiler device kernels "
+        f"{split['device_ms']:.2f} ms a step (flash {split['flash_ms']:.3f} ms, fused_linear "
+        f"{split['fl_ms']:.3f} ms), {100 * split['busy']:.1f}% busy" if split["device_ms"]
+        else f"train step host wall {split['wall_ms']:.1f} ms; device time not measured (the "
+        f"profiler recorded no device time)")
+    del new_params, new_state, grads
+
+    # (c) one step against impl="ref": bf16 by the spread rule
+    got_loss, got = steps.loss_and_grads(loss_fn, params, b)
+    check(torch.equal(got_loss, loss), "two kernel steps' losses on the same inputs differ")
+    reset_counts()
+    ref_loss, ref = steps.loss_and_grads(steps.make_loss_fn(cfg, impl="ref"), params, b)
+    raw_loss, raw = steps.loss_and_grads(steps.make_loss_fn(cfg.with_(fuse="none"), impl="ref"),
+                                         params, b)
+    check(not any(counts().values()), "the impl='ref' train step launched a kernel")
+    within_spread("train loss", got_loss[None], ref_loss[None], raw_loss[None])
+    worst = (0.0, "")
+    for (path, gl), rl, wl in zip(pytree.tree_flatten_with_path(got)[0], pytree.tree_leaves(ref),
+                                  pytree.tree_leaves(raw)):
+        key = pytree.keystr(path)
+        r, spread = rel_l2(gl, rl), rel_l2(rl, wl)
+        bound = max(REL_L2_DEEP_BF16, SPREAD_FACTOR_BF16 * spread)
+        check(bool(torch.isfinite(gl).all()), f"grad {key}: non-finite values")
+        check(r <= bound, f"grad {key}: relative L2 {r:.3e} of impl='ref' above {bound:.3e} "
+              f"(spread {spread:.3e})")
+        worst = max(worst, (r / bound, f"{key} ({r:.3e} against {bound:.3e}, spread "
+                                        f"{spread:.3e})"))
+    log(f"bf16 gradients (every one of {len(pytree.tree_leaves(got))} leaves) within "
+        f"max({REL_L2_DEEP_BF16}, {SPREAD_FACTOR_BF16} x spread) relative L2 of impl='ref'; "
+        f"closest to its bound: {worst[1]}")
+    del got, ref, raw, params, opt_state, out
+    release_device_memory()
+
+    # (d) Adafactor: 3 steps on a model of the same widths
+    phase15_adafactor(dev, cfg, batch)
+    # (c) f32 at F32_CHECK_LAYERS layers, elementwise
+    phase15_f32(dev, cfg, batch)
+    return {"train": cli, "train_step": one}
+
+
+def train_step_flops(cfg, params, B, S):
+    """A train step's matmul and attention FLOPs: forward, backward (twice
+    the forward) and the block bodies' rerun under remat.  The products
+    are counted from the parameters' 2-D weights (q, k, v, o, the FFN),
+    the LM head from the embedding (tied), attention over the causal
+    pairs only."""
+    from torch.utils import _pytree as pytree
+
+    T = B * S
+    layer = sum(w.numel() for w in pytree.tree_leaves(params["blocks"][0]) if w.ndim == 2)
+    head = params["embed"].numel()
+    attn = 4.0 * B * cfg.n_heads * cfg.head_dim_ * S * (S + 1) / 2
+    blocks = cfg.n_layers * (2.0 * T * layer + attn)
+    fwd = blocks + 2.0 * T * head
+    return 3 * fwd + (blocks if cfg.remat else 0)
+
+
+def cuda_ms(fn, iters=10):
+    """Mean device span of ``fn`` between CUDA events, after a warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def train_split(step_fn, params, opt_state, batch, steps=3):
+    """Where a train step's time goes: host wall per step (ended by the
+    loss's read, as the CLI ends it), the part before that read, and,
+    under ``torch.profiler``, the device kernels' time per step (flash
+    and fused linear apart) and their share of the profiled wall."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    walls, enqueue = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt_state, batch)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        float(m["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            float(step_fn(params, opt_state, batch)[2]["loss"])
+        window = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+
+    def part(tag=""):
+        return sum(e.self_device_time_total for e in events if tag in e.key) / 1e3 / steps
+
+    device = part()
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  train step: {e.self_device_time_total / 1e3 / steps:.4f} ms/step, "
+            f"{e.count // steps} launches/step: {e.key[:90]}")
+    return {"wall_ms": float(np.median(walls)), "enqueue_ms": float(np.median(enqueue)),
+            "device_ms": device or None, "flash_ms": part("flash_"),
+            "fl_ms": part("fused_linear"), "busy": device * steps / window}
+
+
+def phase15_adafactor(dev, cfg, batch):
+    """Phase 15 (d): 3 steps of ``make_train_step(cfg, Adafactor().for_config(cfg))`` on
+    forge-125m at full size (fresh weights from seed 1): finite losses,
+    and every >= 2-D leaf of the stacked view (the JAX package's layout:
+    the 12 layers stacked) factored, its state vr + vc against the leaf's
+    bytes."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    from repro_torch.optim import Adafactor
+    from repro_torch.optim.adafactor import stack_layers
+
+    params = get_model(cfg).init(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    opt = Adafactor().for_config(cfg)
+    state = opt.init(params)
+    step = steps.make_train_step(cfg, opt)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(3):
+        params, state, m = step(params, state, batch(i))
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(x) for x in losses), f"Adafactor losses {losses}")
+    view = pytree.tree_leaves(stack_layers(params, opt.stacked))
+    n2 = 0
+    fact = leaf = 0
+    for p, vr, vc, v in zip(view, *(pytree.tree_leaves(t) for t in (state.vr, state.vc, state.v))):
+        if p.ndim >= 2:
+            check(v.numel() == 1 and vr.shape == p.shape[:-1]
+                  and vc.shape == p.shape[:-2] + p.shape[-1:],
+                  f"a {tuple(p.shape)} leaf's state is not factored: vr {tuple(vr.shape)}, vc "
+                  f"{tuple(vc.shape)}, v {tuple(v.shape)}")
+            n2 += 1
+            fact += (vr.numel() + vc.numel()) * 4
+            leaf += p.numel() * p.element_size()
+    check(n2 == len(view) - 2, f"{n2} of {len(view)} view leaves are >= 2-D")
+    log(f"Adafactor (stacked view, {opt.stacked}): 3 steps in {time.perf_counter() - t0:.1f} s, "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; all {n2} >= 2-D leaves factored: "
+        f"vr + vc {fact / 1e6:.2f} MB against the leaves' {leaf / 1e9:.3f} GB")
+    del params, state
+
+
+def phase15_f32(dev, cfg, batch):
+    """Phase 15 (c), f32: forge-125m at full width and F32_CHECK_LAYERS
+    layers in f32, one step's loss and every gradient leaf with the
+    kernels elementwise within rtol 2e-4 / atol 2e-5 of impl="ref"."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+
+    cfg32 = cfg.with_(dtype="float32", n_layers=F32_CHECK_LAYERS)
+    params = get_model(cfg32).init(cfg32, torch.Generator(device=dev).manual_seed(2), dev)
+    b = batch(0)
+    loss, got = steps.loss_and_grads(steps.make_loss_fn(cfg32), params, b)
+    ref_loss, ref = steps.loss_and_grads(steps.make_loss_fn(cfg32, impl="ref"), params, b)
+    assert_close(loss[None], ref_loss[None], torch.float32, "f32 train loss")
+    worst = 0.0
+    for (path, gl), rl in zip(pytree.tree_flatten_with_path(got)[0], pytree.tree_leaves(ref)):
+        worst = max(worst, assert_close(gl, rl, torch.float32,
+                                        f"f32 grad {pytree.keystr(path)}"))
+    log(f"f32 forge-125m at {F32_CHECK_LAYERS} layers (full width): loss {float(loss):.6f} vs "
+        f"impl='ref' {float(ref_loss):.6f}; every gradient leaf within rtol "
+        f"{TOL_F32['rtol']} atol {TOL_F32['atol']} (max abs err {worst:.3e})")
+    del params, got, ref
+
+
 def main(argv=None):
     import argparse
 
@@ -4937,9 +5315,9 @@ def main(argv=None):
 
     timed("phase 1 (build)", phase_build)
     timer = Timer(dev)
-    fl_rows, fa_rows, pa_rows, rg_rows, rms_rows = timed("phase 2", lambda: (
+    fl_rows, fa_rows, pa_rows, rg_rows, rms_rows, _ = timed("phase 2", lambda: (
         phase_fused_linear(dev, timer), phase_flash(dev, timer), phase_paged(dev, timer),
-        phase_rg_lru(dev, timer), phase_rms_norm(dev, timer)))
+        phase_rg_lru(dev, timer), phase_rms_norm(dev, timer), phase_kernel_grads(dev)))
     launches = timed("phases 3-4", phase_main_path, dev)
     launches["paged"] = timed("phase 5", phase_paged_serve, dev)
     release_device_memory()
@@ -4955,6 +5333,7 @@ def main(argv=None):
     launches.update(timed("phase 12 on forge-125m", phase12_forge, dev))
     launches.update(timed("phase 13", phase13, dev))
     launches.update(timed("phase 14", phase14, dev))
+    launches.update(timed("phase 15", phase15, dev))
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
@@ -5020,13 +5399,15 @@ def main(argv=None):
              "vl_eager": fl_rows[("vl", 4)], "vl_serve": fl_rows[("vl", 4)],
              "vl_apply": fl_rows[("vl", 1024)], "kimi_apply": fl_rows[("kimi", 256)],
              "kimi_eager": fl_rows[("kimi", 4)], "encdec_apply": fl_rows[("encdec", 2048)],
-             "encdec_serve": fl_rows[("encdec", 4)]}),
+             "encdec_serve": fl_rows[("encdec", 4)], "train": fl_rows[TRAIN_ROWS],
+             "train_step": fl_rows[TRAIN_ROWS]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
             {"apply": fa_rows["apply"], "qwen_apply": fa_rows["qwen"],
              "autotune_forge": fa_rows["apply"], "autotune_qwen": fa_rows["qwen"],
              "phi_apply": fa_rows["phi"], "vl_apply": fa_rows["vl"],
              "kimi_apply": fa_rows["kimi"], "encdec_apply": fa_rows["encdec_enc"],
-             "encdec_serve": fa_rows["encdec_decode"]}),
+             "encdec_serve": fa_rows["encdec_decode"], "train": fa_rows["train"],
+             "train_step": fa_rows["train"]}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
             {"paged": pa_rows["served"], "qwen_paged": pa_rows["qwen_served"],
              "phi_paged": pa_rows["phi_served"]}),
@@ -5046,6 +5427,7 @@ def main(argv=None):
                                "B1-H32-KVH8-S1024-D128": timing(fa_rows["phi"]),
                                "B1-H64-KVH8-S1024-D128": timing(fa_rows["vl"]),
                                "B1-H64-KVH8-S256-D112": timing(fa_rows["kimi"]),
+                               "B8-H12-S128-D64-train": timing(fa_rows["train"]),
                                **{f"B{b}-H{h}-Sq{sq}-Sk{sk}-D64-"
                                   f"{'causal' if c else 'noncausal'}": timing(
                                       fa_rows[f"encdec_{name}"])
@@ -5058,6 +5440,7 @@ def main(argv=None):
                                                      ("encdec", "seamless-m4t-large-v2",
                                                       ED_FL_ROWS))
                                for M in ms}
+    kernels[0]["per_shape"]["forge-125m-train-layer-M1024"] = timing(fl_rows[TRAIN_ROWS])
     kernels[2]["head_dims"] = list(PA.HEAD_DIMS)
     kernels[2]["per_shape"] = {"B4-H12-D64-served": timing(pa_rows["served"]),
                                "B8-H12-D64-pos2047": timing(pa_rows["long"]),

@@ -15,6 +15,13 @@ and returns the port's parameter dict:
 * leaves that are one numpy object (a tied embedding / LM head) become
   ONE tensor, so the tie survives into Phase-1 capture.
 
+Optimizer states: ``adamw_state_from_numpy`` takes the JAX package's
+``AdamWState`` (``mu`` and ``nu`` are laid out like the params, so they
+unstack as the params do); ``adafactor_state_from_numpy`` its
+``AdafactorState``, whose ``vr`` / ``vc`` / ``v`` keep the JAX package's
+stacked layer lists, the layout the port's Adafactor keeps its state in
+(see ``optim/adafactor.py``).
+
 The port imports no JAX: callers hand over numpy, never jax arrays.
 """
 from __future__ import annotations
@@ -33,7 +40,8 @@ def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
-    return t.to(device)
+    # np.ascontiguousarray gives a 0-d array one dimension
+    return t.reshape(a.shape).to(device)
 
 
 #: the layer lists: the decoder-only families' ``blocks``, the
@@ -81,3 +89,31 @@ def _leaves(d):
 def _index(d, i):
     return {k: (_index(v, i) if isinstance(v, dict) else v[i].contiguous())
             for k, v in d.items()}
+
+
+def adamw_state_from_numpy(state: Any, device: Union[str, torch.device] = "cuda"):
+    """The JAX package's ``AdamWState`` (numpy leaves) as the port's."""
+    from .optim import AdamWState
+
+    device = resolve_device(device)
+    return AdamWState(step=_to_tensor(state.step, device),
+                      mu=params_from_numpy(state.mu, device),
+                      nu=params_from_numpy(state.nu, device))
+
+
+def adafactor_state_from_numpy(state: Any, device: Union[str, torch.device] = "cuda"):
+    """The JAX package's ``AdafactorState`` (numpy leaves) as the port's:
+    the same tree, stacked layer lists included."""
+    from .optim import AdafactorState
+
+    device = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return _to_tensor(x, device)
+
+    return AdafactorState(step=_to_tensor(state.step, device), vr=conv(state.vr),
+                          vc=conv(state.vc), v=conv(state.v))

@@ -44,16 +44,52 @@ def _check_impl(impl: Optional[str]) -> None:
         raise ValueError(f"impl must be one of {_VALID_IMPLS}, got {impl!r}")
 
 
+#: marks a tensor argument of an opaque op, kept by ``save_for_backward``
+_SAVED = object()
+
+
 def _opaque_op(qualname: str, fake: Optional[Callable]) -> Callable[[Callable], Callable]:
     """Register ``fn`` as the custom op ``qualname`` with the fake
     implementation ``fake`` (default: ``fn`` itself, run on fake
     tensors): a ``torch.export`` capture then records a call as ONE node
     and never looks inside.  ``fn`` must be annotated (the op's schema is
-    read from its signature) and must not return a view of an input."""
+    read from its signature) and must not return a view of an input.
+
+    The op's gradient is autograd through ``fn`` itself, rerun on the
+    saved inputs in backward (as ``jax.grad`` differentiates the JAX
+    package's ``forge_op`` and ``lax.scan`` bodies): training goes
+    through the opaque node, inference pays nothing for it."""
 
     def deco(fn: Callable) -> Callable:
         op = torch.library.custom_op(qualname, mutates_args=())(fn)
         op.register_fake(fake or fn)
+
+        def setup_context(ctx, inputs, output):
+            ctx.args = [_SAVED if isinstance(a, torch.Tensor) else a for a in inputs]
+            ctx.save_for_backward(*(a for a in inputs if isinstance(a, torch.Tensor)))
+
+        def backward(ctx, *grads):
+            args, saved = list(ctx.args), iter(ctx.saved_tensors)
+            live = []
+            for i, a in enumerate(args):
+                if a is _SAVED:
+                    t = next(saved).detach()
+                    if t.is_floating_point():
+                        t.requires_grad_(True)
+                        live.append(i)
+                    args[i] = t
+            with torch.enable_grad():
+                outs = fn(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+            got = torch.autograd.grad([o for o, _ in pairs], [args[i] for i in live],
+                                      [g for _, g in pairs], allow_unused=True)
+            out = [None] * len(args)
+            for i, g in zip(live, got):
+                out[i] = g
+            return tuple(out)
+
+        op.register_autograd(backward, setup_context=setup_context)
         return op
 
     return deco

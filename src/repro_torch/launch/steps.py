@@ -1,5 +1,11 @@
-"""Step-function builders shared by the serve fronts and the eval path.
+"""Step-function factories shared by the train CLI, the serve fronts and
+the eval path.
 
+* ``make_train_step(cfg, optimizer=None)`` -> ``(params, opt_state,
+  batch) -> (params, opt_state, metrics)``: forward, cross-entropy loss,
+  ``torch.autograd`` backward and the optimizer update
+  (``default_optimizer(cfg)``: AdamW, Adafactor above
+  ``ADAFACTOR_THRESHOLD`` parameters).
 * ``make_forward(cfg)`` / ``make_loss_fn(cfg)`` / ``make_eval_step(cfg)`` /
   ``make_prefill_step(cfg)`` -> the full-sequence forward over a batch
   dict (``tokens``; ``frames`` for the encoder-decoder family,
@@ -24,6 +30,11 @@ from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
 from ..models import get_model, losses
+from ..optim import Adafactor, AdamW, stacked_keys
+
+#: params above this use Adafactor (factored states; the JAX package's
+#: DESIGN §7)
+ADAFACTOR_THRESHOLD = 100e9
 
 
 def dealias_tree(tree):
@@ -78,33 +89,83 @@ def blend_cache_rows(cache, axes_spec, row_tree, rows: Sequence[int]):
     return pytree.tree_unflatten(out, spec)
 
 
-def make_forward(cfg: ModelConfig) -> Callable:
+def default_optimizer(cfg: ModelConfig):
+    if cfg.param_count() > ADAFACTOR_THRESHOLD:
+        return Adafactor(lr=1e-3).for_config(cfg)
+    return AdamW(lr=3e-4)
+
+
+def make_forward(cfg: ModelConfig, impl: Optional[str] = None) -> Callable:
     """``(params, batch) -> (B, S, vocab) logits``: the family's ``apply``
     on ``batch["tokens"]`` (with ``batch["frames"]`` for the
-    encoder-decoder family, ``batch["patches"]`` for the VLM)."""
+    encoder-decoder family, ``batch["patches"]`` for the VLM).  ``impl``
+    reaches the Forge-compiled bodies (``"ref"``: the plain versions)."""
     model = get_model(cfg)
     if cfg.family == "encdec":
         def fwd(params, batch):
-            return model.apply(params, batch["frames"], batch["tokens"], cfg)
+            return model.apply(params, batch["frames"], batch["tokens"], cfg, impl=impl)
     elif cfg.family == "vlm":
         def fwd(params, batch):
             return model.module.apply(params, batch["tokens"], cfg,
-                                      patch_embeds=batch["patches"])
+                                      patch_embeds=batch["patches"], impl=impl)
     else:
         def fwd(params, batch):
-            return model.apply(params, batch["tokens"], cfg)
+            return model.apply(params, batch["tokens"], cfg, impl=impl)
     return fwd
 
 
-def make_loss_fn(cfg: ModelConfig) -> Callable:
+def make_loss_fn(cfg: ModelConfig, impl: Optional[str] = None) -> Callable:
     """``(params, batch) -> loss``: the mean fp32 cross-entropy of the
     forward's logits against ``batch["labels"]``."""
-    fwd = make_forward(cfg)
+    fwd = make_forward(cfg, impl)
 
     def loss_fn(params, batch):
         return losses.cross_entropy(fwd(params, batch), batch["labels"])
 
     return loss_fn
+
+
+def loss_and_grads(loss_fn: Callable, params, batch):
+    """``(loss, grads)``: the loss at ``params`` and its gradient, a tree
+    like ``params`` (``jax.value_and_grad``).  Each leaf is differentiated
+    as its own input, as JAX differentiates pytree leaves; a leaf the
+    loss does not reach gets zeros."""
+    flat, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    with torch.enable_grad():
+        loss = loss_fn(pytree.tree_unflatten(leaves, spec), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    return loss.detach(), pytree.tree_unflatten(grads, spec)
+
+
+def make_train_step(cfg: ModelConfig, optimizer=None) -> Callable:
+    """``(params, opt_state, batch) -> (params, opt_state, {"loss"})``.
+
+    Forward and loss (the Forge-compiled bodies, rematerialised in
+    backward when ``cfg.remat``), ``torch.autograd`` backward and
+    ``optimizer.update`` (default: :func:`default_optimizer`).  An
+    Adafactor must update the layer lists the JAX package stacks for
+    ``cfg`` (``Adafactor().for_config(cfg)``, see ``optim/adafactor.py``;
+    its ``init`` gives the state in that layout): another raises.  The step is
+    out of place: it returns new parameter and state tensors and writes
+    none of its inputs (the JAX package donates them to ``jax.jit``
+    instead).  ``batch`` holds ``tokens`` and ``labels`` tensors on the
+    parameters' device (and ``frames`` / ``patches`` for the
+    encoder-decoder and VLM families); the loss is a 0-d fp32 tensor."""
+    optimizer = optimizer or default_optimizer(cfg)
+    if isinstance(optimizer, Adafactor) and optimizer.stacked != stacked_keys(cfg):
+        raise ValueError(f"Adafactor updates {optimizer.stacked} stacked, the JAX package "
+                         f"stacks {stacked_keys(cfg)} for {cfg.name}: pass "
+                         f"optimizer.for_config(cfg)")
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(loss_fn, params, batch)
+        new_params, new_opt = optimizer.update(grads, opt_state, params)
+        return new_params, new_opt, {"loss": loss.float()}
+
+    return train_step
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:

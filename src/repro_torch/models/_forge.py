@@ -30,6 +30,7 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch.utils import _pytree as pytree
 
 _CACHE: Dict[str, Any] = {}  # key -> CompiledModule
@@ -67,16 +68,41 @@ def forge_body(
     enabled: bool = True,
     impl: Optional[str] = None,
     config: Optional[Any] = None,
+    remat: bool = False,
 ) -> Callable:
-    """Return the Forge-compiled body (or ``raw_fn`` when disabled).
+    """Return the Forge-compiled body (or ``raw_fn`` when disabled),
+    rematerialised in backward when ``remat`` (:func:`rematerialized`).
 
     ``config`` is the :class:`~repro_torch.core.passes.PipelineConfig`
     (default: the paper's pipeline); ``impl``, when given, replaces its
     ``impl``, which is forwarded into the fused nodes: None dispatches by
     device (kernels on the card), ``"ref"`` runs their plain versions.
     """
-    if not enabled:
-        return raw_fn
+    body = _compiled(raw_fn, key_prefix, example_args, impl, config) if enabled else raw_fn
+    return rematerialized(body) if remat else body
+
+
+def rematerialized(body: Callable) -> Callable:
+    """``body`` under ``torch.utils.checkpoint`` (``use_reentrant=False``),
+    as ``jax.checkpoint`` wraps the reference's bodies: a call that
+    builds a graph for backward keeps only the body's inputs, and
+    backward runs the body again (the same compiled module: no second
+    compile) before differentiating it.  A call that builds no graph
+    (grad mode off, as on every serve path, or no input requiring a
+    gradient, as in a capture) is the body's own call: remat changes
+    nothing there."""
+
+    def remat_body(*args):
+        if torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad for t in pytree.tree_leaves(args)):
+            return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
+        return body(*args)
+
+    return remat_body
+
+
+def _compiled(raw_fn: Callable, key_prefix: str, example_args: Tuple[Any, ...],
+              impl: Optional[str], config: Optional[Any]) -> Callable:
     if config is None:
         pipe_key = _PIPELINE_KEYS.get(impl)
         if pipe_key is None:

@@ -143,7 +143,7 @@ def _body(cfg: ModelConfig, mode: str, raw, example_args, impl: Optional[str]):
     """The Forge-compiled ``mode`` body ("enc" | "dec"), keyed by the whole
     config: bf16, f32 and smoke bodies never share a program."""
     return forge_body(lambda *a: raw(*a, cfg=cfg), f"{config_key(cfg)}/{mode}", example_args,
-                      enabled=(cfg.fuse == "forge"), impl=impl)
+                      enabled=(cfg.fuse == "forge"), impl=impl, remat=cfg.remat)
 
 
 # --------------------------------------------------------------------------

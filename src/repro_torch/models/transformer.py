@@ -185,7 +185,8 @@ def _body_fn(cfg: ModelConfig, mode: str, example_args, impl: Optional[str] = No
 
     # the whole config keys the body: two configs can share a name and
     # every parameter shape yet split heads differently
-    return forge_body(raw, f"{config_key(cfg)}/{mode}", example_args, enabled=enabled, impl=impl)
+    return forge_body(raw, f"{config_key(cfg)}/{mode}", example_args, enabled=enabled, impl=impl,
+                      remat=cfg.remat)
 
 
 # --------------------------------------------------------------------------

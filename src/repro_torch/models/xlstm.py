@@ -473,7 +473,8 @@ def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             # the whole config keys the body (see transformer._body_fn)
             bodies[kind] = forge_body(lambda q, x_, _b=base: _b(q, x_, cfg),
                                       f"{cfg!r}/{kind}", (p, x),
-                                      enabled=(cfg.fuse == "forge"), impl=impl)
+                                      enabled=(cfg.fuse == "forge"), impl=impl,
+                                      remat=cfg.remat)
         x = bodies[kind](p, x)
     return _lm_head(params, x, cfg)
 

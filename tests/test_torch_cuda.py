@@ -1404,3 +1404,107 @@ def test_encdec_compiled_step_on_card(cuda_device):
         torch.testing.assert_close(got[2], eager[2], **TOL_F32)
         caches = {"seg": got[1], "interp": want[1], "eager": eager[1]}
         tok = got[0].long()
+
+
+def _grads(fn, inputs, gout):
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, gout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,bias", [("gelu", True), ("silu", False)])
+def test_fused_linear_grad_on_card(cuda_device, dtype, act, bias):
+    """The gradient through the fused-linear custom op (the kernel
+    forward at the training step's M = 1024, the registered plain
+    backward) against autograd through the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    M, K, N = 1024, 768, 3072
+    x = (torch.randn(M, K, generator=g, device=cuda_device) * 0.5).to(dtype)
+    w = (torch.randn(K, N, generator=g, device=cuda_device) / K ** 0.5).to(dtype)
+    ins = [x, w] + ([torch.randn(N, generator=g, device=cuda_device).to(dtype) * 0.1]
+                    if bias else [])
+    gy = torch.randn(M, N, generator=g, device=cuda_device).to(dtype)
+    FL.LAUNCHES.reset()
+    got = _grads(lambda x, w, *b: FL.fused_linear(x, w, *b, act=act), ins, gy)
+    torch.cuda.synchronize()
+    assert FL.LAUNCHES.n == 1
+    want = _grads(lambda x, w, *b: FL.fused_linear_plain(x, w, *b, act=act), ins, gy)
+    tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_grad_on_card(cuda_device, dtype):
+    """The gradient through the flash custom op at the training shape
+    (causal B8 H12 S128 D64) against autograd through the plain version."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(22, 8, 12, 12, 128, 128, 64))
+    go = torch.randn(8, 12, 128, 64, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device).manual_seed(3)).to(dtype)
+    FA.LAUNCHES.reset()
+    got = _grads(lambda q, k, v: FA.flash_attention(q, k, v, scale=0.125, causal=True),
+                 [q, k, v], go)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES.n == 1
+    want = _grads(lambda q, k, v: FA.flash_attention_plain(q, k, v, scale=0.125, causal=True),
+                  [q, k, v], go)
+    tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_rg_lru_grad_on_card(cuda_device):
+    """The gradient through the RG-LRU scan's custom op (B2 T128 D2560
+    f32) against autograd through the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    B, T, D = 2, 128, 2560
+    x = torch.randn(B, T, D, generator=g, device=cuda_device)
+    a = torch.rand(B, T, D, generator=g, device=cuda_device) * 0.699 + 0.3
+    h0 = torch.randn(B, D, generator=g, device=cuda_device)
+    gh = torch.randn(B, T, D, generator=g, device=cuda_device)
+    RG.LAUNCHES.reset()
+    got = _grads(RG.rg_lru, [x, a, h0], gh)
+    torch.cuda.synchronize()
+    assert RG.LAUNCHES.n == 1
+    want = _grads(RG.rg_lru_plain, [x, a, h0], gh)
+    for a_, b_ in zip(got, want):
+        torch.testing.assert_close(a_, b_, **TOL_F32)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card(cuda_device):
+    """Two train steps of forge-125m's layout (3 layers, full width, bf16,
+    remat) on the card: each step launches flash and fused linear in
+    every block body twice (the forward and the rerun in backward), the
+    loss is finite, and the step's gradients match impl="ref"'s within
+    the bf16 model tolerance by relative L2."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("forge-125m").with_(n_layers=3)
+    assert cfg.remat
+    params = get_model(cfg).init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                                 cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (8, 129), generator=g, device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamW()
+    state = opt.init(params)
+    step = steps.make_train_step(cfg, opt)
+    losses = []
+    for _ in range(2):
+        _reset_counts()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        assert FA.LAUNCHES.n == 2 * cfg.n_layers and FL.LAUNCHES.n == 6 * cfg.n_layers
+        assert FA.LAUNCHES.variants == {"wgmma": 2 * cfg.n_layers}
+    assert all(np.isfinite(losses)) and int(state.step) == 2
+    _, got = steps.loss_and_grads(steps.make_loss_fn(cfg), params, batch)
+    _, want = steps.loss_and_grads(steps.make_loss_fn(cfg, impl="ref"), params, batch)
+    for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel < 0.1, rel

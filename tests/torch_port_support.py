@@ -109,3 +109,59 @@ def port_paged_run(cfg, params, **kw):
     from repro_torch.launch.serve import BatchedServer, Request, SlotScheduler
 
     return run_paged_scheduler(BatchedServer, SlotScheduler, Request, cfg, params, **kw)
+
+
+# --------------------------------------------------------------------------
+# the training path (tests/test_torch_train*.py)
+# --------------------------------------------------------------------------
+
+#: one smoke config of each family the train step is held on
+TRAIN_ARCHS = ["forge-125m", "qwen2.5-14b", "recurrentgemma-2b", "xlstm-350m",
+               "phi3.5-moe-42b-a6.6b", "seamless-m4t-large-v2", "qwen2-vl-72b"]
+TRAIN_B, TRAIN_S, TRAIN_FRAMES, TRAIN_PATCHES = 2, 8, 6, 4
+
+
+def train_batch_np(cfg, seed=0, step=0):
+    """A training batch from ``TokenDataset`` (plus N(0, 1) frames for the
+    encoder-decoder family; patches ahead of the text for the VLM, whose
+    positions carry no label)."""
+    from repro_torch.data import DataConfig, TokenDataset
+
+    B = TRAIN_B
+    b = TokenDataset(DataConfig(seq_len=TRAIN_S, global_batch=B, vocab=cfg.vocab,
+                                seed=seed)).batch(step)
+    rng = np.random.default_rng(100 + step)
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal((B, TRAIN_FRAMES, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        b["patches"] = rng.standard_normal((B, TRAIN_PATCHES, cfg.d_model)).astype(np.float32)
+        b["labels"] = np.concatenate([np.full((B, TRAIN_PATCHES), -1, np.int32), b["labels"]], 1)
+    return b
+
+
+def train_batch_torch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def train_batch_jax(b):
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+class TrainSetup:
+    """``arch``'s smoke config in f32 in both packages, the JAX package's
+    parameters and the port's (bridged)."""
+
+    def __init__(self, arch):
+        from repro.configs import get_config as jax_get_config
+        from repro_torch.configs import get_config
+
+        self.arch = arch
+        self.cfg = get_config(arch, smoke=True).with_(dtype="float32")
+        self.jcfg = jax_get_config(arch, smoke=True).with_(dtype="float32")
+        self.jp = jax_params(self.jcfg)
+        self.p = port_params(self.jp)
+
+    def to_port(self, jtree):
+        return port_params(jtree)

@@ -4,7 +4,7 @@ port starts on the GPU and goes through its own kernels.
 
 Run from the repository root, with one CUDA card:
 
-    python3 chip_smoke.py                          # phases 1-15
+    python3 chip_smoke.py                          # phases 1-16
     python3 chip_smoke.py --qwen-jit-layers 48     # phase 12's qwen2.5-14b jit step at full depth
 
 Phases (any failure raises and the script exits non-zero):
@@ -301,6 +301,27 @@ Phases (any failure raises and the script exits non-zero):
    through the plain version: fused linear (GELU with a bias, SiLU
    without; f32 and bf16; M = 1024), flash (causal B8 H12 S128 D64, f32
    and bf16) and the RG-LRU scan (B2 T128 D2560 f32).
+
+16. The distributed layer (``repro_torch.distrib``, ``launch/mesh.py``,
+   ``runtime/compress.py``, ``launch/dryrun.py``).  (a) A one-rank NCCL
+   group on the card and ``make_host_mesh()`` as a (1, 1) (data, model)
+   mesh; forge-125m at full size (12 layers, d 768, bf16) placed by
+   ``plan_for(cfg, mesh)`` as DTensors (``distribute_tree``): ``apply``
+   at B4 x S1024 and one train step (B8 x S128, remat, AdamW) through the
+   Forge-compiled bodies on interpret, the kernels reached through
+   DTensor (their sharding strategies, ``register_kernel_shardings``):
+   launches equal to the unplanned run's (12 flash + 36 fused linear;
+   24 + 72), logits and loss bitwise the unplanned run's.  (b)
+   ``compressed_all_reduce`` of that step's gradients (124M elements, in
+   fp32) on the NCCL group: every 256-element block within its amax / 254
+   of the plain ``all_reduce``; the compression ratio, quantize and
+   dequantize ms.  (c) ``python -m repro_torch.launch.dryrun --arch
+   qwen2.5-14b --shape train_4k`` (``run_cell`` on pod16x16: a ``fake``
+   group of 256 ranks, fake tensors, the card hidden from it), started in
+   a subprocess beside phase 1 and read here: per-device bytes against
+   80 GB, the three roofline terms (H100 constants), the collectives'
+   count and MB by kind.  A multi-rank group stays on the CPU (gloo, the
+   tests): NCCL holds one rank per GPU.
 
 In phases 5-9, one decode and one prefill dispatch of the served
 programs under ``segment_jit`` must be bitwise equal to the same lowered
@@ -5270,6 +5291,207 @@ def phase15_f32(dev, cfg, batch):
     del params, got, ref
 
 
+# phase 16: the distributed layer.  (a) forge-125m under plan_for on a
+# one-rank NCCL mesh; (c) one production dry-run cell, in a subprocess
+DRYRUN_CELL = ("qwen2.5-14b", "train_4k")
+CARD_BYTES = 80e9  # H100 80GB HBM3
+
+
+def start_dryrun():
+    """Phase 16 (c): ``python -m repro_torch.launch.dryrun --arch
+    qwen2.5-14b --shape train_4k`` (``run_cell`` on pod16x16 with its
+    calibration) in a subprocess started now: its ``fake`` group of 256
+    ranks must not meet phase 16's NCCL group, and its work is all on the
+    CPU (fake tensors; no card visible to it), so it runs beside the other
+    phases.  Returns ``(runs, path of its JSON record)``."""
+    out = tempfile.mkdtemp(prefix="forge-dryrun-", dir=os.environ.get("TMPDIR"))
+    path = os.path.join(out, "dryrun.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_CELL[0],
+            "--shape", DRYRUN_CELL[1], "--out", path]
+    return CliRuns("dryrun", [argv], env), path
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase16(dev, dryrun):
+    """Phase 16: the distributed layer on the card.  (a) A one-rank NCCL
+    group, ``make_host_mesh()`` as (1, 1), and forge-125m at full size
+    (12 layers, d 768, bf16) placed by ``plan_for(cfg, mesh)`` as
+    DTensors: ``apply`` at B4 x S1024 and one train step (B8 x S128,
+    remat, AdamW) through the Forge-compiled bodies on interpret, each
+    launching what the unplanned run launches (12 flash + 36 fused
+    linear; 24 + 72), logits and loss bitwise the unplanned run's.  (b)
+    ``compressed_all_reduce`` of that step's gradients on the NCCL group,
+    within each block's amax / 254 of the plain ``all_reduce``; the
+    compression ratio and the quantize / dequantize ms.  (c) The dry run
+    of qwen2.5-14b train_4k on pod16x16 (``start_dryrun``): per-device
+    bytes against the card's 80 GB, the three roofline terms, and the
+    collectives' count and MB by kind.  Returns the launches of the
+    planned ``apply`` and step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.distrib.sharding import distribute_tree, plan_for, replicate_plain
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.runtime import compressed_all_reduce, compression_ratio, quantize_int8
+    from repro_torch.runtime.compress import BLOCK, dequantize_int8
+
+    release_device_memory()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh()
+        check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+              and dist.get_backend() == "nccl", f"host mesh {mesh} on {dist.get_backend()}")
+        cfg = get_config("forge-125m")
+        model = get_model(cfg)
+        params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        plan = plan_for(cfg, mesh)
+        log(plan.summary())
+        dparams = distribute_tree(params, plan.params_shardings(params))
+        tokens = torch.randint(0, cfg.vocab, (4, 1024), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(3))
+        dtokens = distribute_tree(tokens, plan.batch_shardings(tokens))
+        layout = sorted({str(t.placements) for t in pytree.tree_leaves(dparams)})
+        log(f"forge-125m placed by the plan: {len(pytree.tree_leaves(dparams))} DTensor "
+            f"leaves, placements {layout}; tokens {dtokens.placements}")
+
+        # (a) apply: the unplanned run (a comparison), then the planned path
+        with torch.no_grad():
+            ref = model.apply(params, tokens, cfg)
+            torch.cuda.synchronize()
+            reset_counts()
+            with replicate_plain():
+                t0 = time.perf_counter()
+                out = model.apply(dparams, dtokens, cfg)
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
+            planned_apply = counts()
+            with replicate_plain():
+                t0 = time.perf_counter()
+                model.apply(dparams, dtokens, cfg)
+                torch.cuda.synchronize()
+                apply_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            model.apply(params, tokens, cfg)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        check(isinstance(out, DTensor), f"planned apply returned {type(out)}")
+        check(planned_apply["flash_attention"] == cfg.n_layers
+              and planned_apply["fused_linear"] == 3 * cfg.n_layers,
+              f"planned apply launched {dict(planned_apply)}")
+        check(torch.equal(out.full_tensor(), ref), "planned apply logits differ from the "
+              f"unplanned run's (max abs {float((out.full_tensor() - ref).abs().max()):.3e})")
+        log(f"planned apply B4 x S1024: flash {planned_apply['flash_attention']} and "
+            f"fused_linear {planned_apply['fused_linear']} launches, logits {out.placements} "
+            f"bitwise the unplanned run's; first call {first_ms:.1f} ms (its body compiles), "
+            f"steady {apply_ms:.1f} ms host wall against {plain_ms:.1f} ms unplanned")
+
+        # (a) one train step
+        _, optimizer, step_fn = train.build_trainer(cfg)
+        opt_state = optimizer.init(params)
+        dopt = distribute_tree(opt_state, plan.opt_state_shardings(opt_state, params))
+        data = TokenDataset(DataConfig(seq_len=128, global_batch=8, vocab=cfg.vocab, seed=0))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+        dbatch = distribute_tree(batch, plan.batch_shardings(batch))
+        p1, o1, m1 = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        reset_counts()
+        with replicate_plain():
+            t0 = time.perf_counter()
+            p2, o2, m2 = step_fn(dparams, dopt, dbatch)
+            loss = m2["loss"].full_tensor()
+            torch.cuda.synchronize()
+            step_first_ms = (time.perf_counter() - t0) * 1e3
+        planned_step = counts()
+        runs = (1 + cfg.remat) * cfg.n_layers
+        check(planned_step["flash_attention"] == runs and planned_step["fused_linear"] == 3 * runs,
+              f"planned train step launched {dict(planned_step)}")
+        check(torch.equal(loss, m1["loss"]), f"planned loss {float(loss)!r} != unplanned "
+              f"{float(m1['loss'])!r}")
+        worst = max(float((a.full_tensor() - b).abs().max())
+                    for a, b in zip(pytree.tree_leaves(p2), pytree.tree_leaves(p1)))
+        with replicate_plain():
+            t0 = time.perf_counter()
+            float(step_fn(dparams, dopt, dbatch)[2]["loss"].full_tensor())
+            step_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        float(step_fn(params, opt_state, batch)[2]["loss"])
+        step_plain_ms = (time.perf_counter() - t0) * 1e3
+        log(f"planned train step B8 x S128 (remat, AdamW): flash {planned_step['flash_attention']}"
+            f" and fused_linear {planned_step['fused_linear']} launches, loss {float(loss):.6f} "
+            f"bitwise the unplanned step's; new params' max abs difference {worst:.3e}; first "
+            f"step {step_first_ms:.1f} ms, steady {step_ms:.1f} ms host wall against "
+            f"{step_plain_ms:.1f} ms unplanned")
+        del p1, o1, p2, o2, out, ref
+
+        # (b) compressed all-reduce of the step's gradients
+        _, grads = steps.loss_and_grads(steps.make_loss_fn(cfg), params, batch)
+        leaves = pytree.tree_leaves(grads)
+        n = sum(g.numel() for g in leaves)
+        worst = 0.0
+        for g in leaves:
+            g32 = g.float()  # the sums in fp32, as the reference's psum of dequantized blocks
+            got = compressed_all_reduce(g32)
+            want = g32.clone()
+            dist.all_reduce(want)
+            _, scale, _ = quantize_int8(g32)
+            err = (got - want).reshape(-1)
+            err = torch.nn.functional.pad(err, (0, (-err.numel()) % BLOCK)).reshape(-1, BLOCK)
+            # half a quantization step (amax / 127 / 2), with fp32's rounding of q and q * scale
+            bound = scale * 127.0 / 254 * (1 + 2.0 ** -12)
+            check(bool((err.abs() <= bound).all()), f"compressed all-reduce error "
+                  f"{float(err.abs().max()):.3e} above its block's amax / 254")
+            worst = max(worst, float((err.abs() / bound).max()))
+        quant_ms = cuda_ms(lambda: [quantize_int8(g) for g in leaves])
+        qs = [quantize_int8(g) for g in leaves]
+        deq_ms = cuda_ms(lambda: [dequantize_int8(q, s, k, g.shape, g.dtype)
+                                  for (q, s, k), g in zip(qs, leaves)])
+        log(f"compressed_all_reduce of the step's {len(leaves)} gradient leaves ({n / 1e6:.1f}M "
+            f"elements, {leaves[0].dtype}, reduced in fp32) on the NCCL group: every block within "
+            f"its amax / 254 of the plain all_reduce, worst {worst:.3f} of its bound; "
+            f"compression_ratio {compression_ratio(grads):.4f} of a bf16 payload; quantize "
+            f"{quant_ms:.3f} ms, dequantize {deq_ms:.3f} ms (CUDA events, all leaves)")
+        del grads, qs, dparams, dopt, params, opt_state
+    finally:
+        dist.destroy_process_group()
+    release_device_memory()
+
+    # (c) the dry run's record
+    runs_, path = dryrun
+    (code, out_, err_, secs), = runs_.join()
+    check(code == 0, f"dry run exited {code}: {err_[-2000:]}")
+    rec = json.load(open(path))[f"{DRYRUN_CELL[0]}|{DRYRUN_CELL[1]}|pod16x16"]
+    r = rec["roofline"]
+    check(rec["status"] == "ok" and r["chips"] == 256 and r["hlo_flops"] > 0, f"dry run {rec}")
+    detail = r["coll_detail"]
+    kinds = ", ".join(f"{k} {detail['counts'][k]} ({detail[k] / 1e6:.1f} MB)"
+                      for k in detail["counts"] if detail["counts"][k])
+    log(f"dry run {rec['cell']} ({secs:.1f} s in its subprocess: placing {rec['lower_s']} s, "
+        f"the first call {rec['compile_s']} s, the counted step {rec['step_s']} s; "
+        f"fuse={rec['fuse']}, fsdp={rec['fsdp']}): {rec['memory']['total_bytes_per_device'] / 1e9:.1f} GB a device "
+        f"against the card's {CARD_BYTES / 1e9:.0f} GB (shards {rec['memory']['args_bytes'] / 1e9:.2f}"
+        f" GB + the step's peak {rec['memory']['peak_step_bytes'] / 1e9:.1f} GB); roofline "
+        f"t_compute {r['t_compute']:.4f} s, t_memory {r['t_memory']:.4f} s, t_collective "
+        f"{r['t_collective']:.4f} s ({r['dominant']}); {r['hlo_flops'] / 1e12:.1f} TFLOP a device "
+        f"against the model's {r['model_flops'] / 1e12:.1f}; collectives: {kinds}; calibration "
+        f"{ {k: rec['calibration'].get(k) for k in ('flops', 'coll_bytes', 'error')} }")
+    return {"planned_apply": planned_apply, "planned_step": planned_step}
+
+
 def main(argv=None):
     import argparse
 
@@ -5313,6 +5535,7 @@ def main(argv=None):
         log(f"{name} took {took[name]:.1f} s")
         return out
 
+    dryrun = start_dryrun()
     timed("phase 1 (build)", phase_build)
     timer = Timer(dev)
     fl_rows, fa_rows, pa_rows, rg_rows, rms_rows, _ = timed("phase 2", lambda: (
@@ -5334,6 +5557,7 @@ def main(argv=None):
     launches.update(timed("phase 13", phase13, dev))
     launches.update(timed("phase 14", phase14, dev))
     launches.update(timed("phase 15", phase15, dev))
+    launches.update(timed("phase 16", phase16, dev, dryrun))
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
@@ -5400,14 +5624,16 @@ def main(argv=None):
              "vl_apply": fl_rows[("vl", 1024)], "kimi_apply": fl_rows[("kimi", 256)],
              "kimi_eager": fl_rows[("kimi", 4)], "encdec_apply": fl_rows[("encdec", 2048)],
              "encdec_serve": fl_rows[("encdec", 4)], "train": fl_rows[TRAIN_ROWS],
-             "train_step": fl_rows[TRAIN_ROWS]}),
+             "train_step": fl_rows[TRAIN_ROWS], "planned_apply": fl_rows[4096],
+             "planned_step": fl_rows[TRAIN_ROWS]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
             {"apply": fa_rows["apply"], "qwen_apply": fa_rows["qwen"],
              "autotune_forge": fa_rows["apply"], "autotune_qwen": fa_rows["qwen"],
              "phi_apply": fa_rows["phi"], "vl_apply": fa_rows["vl"],
              "kimi_apply": fa_rows["kimi"], "encdec_apply": fa_rows["encdec_enc"],
              "encdec_serve": fa_rows["encdec_decode"], "train": fa_rows["train"],
-             "train_step": fa_rows["train"]}),
+             "train_step": fa_rows["train"], "planned_apply": fa_rows["apply"],
+             "planned_step": fa_rows["train"]}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
             {"paged": pa_rows["served"], "qwen_paged": pa_rows["qwen_served"],
              "phi_paged": pa_rows["phi_served"]}),

@@ -9,7 +9,8 @@ CLI's default), the SwiGLU dense decoders ``deepseek-7b``,
 experts, top-8, one shared expert), the M-RoPE VLM backbone
 ``qwen2-vl-72b``, the encoder-decoder ``seamless-m4t-large-v2`` (24 + 24
 layers, GELU, tied 256 206-entry head) and their smoke variants: every
-architecture of the JAX package.
+architecture of the JAX package.  ``shapes`` holds the assigned input
+shapes and their meta-tensor stand-ins (the dry run's inputs).
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import Dict, List
 from . import (deepseek_7b, kimi_k2_1t_a32b, phi3_mini_38b, phi35_moe_42b_a66b, qwen2_vl_72b,
                qwen15_32b, qwen25_14b, recurrentgemma_2b, seamless_m4t_large_v2, xlstm_350m)
 from .base import ModelConfig
+from .shapes import (SHAPES, SUBQUADRATIC, ShapeSpec, cache_specs, input_specs, params_specs,
+                     shape_applicable)
 
 REGISTRY: Dict[str, object] = {m.ARCH_ID: m for m in (
     deepseek_7b, phi3_mini_38b, qwen15_32b, qwen25_14b, recurrentgemma_2b, xlstm_350m,
@@ -57,4 +60,6 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke_config() if smoke else mod.config()
 
 
-__all__ = ["ModelConfig", "REGISTRY", "ARCH_IDS", "get_config", "forge_125m"]
+__all__ = ["ModelConfig", "REGISTRY", "ARCH_IDS", "get_config", "forge_125m", "SHAPES",
+           "SUBQUADRATIC", "ShapeSpec", "cache_specs", "input_specs", "params_specs",
+           "shape_applicable"]

@@ -29,6 +29,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
+from ..distrib.actsharding import gathered
 from ..models import get_model, losses
 from ..optim import Adafactor, AdamW, stacked_keys
 
@@ -202,7 +203,9 @@ def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None,
     def serve_step(params, cache, token, pos):
         out, new_cache = model.decode_step(params, cache, token, pos, cfg, impl=impl)
         last = out[:, -1, :]
-        next_tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+        # a planned call's vocab-sharded logits are gathered first
+        # (distrib.actsharding.gathered); plain logits pass untouched
+        next_tok = torch.argmax(gathered(last, -1), dim=-1).to(torch.int32)[:, None]
         return (next_tok, new_cache, last) if logits else (next_tok, new_cache)
 
     return serve_step

@@ -29,24 +29,35 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from ..checkpoint import CheckpointManager
 from ..configs import ARCH_IDS, get_config
 from ..data import DataConfig, TokenDataset
 from ..device import resolve_device
+from ..distrib.sharding import plan_for
 from ..models import get_model
 from ..optim import AdamW
 from ..runtime import SimulatedFault, Supervisor
+from .mesh import make_host_mesh
 from .steps import dealias_tree, default_optimizer, make_train_step
 
 
-def build_trainer(cfg, *, lr: float = 3e-4):
+def build_trainer(cfg, *, lr: float = 3e-4, use_mesh: bool = True, device: str = "cuda"):
     """``(model, optimizer, step_fn)``: AdamW at ``lr`` below 1e9
-    parameters, else :func:`default_optimizer`."""
+    parameters, else :func:`default_optimizer`.  With more than one rank
+    in the live process group it builds the host mesh and the family's
+    sharding plan, as the reference does (which binds neither to the
+    step either)."""
     model = get_model(cfg)
     optimizer = AdamW(lr=lr) if cfg.param_count() < 1e9 else default_optimizer(cfg)
-    return model, optimizer, make_train_step(cfg, optimizer)
+    step = make_train_step(cfg, optimizer)
+    multi = use_mesh and dist.is_initialized() and dist.get_world_size() > 1
+    mesh = make_host_mesh(device_type=torch.device(device).type) if multi else None
+    if mesh is not None:
+        plan_for(cfg, mesh)
+    return model, optimizer, step
 
 
 def main(argv=None, *, params: Optional[Dict[str, Any]] = None,
@@ -81,7 +92,7 @@ def main(argv=None, *, params: Optional[Dict[str, Any]] = None,
     cfg = get_config(args.arch, smoke=args.smoke).with_(fuse=args.fuse)
     if cfg.family in ("encdec", "vlm"):
         raise SystemExit("the train CLI covers LM families; use examples/")
-    model, optimizer, step_fn = build_trainer(cfg, lr=args.lr)
+    model, optimizer, step_fn = build_trainer(cfg, lr=args.lr, device=str(device))
 
     data = TokenDataset(DataConfig(
         seq_len=args.seq, global_batch=args.batch, vocab=cfg.vocab, seed=args.seed,

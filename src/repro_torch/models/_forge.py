@@ -5,7 +5,15 @@ the full four-phase compiler ONCE per (model config, mode, pipeline
 configuration, input structure, shapes, dtypes, devices) and returns the
 compiled module's callable; families call it when ``cfg.fuse == 'forge'``.
 ``torch.export`` specialises on shapes, so a new shape is a new compile,
-and two pipeline configurations never share a body.
+and two pipeline configurations never share a body.  Nor do bodies
+captured under different activation-sharding policies
+(``distrib/actsharding.py``).  DTensor arguments (a call placed by a
+sharding plan, ``distrib/sharding.py``) key as their global shapes and
+their placements; the body is captured on fake DTensors of those
+placements, at the global level (its graph is the unplanned call's), and
+its ATen ops run on the DTensors.  Its parameters come FSDP-gathered and
+its other arguments with their pending reductions done
+(``actsharding.fsdp_gathered`` / ``settled``).
 
 Under ``torch.compile`` (``BatchedServer(mode="jit")`` compiles the
 whole serve step) Dynamo traces the lookup and the compiled body's
@@ -33,6 +41,8 @@ import torch
 import torch.utils.checkpoint
 from torch.utils import _pytree as pytree
 
+from ..distrib.actsharding import fsdp_gathered, settled
+
 _CACHE: Dict[str, Any] = {}  # key -> CompiledModule
 #: id(config) -> (config, repr(config)): the config is kept so its id
 #: stays its own
@@ -53,8 +63,9 @@ def config_key(cfg: Any) -> str:
 def _shape_key(tree) -> str:
     flat, spec = pytree.tree_flatten(tree)
     leaves = tuple(
-        (tuple(a.shape), str(a.dtype), str(a.device)) if isinstance(a, torch.Tensor)
-        else repr(a)
+        (tuple(a.shape), str(a.dtype), str(a.device))
+        + ((tuple(a.device_mesh.shape), str(a.placements)) if hasattr(a, "placements") else ())
+        if isinstance(a, torch.Tensor) else repr(a)
         for a in flat
     )
     return f"{spec}|{leaves}"
@@ -78,8 +89,41 @@ def forge_body(
     ``impl``, which is forwarded into the fused nodes: None dispatches by
     device (kernels on the card), ``"ref"`` runs their plain versions.
     """
+    planned = _planned(example_args)
+    if planned:
+        example_args = _planned_args(example_args)
     body = _compiled(raw_fn, key_prefix, example_args, impl, config) if enabled else raw_fn
+    if planned:
+        body = _settling(body)
     return rematerialized(body) if remat else body
+
+
+def _planned(args) -> bool:
+    """Whether ``args`` hold a DTensor (a call placed by a sharding plan)."""
+    leaves = [t for t in pytree.tree_leaves(args)
+              if isinstance(t, torch.Tensor) and type(t) is not torch.Tensor]
+    if not leaves:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in leaves)
+
+
+def _planned_args(args):
+    """A planned call's arguments as its body takes them: the layer's
+    parameters (the first argument) FSDP-gathered, the others with their
+    pending reductions done (``distrib/actsharding.py``)."""
+    return (fsdp_gathered(args[0]),) + tuple(settled(tuple(args[1:])))
+
+
+def _settling(body: Callable) -> Callable:
+    """``body`` taking its DTensor arguments as :func:`_planned_args`
+    gives them."""
+
+    def planned_body(*args):
+        return body(*_planned_args(args))
+
+    return planned_body
 
 
 def rematerialized(body: Callable) -> Callable:
@@ -109,7 +153,7 @@ def _compiled(raw_fn: Callable, key_prefix: str, example_args: Tuple[Any, ...],
             pipe_key = _PIPELINE_KEYS[impl] = repr(_pipeline(None, impl))
     else:
         pipe_key = repr(_pipeline(config, impl))
-    key = f"{key_prefix}/{pipe_key}/{_shape_key(example_args)}"
+    key = f"{key_prefix}/{pipe_key}/{_shape_key(example_args)}|{_policy_key()}"
     hit = _CACHE.get(key)
     if hit is None:
         if torch.compiler.is_dynamo_compiling():
@@ -121,9 +165,46 @@ def _compiled(raw_fn: Callable, key_prefix: str, example_args: Tuple[Any, ...],
         with BUILD_LOCK:
             hit = _CACHE.get(key)
             if hit is None:
-                hit = ForgeCompiler(_pipeline(config, impl)).compile(raw_fn, *example_args)
+                hit = ForgeCompiler(_pipeline(config, impl)).compile(
+                    raw_fn, *_capture_args(example_args))
                 _CACHE[key] = hit
     return hit.as_fn()
+
+
+def _capture_args(args):
+    """What a body is captured on: ``args`` themselves, but DTensors,
+    which become fake DTensors of the same placements (``torch.export``
+    of real sharded DTensors fails on their local shapes; of fake ones it
+    traces the global-level graph)."""
+    if not _planned(args):
+        return args
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
+
+    def fake(t):
+        if isinstance(t, DTensor):
+            local = t.to_local()
+            return DTensor.from_local(
+                torch.empty_strided(local.shape, local.stride(), dtype=local.dtype,
+                                    device=local.device),
+                t.device_mesh, t.placements, run_check=False, shape=t.shape, stride=t.stride())
+        if isinstance(t, torch.Tensor):
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
+        return t
+
+    with detect_fake_mode(pytree.tree_leaves(args)) or FakeTensorMode(allow_non_fake_inputs=True):
+        return pytree.tree_map(fake, args)
+
+
+def _policy_key() -> str:
+    """The active activation-sharding policy's part of a body's key: a
+    body captured under a policy holds its ``constrain`` nodes, one
+    captured without holds none (as the JAX package keys its bodies)."""
+    from ..distrib import actsharding
+
+    pol = actsharding.current()
+    return "nopolicy" if pol is None else pol.key()
 
 
 def _pipeline(config: Optional[Any], impl: Optional[str]) -> Any:

@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..distrib.actsharding import constrain, gathered
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -54,7 +55,7 @@ def attn_init(
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     B, S, _ = x.shape
-    return x.view(B, S, n_heads, -1).transpose(1, 2)
+    return gathered(x, 2).view(B, S, n_heads, -1).transpose(1, 2)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -216,6 +217,14 @@ def attention(
     q = _split_heads(q, n_heads)
     k = _split_heads(k, n_kv_heads)
     v = _split_heads(v, n_kv_heads)
+    # Megatron-style activation layout pins (distrib/actsharding.py; the
+    # identity without a policy).  Decode keeps the inferred layouts, as
+    # in the JAX package: pinning heads conflicts with the
+    # sequence-sharded KV cache
+    if cache is None:
+        q = constrain(q, "heads")
+        k = constrain(k, "kv")
+        v = constrain(v, "kv")
 
     if rope_cos is not None:
         q = L.apply_rope(q, rope_cos, rope_sin)
@@ -275,7 +284,7 @@ def attention(
     else:
         out = sdpa_unfused(q, k, v, causal=causal, window=window)
     out = L.linear(_merge_heads(out), p["wo"])
-    return out, new_cache
+    return constrain(out, "tokens"), new_cache
 
 
 def make_cache(batch: int, n_kv_heads: int, max_len: int, head_dim: int,

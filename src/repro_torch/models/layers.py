@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
+from ..distrib.actsharding import constrain, fsdp_gathered, settled
+
 Params = Dict[str, Any]
 
 
@@ -92,14 +94,20 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, table)
+    """The rows of ``table`` at ``tokens``.  A sharding plan's DTensor
+    table is FSDP-gathered first, and a vocab-sharded one leaves a masked
+    pending sum, reduced here (``settled``): its state is the lookup's and
+    cannot be reduced twice."""
+    return settled(F.embedding(tokens, fsdp_gathered(table)))
 
 
 def lm_head(x: torch.Tensor, table_or_w: torch.Tensor, *, transpose: bool) -> torch.Tensor:
     """Project to vocab; fp32 logits.  ``transpose=True`` -> tied
     embedding (vocab, d), read through a transposed view (one tensor)."""
+    table_or_w = fsdp_gathered(table_or_w)
     w = table_or_w.t() if transpose else table_or_w
-    return torch.matmul(x, w).float()
+    # keep logits vocab-sharded through the loss under a policy
+    return constrain(torch.matmul(x, w).float(), "logits")
 
 
 # --------------------------------------------------------------------------

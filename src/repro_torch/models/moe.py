@@ -14,10 +14,10 @@ formulation):
 
 Every shape is static (``C`` is a Python int from the token count), and
 nothing indexes by a boolean mask or calls ``nonzero``, so a body that
-holds the FFN exports whole and replays as a CUDA graph.  The JAX
-package pins the dispatch buffer's expert-major sharding with
-``constrain``, the identity without an active sharding policy; the port
-runs on one card and calls nothing in its place.
+holds the FFN exports whole and replays as a CUDA graph.  The dispatch
+buffer and the experts' outputs go through ``distrib.actsharding.constrain``
+(``moe_dispatch``), as in the JAX package: the identity without an active
+sharding policy, the expert-major layout pin under one.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from ..distrib.actsharding import constrain
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -125,11 +126,13 @@ def moe_ffn(x: torch.Tensor, p: Params, *, n_experts: int, top_k: int,
     contrib = torch.where(keep[:, None], xt, torch.zeros_like(xt))
     buf = torch.zeros((n_experts, cap, D), dtype=x.dtype, device=x.device).index_put(
         (e_flat, pos_c), contrib, accumulate=True)
+    # pin the expert-major layout (EP) under a sharding policy
+    buf = constrain(buf, "moe_dispatch")
 
     # -- batched expert SwiGLU over every expert (fp32 accumulation inside)
     g = torch.bmm(buf, p["w_gate"])
     u = torch.bmm(buf, p["w_up"])
-    out_e = torch.bmm(F.silu(g) * u, p["w_down"])
+    out_e = constrain(torch.bmm(F.silu(g) * u, p["w_down"]), "moe_dispatch")
 
     # -- combine: gather back, gate-weight, sum each token's k terms in a
     # fixed order (the JAX scatter-add's order: 0 + term 0 + term 1 ...);

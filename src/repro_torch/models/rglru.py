@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distrib.actsharding import constrain
 from ..kernels import ops
 from . import attention as A
 from . import layers as L
@@ -197,7 +198,8 @@ def _window_chunk_attn(h: torch.Tensor, p: Params, st: Dict[str, torch.Tensor],
     gk = torch.gather(k, 2, gidx)
     gv = torch.gather(v, 2, gidx)
     vm = valid[:, None, :, None]
-    return out, {"k": torch.where(vm, gk, st["k"]), "v": torch.where(vm, gv, st["v"])}
+    return constrain(out, "tokens"), {"k": torch.where(vm, gk, st["k"]),
+                                      "v": torch.where(vm, gv, st["v"])}
 
 
 # --------------------------------------------------------------------------

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distrib.actsharding import gathered
 from ..kernels import ops
 from . import layers as L
 from ._forge import forge_body
@@ -247,7 +248,7 @@ def mlstm_block_init(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 def _split(x: torch.Tensor, H: int) -> torch.Tensor:
     B, S, I = x.shape
-    return x.reshape(B, S, H, I // H).transpose(1, 2)
+    return gathered(x, 2).reshape(B, S, H, I // H).transpose(1, 2)
 
 
 def _gates(c: torch.Tensor, p: Params, H: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -382,7 +383,7 @@ def _slstm_in(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, S, d = x.shape
     H = cfg.n_heads
     h_in = L.apply_norm(x, p["norm"], cfg.norm)
-    return L.linear(h_in, p["w_in"]).float().reshape(B, S, H, 4 * (d // H))
+    return gathered(L.linear(h_in, p["w_in"]).float(), 2).reshape(B, S, H, 4 * (d // H))
 
 
 def _slstm_out(p: Params, x: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,88 @@
+"""int8 gradient compression for the data-parallel all-reduce: a port of
+the JAX package's ``runtime/compress.py``.
+
+Block-wise symmetric int8 quantization of gradients before the DP
+reduction, cutting the collective's payload ~4x against fp32 (int8 +
+one fp32 scale per block of 256):
+
+    g_int8, scales = quantize(g)          (per 256-elem block, symmetric)
+    g_sum = all_reduce(g_int8.float() * scales)
+
+``compressed_all_reduce`` does the reference's arithmetic: the wire
+payload of a real fabric would be the int8 blocks and their scales; the
+reduction itself runs on the dequantized fp32 blocks, as the reference's
+``psum`` does.  ``torch.round`` rounds half to even as ``jnp.round``
+does, so ``q`` and the scales equal the reference's bit for bit.
+
+Quantizing is lossy; error feedback (``compress_tree``'s residuals)
+keeps SGD unbiased in expectation.  As in the reference, the train CLI's
+``--compress-grads`` is parsed and read by nothing.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
+
+BLOCK = 256
+
+
+def _pad_to_block(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    n = x.numel()
+    pad = (-n) % BLOCK
+    flat = x.reshape(-1)
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, BLOCK), n
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Symmetric per-block int8.  Returns (q, scales, true_size)."""
+    blocks, n = _pad_to_block(x.float())
+    amax = blocks.abs().amax(dim=1, keepdim=True)
+    scale = torch.clamp_min(amax / 127.0, 1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return q, scale, n
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, n: int,
+                    shape, dtype) -> torch.Tensor:
+    x = (q.float() * scale).reshape(-1)[:n]
+    return x.reshape(shape).to(dtype)
+
+
+def compressed_all_reduce(x: torch.Tensor,
+                          group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks with an int8-compressed
+    payload (the reference's ``compressed_psum``): quantize, then
+    all-reduce the dequantized fp32 blocks."""
+    q, scale, n = quantize_int8(x)
+    deq = q.float() * scale
+    dist.all_reduce(deq, group=group)
+    return deq.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
+
+
+def compress_tree(grads: Any) -> Tuple[Any, Any]:
+    """Quantize every leaf; returns (quantized_repr, residuals) with error
+    feedback: residual = g - dequant(quant(g))."""
+
+    def one(g):
+        q, s, n = quantize_int8(g)
+        deq = dequantize_int8(q, s, n, g.shape, torch.float32)
+        return (q, s), (g.float() - deq)
+
+    flat, spec = pytree.tree_flatten(grads)
+    outs = [one(g) for g in flat]
+    reprs = pytree.tree_unflatten([o[0] for o in outs], spec)
+    residuals = pytree.tree_unflatten([o[1] for o in outs], spec)
+    return reprs, residuals
+
+
+def compression_ratio(grads: Any) -> float:
+    """Wire-bytes ratio against a bf16 payload."""
+    flat = pytree.tree_leaves(grads)
+    raw = sum(g.numel() * 2 for g in flat)  # bf16 baseline
+    comp = sum(g.numel() * 1 + (g.numel() // BLOCK + 1) * 4 for g in flat)  # int8 + fp32 scales
+    return comp / raw

@@ -1508,3 +1508,94 @@ def test_train_step_on_card(cuda_device):
     for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel < 0.1, rel
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A one-rank NCCL group on the card and its (1, 1) host mesh; the
+    group is destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/nccl", rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_planned_apply_and_step_on_card(cuda_device, nccl_mesh):
+    """forge-125m's layout (3 layers, full width, bf16) placed by
+    ``plan_for`` as DTensors on a one-rank NCCL mesh: ``apply`` and a
+    train step launch what the unplanned run launches, with logits and
+    loss bitwise the unplanned run's."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.distrib.sharding import distribute_tree, plan_for, replicate_plain
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("forge-125m").with_(n_layers=3)
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    plan = plan_for(cfg, nccl_mesh)
+    dparams = distribute_tree(params, plan.params_shardings(params))
+    toks = torch.randint(0, cfg.vocab, (2, 257), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    with torch.no_grad():
+        want = model.apply(params, toks[:, :-1], cfg)
+        _reset_counts()
+        with replicate_plain():
+            got = model.apply(dparams, distribute_tree(toks[:, :-1], plan.batch_shardings(
+                toks[:, :-1])), cfg)
+        torch.cuda.synchronize()
+    assert FA.LAUNCHES.n == cfg.n_layers and FL.LAUNCHES.n == 3 * cfg.n_layers
+    assert torch.equal(got.full_tensor(), want)
+
+    opt = AdamW()
+    state = opt.init(params)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    step = steps.make_train_step(cfg, opt)
+    _, _, m1 = step(params, state, batch)
+    dstate = distribute_tree(state, plan.opt_state_shardings(state, params))
+    dbatch = distribute_tree(batch, plan.batch_shardings(batch))
+    _reset_counts()
+    with replicate_plain():
+        p2, _, m2 = step(dparams, dstate, dbatch)
+        loss = m2["loss"].full_tensor()
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES.n == 2 * cfg.n_layers and FL.LAUNCHES.n == 6 * cfg.n_layers
+    assert torch.equal(loss, m1["loss"])
+    assert all(t.placements == (torch.distributed.tensor.Replicate(),) * 2
+               for t in pytree.tree_leaves(p2))
+
+
+@pytest.mark.cuda
+def test_compressed_all_reduce_on_card(cuda_device, nccl_mesh):
+    """``compressed_all_reduce`` on the one-rank NCCL group: every
+    256-element block within its amax / 254 of the plain ``all_reduce``;
+    the int8 codes within one step of the CPU computation's and the
+    scales within an ulp (CUDA divides by the scalar 127 through its
+    reciprocal, the CPU divides)."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import compressed_all_reduce, quantize_int8
+    from repro_torch.runtime.compress import BLOCK
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    for n in (256, 1000, 768 * 3072 + 5):
+        x = torch.randn(n, device=cuda_device, generator=g) * 3.0
+        got = compressed_all_reduce(x)
+        want = x.clone()
+        dist.all_reduce(want)
+        _, scale, _ = quantize_int8(x)
+        err = torch.nn.functional.pad(got - want, (0, (-n) % BLOCK)).reshape(-1, BLOCK).abs()
+        assert bool((err <= scale * 127.0 / 254 * (1 + 2.0 ** -12)).all())
+        q, s, _ = quantize_int8(x)
+        q_cpu, s_cpu, _ = quantize_int8(x.cpu())
+        assert int((q.cpu().int() - q_cpu.int()).abs().max()) <= 1
+        torch.testing.assert_close(s.cpu(), s_cpu, rtol=2.0 ** -23, atol=0)

@@ -4,7 +4,7 @@ port starts on the GPU and goes through its own kernels.
 
 Run from the repository root, with one CUDA card:
 
-    python3 chip_smoke.py                          # phases 1-16
+    python3 chip_smoke.py                          # phases 1-17
     python3 chip_smoke.py --qwen-jit-layers 48     # phase 12's qwen2.5-14b jit step at full depth
 
 Phases (any failure raises and the script exits non-zero):
@@ -320,8 +320,19 @@ Phases (any failure raises and the script exits non-zero):
    group of 256 ranks, fake tensors, the card hidden from it), started in
    a subprocess beside phase 1 and read here: per-device bytes against
    80 GB, the three roofline terms (H100 constants), the collectives'
-   count and MB by kind.  A multi-rank group stays on the CPU (gloo, the
-   tests): NCCL holds one rank per GPU.
+   count and MB by kind, and the FLOPs a layer a device (its calibration)
+   against the JAX package's.  (d) Tensor parallelism: forge-125m at full
+   size on a (1, 2) (data, model) mesh of two gloo ranks, both on this
+   card (NCCL holds one rank per GPU), ``apply`` at B4 x S1024: each rank
+   launches 12 flash on 6 of the 12 heads and 36 fused linear, all
+   ``wgmma``, at the row-, column- and row-parallel local shapes (M, N,
+   K) (4096, 768, 384), (4096, 1536, 768), (4096, 768, 1536); rank 0
+   holds the logits within TOL_MODEL_BF16 of the unplanned run.
+
+17. The examples on the card: ``examples/torch_quickstart.py`` and
+   ``examples/torch_serve_batch.py --arch forge-125m --full --gen 8``,
+   each in a subprocess of its own started beside phase 6, each held to
+   its own exit code and to what it must print.
 
 In phases 5-9, one decode and one prefill dispatch of the served
 programs under ``segment_jit`` must be bitwise equal to the same lowered
@@ -718,13 +729,16 @@ def phase_fused_linear(dev, timer):
     # launches (o-proj, FFN up + gelu, FFN down), at decode (M=4), in the
     # contiguous fronts' B4 x S32 prefill cell (M=128), in phase 15's
     # training step (B8 x S128: M=1024) and in the full-sequence forward
-    # (M=4096)
+    # (M=4096); and a rank's three in phase 16 (d)'s tensor-parallel
+    # forward (row-, column-, row-parallel shards of the same products)
     rows = {}
-    for M in (4, 128, TRAIN_ROWS, 4096):
+    whole = ((768, 768, None, False), (768, 3072, "gelu", True), (3072, 768, None, True))
+    tp = ((384, 768, None, False), (768, 1536, "gelu", True), (1536, 768, None, True))
+    for key, M, shapes in ((4, 4, whole), (128, 128, whole), (TRAIN_ROWS, TRAIN_ROWS, whole),
+                           (4096, 4096, whole), (("tp", 4096), 4096, tp)):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
                    err=0.0)
-        for K, N, act, has_b in ((768, 768, None, False), (768, 3072, "gelu", True),
-                                 (3072, 768, None, True)):
+        for K, N, act, has_b in shapes:
             dt = torch.bfloat16
             x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dt)
             w = (torch.randn(K, N, generator=g, device=dev) / K ** 0.5).to(dt)
@@ -751,8 +765,9 @@ def phase_fused_linear(dev, timer):
                          ("bound_ms", bound), ("flops", flops), ("bytes", nbytes)):
                 tot[k] += v
             tot["err"] = max(tot["err"], err)
-        rows[M] = tot
-        log(f"fused_linear one layer (3 launches) M={M}: kernel {tot['ms']:.4f} ms, "
+        rows[key] = tot
+        log(f"fused_linear one {'tensor-parallel rank' if shapes is tp else ''} layer "
+            f"(3 launches) M={M}: kernel {tot['ms']:.4f} ms, "
             f"plain {tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, "
             f"bound {tot['bound_ms']:.5f} ms")
     # recurrentgemma-2b: one rec layer's four launches (wy + gelu, rec
@@ -1208,6 +1223,9 @@ def phase_flash(dev, timer):
         rows[f"encdec_{name}"] = encdec_flash_row(g, dev, timer, *shape, name)
     # phase 15's training forward: B8 H12 S128 D64, causal
     rows["train"] = gqa_flash_row(g, dev, timer, *TRAIN_FLASH, "forge-125m train")
+    # phase 16 (d)'s tensor-parallel apply: 6 of the 12 heads a rank
+    rows["tp"] = gqa_flash_row(g, dev, timer, *TP_FLASH_SHAPE[:2], TP_FLASH_SHAPE[1],
+                               *TP_FLASH_SHAPE[2:], "forge-125m tensor-parallel rank")
     return rows
 
 
@@ -3471,6 +3489,8 @@ def phase_compile_cost(dev, cli_runs):
 _CHILDREN = []
 _CHILDREN_LOCK = threading.Lock()
 _STOPPING = threading.Event()
+#: processes spawned through torch.multiprocessing (phase 16 (d)'s ranks)
+_SPAWNED = []
 
 
 class CliRuns:
@@ -3537,13 +3557,18 @@ def start_cli_runs():
 
 
 def stop_children():
-    """Kill every CLI subprocess still running and wait for it."""
+    """Kill every CLI subprocess and spawned rank still running and wait
+    for it."""
     with _CHILDREN_LOCK:
         _STOPPING.set()
         for proc in _CHILDREN:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
+    for proc in _SPAWNED:
+        if proc.is_alive():
+            proc.kill()
+        proc.join()
 
 
 def compile_cost_replay(dev, cfg, params):
@@ -4228,22 +4253,8 @@ def jit_path(dev, cfg, model, params, prompts, elementwise=False, rows_independe
                                   mode="interpret").generate(prompts, n_new)["tokens"]
     same_rows = int((res["tokens"] == interp_tokens).all(axis=1).sum())
     same = int((res["tokens"] == interp_tokens).sum())
-    # Inductor's reductions (softmax, the norms) and its erf and exp are
-    # not the eager kernels', so bf16 rows can part at a near-tie: a row
-    # that differs is held at its first differing token, where both picks
-    # must be top choices of the plain path within the measured slack
-    diverged = []
-    for b in np.flatnonzero((res["tokens"] != interp_tokens).any(axis=1)):
-        j = int(np.flatnonzero(res["tokens"][b] != interp_tokens[b])[0])
-        ctx = np.concatenate([prompts[b], res["tokens"][b, :j]])
-        picks = [int(res["tokens"][b, j]), int(interp_tokens[b, j])]
-        if not rows_independent:
-            diverged.append(f"row {b} from token {j}: picks {picks}")
-            continue
-        spread, slack, margins = first_token_slack(model, cfg, params, ctx, picks, dev,
-                                                   f"{what} row {b} token {j}")
-        diverged.append(f"row {b} from token {j}: picks {picks} margins "
-                        f"{[round(m, 4) for m in margins]} within slack {slack:.4f}")
+    diverged = hold_diverged_rows(model, cfg, params, prompts, res["tokens"], interp_tokens,
+                                  dev, what, rows_independent)
 
     # every step's logits, teacher-forced: the prompt, then interpret's
     # tokens, fed to the jit step and, each on a cache of its own, to the
@@ -4299,6 +4310,34 @@ def jit_path(dev, cfg, model, params, prompts, elementwise=False, rows_independe
         + f"; argmax equal in {int((got.argmax(-1) == interp.argmax(-1)).sum())}/"
         f"{got.shape[0] * B} (step, row) pairs")
     return launched
+
+
+def hold_diverged_rows(model, cfg, params, prompts, got, want, dev, what,
+                       rows_independent=True):
+    """Greedy tokens ``got`` (a compiled step's) against ``want``
+    (``mode="interpret"``'s) on the same prompts.  Inductor's reductions
+    (softmax, the norms) and its erf and exp are not the eager kernels',
+    so bf16 rows can part at a near-tie: a row that differs is held at its
+    first differing token, where both picks must be top choices of the
+    plain path within the measured slack (:func:`first_token_slack`).  A
+    MoE step couples its rows (``rows_independent=False``): a differing
+    row is only reported.  Returns a line for each differing row, with
+    the picks' margins below the plain path's top logit."""
+    import numpy as np
+
+    diverged = []
+    for b in np.flatnonzero((got != want).any(axis=1)):
+        j = int(np.flatnonzero(got[b] != want[b])[0])
+        ctx = np.concatenate([prompts[b], got[b, :j]])
+        picks = [int(got[b, j]), int(want[b, j])]
+        if not rows_independent:
+            diverged.append(f"row {b} from token {j}: picks {picks}")
+            continue
+        spread, slack, margins = first_token_slack(model, cfg, params, ctx, picks, dev,
+                                                   f"{what} row {b} token {j}")
+        diverged.append(f"row {b} from token {j}: picks {picks} margins "
+                        f"{[round(m, 4) for m in margins]} within slack {slack:.4f}")
+    return diverged
 
 
 def autotune_body(dev, cfg, params, B, S):
@@ -5294,6 +5333,10 @@ def phase15_f32(dev, cfg, batch):
 # phase 16: the distributed layer.  (a) forge-125m under plan_for on a
 # one-rank NCCL mesh; (c) one production dry-run cell, in a subprocess
 DRYRUN_CELL = ("qwen2.5-14b", "train_4k")
+# the JAX package's FLOPs a layer a device in that cell (XLA's cost
+# analysis of its 2-layer variant, FSDP off, on a CPU host: ROADMAP.md,
+# queue 3), which the port's count is read against
+DRYRUN_REF_LAYER_FLOPS = 1.00e13
 CARD_BYTES = 80e9  # H100 80GB HBM3
 
 
@@ -5332,9 +5375,11 @@ def phase16(dev, dryrun):
     within each block's amax / 254 of the plain ``all_reduce``; the
     compression ratio and the quantize / dequantize ms.  (c) The dry run
     of qwen2.5-14b train_4k on pod16x16 (``start_dryrun``): per-device
-    bytes against the card's 80 GB, the three roofline terms, and the
-    collectives' count and MB by kind.  Returns the launches of the
-    planned ``apply`` and step."""
+    bytes against the card's 80 GB, the three roofline terms, the
+    collectives' count and MB by kind, and the FLOPs a layer a device.
+    (d) Tensor parallelism over two gloo ranks on the card
+    (:func:`phase16_tp`).  Returns the launches of the planned ``apply``
+    and step and of (d)'s rank 0."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -5350,6 +5395,7 @@ def phase16(dev, dryrun):
     from repro_torch.runtime.compress import BLOCK, dequantize_int8
 
     release_device_memory()
+    tp = start_tp()
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
                             world_size=1, device_id=dev)
     try:
@@ -5489,7 +5535,250 @@ def phase16(dev, dryrun):
         f"{r['t_collective']:.4f} s ({r['dominant']}); {r['hlo_flops'] / 1e12:.1f} TFLOP a device "
         f"against the model's {r['model_flops'] / 1e12:.1f}; collectives: {kinds}; calibration "
         f"{ {k: rec['calibration'].get(k) for k in ('flops', 'coll_bytes', 'error')} }")
-    return {"planned_apply": planned_apply, "planned_step": planned_step}
+    per_layer = rec["calibration"]["per_unit"]
+    log(f"dry run {rec['cell']} a layer a device: {per_layer['flops']:.4g} FLOPs "
+        f"({per_layer['flops'] / DRYRUN_REF_LAYER_FLOPS:.2f}x the JAX package's "
+        f"{DRYRUN_REF_LAYER_FLOPS:.3g} at 2 layers, FSDP off), {per_layer['bytes']:.4g} bytes; "
+        f"{r['hlo_bytes']:.4g} bytes a device in all; FLOPs by op {rec['cost'].get('flops_by_op')}")
+
+    # (d) tensor parallelism on the card, its ranks started with the phase
+    return {"planned_apply": planned_apply, "planned_step": planned_step,
+            "tp_apply": phase16_tp(tp)}
+
+
+def start_tp():
+    """Phase 16 (d)'s ranks (:func:`tp_rank`), spawned now: ``(context,
+    output directory, start time)``."""
+    import torch.multiprocessing as mp
+
+    out = tempfile.mkdtemp(prefix="forge-tp-", dir=os.environ.get("TMPDIR"))
+    ctx = mp.start_processes(tp_rank, args=(TP_WORLD, free_port(), out), nprocs=TP_WORLD,
+                             start_method="spawn", join=False)
+    _SPAWNED.extend(ctx.processes)  # stop_children ends them if the script fails first
+    return ctx, out, time.perf_counter()
+
+
+def phase16_tp(tp):
+    """Phase 16 (d): forge-125m at full width on a (1, 2) (data, model)
+    mesh of two gloo ranks, both on this card (NCCL holds one rank per
+    GPU): ``apply`` at B4 x S1024 with the fused-linear launches on
+    column- and row-parallel shards and flash on 6 of the 12 heads a
+    rank; rank 0 holds the logits within TOL_MODEL_BF16 of the unplanned
+    run.  Joins the ranks :func:`start_tp` started; returns rank 0's
+    launches."""
+    import torch
+
+    ctx, out, t0 = tp
+    try:
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            check(time.monotonic() < deadline, "the tensor-parallel ranks did not end in 300 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    secs = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"r{r}.pt")) for r in range(TP_WORLD)]
+    cfg_layers = ranks[0]["n_layers"]
+    for r, res in enumerate(ranks):
+        fl, fa = res["variants"]["fused_linear"], res["variants"]["flash_attention"]
+        check(res["launches"]["flash_attention"] == cfg_layers
+              and res["launches"]["fused_linear"] == 3 * cfg_layers
+              and set(fl) == {"wgmma"} and set(fa) == {"wgmma"},
+              f"rank {r}: tensor-parallel apply launched {res['launches']} ({fl}, {fa})")
+        # (M, N, K) of every fused-linear launch: o (row-parallel: K 384),
+        # fc (column-parallel: N 1536), out (row-parallel: K 1536)
+        check(set(res["linear_shapes"]) == TP_LINEAR_SHAPES,
+              f"rank {r}: fused-linear shapes {sorted(set(res['linear_shapes']))}")
+        check(set(res["flash_shapes"]) == {TP_FLASH_SHAPE},
+              f"rank {r}: flash q shapes {sorted(set(res['flash_shapes']))}")
+    r0 = ranks[0]
+    log(f"tensor-parallel forge-125m on a (1, 2) gloo mesh, two ranks on one card "
+        f"({secs:.1f} s with the ranks' start): attention {r0['layout']}, fallbacks "
+        f"{r0['fallbacks']}; per rank {r0['launches']['fused_linear']} fused-linear launches "
+        f"(`wgmma`, (M, N, K) {sorted(set(r0['linear_shapes']))}) and "
+        f"{r0['launches']['flash_attention']} flash (q {TP_FLASH_SHAPE}); logits "
+        f"{r0['placements']} within TOL_MODEL_BF16 of the unplanned run (max abs "
+        f"{r0['max_abs']:.3e}, rel L2 {r0['rel_l2']:.3e}); planned apply {r0['first_ms']:.1f} ms "
+        f"first (its body compiles), {r0['ms']:.1f} ms steady host wall against "
+        f"{r0['plain_ms']:.1f} ms unplanned; {r0['collectives']}")
+    return Counts(r0["launches"], r0["variants"])
+
+
+#: phase 16 (d): two ranks, the (data, model) mesh (1, 2); the local
+#: fused-linear (M, N, K) of forge-125m's o, fc and out products at B4 x
+#: S1024, and flash's local q
+TP_WORLD = 2
+TP_LINEAR_SHAPES = {(4096, 768, 384), (4096, 1536, 768), (4096, 768, 1536)}
+TP_FLASH_SHAPE = (4, 6, 1024, 64)
+
+
+def tp_rank(rank, world, port, out):
+    """Phase 16 (d)'s rank (spawned): see :func:`phase16_tp`."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distrib.sharding import distribute_tree, plan_for, replicate_plain
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_linear as FL
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        cfg = get_config("forge-125m")
+        model = get_model(cfg)
+        params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        tokens = torch.randint(0, cfg.vocab, (4, 1024), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(3))
+        mesh = make_host_mesh(model=world, device_type="cuda")
+        plan = plan_for(cfg, mesh)
+        layout = plan.attention_layout()
+        dparams = distribute_tree(params, plan.params_shardings(params))
+        dtokens = distribute_tree(tokens, plan.batch_shardings(tokens))
+        linear, flash = [], []
+        fl_forward, fa_forward = FL._forward, FA._forward
+
+        def fl_record(x, w, b, act):
+            linear.append((x.shape[0], w.shape[1], x.shape[1]))
+            return fl_forward(x, w, b, act)
+
+        def fa_record(q, *args):
+            flash.append(tuple(q.shape))
+            return fa_forward(q, *args)
+
+        FL._forward, FA._forward = fl_record, fa_record
+        with torch.no_grad(), replicate_plain():
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            logits = model.apply(dparams, dtokens, cfg)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launches = counts()
+            FL._forward, FA._forward = fl_forward, fa_forward
+            t0 = time.perf_counter()
+            model.apply(dparams, dtokens, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            placements = str(logits.placements)
+            full = logits.full_tensor()
+        res = {"n_layers": cfg.n_layers, "launches": dict(launches),
+               "variants": launches.variants, "linear_shapes": linear, "flash_shapes": flash,
+               "layout": layout, "fallbacks": list(plan.fallbacks), "first_ms": first_ms,
+               "ms": ms, "placements": placements,
+               "collectives": f"gloo on CUDA tensors, backend {dist.get_backend()}"}
+        if rank == 0:
+            with torch.no_grad():
+                ref = model.apply(params, tokens, cfg)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.apply(params, tokens, cfg)
+                torch.cuda.synchronize()
+                res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            torch.testing.assert_close(full, ref, **TOL_MODEL_BF16)
+            res["max_abs"] = float((full - ref).abs().max())
+            res["rel_l2"] = rel_l2(full, ref)
+        torch.save(res, os.path.join(out, f"r{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def load_example(name):
+    """The module ``examples/torch_<name>.py``, loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                  ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name, argv, want, **kwargs):
+    """``examples/torch_<name>.py``'s ``main(argv)``, called in this process
+    on the card as the script calls it (``sys.exit(main())``): it must
+    return 0 and print each of ``want``.  Returns its output and seconds."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = load_example(name).main(argv, **kwargs)
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    check(code == 0, f"examples/torch_{name}.py returned {code}: {out[-2000:]}")
+    for text in want:
+        check(text in out, f"examples/torch_{name}.py printed no {text!r}: {out[-2000:]}")
+    return out, secs
+
+
+def phase17(dev):
+    """Phase 17: the examples on the card, each ``main`` in this process.
+    (a) ``examples/torch_quickstart.py``: its fused graph and fidelity;
+    its ``forge.sdpa`` (head dim 8) launches the flash kernel zero-padded
+    to 16, also held here against the plain version at the block's shape.
+    (b) ``examples/torch_serve_batch.py --arch forge-125m --full --gen 8
+    --max-len 256`` on seed-0 weights: phase 12 (b)'s jit step's shapes,
+    so Inductor's caches hold its compile.  Both modes' decode times, and
+    the greedy tokens of ``jit`` against ``interpret``'s: equal, or each
+    differing row held at its first differing token by the measured-slack
+    rule (:func:`hold_diverged_rows`), its margins logged."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import get_model
+
+    release_device_memory()
+    reset_counts()
+    out, secs = run_example("quickstart", [], ("forge.sdpa", "fidelity: max-abs=",
+                                               "on cuda:0 — OK"))
+    launched = counts()
+    check(launched["flash_attention"] >= 1 and launched["fused_linear"] >= 1,
+          f"quickstart: launches {launched}")
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn(2, 8, 64, 8, generator=g, device=dev)
+    k, v = (torch.randn(2, 2, 64, 8, generator=g, device=dev) for _ in range(2))
+    got = FA.flash_attention_cuda(q, k, v, scale=8 ** -0.5, causal=True)
+    want = FA.flash_attention_plain(q, k, v, scale=8 ** -0.5, causal=True)
+    assert_close(got, want, torch.float32, "flash at head dim 8 (padded to 16)", TOL_F32)
+    lines = [ln.strip() for ln in out.splitlines()
+             if any(t in ln for t in ("fused ops", "forge.sdpa", "fidelity", "FGR", "OK"))]
+    log(f"examples/torch_quickstart.py on the card: returned 0 in {secs:.1f} s; launches "
+        f"{launched}, {launched.variants}; flash at head dim 8 padded to 16 within TOL_F32 of "
+        f"the plain version (max abs {(got - want).abs().max().item():.2e}); "
+        + " | ".join(lines))
+
+    release_device_memory()
+    cfg = get_config("forge-125m")
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    res = {}
+    reset_counts()
+    out, secs = run_example(
+        "serve_batch", ["--arch", "forge-125m", "--full", "--gen", "8", "--max-len", "256"],
+        ("[jit      ] decode", "[interpret] decode", "greedy tokens jit == interpret:"),
+        params=params, out=res)
+    launched = counts()
+    check(launched["fused_linear"] > 0, f"serve example: launches {launched}")
+    jit, interp = res["jit"]["tokens"], res["interpret"]["tokens"]
+    check(jit.shape == interp.shape == (4, 8), f"serve example: tokens {jit.shape}")
+    diverged = hold_diverged_rows(model, cfg, params, res["prompts"], jit, interp, dev,
+                                  "serve example")
+    lines = [ln.strip() for ln in out.splitlines() if "decode" in ln or "greedy" in ln]
+    log(f"examples/torch_serve_batch.py on the card: returned 0 in {secs:.1f} s; jit compile "
+        f"{res['jit']['compile_s']:.1f} s; launches {launched}, {launched.variants}; greedy "
+        f"tokens equal in {int((jit == interp).all(axis=1).sum())}/4 rows"
+        + (f"; diverged rows held at their first differing token: {diverged}" if diverged
+           else "") + "; " + " | ".join(lines))
+    del params
 
 
 def main(argv=None):
@@ -5558,6 +5847,7 @@ def main(argv=None):
     launches.update(timed("phase 14", phase14, dev))
     launches.update(timed("phase 15", phase15, dev))
     launches.update(timed("phase 16", phase16, dev, dryrun))
+    timed("phase 17", phase17, dev)
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
@@ -5625,7 +5915,7 @@ def main(argv=None):
              "kimi_eager": fl_rows[("kimi", 4)], "encdec_apply": fl_rows[("encdec", 2048)],
              "encdec_serve": fl_rows[("encdec", 4)], "train": fl_rows[TRAIN_ROWS],
              "train_step": fl_rows[TRAIN_ROWS], "planned_apply": fl_rows[4096],
-             "planned_step": fl_rows[TRAIN_ROWS]}),
+             "planned_step": fl_rows[TRAIN_ROWS], "tp_apply": fl_rows[("tp", 4096)]}),
         row("flash_attention", "src/repro/kernels/flash_attention.py:167", "apply",
             {"apply": fa_rows["apply"], "qwen_apply": fa_rows["qwen"],
              "autotune_forge": fa_rows["apply"], "autotune_qwen": fa_rows["qwen"],
@@ -5633,7 +5923,7 @@ def main(argv=None):
              "kimi_apply": fa_rows["kimi"], "encdec_apply": fa_rows["encdec_enc"],
              "encdec_serve": fa_rows["encdec_decode"], "train": fa_rows["train"],
              "train_step": fa_rows["train"], "planned_apply": fa_rows["apply"],
-             "planned_step": fa_rows["train"]}),
+             "planned_step": fa_rows["train"], "tp_apply": fa_rows["tp"]}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
             {"paged": pa_rows["served"], "qwen_paged": pa_rows["qwen_served"],
              "phi_paged": pa_rows["phi_served"]}),
@@ -5654,6 +5944,7 @@ def main(argv=None):
                                "B1-H64-KVH8-S1024-D128": timing(fa_rows["vl"]),
                                "B1-H64-KVH8-S256-D112": timing(fa_rows["kimi"]),
                                "B8-H12-S128-D64-train": timing(fa_rows["train"]),
+                               "B4-H6-S1024-D64-tensor-parallel": timing(fa_rows["tp"]),
                                **{f"B{b}-H{h}-Sq{sq}-Sk{sk}-D64-"
                                   f"{'causal' if c else 'noncausal'}": timing(
                                       fa_rows[f"encdec_{name}"])
@@ -5667,6 +5958,8 @@ def main(argv=None):
                                                       ED_FL_ROWS))
                                for M in ms}
     kernels[0]["per_shape"]["forge-125m-train-layer-M1024"] = timing(fl_rows[TRAIN_ROWS])
+    kernels[0]["per_shape"]["forge-125m-tensor-parallel-rank-layer-M4096"] = timing(
+        fl_rows[("tp", 4096)])
     kernels[2]["head_dims"] = list(PA.HEAD_DIMS)
     kernels[2]["per_shape"] = {"B4-H12-D64-served": timing(pa_rows["served"]),
                                "B8-H12-D64-pos2047": timing(pa_rows["long"]),

@@ -61,7 +61,21 @@ class CostBreakdown:
 
 
 def _is_linear_class(op: str) -> bool:
-    return op.startswith("forge.") or op in ACCEL_OPS
+    return is_fused_unit(op) or op in ACCEL_OPS
+
+
+#: op-name prefixes of the fused dispatch units: the Phase-2 fusions
+#: (``forge.<kind>``), the opaque units the capture keeps whole
+#: (``kernels/ops.forge_op``: ``repro_torch.forge_<name>``) and the RG-LRU
+#: scan's custom op, which the JAX package wraps in ``forge_op("rg_lru")``
+#: where the port calls the kernel's op directly
+FUSED_UNIT_PREFIXES = ("forge.", "repro_torch.forge_", "repro_torch.rg_lru.")
+
+
+def is_fused_unit(op: str) -> bool:
+    """A fused dispatch unit, as the JAX package counts its ``forge.<name>``
+    nodes."""
+    return op.startswith(FUSED_UNIT_PREFIXES)
 
 
 def graph_features(g: Graph) -> Dict[str, Any]:
@@ -75,7 +89,7 @@ def graph_features(g: Graph) -> Dict[str, Any]:
         "linear_frac": (n_linear / n_ops) if n_ops else 0.0,
         "depth": g.depth(),
         "params_m": sum(math.prod(v.shape) for v in weights) / 1e6,
-        "n_fused": sum(1 for n in nodes if n.op.startswith("forge.")),
+        "n_fused": sum(1 for n in nodes if is_fused_unit(n.op)),
         "n_attn_fused": sum(1 for n in nodes if n.op == "forge.sdpa"),
     }
 

@@ -47,6 +47,12 @@ def _sdpa_callable(node: GNode) -> Callable:
 
 
 def _linear_act_callable(node: GNode) -> Callable:
+    """The fused linear, its residual added after it.  In a planned call
+    a row-parallel product is a pending sum, reduced before the residual
+    (``settled``; plain tensors pass as they are), as Megatron
+    all-reduces after a row-parallel layer: the residual stream and the
+    norms after it stay whole."""
+    from ..distrib.actsharding import settled
     from ..kernels import ops
 
     p = node.params
@@ -63,7 +69,9 @@ def _linear_act_callable(node: GNode) -> Callable:
             i += 1
         if has_residual:
             r = args[i]
-        out = ops.fused_linear(x, w, b, act=p.get("act"), residual=r, impl=p.get("impl"))
+        out = settled(ops.fused_linear(x, w, b, act=p.get("act"), impl=p.get("impl")))
+        if r is not None:
+            out = out + r
         return out.to(out_dtype) if out_dtype is not None else out
 
     return fn

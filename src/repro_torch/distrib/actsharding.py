@@ -28,8 +28,9 @@ from __future__ import annotations
 # the models import this module: torch.distributed.tensor is imported
 # only once a policy is in use
 import contextlib
+import math
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -141,6 +142,75 @@ def gathered(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _constrain_op(x, [p.dim if isinstance(p, Shard) and p.dim != dim else -1 for p in pl])
 
 
+def _mesh_dims_sharding(x: torch.Tensor, dim: int) -> List[int]:
+    """The mesh dims over which the DTensor ``x`` shards dim ``dim``."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == dim]
+
+
+def head_layout(shards: int, n_heads: int, n_kv_heads: int) -> Tuple[str, int]:
+    """How attention takes its heads when its projections' outputs are
+    split into ``shards`` tensor-parallel shards (the plan's ``model``
+    axis): ``(mode, kv_heads)``, ``kv_heads`` the K/V heads it runs with.
+    ``"replicated"``: one shard.  ``"heads"``: the shards divide
+    ``n_heads`` and ``n_kv_heads``, heads sharded with no gather.
+    ``"kv_repeated"``: they divide only ``n_heads`` (GQA); K/V are
+    gathered and each KV head repeated to ``lcm(n_kv_heads, shards)``
+    heads, sharded with the queries (the same values: exact).
+    ``"gathered"``: they do not divide ``n_heads``; heads gathered, as
+    before tensor parallelism (a plan records this in ``fallbacks``).
+    The one rule the models and ``ShardingPlan.attention_layout`` apply."""
+    if shards == 1:
+        return "replicated", n_kv_heads
+    if n_heads % shards:
+        return "gathered", n_kv_heads
+    if n_kv_heads % shards:
+        return "kv_repeated", math.lcm(n_kv_heads, shards)
+    return "heads", n_kv_heads
+
+
+def split_heads(x: torch.Tensor, n_heads: int, keep: bool) -> torch.Tensor:
+    """(B, S, n·D) -> (B, n, S, D).  With ``keep`` a DTensor's sharded
+    last dim (a column-parallel projection's output) stays sharded: its
+    heads are sharded over those mesh dims, and attention runs on each
+    device's local heads (the caller's :func:`head_layout` found that the
+    shards divide ``n_heads``).  Otherwise the dim is :func:`gathered`
+    first."""
+    B, S, _ = x.shape
+    if not keep:
+        x = gathered(x, 2)
+    return x.view(B, S, n_heads, -1).transpose(1, 2)
+
+
+def shard_count(x: torch.Tensor, dim: int) -> int:
+    """How many shards dim ``dim`` of ``x`` is split into (1 for a plain
+    tensor)."""
+    if type(x) is torch.Tensor or not hasattr(x, "placements"):
+        return 1
+    n = 1
+    for i in _mesh_dims_sharding(x, dim % x.ndim):
+        n *= x.device_mesh.size(i)
+    return n
+
+
+def kv_heads_like(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``k`` (B, KVH, S, D) with its heads sharded as ``q``'s (B, H, S, D)
+    are: ``k`` itself where they already are; else (``"kv_repeated"`` of
+    :func:`head_layout`) ``k`` gathered, each KV head repeated to the
+    layout's KV heads (query head h still reads KV head h // (H / KVH))
+    and sharded as ``q``."""
+    if type(q) is torch.Tensor or shard_count(q, 1) == 1:
+        return k
+    if _mesh_dims_sharding(k, 1) == _mesh_dims_sharding(q, 1):
+        return k
+    k = gathered(k, 1)
+    B, KVH, S, D = k.shape
+    rep = head_layout(shard_count(q, 1), q.shape[1], KVH)[1] // KVH
+    k = k.unsqueeze(2).expand(B, KVH, rep, S, D).reshape(B, KVH * rep, S, D)
+    return _constrain_op(k, shard_dims_of(q))
+
+
 def settled(args: Any) -> Any:
     """``args`` with every DTensor that holds a pending reduction (a
     ``Partial`` placement, such as a vocab-sharded embedding's masked
@@ -166,8 +236,9 @@ def settled(args: Any) -> Any:
     return pytree.tree_map(one, args)
 
 
-#: the mesh axes a plan's FSDP shards parameters over (``dp_axes``)
-_DP_AXES = ("pod", "data")
+#: the mesh axes a plan's FSDP shards parameters over (``dp_axes``); every
+#: other mesh axis is tensor-parallel
+DP_AXES = ("pod", "data")
 
 
 def fsdp_gathered(params: Any) -> Any:
@@ -190,7 +261,7 @@ def fsdp_gathered(params: Any) -> Any:
         if not isinstance(t, DTensor):
             return t
         names = t.device_mesh.mesh_dim_names or ()
-        pl = [Replicate() if isinstance(p, Shard) and names[i] in _DP_AXES else p
+        pl = [Replicate() if isinstance(p, Shard) and names[i] in DP_AXES else p
               for i, p in enumerate(t.placements)]
         return t if tuple(pl) == tuple(t.placements) else t.redistribute(t.device_mesh, pl)
 
@@ -216,11 +287,44 @@ def _(x, dims):
     return torch.empty_like(x)
 
 
+def _constrain_setup(ctx, inputs, output):
+    ctx.dims = shard_dims_of(inputs[0])
+
+
 def _constrain_backward(ctx, g):
-    return g, None
+    """The gradient pinned back to the input's layout (the pin run in
+    reverse): the op before it meets its gradient as it placed its
+    output."""
+    if ctx.dims is None or type(g) is torch.Tensor:
+        return g, None
+    return _constrain_op(g, ctx.dims), None
 
 
-_constrain_op.register_autograd(_constrain_backward)
+_constrain_op.register_autograd(_constrain_backward, setup_context=_constrain_setup)
+
+
+def merged_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, S, H·D), just merged from heads, whose gradient comes back
+    placed as ``x`` is when its heads were whole on every device (a
+    gathered split): the op after it may run on a slice of the merged dim
+    (a row-parallel product), and the view back to heads could not split
+    40 heads off a 16-way shard of the gradient.  ``x`` itself otherwise."""
+    dims = shard_dims_of(x)
+    if dims is None or x.ndim - 1 in dims:
+        return x
+    return _constrain_op(x, dims)
+
+
+def shard_dims_of(x: torch.Tensor) -> Optional[List[int]]:
+    """Per mesh dim, the tensor dim the DTensor ``x`` shards over it, or
+    -1 (a pending sum counts as replicated); None for a plain tensor."""
+    if type(x) is torch.Tensor:
+        return None
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return None
+    return [p.dim if isinstance(p, Shard) else -1 for p in x.placements]
 
 
 def register_constrain_strategy() -> None:

@@ -35,12 +35,32 @@ dim.
 
 DTensor has no sharding strategy for the port's kernel ops
 (``repro_torch::fused_linear`` ...) nor for the opaque ``forge_op`` /
-``scan_op`` nodes: :func:`register_kernel_shardings` gives each two,
-rows (dim 0 of its batch-major tensors) sharded in and out, or all
-replicated; any other input placement is redistributed to one of them,
-as GSPMD treats a Pallas call as opaque.  No column or row
-tensor-parallel strategy is registered for ``fused_linear``: its
-epilogue (bias, activation) on a partial sum would be wrong.
+``scan_op`` nodes: :func:`register_kernel_shardings` gives them theirs,
+so that a planned call does one device's share of the work, as XLA
+partitions the reference's products:
+
+* ``fused_linear``, per mesh dim: all replicated; rows sharded where
+  ``x``'s rows already are; on a tensor-parallel (non data-parallel) mesh
+  dim, column-parallel where ``w`` is sharded on its columns (``x``
+  replicated, ``b`` and the output sharded on the columns: the epilogue
+  is per column, so exact), and row-parallel where ``w`` is sharded on
+  its rows and there is no activation (``x`` sharded on its last dim, the
+  output a pending sum; the bias enters as a pending sum too, each device
+  adding ``b / n``, which is exact for the power-of-two axes used here);
+  its backward op takes the same layout, so each gradient is computed on
+  the forward's shards (a weight's gradient over sharded rows, and an
+  input's over a sharded contraction, a pending sum);
+* flash attention and its backward, and the mLSTM core and its backward:
+  per mesh dim all replicated, rows sharded, or heads (dim 1) sharded,
+  each where the first input already is;
+* the other kernel and opaque ops: rows (dim 0 of their batch-major
+  tensors) sharded in and out where the first input's rows already are,
+  or all replicated;
+
+any other input placement is redistributed to one of them.  Two plain
+ops the models reach that DTensor lacks a strategy for get one too
+(``searchsorted``: the sorted sequence replicated; ``log_sigmoid``
+forward and backward: pointwise).
 """
 from __future__ import annotations
 
@@ -50,10 +70,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate, Shard,
+                                      distribute_tensor)
 from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
+from .actsharding import DP_AXES, head_layout
 
 Axis = Any  # str | tuple[str, ...] | None
 
@@ -278,8 +300,14 @@ class ShardingPlan:
 
     def params_shardings(self, params_tree: Any) -> Any:
         flat, spec = flatten_with_paths(params_tree)
-        return pytree.tree_unflatten(
+        out = pytree.tree_unflatten(
             [NamedSharding(self.mesh, self.param_spec(path, leaf)) for path, leaf in flat], spec)
+        if self.attention_layout()["mode"] == "gathered":
+            note = (f"attention: n_heads {self.cfg.n_heads} % model({self._model_size()}) "
+                    "!= 0 -> heads gathered")
+            if note not in self.fallbacks:
+                self.fallbacks.append(note)
+        return out
 
     # -- optimizer states ------------------------------------------------------
 
@@ -352,6 +380,21 @@ class ShardingPlan:
     def scalar_sharding(self) -> NamedSharding:
         return NamedSharding(self.mesh, P())
 
+    def _model_size(self) -> int:
+        return mesh_axis_size(self.mesh, "model") if "model" in self.mesh.mesh_dim_names else 1
+
+    def attention_layout(self) -> Dict[str, Any]:
+        """How a planned call's attention takes its heads over ``model``:
+        :func:`~repro_torch.distrib.actsharding.head_layout`, the rule the
+        models apply to the shards they meet, as ``{"mode", "kv_heads"}``.
+        The ``"gathered"`` case is recorded in ``fallbacks`` when the
+        params are placed (:meth:`params_shardings`), where ``safe_pspec``
+        records the leaves' own.  Windowed and cached attention always
+        gathers."""
+        mode, kv_heads = head_layout(self._model_size(), self.cfg.n_heads,
+                                     self.cfg.n_kv_heads)
+        return {"mode": mode, "kv_heads": kv_heads}
+
     def summary(self) -> str:
         return (f"plan[{self.cfg.name}] mesh={axis_sizes(self.mesh)} "
                 f"fsdp={self.fsdp} sp_cache={self.seq_shard_cache} "
@@ -384,7 +427,8 @@ def distribute_tree(tree: Any, shardings: Any) -> Any:
     """``tree``'s tensors as DTensors placed as ``shardings`` (a tree of
     :class:`NamedSharding` like ``tree``, from the plan's
     ``*_shardings``) says.  A real tensor is split from its full value
-    (``distribute_tensor``: every rank passes the same full tensor); a
+    (``distribute_tensor``: every rank passes the same full tensor and
+    slices its own shard, with no communication); a
     fake or meta tensor (the dry run) becomes its local shard, allocated
     empty, with no communication; meta tensors are placed only under
     ``FakeTensorMode`` (their shards are fake)."""
@@ -404,8 +448,8 @@ def distribute_tree(tree: Any, shardings: Any) -> Any:
             if not is_fake(local.to_local()):
                 raise ValueError("meta tensors are placed under FakeTensorMode only")
             out.append(local)
-        else:
-            out.append(distribute_tensor(t, sh.mesh, list(pl)))
+        else:  # every rank holds the same full value: each slices its own shard
+            out.append(distribute_tensor(t, sh.mesh, list(pl), src_data_rank=None))
     return pytree.tree_unflatten(out, spec)
 
 
@@ -439,16 +483,21 @@ def replicate_plain():
 #: False for a replicated tensor (weights, the page pool), None for a
 #: non-tensor argument; every output is batch-major
 _ROW_OPS: Dict[str, Tuple[Optional[bool], ...]] = {
-    "repro_torch::fused_linear": (True, False, False, None),  # x, w, b, act
-    "repro_torch::flash_attention": (True, True, True, None, None, None),
     # q, k_pages, v_pages, page_table, pos, window, scale
     "repro_torch::paged_attention": (True, False, False, True, True, None, None),
     "repro_torch::rg_lru": (True, True, True),  # x, a, h0
     "repro_torch::rg_lru_chunked": (True, True, True),
     "repro_torch::rms_norm": (True, False, None),  # x, w, eps
-    "repro_torch::forge_mlstm": (True, True, True, True, True),  # q, k, v, i, f
     # pre, r, c, n, h, m, live
     "forge_scan::slstm": (True, False, True, True, True, True, True),
+}
+#: head-major ops (every tensor argument and output (B, H, ...)) -> the
+#: index of their first non-tensor argument (the rest is static)
+_HEAD_OPS: Dict[str, int] = {
+    "repro_torch::flash_attention": 3,  # q, k, v, scale, scale_mode, causal
+    "repro_torch::flash_attention_backward": 4,  # q, k, v, g, ...
+    "repro_torch::forge_mlstm": 5,  # q, k, v, i_pre, f_pre
+    "repro_torch::forge_mlstm_backward": 6,  # q, k, v, i_pre, f_pre, g
 }
 _REGISTERED: set = set()
 
@@ -492,25 +541,181 @@ def _row_strategy(rows: Tuple[Optional[bool], ...], n_out: int):
     return strategy
 
 
+def _placed(arg) -> Tuple[Placement, ...]:
+    """The placements an op argument (an ``OpStrategy``) arrives with."""
+    return arg.strategies[0].output_spec.placements
+
+
+def _is_shard(p: Placement, dim: int) -> bool:
+    return isinstance(p, Shard) and p.dim == dim
+
+
+def _per_dim_strategy(op_schema, per_dim: Sequence[Sequence[Tuple[Tuple, Tuple]]]):
+    """The op's layouts: every combination of one candidate a mesh dim.
+    A candidate is ``(placement of each tensor argument, placement of
+    each output)`` on its mesh dim."""
+    import itertools
+
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
+    args = [a for a in op_schema.args_schema if isinstance(a, OpStrategy)]
+    mesh = args[0].mesh
+    specs = []
+    for combo in itertools.product(*per_dim):
+        ins = [DTensorSpec(mesh, tuple(c[0][j] for c in combo),
+                           tensor_meta=a.strategies[0].output_spec.tensor_meta)
+               for j, a in enumerate(args)]
+        outs = tuple(DTensorSpec(mesh, tuple(c[1][j] for c in combo))
+                     for j in range(len(combo[0][1])))
+        specs.append(OpSpec(output_specs=outs[0] if len(outs) == 1 else outs,
+                            input_specs=tuple(ins),
+                            redistribute_cost=[generate_redistribute_costs(a, w)
+                                               for a, w in zip(args, ins)]))
+    return OpStrategy(specs)
+
+
+def _linear_layouts(mesh_dim: str, xp: Placement, wp: Placement, act) -> List[str]:
+    """The layouts ``fused_linear`` may take on one mesh dim, given how
+    ``x`` and ``w`` arrive: ``"replicated"``; ``"rows"`` where ``x``'s
+    rows are sharded; on a tensor-parallel (not data-parallel) dim
+    ``"column"`` where ``w`` is sharded on its columns, or ``"row"``
+    where on its rows and there is no activation."""
+    out = ["replicated"] + (["rows"] if _is_shard(xp, 0) else [])
+    if mesh_dim not in DP_AXES:
+        if _is_shard(wp, 1):
+            out.append("column")
+        elif _is_shard(wp, 0) and act is None:
+            out.append("row")
+    return out
+
+
+_R, _S0, _S1, _P = Replicate(), Shard(0), Shard(1), Partial()
+#: layout -> ((x, w, b) in, (y,) out): the row-parallel output is a
+#: pending sum, and its bias enters as one (each device adds b / n)
+_LINEAR_FWD = {"replicated": ((_R, _R, _R), (_R,)), "rows": ((_S0, _R, _R), (_S0,)),
+               "column": ((_R, _S1, _S0), (_S1,)), "row": ((_S1, _S0, _P), (_P,))}
+#: layout -> ((x, w, b, g) in, (dx, dw, db) out) of the backward op, on
+#: the forward's shards: a gradient summed over sharded rows or a
+#: sharded contraction is a pending sum
+_LINEAR_BWD = {"replicated": ((_R, _R, _R, _R), (_R, _R, _R)),
+               "rows": ((_S0, _R, _R, _S0), (_S0, _P, _P)),
+               "column": ((_R, _S1, _S0, _S1), (_P, _S1, _S0)),
+               "row": ((_S1, _S0, _R, _R), (_S1, _S0, _R))}
+
+
+def _linear_strategy(table):
+    """The strategy of ``fused_linear(x, w, b, act)`` (``table`` =
+    :data:`_LINEAR_FWD`) or of its backward op ``(x, w, b, g, act)``
+    (:data:`_LINEAR_BWD`): per mesh dim, each layout of
+    :func:`_linear_layouts` (module docstring)."""
+
+    def strategy(op_schema):
+        x, w, b = op_schema.args_schema[:3]
+        act = op_schema.args_schema[-1]
+        names = x.mesh.mesh_dim_names or ()
+        per_dim = []
+        for i, (xp, wp) in enumerate(zip(_placed(x), _placed(w))):
+            opts = []
+            for layout in _linear_layouts(names[i], xp, wp, act):
+                ins, outs = table[layout]
+                opts.append((ins[:2] + (ins[2:] if b is not None else ins[3:]), outs))
+            per_dim.append(opts)
+        return _per_dim_strategy(op_schema, per_dim)
+
+    return strategy
+
+
+def _head_strategy(op_schema):
+    """A head-major op: per mesh dim every tensor replicated, or rows
+    (dim 0) or heads (dim 1) sharded where the first input's are; the
+    outputs alike.  The strategy of flash attention, the mLSTM core and
+    their backward ops, which run on local heads: DTensor never sees
+    their products flatten (rows, heads)."""
+    from torch.distributed.tensor._op_schema import OpStrategy
+
+    args = [a for a in op_schema.args_schema if isinstance(a, OpStrategy)]
+    n_out = len(op_schema.op._schema.returns)
+    per_dim = []
+    for p in _placed(args[0]):
+        opts = [Replicate()] + [Shard(d) for d in (0, 1) if _is_shard(p, d)]
+        per_dim.append([((o,) * len(args), (o,) * n_out) for o in opts])
+    return _per_dim_strategy(op_schema, per_dim)
+
+
+def _searchsorted_strategy(op_schema):
+    """``searchsorted(sorted, values)``: a 1-D sorted sequence
+    replicated, the values and the output as the values are placed (a
+    pending sum reduced); a batched sequence: everything replicated."""
+    seq, values = op_schema.args_schema[:2]
+    per_dim = []
+    for p in _placed(values):
+        keep = p if seq.ndim == 1 and isinstance(p, Shard) else Replicate()
+        per_dim.append([((Replicate(), keep), (keep,))])
+    return _per_dim_strategy(op_schema, per_dim)
+
+
+def _pointwise_like_first(op_schema):
+    """Every tensor argument and output at the first argument's
+    placements, a pending sum reduced (``log_sigmoid_forward`` /
+    ``_backward``: elementwise, with a buffer of the input's shape)."""
+    from torch.distributed.tensor._op_schema import OpStrategy
+
+    args = [a for a in op_schema.args_schema if isinstance(a, OpStrategy)]
+    n_out = len(op_schema.op._schema.returns)
+    per_dim = []
+    for p in _placed(args[0]):
+        keep = p if isinstance(p, Shard) else Replicate()
+        per_dim.append([((keep,) * len(args), (keep,) * n_out)])
+    return _per_dim_strategy(op_schema, per_dim)
+
+
+#: plain ATen ops DTensor has no strategy for -> (strategy, static argnum)
+_ATEN_STRATEGIES = {
+    "searchsorted.Tensor": (_searchsorted_strategy, 2),
+    "log_sigmoid_forward.default": (_pointwise_like_first, 100),
+    "log_sigmoid_backward.default": (_pointwise_like_first, 100),
+}
+
+
 def register_kernel_shardings() -> None:
     """Give DTensor a strategy for every kernel op and opaque op the
-    port's models reach (:data:`_ROW_OPS`), and for ``constrain``'s op
-    (``distrib/actsharding.py``).  Idempotent; the ops are made when the
+    port's models reach (:data:`_ROW_OPS`, :data:`_HEAD_OPS`, fused
+    linear), for the plain ops it lacks one for (:data:`_ATEN_STRATEGIES`)
+    and for ``constrain``'s op (``distrib/actsharding.py``).  Idempotent;
+    the ops are made when the
     kernel and model modules are imported, which this does first."""
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+
     from .. import models  # noqa: F401  (defines the opaque ops)
     from ..kernels import (flash_attention, fused_linear, paged_attention,  # noqa: F401
                            rg_lru, rms_norm)
     from . import actsharding
 
+    register = DTensor._op_dispatcher.sharding_propagator.register_op_strategy
+
+    def op_of(qualname):
+        ns, name = qualname.split("::")
+        packet, _, overload = name.partition(".")
+        return getattr(getattr(getattr(torch.ops, ns), packet), overload or "default")
+
     for qualname, rows in _ROW_OPS.items():
         if qualname in _REGISTERED:
             continue
-        ns, name = qualname.split("::")
-        op = getattr(getattr(torch.ops, ns), name).default
+        op = op_of(qualname)
         if len(rows) != len(op._schema.arguments):
             raise AssertionError(f"{qualname}: {len(rows)} rows for {op._schema}")
-        DTensor._op_dispatcher.sharding_propagator.register_op_strategy(
-            op, _row_strategy(rows, len(op._schema.returns)))
+        register(op, _row_strategy(rows, len(op._schema.returns)))
+        _REGISTERED.add(qualname)
+    tables = [(q, _head_strategy, n) for q, n in _HEAD_OPS.items()]
+    tables.append(("repro_torch::fused_linear", _linear_strategy(_LINEAR_FWD), 3))
+    tables.append(("repro_torch::fused_linear_backward", _linear_strategy(_LINEAR_BWD), 4))
+    tables += [(f"aten::{name}", fn, n) for name, (fn, n) in _ATEN_STRATEGIES.items()]
+    for qualname, fn, static in tables:
+        if qualname in _REGISTERED:
+            continue
+        register(op_of(qualname), fn, schema_info=RuntimeSchemaInfo(static_argnum=static))
         _REGISTERED.add(qualname)
     if "constrain" not in _REGISTERED:
         actsharding.register_constrain_strategy()

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,7 +40,8 @@ from . import ref as _ref
 LAUNCHES = _build.LaunchCount()
 
 #: head dims the kernels are instantiated for: the JAX kernel's (64, 96,
-#: 112, 128, 256) and the smoke configs' 16 and 32
+#: 112, 128, 256) and the smoke configs' 16 and 32; a smaller head dim
+#: runs zero-padded to the next of them (:func:`flash_attention_cuda`)
 HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
 #: head dims of the warpgroup kernel: 96 and 112 run padded to 128 (TMA
 #: fills the padding with zeros); at 256 the O accumulator and two tiles'
@@ -126,6 +127,10 @@ def flash_attention_cuda(
 
     The views may be strided; only the head dimension must be contiguous.
     The output is a fresh contiguous (B, H, Sq, D) tensor in q's dtype.
+    A head dim below 256 that no kernel is built for (the quickstart
+    example's 8) runs on q, k and v zero-padded to the next built one:
+    the padded columns add exactly 0 to every score and give output
+    columns that are dropped, so the result is the unpadded attention's.
     """
     _eff_scale(scale, scale_mode)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -137,7 +142,12 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention: q{tuple(q.shape)} does not match "
                          f"k{tuple(k.shape)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+        Dp = next((d for d in HEAD_DIMS if d > D), None)
+        if Dp is None:
+            raise ValueError(f"flash_attention: head dim {D} above {HEAD_DIMS[-1]}")
+        q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
+        o = flash_attention_cuda(q, k, v, scale=scale, scale_mode=scale_mode, causal=causal)
+        return o[..., :D].contiguous()
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention: q, k, v must be on one CUDA device")
@@ -193,13 +203,29 @@ def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(q, k, v)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=())
+def _flash_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                       scale: float, scale_mode: str, causal: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the vector-Jacobian product of the plain version.
+    An op of its own, so that a planned call's backward runs on each
+    device's local heads under the forward's sharding strategy
+    (``distrib/sharding.py``) instead of DTensor's products over
+    flattened (rows, heads).  The gradients are contiguous, as the fake
+    implementation says: DTensor reads a view's legality off the global
+    (fake) strides and applies it to the local shards."""
+    return _ref.vjp(functools.partial(flash_attention_plain, scale=scale,
+                                      scale_mode=scale_mode, causal=causal), (q, k, v), g)
+
+
+@_flash_backward_op.register_fake
+def _(q, k, v, g, scale, scale_mode, causal):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
 def _backward(ctx, g):
-    scale, scale_mode, causal = ctx.cfg
-    inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-    with torch.enable_grad():
-        out = flash_attention_plain(*inputs, scale=scale, scale_mode=scale_mode,
-                                    causal=causal)
-    return tuple(torch.autograd.grad(out, inputs, g)) + (None, None, None)
+    q, k, v = ctx.saved_tensors
+    return _flash_backward_op(q, k, v, g, *ctx.cfg) + (None, None, None)
 
 
 _flash_op.register_autograd(_backward, setup_context=_setup_context)

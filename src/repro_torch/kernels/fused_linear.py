@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -214,15 +214,31 @@ def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(x, w, b)
 
 
+@torch.library.custom_op("repro_torch::fused_linear_backward", mutates_args=())
+def _fused_linear_backward_op(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                              g: torch.Tensor, act: Optional[str]
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dw, db): the vector-Jacobian product of the plain version (db
+    zeros where there is no bias).  An op of its own, so that a planned
+    call's backward runs on the forward's shards under a sharding
+    strategy of its own (``distrib/sharding.py``); the gradients are
+    contiguous, as the fake implementation says."""
+    fn = functools.partial(_ref.fused_linear_ref, act=act)
+    if b is None:
+        dx, dw = _ref.vjp(lambda x, w: fn(x, w, None), (x, w), g)
+        return dx, dw, g.new_zeros(w.shape[1])
+    return _ref.vjp(fn, (x, w, b), g)
+
+
+@_fused_linear_backward_op.register_fake
+def _(x, w, b, g, act):
+    return x.new_empty(x.shape), w.new_empty(w.shape), g.new_empty((w.shape[1],))
+
+
 def _backward(ctx, g):
     x, w, b = ctx.saved_tensors
-    inputs = [t.detach().requires_grad_(True) if t is not None else None
-              for t in (x, w, b)]
-    with torch.enable_grad():
-        y = _ref.fused_linear_ref(*inputs, act=ctx.act)
-    live = [t for t in inputs if t is not None]
-    grads = iter(torch.autograd.grad(y, live, g))
-    return tuple(next(grads) if t is not None else None for t in inputs) + (None,)
+    dx, dw, db = _fused_linear_backward_op(x, w, b, g, ctx.act)
+    return dx, dw, db if b is not None else None, None
 
 
 _fused_linear_op.register_autograd(_backward, setup_context=_setup_context)

@@ -22,6 +22,7 @@ JAX package, never a Pallas kernel there either).
 """
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Optional
 
 import torch
@@ -101,13 +102,41 @@ def forge_op(name: str) -> Callable[[Callable], Callable]:
     The JAX package's ``forge_op`` names a ``jax.jit`` wrapper
     ``forge_<name>``, which Phase-1 capture keeps as one ``forge.<name>``
     node routed to the accelerator (the paper's custom-operator
-    registration hook, §9.5).  Here the function becomes the custom op
-    ``repro_torch::forge_<name>``: one ``repro_torch.forge_<name>.default``
-    node, which Phase 3 routes to the accelerator like the kernel ops
-    (``lowering.KERNEL_OP_PREFIX``); the executor calls the op, which runs
-    the plain torch function on the tensors' device.
+    registration hook, §9.5).  Here the function (of floating tensors,
+    one tensor out) becomes the custom op ``repro_torch::forge_<name>``:
+    one ``repro_torch.forge_<name>.default`` node, which Phase 3 routes to
+    the accelerator like the kernel ops (``lowering.KERNEL_OP_PREFIX``);
+    the executor calls the op, which runs the plain torch function on the
+    tensors' device.
+
+    Its gradient is the op ``repro_torch::forge_<name>_backward(*inputs,
+    grad)``: the vector-Jacobian product of the function on the saved
+    inputs (as ``jax.grad`` differentiates the JAX package's
+    ``forge_op``), an op of its own so that its sharding strategy
+    (``distrib/sharding.py``) keeps a planned call's backward on each
+    device's local shards.
     """
-    return _opaque_op(f"repro_torch::forge_{name}", None)
+    qualname = f"repro_torch::forge_{name}"
+
+    def deco(fn: Callable) -> Callable:
+        n = len(inspect.signature(fn).parameters)
+        schema = (f"({', '.join(f'Tensor a{i}' for i in range(n))}, Tensor grad) -> "
+                  f"({', '.join(['Tensor'] * n)})")
+        bwd = torch.library.custom_op(f"{qualname}_backward",
+                                      lambda *args: _ref.vjp(fn, args[:n], args[n]),
+                                      mutates_args=(), schema=schema)
+        bwd.register_fake(lambda *args: tuple(a.new_empty(a.shape) for a in args[:n]))
+        op = torch.library.custom_op(qualname, mutates_args=())(fn)
+        op.register_fake(fn)
+
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(*inputs)
+
+        op.register_autograd(lambda ctx, g: bwd(*ctx.saved_tensors, g),
+                             setup_context=setup_context)
+        return op
+
+    return deco
 
 
 def scan_op(name: str, fake: Callable) -> Callable[[Callable], Callable]:

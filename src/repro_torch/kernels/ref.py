@@ -8,7 +8,7 @@ against on the card, and the backward of every kernel's
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +20,28 @@ def _expand_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
         return x
     B, KVH, S, D = x.shape
     return x[:, :, None].expand(B, KVH, groups, S, D).reshape(B, KVH * groups, S, D)
+
+
+def vjp(fn: Callable, inputs: Sequence[torch.Tensor], grads) -> Tuple[torch.Tensor, ...]:
+    """The vector-Jacobian product of ``fn`` at ``inputs`` against
+    ``grads`` (a tensor, or one per output): autograd through ``fn``, a
+    gradient for every input, contiguous.  Callable inside a custom op's
+    implementation, which runs below autograd (the dispatcher excludes
+    the autograd keys there, and DTensor more besides): they are put
+    back for the product."""
+    from torch._C import DispatchKey
+
+    exclude = torch._C._dispatch_tls_local_exclude_set()
+    for key in (DispatchKey.AutogradFunctionality, DispatchKey.AutogradOther,
+                DispatchKey.AutogradNestedTensor, DispatchKey.ADInplaceOrView):
+        exclude = exclude.remove(key)
+    live = [t.detach().requires_grad_(True) for t in inputs]
+    with torch._C._ForceDispatchKeyGuard(torch._C._dispatch_tls_local_include_set(),
+                                         exclude), torch.enable_grad():
+        outs = fn(*live)
+        if isinstance(outs, torch.Tensor):
+            outs, grads = (outs,), (grads,)
+        return tuple(d.contiguous() for d in torch.autograd.grad(outs, live, grads))
 
 
 def sdpa_ref(

@@ -80,7 +80,7 @@ def _shape(t) -> Tuple[int, ...]:
     return tuple(t.shape)
 
 
-def _linear_flops(x, w, b=None, act=None, *, out_shape=None, **kwargs) -> int:
+def _linear_flops(x, w, *args, out_shape=None, **kwargs) -> int:
     return 2 * math.prod(x[:-1]) * x[-1] * w[-1]
 
 
@@ -94,7 +94,7 @@ def _paged_flops(q, k_pages, v_pages, page_table, *args, out_shape=None, **kwarg
     return 4 * B * H * D * page_table[1] * k_pages[1]
 
 
-def _mlstm_flops(q, k, v, i_pre, f_pre, *, out_shape=None, **kwargs) -> int:
+def _mlstm_flops(q, k, v, *args, out_shape=None, **kwargs) -> int:
     B, H, S, D = q
     return 4 * B * H * S * S * D
 
@@ -105,13 +105,22 @@ def _slstm_flops(pre, r, *args, out_shape=None, **kwargs) -> int:
     return 2 * B * S * H * hd * four_hd
 
 
+def _rerun_and_vjp(forward: Callable[..., int]) -> Callable[..., int]:
+    """A backward op's FLOPs: its forward's two products rerun, then their
+    four vector-Jacobian products."""
+    return lambda *shapes, **kw: 3 * forward(*shapes, **kw)
+
+
 #: the kernel and opaque ops' matmul FLOPs (``torch.utils.flop_counter``
 #: counts only ATen's); shapes in, as its formulas take them
 _KERNEL_FLOPS: Dict[str, Callable[..., int]] = {
     "repro_torch::fused_linear": _linear_flops,
+    "repro_torch::fused_linear_backward": _rerun_and_vjp(_linear_flops),
     "repro_torch::flash_attention": _flash_flops,
+    "repro_torch::flash_attention_backward": _rerun_and_vjp(_flash_flops),
     "repro_torch::paged_attention": _paged_flops,
     "repro_torch::forge_mlstm": _mlstm_flops,
+    "repro_torch::forge_mlstm_backward": _rerun_and_vjp(_mlstm_flops),
     "forge_scan::slstm": _slstm_flops,
 }
 
@@ -119,8 +128,8 @@ _KERNEL_FLOPS: Dict[str, Callable[..., int]] = {
 class StepCounter(TorchDispatchMode):
     """Counts what one device runs: a DTensor op is let through
     (``NotImplemented``), so DTensor desugars it into ops on local shards
-    and collectives, which come back here.  ``flops`` (matmul-like ops),
-    ``bytes`` (each non-view op's tensor inputs and outputs),
+    and collectives, which come back here.  ``flops`` (matmul-like ops;
+    ``flops_by_op`` by op), ``bytes`` (each non-view op's tensor inputs and outputs),
     ``collectives`` (kind, output shape, output bytes) and ``peak`` (the
     most bytes of storages made inside the mode alive at once).
 
@@ -136,6 +145,7 @@ class StepCounter(TorchDispatchMode):
 
         self._flop_registry = flop_registry
         self.flops = 0
+        self.flops_by_op: Dict[str, int] = {}
         self.bytes = 0
         self.collectives: List[Tuple[str, Tuple[int, ...], int]] = []
         self.live = 0
@@ -171,13 +181,18 @@ class StepCounter(TorchDispatchMode):
                     self.collectives.append((kind, _shape(t), t.numel() * t.element_size()))
             return
         formula = self._flop_registry.get(func._overloadpacket)
+        flops = 0
         if formula is not None:
-            self.flops += formula(*args, **kwargs, out_val=out)
+            flops = formula(*args, **kwargs, out_val=out)
         else:
             kernel = _KERNEL_FLOPS.get(f"{ns}::{name}")
             if kernel is not None:
-                self.flops += kernel(*pytree.tree_map(
+                flops = kernel(*pytree.tree_map(
                     lambda a: _shape(a) if isinstance(a, torch.Tensor) else a, args))
+        if flops:
+            self.flops += flops
+            key = f"{ns}::{name}"
+            self.flops_by_op[key] = self.flops_by_op.get(key, 0) + flops
         if not func.is_view:
             self.bytes += sum(t.numel() * t.element_size()
                               for t in pytree.tree_leaves((args, kwargs, out))
@@ -348,7 +363,8 @@ def _run(cfg, shape_name: str, mesh, *, fsdp, seq_shard_cache, act_shard=None,
         del out
         t_step = time.perf_counter() - t0
     return {"plan": plan, "spec": spec, "flops": float(counter.flops),
-            "bytes": float(counter.bytes), "collectives": counter.collectives,
+            "flops_by_op": dict(counter.flops_by_op), "bytes": float(counter.bytes),
+            "collectives": counter.collectives,
             "args_bytes": base, "peak_bytes": counter.peak,
             "place_s": t_place, "warm_s": t_warm, "step_s": t_step}
 
@@ -450,7 +466,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "compile_s": round(r["warm_s"], 2),  # the first call: bodies compile
         "step_s": round(r["step_s"], 2),  # the counted step
         "memory": mem,
-        "cost": {"flops": r["flops"], "bytes accessed": r["bytes"]},
+        "cost": {"flops": r["flops"], "bytes accessed": r["bytes"],
+                 "flops_by_op": r["flops_by_op"]},
         "cost_scan_raw": {"flops": r["flops"], "coll_bytes": weighted},
         "calibration": calib,
         "roofline": terms.as_dict(),

@@ -59,7 +59,11 @@ def make_host_mesh(model: Optional[int] = None, device_type: str = "cuda") -> De
 def fake_world(world_size: int, rank: int = 0) -> Iterator[None]:
     """A ``fake`` process group of ``world_size`` ranks in this process,
     destroyed on exit: meshes of any size with no device behind them, for
-    plans and dry runs.  Refuses to replace a live group."""
+    plans and dry runs.  Refuses to replace a live group.  On exit
+    DTensor's sharding cache is emptied too: a later mesh of the same
+    shape compares equal to this one's, and a cached decision would lead
+    it to this group's destroyed subgroups."""
+    from torch.distributed.tensor import DTensor
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
@@ -68,4 +72,5 @@ def fake_world(world_size: int, rank: int = 0) -> Iterator[None]:
     try:
         yield
     finally:
+        DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
         dist.destroy_process_group()

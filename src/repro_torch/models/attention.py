@@ -22,7 +22,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..distrib.actsharding import constrain, gathered
+from ..distrib.actsharding import (constrain, head_layout, kv_heads_like, merged_heads,
+                                   shard_count, split_heads)
+from ..kernels import ops
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -54,13 +56,13 @@ def attn_init(
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
-    B, S, _ = x.shape
-    return gathered(x, 2).view(B, S, n_heads, -1).transpose(1, 2)
+    """(B, S, n·D) -> (B, n, S, D), a planned call's heads gathered."""
+    return split_heads(x, n_heads, keep=False)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     B, H, S, D = x.shape
-    return x.transpose(1, 2).reshape(B, S, H * D)
+    return merged_heads(x.transpose(1, 2).reshape(B, S, H * D))
 
 
 def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -214,9 +216,16 @@ def attention(
     q = L.linear(x, p["wq"], p.get("bq"))
     k = L.linear(src, p["wk"], p.get("bk"))
     v = L.linear(src, p["wv"], p.get("bv"))
-    q = _split_heads(q, n_heads)
-    k = _split_heads(k, n_kv_heads)
-    v = _split_heads(v, n_kv_heads)
+    # a planned call's column-parallel projections keep their heads
+    # sharded (tensor-parallel attention) where the shards divide them
+    # and the attention is unmasked and cacheless; elsewhere the heads
+    # are gathered (actsharding.head_layout)
+    layout = (head_layout(shard_count(q, 2), n_heads, n_kv_heads)[0]
+              if cache is None and window is None else "gathered")
+    head_parallel = layout in ("heads", "kv_repeated")
+    q = split_heads(q, n_heads, keep=head_parallel)
+    k = split_heads(k, n_kv_heads, keep=layout == "heads")
+    v = split_heads(v, n_kv_heads, keep=layout == "heads")
     # Megatron-style activation layout pins (distrib/actsharding.py; the
     # identity without a policy).  Decode keeps the inferred layouts, as
     # in the JAX package: pinning heads conflicts with the
@@ -281,6 +290,12 @@ def attention(
         else:
             mask = L.decode_length_mask(cache_pos, max_len)
         out = sdpa_unfused(q, k_cache, v_cache, causal=False, extra_mask=mask)
+    elif head_parallel:
+        # the flash op on each device's local heads (its sharding strategy,
+        # distrib/sharding.py): DTensor's own products would flatten
+        # (rows, heads) into a shard it cannot gather under fake tensors
+        k, v = kv_heads_like(q, k), kv_heads_like(q, v)
+        out = ops.sdpa(q, k, v, causal=causal, groups=q.shape[1] // k.shape[1], impl=impl)
     else:
         out = sdpa_unfused(q, k, v, causal=causal, window=window)
     out = L.linear(_merge_heads(out), p["wo"])

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..distrib.actsharding import gathered
+from ..distrib.actsharding import gathered, head_layout, merged_heads, shard_count, split_heads
 from ..kernels import ops
 from . import layers as L
 from ._forge import forge_body
@@ -246,9 +246,12 @@ def mlstm_block_init(generator: Optional[torch.Generator], cfg: ModelConfig,
     }
 
 
-def _split(x: torch.Tensor, H: int) -> torch.Tensor:
-    B, S, I = x.shape
-    return gathered(x, 2).reshape(B, S, H, I // H).transpose(1, 2)
+def _split(x: torch.Tensor, H: int, keep_shards: bool = False) -> torch.Tensor:
+    """(B, S, I) -> (B, H, S, I / H); ``keep_shards``: a planned call's
+    column-parallel shards stay where they divide the heads (the
+    parallel mLSTM core runs on local heads, ``actsharding.head_layout``)."""
+    keep = keep_shards and head_layout(shard_count(x, 2), H, H)[0] in ("replicated", "heads")
+    return split_heads(x, H, keep)
 
 
 def _gates(c: torch.Tensor, p: Params, H: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -262,7 +265,7 @@ def _mlstm_out(x: torch.Tensor, hm: torch.Tensor, g: torch.Tensor, p: Params) ->
     hm: (B, H, S, hd)."""
     hm = L.rms_norm(hm, p["norm_h"]["scale"])
     B, H, S, hd = hm.shape
-    hm = hm.transpose(1, 2).reshape(B, S, H * hd)
+    hm = merged_heads(hm.transpose(1, 2).reshape(B, S, H * hd))
     return x + L.linear(hm * F.silu(g), p["w_down"])
 
 
@@ -272,9 +275,9 @@ def mlstm_block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     u = L.linear(h, p["w_up"])  # (B, S, 2d)
     g = L.linear(h, p["w_gate"])
     c = F.silu(L.causal_conv1d(u, p["conv"]))
-    q = _split(L.linear(c, p["wq"]), H)
-    k = _split(L.linear(c, p["wk"]), H)
-    v = _split(L.linear(u, p["wv"]), H)
+    q = _split(L.linear(c, p["wq"]), H, keep_shards=True)
+    k = _split(L.linear(c, p["wk"]), H, keep_shards=True)
+    v = _split(L.linear(u, p["wv"]), H, keep_shards=True)
     i_pre, f_pre = _gates(c, p, H)
     return _mlstm_out(x, mlstm_parallel(q, k, v, i_pre, f_pre), g, p)
 

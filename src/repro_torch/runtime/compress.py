@@ -12,7 +12,9 @@ one fp32 scale per block of 256):
 payload of a real fabric would be the int8 blocks and their scales; the
 reduction itself runs on the dequantized fp32 blocks, as the reference's
 ``psum`` does.  ``torch.round`` rounds half to even as ``jnp.round``
-does, so ``q`` and the scales equal the reference's bit for bit.
+does, and every division is an IEEE division of two tensors, so ``q``
+and the scales equal the reference's bit for bit, on the CPU and on the
+card.
 
 Quantizing is lossy; error feedback (``compress_tree``'s residuals)
 keeps SGD unbiased in expectation.  As in the reference, the train CLI's
@@ -42,7 +44,9 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Symmetric per-block int8.  Returns (q, scales, true_size)."""
     blocks, n = _pad_to_block(x.float())
     amax = blocks.abs().amax(dim=1, keepdim=True)
-    scale = torch.clamp_min(amax / 127.0, 1e-12)
+    # divided by a tensor, not the scalar: CUDA turns a division by a
+    # scalar into a product with its reciprocal, an ulp off the CPU's
+    scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return q, scale, n
 

@@ -103,7 +103,13 @@ def test_plan_leaf_for_leaf(meshes, arch, fsdp):
         assert _port_specs(tp.cache_shardings(_meta(j_cache))) == \
             _jax_specs(jp.cache_shardings(j_cache))
         assert tuple(tp.scalar_sharding().spec) == tuple(jp.scalar_sharding().spec)
-        assert tp.fallbacks == jp.fallbacks
+        # the port's plan also records attention's gathered heads (40 heads
+        # on a 16-way model axis), which the JAX plan leaves to XLA
+        m = sharding.mesh_axis_size(mesh, "model")
+        heads = [f for f in tp.fallbacks if f.startswith("attention:")]
+        assert [f for f in tp.fallbacks if f not in heads] == jp.fallbacks
+        assert heads == ([f"attention: n_heads {cfg.n_heads} % model({m}) != 0 -> heads gathered"]
+                         if cfg.n_heads % m else [])
     # the auto FSDP threshold
     assert sharding.plan_for(cfg, mesh).fsdp == jshard.plan_for(jcfg, amesh).fsdp
 

@@ -15,22 +15,36 @@ def spawn(fn, world: int, tmp_path, *args, timeout: float = 120.0):
     """Run ``fn(rank, world, init_file, out_dir, *args)`` on ``world``
     spawned ranks; fail if they do not all end within ``timeout``
     seconds.  Returns ``out_dir``."""
-    out = str(tmp_path)
-    os.makedirs(out, exist_ok=True)
-    init = os.path.join(out, "init")
-    ctx = mp.start_processes(fn, args=(world, init, out) + tuple(args), nprocs=world,
-                             start_method="spawn", join=False)
+    return spawn_all([(fn, world, tmp_path) + tuple(args)], timeout)[0]
+
+
+def spawn_all(jobs, timeout: float = 120.0, meanwhile=None):
+    """:func:`spawn` of several ``(fn, world, tmp_path, *args)`` jobs at
+    once, calling ``meanwhile()`` (if given) while they run; returns their
+    output directories."""
+    started = []
+    for fn, world, tmp_path, *args in jobs:
+        out = str(tmp_path)
+        os.makedirs(out, exist_ok=True)
+        init = os.path.join(out, "init")
+        started.append((fn, out, mp.start_processes(
+            fn, args=(world, init, out) + tuple(args), nprocs=world, start_method="spawn",
+            join=False)))
     deadline = time.monotonic() + timeout
     try:
-        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{fn.__name__} ranks still running after {timeout} s")
+        if meanwhile is not None:
+            meanwhile()
+        for fn, _, ctx in started:
+            while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"{fn.__name__} ranks still running after {timeout} s")
     finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join()
-    return out
+        for _, _, ctx in started:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+    return [out for _, out, _ in started]
 
 
 def _init(rank, world, init):
@@ -102,3 +116,96 @@ def train_rank(rank, world, init, out, arch, params_file, batch_file):
                        os.path.join(out, "step.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def tp_rank(rank, world, init, out, runs, batch_file):
+    """For each ``(shape, cases)`` of ``runs``, a (data, model) mesh of
+    this world's size and ``(arch, params file)`` pairs: the f32
+    smoke config's ``apply`` logits, loss and gradients on params and
+    batch placed by ``plan_for``; rank 0 writes their full values, the
+    local shapes the fused-linear and flash ops ran at, the plan's
+    attention layout and fallbacks."""
+    from repro_torch.configs import get_config
+    from repro_torch.distrib.sharding import distribute_tree, plan_for, replicate_plain
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    _init(rank, world, init)
+    try:
+        batch = torch.load(batch_file)
+        results = {}
+        for shape, cases in runs:
+            mesh = make_mesh(tuple(shape), ("data", "model"))
+            for arch, params_file in cases:
+                cfg = get_config(arch, smoke=True).with_(dtype="float32")
+                params = torch.load(params_file)
+                plan = plan_for(cfg, mesh)
+                layout = plan.attention_layout()
+                dparams = distribute_tree(params, plan.params_shardings(params))
+                dbatch = distribute_tree(batch, plan.batch_shardings(batch))
+                with replicate_plain(), _local_kernel_shapes() as seen:
+                    with torch.no_grad():
+                        logits = full(get_model(cfg).apply(dparams, dbatch["tokens"], cfg))
+                    loss, grads = steps.loss_and_grads(steps.make_loss_fn(cfg), dparams, dbatch)
+                    loss, grads = full(loss), pytree.tree_map(full, grads)
+                results[(arch, tuple(shape))] = {
+                    "logits": logits, "loss": loss, "grads": grads, "kernel_shapes": seen.seen,
+                    "layout": layout, "fallbacks": list(plan.fallbacks)}
+        if rank == 0:
+            torch.save(results, os.path.join(out, "tp.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+class _local_kernel_shapes:
+    """Records the local shapes the fused-linear and flash ops run at
+    (below DTensor), by wrapping their implementations' entry points."""
+
+    def __init__(self):
+        self.seen = []
+        self._saved = []
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention, fused_linear
+
+        for mod, name in ((fused_linear, "fused_linear"), (flash_attention, "flash_attention")):
+            inner = mod._forward
+
+            def record(*args, _inner=inner, _name=name):
+                self.seen.append((_name, tuple(tuple(a.shape) for a in args
+                                               if isinstance(a, torch.Tensor))))
+                return _inner(*args)
+
+            self._saved.append((mod, inner))
+            mod._forward = record
+        return self
+
+    def __exit__(self, *exc):
+        for mod, inner in self._saved:
+            mod._forward = inner
+
+
+def dry_count_rank(rank, world, init, out, arch, shape_name):
+    """The dry run's counts of ``arch``'s smoke ``shape_name`` cell on
+    ``fake`` meshes (no gloo group): (2, 1) at 1 layer, (2, 4) at 1 and
+    2 layers; written as ``{(shape, layers): {flops, flops_by_op}}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
+    cfg = get_config(arch, smoke=True)
+    counts = {}
+    for shape, layers in (((2, 1), (1,)), ((2, 4), (1, 2))):
+        with fake_world(shape[0] * shape[1]):
+            mesh = make_mesh(shape, ("data", "model"))
+            for n in layers:
+                r = dryrun._run(dryrun._with_layers(cfg, n), shape_name, mesh, fsdp=False,
+                                seq_shard_cache=True)
+                counts[shape, n] = {"flops": r["flops"], "flops_by_op": r["flops_by_op"]}
+    torch.save(counts, os.path.join(out, "counts.pt"))

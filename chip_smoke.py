@@ -276,26 +276,41 @@ Phases (any failure raises and the script exits non-zero):
    2048).
 
 15. Training at full size: forge-125m (12 layers, d 768, vocab 50257,
-   bf16, ``remat=True`` as its config says).  (a) The train CLI
-   in-process, ``repro_torch.launch.train.main(["--arch", "forge-125m",
-   "--batch", "8", "--seq", "128", "--steps", "12", "--ckpt-every", "6",
+   bf16, ``remat=True`` as its config says), through the step compiled
+   whole and donated (``train.JitTrainStep``: the loss and its
+   AOTAutograd backward, the clipping and the AdamW update, one CUDA
+   graph a step).  (a) The train CLI in-process,
+   ``repro_torch.launch.train.main(["--arch", "forge-125m", "--batch",
+   "8", "--seq", "128", "--steps", "12", "--ckpt-every", "6",
    "--simulate-fault", "8", ...])``: one failure, one restore from the
-   step-6 checkpoint, the replayed steps 6-7's losses equal to the first
-   pass's (bitwise, or within 1e-3 relative where a backward op adds with
-   atomics), the CLI's "loss diverged" check; launches of the whole run
-   exact (14 steps).  (b) One step's launches: flash and fused linear run
-   in every block body twice a step (the forward, and the rerun in
-   backward under remat), ``wgmma`` at M = 1024 rows, and the plain
-   backward launches none.  (c) One step against impl="ref" on the same
-   params and batch: the loss and every gradient leaf within
-   SPREAD_FACTOR_BF16 x the spread of two kernel-free implementations
-   (:func:`within_spread`); at F32_CHECK_LAYERS layers in f32, elementwise
-   within rtol 2e-4 / atol 2e-5.  (d) Adafactor: 3 steps of
-   ``make_train_step(cfg, Adafactor().for_config(cfg))``, finite losses, every >= 2-D leaf
-   of the stacked view factored.  (e) Reported: median step ms and tok/s,
-   the host/device split of a step, the AdamW update's ms, checkpoint
-   save and restore seconds, ``max_memory_allocated``, beside the step's
-   bound (its FLOPs at the bf16 peak plus AdamW's bytes at the HBM rate).
+   step-6 checkpoint copied into the step's own buffers, the replayed
+   steps 6-7's losses equal to the first pass's (bitwise, or within 1e-3
+   relative), the CLI's "loss diverged" check; 2 Dynamo graphs, 3
+   Inductor programs and a replay for every step but the first; launches
+   of the whole run exact (14 steps and the first call's eager forward).
+   (b) One step's launches, one replay: the compiled forward's and
+   backward's kernel nodes (the backward's: the partitioner's recompute
+   of the checkpointed bodies), ``wgmma`` at M = 1024 rows; the owned
+   tensors do not move.  (c) The compiled step's loss against the eager
+   ``make_train_step``'s on the same state and batch, by the spread rule
+   (:func:`within_spread`); one eager step against impl="ref": the loss
+   and every gradient leaf within SPREAD_FACTOR_BF16 x the spread of two
+   kernel-free implementations; at F32_CHECK_LAYERS layers in f32 the
+   gradients elementwise within rtol 2e-4 / atol 2e-5 of impl="ref", and
+   3 compiled steps' losses within the same of 3 eager steps'.  (d)
+   Adafactor: 3 steps of ``make_train_step(cfg,
+   Adafactor().for_config(cfg))``, finite losses, every >= 2-D leaf of
+   the stacked view factored.  (e) Reported: the compiled and the eager
+   step's median ms and tok/s against the step's bound (its FLOPs at the
+   bf16 peak plus AdamW's bytes at the HBM rate), the compile split, the
+   host/device split of a compiled step, the compiled update's ms and
+   share, checkpoint save and restore seconds, and both runs'
+   ``max_memory_allocated`` (the compiled run's at most 1.1x the eager
+   one's).  (f) recurrentgemma-2b at full width, 3 layers (rec, rec,
+   attn), B8 x S128, bf16, 4 steps through ``build_trainer``'s compiled
+   step: the RG-LRU scan and flash at D = 256 (``wmma``) under a compiled
+   backward, launches a replay equal to the kernel nodes, finite losses,
+   the first loss within the spread rule of the eager step's.
    Phase 2 holds each path kernel's gradient through its custom op (the
    kernel forward, the registered plain backward) against autograd
    through the plain version: fused linear (GELU with a bias, SiLU
@@ -414,8 +429,9 @@ F32_CHECK_LAYERS = 4
 # phase 12 (a): qwen2.5-14b through the paged SlotScheduler at full width
 # and this depth.  At all 48 layers the whole script took 976.6 s on the
 # H100 (phase 12 (a) 87.1 s, its five programs exported in 15 s each),
-# past its 920 s budget; each layer costs it about 2 s
-QWEN_PAGED_LAYERS = 24
+# past its 920 s budget; each layer costs it about 2 s.  24 until phase
+# 15's compiled train steps took their time out of the cut
+QWEN_PAGED_LAYERS = 4
 REL_L2_DEEP_BF16 = 0.1
 # xlstm-350m at full depth is more sensitive still: two bf16
 # implementations without any kernel (the prefill cell compiled with
@@ -461,6 +477,8 @@ RG_FL_ROWS = (4, 128, 2048)
 # ragged T and D
 RG_SHAPES = ((4, 32, 2560, True), (4, 64, 2560, True), (2, 1024, 2560, False),
              (3, 37, 100, True))
+# phase 15 (f)'s training shape (B8 x S128, h0 zero), timed beside them
+RG_TRAIN = (8, 128, 2560, False)
 # chunk lengths forced on every RG_SHAPES case: one step a chunk (a look-back
 # as deep as T), a length that leaves a ragged last chunk, the longest
 RG_FORCED_STEPS = (1, 7, 64)
@@ -1390,7 +1408,7 @@ def phase_rg_lru(dev, timer):
     rg_graph_replays(dev, g)
 
     rows = {}
-    for B, T, D, with_h0 in RG_SHAPES[:3]:
+    for B, T, D, with_h0 in RG_SHAPES[:3] + (RG_TRAIN,):
         x, a, h0 = rg_inputs(g, dev, torch.float32, B, T, D, with_h0)
         err = assert_close(RG.rg_lru_cuda(x, a, h0), RG.rg_lru_plain(x, a, h0),
                            torch.float32, "rg_lru timing input")
@@ -1782,7 +1800,7 @@ def check_variants(launches):
               f"{path}: fused_linear launches by variant {fl} (of {n['fused_linear']})")
         # recurrentgemma-2b's head dim 256 has no wgmma kernel (its O
         # accumulator does not fit beside the scores): wmma is its kernel
-        allowed = {"wmma"} if path == "rglru_apply" else {"wgmma"}
+        allowed = {"wmma"} if path in ("rglru_apply", "rglru_train") else {"wgmma"}
         check(sum(fa.values()) == n["flash_attention"] and set(fa) <= allowed,
               f"{path}: flash launches by variant {fa} (of {n['flash_attention']})")
         log(f"variants on {path}: fused_linear {fl}, flash_attention {fa}")
@@ -5051,18 +5069,23 @@ def phase_kernel_grads(dev):
 
 def phase15(dev):
     """Phase 15: forge-125m trained at full size (bf16, 12 layers,
-    ``remat=True``) through the train CLI, then one step's launches, one
-    step against impl="ref" (bf16 by the spread rule, f32 at
-    F32_CHECK_LAYERS layers elementwise), 3 Adafactor steps, and the
-    step's numbers beside its bound.  Returns the launches of the CLI run
-    ("train") and of one step ("train_step")."""
+    ``remat=True``) through the train CLI, whose step is the step
+    compiled whole and donated (``train.JitTrainStep``, one CUDA graph a
+    step), then one step's launches counted per replay from the compiled
+    programs' kernel nodes, the compiled step against the eager
+    ``make_train_step`` (bf16 by the spread rule; f32 at F32_CHECK_LAYERS
+    layers, 3 steps elementwise), one eager step against impl="ref", 3
+    Adafactor steps, the step's numbers beside its bound, and (f)
+    recurrentgemma-2b at 3 full-width layers through the compiled step.
+    Returns the launches of the CLI run ("train"), of one step
+    ("train_step") and of (f)'s steps ("rglru_train")."""
     import numpy as np
     import torch
     from torch.utils import _pytree as pytree
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenDataset
     from repro_torch.launch import steps, train
-    from repro_torch.models import _forge
+    from repro_torch.models import get_model
 
     release_device_memory()
     cfg = get_config("forge-125m")
@@ -5071,15 +5094,18 @@ def phase15(dev):
     out = {}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="forge_ckpt_") as ckpt_dir:
+        base = torch.cuda.memory_allocated()  # what the earlier phases keep
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         rc = train.main(TRAIN_ARGS + ["--ckpt-dir", ckpt_dir, "--device", "cuda"], out=out)
         torch.cuda.synchronize()
         cli = counts()
-        peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated() - base
     cli_s = time.perf_counter() - t0
     check(rc == 0, f"train CLI returned {rc}")
-    rep, ckpt = out["report"], out["ckpt"]
+    rep, ckpt, step = out["report"], out["ckpt"], out["step"]
+    check(isinstance(step, train.JitTrainStep) and step.donate,
+          f"the CLI's step is {type(step).__name__}")
     hist = [(h["step"], h["loss"]) for h in rep.history]
     check(rep.failures == 1 and rep.restores == 1, f"failures {rep.failures}, restores "
           f"{rep.restores}")
@@ -5089,85 +5115,142 @@ def phase15(dev):
     check(rel <= 1e-3, f"replayed steps 6-7 losses {replay} vs the first pass's {first}")
     losses = [loss for _, loss in hist]
     check(all(np.isfinite(losses)), f"non-finite losses {losses}")
-    log(f"train CLI {' '.join(TRAIN_ARGS)}: {len(hist)} steps run ({rep.failures} failure, "
-        f"{rep.restores} restore from step 6) in {cli_s:.1f} s; losses "
-        f"{', '.join(f'{x:.4f}' for x in losses)}; replayed steps 6-7 "
-        f"{'bitwise equal to' if first == replay else f'within {rel:.2e} relative of'} the "
-        f"first pass ({first})")
+    check(step.graphs == 2 and step.programs == {"forward": 1, "backward": 1, "update": 1}
+          and step.replays == len(hist) - 1,
+          f"the compiled step: {step.graphs} graphs, programs {step.programs}, "
+          f"{step.replays} replays over {len(hist)} steps")
+    log(f"train CLI {' '.join(TRAIN_ARGS)} through the compiled step: {len(hist)} steps run "
+        f"({rep.failures} failure, {rep.restores} restore from step 6, copied into the owned "
+        f"buffers) in {cli_s:.1f} s; losses {', '.join(f'{x:.4f}' for x in losses)}; replayed "
+        f"steps 6-7 {'bitwise equal to' if first == replay else f'within {rel:.2e} relative of'}"
+        f" the first pass ({first}); {step.replays} CUDA graph replays (the first step "
+        f"compiles, runs and captures)")
 
-    # (b) one step's launches, counted exactly
-    (body,) = forge_bodies(cfg, "apply", (8, 128, cfg.d_model))
-    per_body = {"flash_attention": flash_nodes(body), "fused_linear": linear_nodes(body)}
-    runs = (1 + cfg.remat) * cfg.n_layers  # the forward, and the rerun in backward
-    _, optimizer, step_fn = train.build_trainer(cfg)
+    # (b) one step's launches, counted per replay from the compiled programs
+    fwd, bwd = step.kernel_nodes["forward"], step.kernel_nodes["backward"]
+    per_step = {k: fwd.get(k, 0) + bwd.get(k, 0) for k in set(fwd) | set(bwd)}
+    check(fwd.get("flash_attention") == cfg.n_layers
+          and fwd.get("fused_linear") == 3 * cfg.n_layers,
+          f"the compiled forward's kernel nodes {fwd}")
     params, opt_state = out["state"]
+    check(params is step.state[0] and opt_state is step.state[1],
+          "the CLI's final state is not the step's own")
     data = TokenDataset(DataConfig(seq_len=128, global_batch=8, vocab=cfg.vocab, seed=0))
 
-    def batch(step):
-        return {k: torch.from_numpy(v).to(dev) for k, v in data.batch(step).items()}
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
 
     b = batch(12)
+    ptrs = [t.data_ptr() for t in pytree.tree_leaves(step.state)]
+    replays0 = step.replays
     reset_counts()
-    new_params, new_state, m = step_fn(params, opt_state, b)
+    step(params, opt_state, b)
     torch.cuda.synchronize()
     one = counts()
-    for name, n in per_body.items():
-        check(one[name] == n * runs, f"one train step: {name} launches {one[name]} != "
-              f"{n} a body x {runs} body runs")
-        check(cli[name] == n * runs * len(hist), f"train CLI: {name} launches {cli[name]} != "
-              f"{n * runs} a step x {len(hist)} steps")
-    check(one.variants["flash_attention"] == {"wgmma": per_body["flash_attention"] * runs}
-          and one.variants["fused_linear"] == {"wgmma": per_body["fused_linear"] * runs},
+    check(step.replays == replays0 + 1, f"one step replayed {step.replays - replays0} graphs")
+    check(ptrs == [t.data_ptr() for t in pytree.tree_leaves(step.state)],
+          "a step moved the owned parameters or state")
+    for name in ("flash_attention", "fused_linear"):
+        check(one[name] == per_step[name], f"one train step: {name} launches {one[name]} != "
+              f"{fwd[name]} forward + {bwd.get(name, 0)} backward kernel nodes")
+        # every step launches the programs' kernels once; the first call's
+        # eager forward (the bodies' compile) launched the forward's again
+        check(cli[name] == per_step[name] * len(hist) + fwd[name],
+              f"train CLI: {name} launches {cli[name]} != {per_step[name]} a step x "
+              f"{len(hist)} steps + {fwd[name]} of the eager forward")
+    check(one.variants["flash_attention"] == {"wgmma": per_step["flash_attention"]}
+          and one.variants["fused_linear"] == {"wgmma": per_step["fused_linear"]},
           f"one train step: launches by variant {one.variants}")
     check(not one["paged_attention"] and not one["rg_lru"] and not one["rms_norm"],
           f"one train step launched {dict(one)}")
-    log(f"one train step (B8 x S128, remat): flash {one['flash_attention']} and fused_linear "
-        f"{one['fused_linear']} launches = ({per_body['flash_attention']} and "
-        f"{per_body['fused_linear']} a body) x {runs} body runs (12 forward, 12 reruns in "
-        f"backward); by variant {one.variants}; the whole CLI run: {cli['flash_attention']} "
-        f"and {cli['fused_linear']} over {len(hist)} steps")
+    log(f"one compiled train step (B8 x S128, remat), one graph replay: flash "
+        f"{one['flash_attention']} and fused_linear {one['fused_linear']} launches = the "
+        f"forward's {fwd['flash_attention']} + {fwd['fused_linear']} kernel nodes and the "
+        f"backward's {bwd.get('flash_attention', 0)} + {bwd.get('fused_linear', 0)} (the "
+        f"partitioner's recompute of the checkpointed bodies); by variant {one.variants}; the "
+        f"whole CLI run: {cli['flash_attention']} and {cli['fused_linear']} over {len(hist)} "
+        f"steps and the eager forward")
 
-    # (e) the step's numbers
-    walls = [t * 1e3 for t in out["step_s"][1:]]  # the first step compiles the body
+    # (e) the step's numbers, the compiled and the eager step side by side
+    walls = [t * 1e3 for t in out["step_s"][1:]]  # the first step compiles
     step_ms = float(np.median(walls))
     toks = 8 * 128
     flops = train_step_flops(cfg, params, 8, 128)
     n_params = sum(p.numel() for p in pytree.tree_leaves(params))
     adamw_bytes = n_params * (2 + 2 + 2 + 4 * 4)  # read p, g; write p; read/write m, v
     bound_ms = (flops / BF16_FLOPS + adamw_bytes / HBM_BYTES_PER_S) * 1e3
-    split = train_split(step_fn, params, opt_state, b)
-    loss_fn = steps.make_loss_fn(cfg)
-    loss, grads = steps.loss_and_grads(loss_fn, params, b)
-    update_ms = cuda_ms(lambda: optimizer.update(grads, opt_state, params))
+    split = train_split(step, params, opt_state, b)
+    update_ms = compiled_update_ms(step)
+    cs = step.compile_split
+    optimizer = step.optimizer
     tm = ckpt.timings
+    state0 = [t.clone() for t in pytree.tree_leaves(step.state)]
+    ptree = pytree.tree_structure(step.state)
+    eager = steps.make_train_step(cfg, optimizer)
+    # the eager step from a fresh init, peak over 3 steps, as the CLI's peak
+    # counts from its fresh init
+    del out
+    release_device_memory()
+    base_eager = torch.cuda.memory_allocated()  # the compiled step's own tensors among it
+    torch.cuda.reset_peak_memory_stats()
+    p = get_model(cfg).init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    s = optimizer.init(p)
+    eager_walls = []
+    for i in range(3):
+        t1 = time.perf_counter()
+        p, s, m = eager(p, s, batch(i))
+        float(m["loss"])
+        eager_walls.append((time.perf_counter() - t1) * 1e3)
+    eager_peak = torch.cuda.max_memory_allocated() - base_eager
+    del p, s
+    eager_ms = float(np.median(eager_walls[1:]))
+    check(peak <= 1.1 * eager_peak, f"the compiled run's peak {peak / 2**30:.2f} GiB above 1.1x "
+          f"the eager step's {eager_peak / 2**30:.2f} GiB")
     log(f"train step forge-125m B8 x S128 (bf16, remat, AdamW; {n_params / 1e6:.1f}M params): "
-        f"median {step_ms:.1f} ms host wall over steps 2-{len(hist)} ({toks / step_ms * 1e3:.0f} "
-        f"tok/s); bound {bound_ms:.3f} ms = {flops / 1e12:.3f} TFLOP at the bf16 peak "
-        f"({flops / BF16_FLOPS * 1e3:.3f} ms) + {adamw_bytes / 1e9:.2f} GB of AdamW at the HBM "
-        f"rate ({adamw_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms), {step_ms / bound_ms:.1f}x; "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB over the CLI run")
-    log(f"AdamW update: {update_ms:.3f} ms (CUDA events, mean of 10) against its byte bound "
-        f"{adamw_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
-    log(f"checkpoints of {sum(p.numel() * p.element_size() for p in pytree.tree_leaves(out['state'])) / 1e9:.2f} GB: "
+        f"compiled median {step_ms:.2f} ms host wall over steps 2-{len(hist)} "
+        f"({toks / step_ms * 1e3:.0f} tok/s), eager {eager_ms:.1f} ms ({toks / eager_ms * 1e3:.0f}"
+        f" tok/s; steps 2-3 of 3), {eager_ms / step_ms:.1f}x; bound {bound_ms:.3f} ms = "
+        f"{flops / 1e12:.3f} TFLOP at the bf16 peak ({flops / BF16_FLOPS * 1e3:.3f} ms) + "
+        f"{adamw_bytes / 1e9:.2f} GB of AdamW at the HBM rate "
+        f"({adamw_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms): compiled {step_ms / bound_ms:.1f}x, "
+        f"eager {eager_ms / bound_ms:.1f}x; max_memory_allocated above what was allocated before "
+        f"each run {peak / 2**30:.2f} GiB over the compiled CLI run (from a fresh init), "
+        f"{eager_peak / 2**30:.2f} GiB over 3 eager steps (from a fresh init), "
+        f"{peak / eager_peak:.2f}x")
+    log(f"compiled step build {step.compile_s:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in cs.items())
+        + f"; {step.graphs} Dynamo graphs, Inductor programs {step.programs}; 1 CUDA graph "
+        f"replay a step")
+    log(f"AdamW update (the compiled update graph, flat layout): {update_ms:.3f} ms (CUDA events, "
+        f"mean of 10) against its byte bound {adamw_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; "
+        + (f"{100 * update_ms / split['device_ms']:.1f}% of the step's device time"
+           if split["device_ms"] else "the step's device time not measured"))
+    log(f"checkpoints of {sum(t.numel() * t.element_size() for t in state0) / 1e9:.2f} GB: "
         f"snapshot to host {', '.join(f'{x:.2f}' for x in tm['snapshot_s'])} s, write "
         f"{', '.join(f'{x:.2f}' for x in tm['write_s'])} s (its thread), restore "
         f"{', '.join(f'{x:.2f}' for x in tm['restore_s'])} s")
-    log(f"train step host/device split: host wall {split['wall_ms']:.1f} ms a step, of it "
-        f"{split['enqueue_ms']:.1f} ms before the loss's read; under the profiler device kernels "
-        f"{split['device_ms']:.2f} ms a step (flash {split['flash_ms']:.3f} ms, fused_linear "
-        f"{split['fl_ms']:.3f} ms), {100 * split['busy']:.1f}% busy" if split["device_ms"]
-        else f"train step host wall {split['wall_ms']:.1f} ms; device time not measured (the "
-        f"profiler recorded no device time)")
-    del new_params, new_state, grads
+    log(f"compiled train step host/device split: host wall {split['wall_ms']:.2f} ms a step, of "
+        f"it {split['enqueue_ms']:.2f} ms before the loss's read; under the profiler device "
+        f"kernels {split['device_ms']:.2f} ms a step (flash {split['flash_ms']:.3f} ms, "
+        f"fused_linear {split['fl_ms']:.3f} ms), {100 * split['busy']:.1f}% busy"
+        if split["device_ms"] else f"compiled train step host wall {split['wall_ms']:.2f} ms; "
+        f"device time not measured (the profiler recorded no device time)")
 
-    # (c) one step against impl="ref": bf16 by the spread rule
+    # (c) the compiled step against the eager one on the same state and batch
+    params, opt_state = pytree.tree_unflatten(state0, ptree)
+    compiled_loss = step(params, opt_state, b)[2]["loss"]
+    eager_loss = eager(params, opt_state, b)[2]["loss"]
+    loss_fn = steps.make_loss_fn(cfg)
     got_loss, got = steps.loss_and_grads(loss_fn, params, b)
-    check(torch.equal(got_loss, loss), "two kernel steps' losses on the same inputs differ")
+    check(torch.equal(got_loss, eager_loss), "the eager step's loss is not its gradient's")
     reset_counts()
     ref_loss, ref = steps.loss_and_grads(steps.make_loss_fn(cfg, impl="ref"), params, b)
     raw_loss, raw = steps.loss_and_grads(steps.make_loss_fn(cfg.with_(fuse="none"), impl="ref"),
                                          params, b)
     check(not any(counts().values()), "the impl='ref' train step launched a kernel")
+    within_spread("the compiled step's loss (12 layers, bf16) against the eager step's",
+                  compiled_loss[None], eager_loss[None], ref_loss[None])
+    # one eager step's loss and gradients against impl="ref": the spread rule
     within_spread("train loss", got_loss[None], ref_loss[None], raw_loss[None])
     worst = (0.0, "")
     for (path, gl), rl, wl in zip(pytree.tree_flatten_with_path(got)[0], pytree.tree_leaves(ref),
@@ -5183,14 +5266,42 @@ def phase15(dev):
     log(f"bf16 gradients (every one of {len(pytree.tree_leaves(got))} leaves) within "
         f"max({REL_L2_DEEP_BF16}, {SPREAD_FACTOR_BF16} x spread) relative L2 of impl='ref'; "
         f"closest to its bound: {worst[1]}")
-    del got, ref, raw, params, opt_state, out
-    release_device_memory()
+    del got, ref, raw, params, opt_state, state0, step, eager
+    release_compiled_steps()
 
     # (d) Adafactor: 3 steps on a model of the same widths
     phase15_adafactor(dev, cfg, batch)
-    # (c) f32 at F32_CHECK_LAYERS layers, elementwise
+    # (c) f32 at F32_CHECK_LAYERS layers: the compiled step against the eager one
     phase15_f32(dev, cfg, batch)
-    return {"train": cli, "train_step": one}
+    # (f) recurrentgemma-2b at 3 full-width layers through the compiled step
+    rglru = phase15_rglru(dev)
+    return {"train": cli, "train_step": one, "rglru_train": rglru}
+
+
+def compiled_update_ms(step, iters=10):
+    """The compiled update graph of a flat-layout ``JitTrainStep`` alone
+    (the clipping and AdamW; the gradients' gather into the flat layout
+    left out), on copies of its flat trees and flat gradients (its
+    parameters and state stay as they are): mean CUDA-event ms."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    fp, fs = pytree.tree_map(torch.clone, step._flat_trees)
+    grads = {k: torch.randn_like(p) * 1e-3 for k, p in fp.items()}
+    with torch.no_grad():  # as the step runs it: no recompile
+        ms = cuda_ms(lambda: step._update(grads, fp, fs), iters)
+    del fp, fs, grads
+    return ms
+
+
+def release_compiled_steps():
+    """Drop Dynamo's compiled code (it holds the train steps it traced,
+    and with them their owned tensors and CUDA graphs) and free the
+    memory."""
+    import torch
+
+    torch._dynamo.reset()
+    release_device_memory()
 
 
 def train_step_flops(cfg, params, B, S):
@@ -5308,10 +5419,14 @@ def phase15_adafactor(dev, cfg, batch):
 def phase15_f32(dev, cfg, batch):
     """Phase 15 (c), f32: forge-125m at full width and F32_CHECK_LAYERS
     layers in f32, one step's loss and every gradient leaf with the
-    kernels elementwise within rtol 2e-4 / atol 2e-5 of impl="ref"."""
+    kernels elementwise within rtol 2e-4 / atol 2e-5 of impl="ref"; then
+    3 steps of the compiled step (``build_trainer``'s) against 3 of the
+    eager ``make_train_step`` from the same state, every loss within the
+    same tolerance."""
+    import numpy as np
     import torch
     from torch.utils import _pytree as pytree
-    from repro_torch.launch import steps
+    from repro_torch.launch import steps, train
     from repro_torch.models import get_model
 
     cfg32 = cfg.with_(dtype="float32", n_layers=F32_CHECK_LAYERS)
@@ -5327,7 +5442,105 @@ def phase15_f32(dev, cfg, batch):
     log(f"f32 forge-125m at {F32_CHECK_LAYERS} layers (full width): loss {float(loss):.6f} vs "
         f"impl='ref' {float(ref_loss):.6f}; every gradient leaf within rtol "
         f"{TOL_F32['rtol']} atol {TOL_F32['atol']} (max abs err {worst:.3e})")
-    del params, got, ref
+    del got, ref
+    _, opt, step = train.build_trainer(cfg32)
+    eager = steps.make_train_step(cfg32, opt)
+    runs = {}
+    for name, fn in (("compiled", step), ("eager", eager)):
+        p, s = params, opt.init(params)
+        runs[name] = []
+        for i in range(3):
+            p, s, m = fn(p, s, batch(i))
+            runs[name].append(float(m["loss"]))
+    np.testing.assert_allclose(runs["compiled"], runs["eager"], **TOL_F32)
+    log(f"f32 forge-125m at {F32_CHECK_LAYERS} layers: 3 compiled steps' losses "
+        f"{runs['compiled']} against the eager step's {runs['eager']}, within rtol "
+        f"{TOL_F32['rtol']} atol {TOL_F32['atol']} (max abs diff "
+        f"{max(abs(x - y) for x, y in zip(runs['compiled'], runs['eager'])):.3e}); its build "
+        f"{step.compile_s:.1f} s")
+    del params, p, s, step, eager
+    release_compiled_steps()
+
+
+def phase15_rglru(dev):
+    """Phase 15 (f): recurrentgemma-2b at full width (d 2560, vocab
+    256000, 10 heads on 1 KV head), 3 layers (rec, rec, attn), B8 x S128,
+    bf16, trained 4 steps through ``build_trainer``'s compiled step: the
+    RG-LRU scan and flash at D = 256 (``wmma``) in its forward and, under
+    remat, its backward's recompute; launches a replay equal to the
+    compiled programs' kernel nodes, by variant; finite losses; the first
+    step's loss within the bf16 spread rule of the eager step's.  Returns
+    the launches of the 4 steps."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.launch import steps, train
+    from repro_torch.models import get_model
+
+    cfg = get_config("recurrentgemma-2b").with_(n_layers=3)
+    check(cfg.d_model == 2560 and cfg.vocab == 256000 and cfg.n_heads == 10
+          and cfg.n_kv_heads == 1 and cfg.remat and cfg.dtype == "bfloat16",
+          f"recurrentgemma-2b is {cfg}")
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    data = TokenDataset(DataConfig(seq_len=128, global_batch=8, vocab=cfg.vocab, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+               for i in range(4)]
+    _, opt, step = train.build_trainer(cfg)
+    check(isinstance(step, train.JitTrainStep), f"build_trainer gave {type(step).__name__}")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    p, s = params, opt.init(params)
+    losses, walls = [], []
+    for bt in batches:
+        t0 = time.perf_counter()
+        p, s, m = step(p, s, bt)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    fwd, bwd = step.kernel_nodes["forward"], step.kernel_nodes["backward"]
+    per_step = {k: fwd.get(k, 0) + bwd.get(k, 0) for k in set(fwd) | set(bwd)}
+    check(all(np.isfinite(losses)), f"recurrentgemma-2b losses {losses}")
+    check(fwd.get("rg_lru") == 2 and fwd.get("flash_attention") == 1,
+          f"the compiled forward's kernel nodes {fwd}")
+    for name in ("rg_lru", "flash_attention", "fused_linear"):
+        # 4 steps run the programs' kernels; the eager forward of the first
+        # call launched the forward's once more
+        check(launches[name] == 4 * per_step[name] + fwd[name],
+              f"recurrentgemma-2b train: {name} launches {launches[name]} != 4 x "
+              f"{per_step[name]} + {fwd[name]}")
+    check(launches.variants["flash_attention"] == {"wmma": launches["flash_attention"]}
+          and launches.variants["fused_linear"] == {"wgmma": launches["fused_linear"]},
+          f"recurrentgemma-2b train: launches by variant {launches.variants}")
+    build = (f"{step.compile_s:.1f} s, "
+             + ", ".join(f"{k} {v:.1f}" for k, v in step.compile_split.items()))
+    del p, s, step
+    release_compiled_steps()
+    # the first step's loss against the eager step's, from the same state
+    opt_state = opt.init(params)
+    eager_loss = steps.make_train_step(cfg, opt)(params, opt_state, batches[0])[2]["loss"]
+    reset_counts()
+    ref_loss = steps.make_loss_fn(cfg, impl="ref")(params, batches[0])
+    check(not any(counts().values()), "the impl='ref' loss launched a kernel")
+    within_spread("recurrentgemma-2b compiled step 1 loss against the eager step's",
+                  torch.tensor([losses[0]], device=dev), eager_loss[None], ref_loss[None])
+    log(f"recurrentgemma-2b (3 full-width layers: rec, rec, attn; {opt.__class__.__name__} lr "
+        f"{opt.lr}) B8 x S128 bf16 through the compiled step: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; per replay rg_lru {per_step['rg_lru']} "
+        f"({fwd['rg_lru']} forward + {bwd.get('rg_lru', 0)} in the backward's recompute), flash "
+        f"{per_step['flash_attention']} ({launches.variants['flash_attention']} over the run, "
+        f"D = 256), fused_linear {per_step['fused_linear']} ({launches.variants['fused_linear']}"
+        f" over the run); steps {', '.join(f'{x:.1f}' for x in walls)} ms host wall (the first "
+        f"builds: {build}); max_memory_allocated {peak / 2**30:.2f} GiB above the weights over "
+        f"the compiled steps")
+    del params, opt_state
+    release_device_memory()
+    return launches
 
 
 # phase 16: the distributed layer.  (a) forge-125m under plan_for on a
@@ -5388,9 +5601,10 @@ def phase16(dev, dryrun):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenDataset
     from repro_torch.distrib.sharding import distribute_tree, plan_for, replicate_plain
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import get_model
+    from repro_torch.optim import AdamW
     from repro_torch.runtime import compressed_all_reduce, compression_ratio, quantize_int8
     from repro_torch.runtime.compress import BLOCK, dequantize_int8
 
@@ -5447,7 +5661,9 @@ def phase16(dev, dryrun):
             f"steady {apply_ms:.1f} ms host wall against {plain_ms:.1f} ms unplanned")
 
         # (a) one train step
-        _, optimizer, step_fn = train.build_trainer(cfg)
+        # the eager step: plain tensors and DTensors through one step
+        optimizer = AdamW()
+        step_fn = steps.make_train_step(cfg, optimizer)
         opt_state = optimizer.init(params)
         dopt = distribute_tree(opt_state, plan.opt_state_shardings(opt_state, params))
         data = TokenDataset(DataConfig(seq_len=128, global_batch=8, vocab=cfg.vocab, seed=0))
@@ -5928,7 +6144,8 @@ def main(argv=None):
             {"paged": pa_rows["served"], "qwen_paged": pa_rows["qwen_served"],
              "phi_paged": pa_rows["phi_served"]}),
         row("rg_lru", "src/repro/kernels/rg_lru.py:130", "rglru_serve",
-            {"rglru_serve": rg_rows[(4, 32)], "rglru_apply": rg_rows[(2, 1024)]}),
+            {"rglru_serve": rg_rows[(4, 32)], "rglru_apply": rg_rows[(2, 1024)],
+             "rglru_train": rg_rows[(8, 128)]}),
     ]
     # phase 2's further shapes: flash bf16 D=128 with GQA; paged at long
     # context and with GQA at D=128 (plans: [splits, chunk pages]); rg_lru
@@ -5968,7 +6185,7 @@ def main(argv=None):
                                "B4-H40-KVH8-D128-pos2047": timing(pa_rows["qwen_pos2047"]),
                                "B4-H32-KVH8-D128-served": timing(pa_rows["phi_served"])}
     kernels[3]["per_shape"] = {f"B{b}xT{t}": timing(rg_rows[(b, t)])
-                               for b, t in ((4, 32), (4, 64), (2, 1024))}
+                               for b, t in ((4, 32), (4, 64), (2, 1024), (8, 128))}
     # the same source serves rg_lru_chunked (its `last` output), which no
     # served path calls (only ops.rg_lru_scan); phase 2 checks it
     kernels[-1]["also_replaces"] = "src/repro/kernels/rg_lru.py:159"

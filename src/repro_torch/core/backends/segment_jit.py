@@ -129,11 +129,12 @@ def capture_scope(device: torch.device, owner: int):
     """This thread's side stream (:func:`_capture_stream`), entered after
     the current stream's work, with a kernel-scratch scope of ``owner``'s
     own: an owner's warm runs and captures run inside one scope, so the
-    scratch a warm run makes is the one its capture finds.  Yields the
+    scratch a warm run makes is the one its capture finds, also where
+    autograd's device thread runs a backward on the stream.  Yields the
     stream; on exit the current stream waits for it."""
     stream = _capture_stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(stream), _build.scratch_scope(owner):
+    with torch.cuda.stream(stream), _build.scratch_scope(owner, stream):
         yield stream
     torch.cuda.current_stream(device).wait_stream(stream)
 
@@ -143,12 +144,13 @@ def capture_graph(fn: Callable[[], Any], pool=None,
     """``fn()`` captured as one CUDA graph on the current stream; returns
     (graph, ``fn``'s outputs in the graph's pool, the kernel launches the
     capture recorded).  A capture launches nothing: the wrappers it runs
-    count into this thread's recorder, and the owner adds the delta at
-    each replay.  When ``fn`` or the capture's end fails, the void
+    count into this thread's recorder (and so do other threads' on the
+    stream, a backward's on autograd's device thread), and the owner adds
+    the delta at each replay.  When ``fn`` or the capture's end fails, the void
     capture is ended quietly and that first error raised (as
     ``on_error(error)`` when given)."""
     graph = torch.cuda.CUDAGraph()
-    with _build.recording() as rec:
+    with _build.recording(torch.cuda.current_stream()) as rec:
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             outs = fn()

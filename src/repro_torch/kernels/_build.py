@@ -121,7 +121,10 @@ class LaunchCount:
 
     def count(self, variant: Optional[str] = None) -> None:
         rec = getattr(_RECORDING, "rec", None)
-        if rec is not None:  # this thread is capturing a CUDA graph
+        if rec is None and _STREAM_RECORDERS:
+            # another thread captures on the stream this one launches on
+            rec = _STREAM_RECORDERS.get(torch.cuda.current_stream().cuda_stream)
+        if rec is not None:  # a CUDA graph capture holds this launch
             rec.launches.append((self.index, variant))
             return
         with _COUNT_LOCK:
@@ -140,22 +143,56 @@ _RETIRED: List[torch.Tensor] = []
 _SCOPE = threading.local()
 
 
+#: the scope and the recorder of each stream a thread warms or captures
+#: on, for the other threads that launch on that stream meanwhile
+#: (autograd's device thread runs a backward on its forward's stream)
+_STREAM_SCOPES: Dict[int, Any] = {}
+_STREAM_RECORDERS: Dict[int, "_Recorder"] = {}
+
+
+class _stream_entry:
+    """Context: ``table[stream.cuda_stream] = value`` inside it (nothing
+    without a stream)."""
+
+    def __init__(self, table: Dict[int, Any], stream: Optional[torch.cuda.Stream], value: Any):
+        self.table, self.value = table, value
+        self.key = None if stream is None else stream.cuda_stream
+
+    def __enter__(self) -> None:
+        if self.key is not None:
+            self._prev = self.table.get(self.key)
+            self.table[self.key] = self.value
+
+    def __exit__(self, *exc) -> None:
+        if self.key is not None:
+            if self._prev is None:
+                self.table.pop(self.key, None)
+            else:
+                self.table[self.key] = self._prev
+
+
 class scratch_scope:
     """Context: this thread's :func:`stream_scratch` calls inside it get
     buffers of their own, keyed by ``key`` besides the stream.  A program
     captured as CUDA graphs takes its warm run and captures inside its
     own scope, so no two programs' graphs share kernel scratch (and a
     compile worker's warm run never touches a scratch that a graph the
-    serving thread replays holds)."""
+    serving thread replays holds).  Other threads' calls on ``stream``
+    (the scope's stream) outside a scope of their own take this scope
+    too: a backward that autograd runs on its device thread finds the
+    scratch of its forward's warm run."""
 
-    def __init__(self, key: Any):
+    def __init__(self, key: Any, stream: torch.cuda.Stream):
         self.key = key
+        self._shared = _stream_entry(_STREAM_SCOPES, stream, key)
 
     def __enter__(self) -> None:
         self._prev = getattr(_SCOPE, "key", None)
         _SCOPE.key = self.key
+        self._shared.__enter__()
 
     def __exit__(self, *exc) -> None:
+        self._shared.__exit__()
         _SCOPE.key = self._prev
 
 
@@ -174,7 +211,10 @@ def stream_scratch(name: str, device: torch.device, n: int,
     old one stays alive for the graphs that hold it.  ``init`` sets a new
     buffer's first values."""
     stream = torch.cuda.current_stream(device)
-    key = (name, device.index, stream.cuda_stream, getattr(_SCOPE, "key", None))
+    scope = getattr(_SCOPE, "key", None)
+    if scope is None:
+        scope = _STREAM_SCOPES.get(stream.cuda_stream)
+    key = (name, device.index, stream.cuda_stream, scope)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n:
         if torch.cuda.is_current_stream_capturing():
@@ -228,14 +268,22 @@ class recording:
     """Context: the launches this thread's wrappers make inside it are
     recorded, not counted (a CUDA graph capture: the graph's owner adds
     them at each replay with :func:`add_launches`).  Other threads keep
-    counting."""
+    counting, but for their launches on ``stream``, when given (the
+    stream under capture: a backward that autograd's device thread runs
+    there is captured too)."""
+
+    def __init__(self, stream: Optional[torch.cuda.Stream] = None):
+        self._stream = stream
 
     def __enter__(self) -> _Recorder:
         self._prev = getattr(_RECORDING, "rec", None)
-        _RECORDING.rec = _Recorder()
-        return _RECORDING.rec
+        _RECORDING.rec = rec = _Recorder()
+        self._shared = _stream_entry(_STREAM_RECORDERS, self._stream, rec)
+        self._shared.__enter__()
+        return rec
 
     def __exit__(self, *exc) -> None:
+        self._shared.__exit__()
         _RECORDING.rec = self._prev
 
 

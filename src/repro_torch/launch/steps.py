@@ -5,7 +5,8 @@ the eval path.
   batch) -> (params, opt_state, metrics)``: forward, cross-entropy loss,
   ``torch.autograd`` backward and the optimizer update
   (``default_optimizer(cfg)``: AdamW, Adafactor above
-  ``ADAFACTOR_THRESHOLD`` parameters).
+  ``ADAFACTOR_THRESHOLD`` parameters), eager and out of place (the train
+  CLI compiles it whole: ``launch.train.JitTrainStep``).
 * ``make_forward(cfg)`` / ``make_loss_fn(cfg)`` / ``make_eval_step(cfg)`` /
   ``make_prefill_step(cfg)`` -> the full-sequence forward over a batch
   dict (``tokens``; ``frames`` for the encoder-decoder family,
@@ -140,6 +141,18 @@ def loss_and_grads(loss_fn: Callable, params, batch):
     return loss.detach(), pytree.tree_unflatten(grads, spec)
 
 
+def checked_optimizer(cfg: ModelConfig, optimizer=None):
+    """``optimizer`` (default: :func:`default_optimizer`), refused where it
+    is an Adafactor that does not update the layer lists the JAX package
+    stacks for ``cfg``."""
+    optimizer = optimizer or default_optimizer(cfg)
+    if isinstance(optimizer, Adafactor) and optimizer.stacked != stacked_keys(cfg):
+        raise ValueError(f"Adafactor updates {optimizer.stacked} stacked, the JAX package "
+                         f"stacks {stacked_keys(cfg)} for {cfg.name}: pass "
+                         f"optimizer.for_config(cfg)")
+    return optimizer
+
+
 def make_train_step(cfg: ModelConfig, optimizer=None) -> Callable:
     """``(params, opt_state, batch) -> (params, opt_state, {"loss"})``.
 
@@ -148,17 +161,14 @@ def make_train_step(cfg: ModelConfig, optimizer=None) -> Callable:
     ``optimizer.update`` (default: :func:`default_optimizer`).  An
     Adafactor must update the layer lists the JAX package stacks for
     ``cfg`` (``Adafactor().for_config(cfg)``, see ``optim/adafactor.py``;
-    its ``init`` gives the state in that layout): another raises.  The step is
-    out of place: it returns new parameter and state tensors and writes
-    none of its inputs (the JAX package donates them to ``jax.jit``
-    instead).  ``batch`` holds ``tokens`` and ``labels`` tensors on the
-    parameters' device (and ``frames`` / ``patches`` for the
-    encoder-decoder and VLM families); the loss is a 0-d fp32 tensor."""
-    optimizer = optimizer or default_optimizer(cfg)
-    if isinstance(optimizer, Adafactor) and optimizer.stacked != stacked_keys(cfg):
-        raise ValueError(f"Adafactor updates {optimizer.stacked} stacked, the JAX package "
-                         f"stacks {stacked_keys(cfg)} for {cfg.name}: pass "
-                         f"optimizer.for_config(cfg)")
+    its ``init`` gives the state in that layout): another raises.  The step
+    is out of place: it returns new parameter and state tensors and
+    writes none of its inputs (the JAX package donates them to
+    ``jax.jit`` instead, as ``launch.train.JitTrainStep`` does).
+    ``batch`` holds ``tokens`` and ``labels`` tensors on the parameters'
+    device (and ``frames`` / ``patches`` for the encoder-decoder and VLM
+    families); the loss is a 0-d fp32 tensor."""
+    optimizer = checked_optimizer(cfg, optimizer)
     loss_fn = make_loss_fn(cfg)
 
     def train_step(params, opt_state, batch):

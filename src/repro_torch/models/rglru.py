@@ -48,7 +48,7 @@ from ..distrib.actsharding import constrain
 from ..kernels import ops
 from . import attention as A
 from . import layers as L
-from ._forge import forge_body
+from ._forge import config_key, forge_body
 
 Params = Dict[str, Any]
 
@@ -297,12 +297,12 @@ def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             if kind == "attn":
                 bodies[kind] = forge_body(
                     lambda q, x_, c, s: _attn_block_apply(q, x_, c, s, cfg),
-                    f"{cfg!r}/attn", (p, x, cos, sin), enabled=enabled, impl=impl,
+                    f"{config_key(cfg)}/attn", (p, x, cos, sin), enabled=enabled, impl=impl,
                     remat=cfg.remat)
             else:
                 bodies[kind] = forge_body(
                     lambda q, x_: _rec_full_apply(q, x_, cfg, impl),
-                    f"{cfg!r}/rec", (p, x), enabled=enabled, impl=impl,
+                    f"{config_key(cfg)}/rec", (p, x), enabled=enabled, impl=impl,
                     remat=cfg.remat)
         x = bodies[kind](p, x, cos, sin) if kind == "attn" else bodies[kind](p, x)
     return _lm_head(params, x, cfg)

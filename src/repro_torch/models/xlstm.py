@@ -44,7 +44,7 @@ from ..device import resolve_device
 from ..distrib.actsharding import gathered, head_layout, merged_heads, shard_count, split_heads
 from ..kernels import ops
 from . import layers as L
-from ._forge import forge_body
+from ._forge import config_key, forge_body
 
 Params = Dict[str, Any]
 
@@ -476,7 +476,7 @@ def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             base = slstm_block_apply if kind == "slstm" else mlstm_block_apply
             # the whole config keys the body (see transformer._body_fn)
             bodies[kind] = forge_body(lambda q, x_, _b=base: _b(q, x_, cfg),
-                                      f"{cfg!r}/{kind}", (p, x),
+                                      f"{config_key(cfg)}/{kind}", (p, x),
                                       enabled=(cfg.fuse == "forge"), impl=impl,
                                       remat=cfg.remat)
         x = bodies[kind](p, x)

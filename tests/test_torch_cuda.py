@@ -1531,6 +1531,47 @@ def test_train_step_on_card(cuda_device):
         assert rel < 0.1, rel
 
 
+@pytest.mark.cuda
+def test_compiled_train_step_on_card(cuda_device):
+    """The train step compiled whole and donated (``train.JitTrainStep``)
+    on forge-125m's layout (3 layers, full width, bf16, remat): one CUDA
+    graph replay a step after the first, each replay launching the
+    compiled forward's and backward's kernel nodes (all ``wgmma``), the
+    owned tensors never moving, and every loss within the bf16 model
+    tolerance of the eager ``make_train_step``'s from the same state."""
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("forge-125m").with_(n_layers=3)
+    params = get_model(cfg).init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                                 cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (8, 129), generator=g, device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamW()
+    step = train.JitTrainStep(cfg, opt, device=cuda_device)
+    eager = steps.make_train_step(cfg, opt)
+    p, s = params, opt.init(params)
+    q, r = params, opt.init(params)
+    got, want, ptrs = [], [], []
+    for i in range(3):
+        _reset_counts()
+        p, s, m = step(p, s, batch)
+        got.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ptrs.append([t.data_ptr() for t in torch.utils._pytree.tree_leaves((p, s))])
+        if i:
+            fwd, bwd = step.kernel_nodes["forward"], step.kernel_nodes["backward"]
+            assert FA.LAUNCHES.n == fwd["flash_attention"] + bwd.get("flash_attention", 0)
+            assert FL.LAUNCHES.n == fwd["fused_linear"] + bwd.get("fused_linear", 0)
+            assert set(FA.LAUNCHES.variants) == {"wgmma"} == set(FL.LAUNCHES.variants)
+        q, r, m = eager(q, r, batch)
+        want.append(float(m["loss"]))
+    assert step.replays == 2 and step.graphs == 2 and ptrs[0] == ptrs[1] == ptrs[2]
+    assert int(s.step) == 3
+    np.testing.assert_allclose(got, want, **TOL_BF16)
+
+
 @pytest.fixture
 def nccl_mesh(cuda_device, tmp_path):
     """A one-rank NCCL group on the card and its (1, 1) host mesh; the

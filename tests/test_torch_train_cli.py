@@ -1,4 +1,5 @@
-"""The port's train CLI (``launch.train.main``) on the CPU (``--smoke
+"""The port's train CLI (``launch.train.main``, whose step is the step
+compiled whole and donated, ``JitTrainStep``) on the CPU (``--smoke
 --device cpu``, bf16) against the JAX package's: with a fault injected at
 step 4 and the step-3 checkpoint restored, one failure, one restore, the
 replayed step's loss bitwise the first pass's, the checkpoints on disk,

@@ -1,0 +1,54 @@
+"""xlstm-350m (mLSTM and sLSTM blocks) through the train step compiled
+whole and donated (``launch.train.JitTrainStep``), f32 smoke config: 3
+AdamW steps' losses within rtol 2e-4 / atol 2e-5 of the JAX package's
+``jax.jit(make_train_step(...), donate_argnums=(0, 1))``, the blocks'
+opaque scan ops differentiated by their rerun backward inside the
+compiled backward; one graph for the loss and one for the update, every
+leaf's storage kept.
+
+The body keys (``config_key(cfg)``): Dynamo traces ``apply`` whole
+(bitwise the eager forward), and two configs of one name that split
+heads differently get bodies of their own.
+"""
+import numpy as np
+import torch
+
+from repro import optim as jax_optim
+from repro_torch.launch import train
+from repro_torch.models import _forge, get_model
+from repro_torch.models._forge import config_key
+from repro_torch.optim import AdamW
+
+from torch_port_support import (TOL_F32, TrainSetup, assert_one_graph, jax_jit_losses,
+                                jit_train_run, train_batch_np)
+
+ARCH = "xlstm-350m"
+
+
+def test_compiled_steps_match_jitted_reference():
+    setup = TrainSetup(ARCH)
+    step = train.JitTrainStep(setup.cfg, AdamW(), device="cpu")
+    out = jit_train_run(setup, step, AdamW())
+    want = jax_jit_losses(setup, jax_optim.AdamW(), out["batches"])
+    np.testing.assert_allclose(out["losses"], want, **TOL_F32)
+    assert_one_graph(step, out)
+    assert out["untouched"]
+
+
+def test_apply_traces_whole_and_bodies_key_by_config():
+    setup = TrainSetup(ARCH)
+    cfg, model = setup.cfg, get_model(setup.cfg)
+    tokens = torch.from_numpy(train_batch_np(cfg)["tokens"]).long()
+    with torch.no_grad():
+        want = model.apply(setup.p, tokens, cfg)
+        got = torch.compile(model.apply, fullgraph=True, dynamic=False, backend="eager")(
+            setup.p, tokens, cfg)
+    assert torch.equal(got, want)
+    other = cfg.with_(n_heads=2, n_kv_heads=2)
+    assert other.name == cfg.name
+    p2 = get_model(other).init(other, torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        get_model(other).apply(p2, tokens, other)
+    for c in (cfg, other):
+        for kind in ("mlstm", "slstm"):
+            assert any(k.startswith(f"{config_key(c)}/{kind}/") for k in _forge._CACHE), (c, kind)

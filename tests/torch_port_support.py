@@ -8,6 +8,7 @@ the helpers that need it, so the card-only tests run where JAX is absent.
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 #: the JAX package's kernel tolerances (tests/test_kernels.py)
 TOL_F32 = dict(rtol=2e-4, atol=2e-5)
@@ -165,3 +166,66 @@ class TrainSetup:
 
     def to_port(self, jtree):
         return port_params(jtree)
+
+
+# --------------------------------------------------------------------------
+# the train step compiled whole (tests/test_torch_train_jit*.py)
+# --------------------------------------------------------------------------
+
+
+def jax_jit_losses(setup, jax_opt, batches):
+    """Each step's loss of the JAX package's ``jax.jit(make_train_step(...),
+    donate_argnums=(0, 1))`` from ``setup``'s parameters (copied first:
+    the step donates them) over the numpy ``batches``."""
+    import warnings
+
+    import jax
+    from repro.launch import steps as jax_steps
+
+    step = jax.jit(jax_steps.make_train_step(setup.jcfg, jax_opt), donate_argnums=(0, 1))
+    params = jax_steps.dealias_tree(setup.jp)
+    state = jax_steps.dealias_tree(jax_opt.init(params))
+    out = []
+    with warnings.catch_warnings():
+        # a backend that cannot donate says so, and copies
+        warnings.filterwarnings("ignore", message="Some donated buffers were not usable")
+        for b in batches:
+            params, state, m = step(params, state, train_batch_jax(b))
+            out.append(float(m["loss"]))
+    return out
+
+
+def leaf_ptrs(tree):
+    return [t.data_ptr() for t in pytree.tree_leaves(tree)]
+
+
+def jit_train_run(setup, step, optimizer, n=3):
+    """``n`` steps of the compiled ``step`` from ``setup``'s parameters:
+    the losses, every step's leaf storage pointers, the Dynamo graphs
+    the run compiled, and whether the caller's trees were left as they
+    were."""
+    from torch._dynamo.utils import counters
+
+    batches = [train_batch_np(setup.cfg, step=i) for i in range(n)]
+    params, state = setup.p, optimizer.init(setup.p)
+    before = [t.clone() for t in pytree.tree_leaves((params, state))]
+    graphs0 = counters["stats"]["unique_graphs"]
+    losses, ptrs = [], []
+    p, s = params, state
+    for b in batches:
+        p, s, m = step(p, s, train_batch_torch(b))
+        losses.append(float(m["loss"]))
+        ptrs.append(leaf_ptrs((p, s)))
+    untouched = all(torch.equal(a, b) for a, b in zip(before, pytree.tree_leaves((params, state))))
+    return {"batches": batches, "losses": losses, "ptrs": ptrs, "untouched": untouched,
+            "unique_graphs": counters["stats"]["unique_graphs"] - graphs0}
+
+
+def assert_one_graph(step, run):
+    """The run compiled the loss and the update once each (Dynamo's
+    counters), Inductor the forward, the backward and the update once
+    each, and the storage of every leaf never moved."""
+    assert run["unique_graphs"] == 2 and step.graphs == 2, (run["unique_graphs"], step.graphs)
+    assert step.programs == {"forward": 1, "backward": 1, "update": 1}, step.programs
+    assert all(p == run["ptrs"][0] for p in run["ptrs"])
+    assert run["ptrs"][0] == leaf_ptrs(step.state)

@@ -331,12 +331,14 @@ Phases (any failure raises and the script exits non-zero):
    fp32) on the NCCL group: every 256-element block within its amax / 254
    of the plain ``all_reduce``; the compression ratio, quantize and
    dequantize ms.  (c) ``python -m repro_torch.launch.dryrun --arch
-   qwen2.5-14b --shape train_4k`` (``run_cell`` on pod16x16: a ``fake``
-   group of 256 ranks, fake tensors, the card hidden from it), started in
-   a subprocess beside phase 1 and read here: per-device bytes against
-   80 GB, the three roofline terms (H100 constants), the collectives'
-   count and MB by kind, and the FLOPs a layer a device (its calibration)
-   against the JAX package's.  (d) Tensor parallelism: forge-125m at full
+   qwen2.5-14b --shape train_4k``, then ``--arch deepseek-7b --shape
+   prefill_32k`` (``run_cell`` on pod16x16 at full depth: a ``fake`` group
+   of 256 ranks, fake tensors, the card hidden from them), one subprocess
+   after the other, started beside phase 1 and read here: each cell
+   ``ok`` with FLOPs above 0, its per-device bytes against 80 GB, the
+   three roofline terms (H100 constants), the collectives' count and MB
+   by kind, and the FLOPs a layer a device (its calibration), the train
+   cell's against the JAX package's.  (d) Tensor parallelism: forge-125m at full
    size on a (1, 2) (data, model) mesh of two gloo ranks, both on this
    card (NCCL holds one rank per GPU), ``apply`` at B4 x S1024: each rank
    launches 12 flash on 6 of the 12 heads and 36 fused linear, all
@@ -5544,8 +5546,9 @@ def phase15_rglru(dev):
 
 
 # phase 16: the distributed layer.  (a) forge-125m under plan_for on a
-# one-rank NCCL mesh; (c) one production dry-run cell, in a subprocess
-DRYRUN_CELL = ("qwen2.5-14b", "train_4k")
+# one-rank NCCL mesh; (c) two production dry-run cells, one subprocess
+# after the other: a train cell and a long-prefill cell, full depth
+DRYRUN_CELLS = (("qwen2.5-14b", "train_4k"), ("deepseek-7b", "prefill_32k"))
 # the JAX package's FLOPs a layer a device in that cell (XLA's cost
 # analysis of its 2-layer variant, FSDP off, on a CPU host: ROADMAP.md,
 # queue 3), which the port's count is read against
@@ -5554,18 +5557,19 @@ CARD_BYTES = 80e9  # H100 80GB HBM3
 
 
 def start_dryrun():
-    """Phase 16 (c): ``python -m repro_torch.launch.dryrun --arch
-    qwen2.5-14b --shape train_4k`` (``run_cell`` on pod16x16 with its
-    calibration) in a subprocess started now: its ``fake`` group of 256
-    ranks must not meet phase 16's NCCL group, and its work is all on the
-    CPU (fake tensors; no card visible to it), so it runs beside the other
-    phases.  Returns ``(runs, path of its JSON record)``."""
+    """Phase 16 (c): ``python -m repro_torch.launch.dryrun --arch A
+    --shape S`` (``run_cell`` on pod16x16 with its calibration) for each
+    cell of :data:`DRYRUN_CELLS`, one subprocess after the other, started
+    now: their ``fake`` groups of 256 ranks must not meet phase 16's NCCL
+    group, and their work is all on the CPU (fake tensors; no card
+    visible to them), so they run beside the other phases.  Returns
+    ``(runs, path of their JSON records)``."""
     out = tempfile.mkdtemp(prefix="forge-dryrun-", dir=os.environ.get("TMPDIR"))
     path = os.path.join(out, "dryrun.json")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
-    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_CELL[0],
-            "--shape", DRYRUN_CELL[1], "--out", path]
-    return CliRuns("dryrun", [argv], env), path
+    argvs = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+              shape, "--out", path] for arch, shape in DRYRUN_CELLS]
+    return CliRuns("dryrun", argvs, env), path
 
 
 def free_port():
@@ -5587,9 +5591,10 @@ def phase16(dev, dryrun):
     ``compressed_all_reduce`` of that step's gradients on the NCCL group,
     within each block's amax / 254 of the plain ``all_reduce``; the
     compression ratio and the quantize / dequantize ms.  (c) The dry run
-    of qwen2.5-14b train_4k on pod16x16 (``start_dryrun``): per-device
-    bytes against the card's 80 GB, the three roofline terms, the
-    collectives' count and MB by kind, and the FLOPs a layer a device.
+    of qwen2.5-14b train_4k and deepseek-7b prefill_32k on pod16x16
+    (``start_dryrun``): each ``ok``, its per-device bytes against the
+    card's 80 GB, the three roofline terms, the collectives' count and MB
+    by kind, and the FLOPs a layer a device.
     (d) Tensor parallelism over two gloo ranks on the card
     (:func:`phase16_tp`).  Returns the launches of the planned ``apply``
     and step and of (d)'s rank 0."""
@@ -5732,30 +5737,41 @@ def phase16(dev, dryrun):
         dist.destroy_process_group()
     release_device_memory()
 
-    # (c) the dry run's record
+    # (c) the dry run's records
     runs_, path = dryrun
-    (code, out_, err_, secs), = runs_.join()
-    check(code == 0, f"dry run exited {code}: {err_[-2000:]}")
-    rec = json.load(open(path))[f"{DRYRUN_CELL[0]}|{DRYRUN_CELL[1]}|pod16x16"]
-    r = rec["roofline"]
-    check(rec["status"] == "ok" and r["chips"] == 256 and r["hlo_flops"] > 0, f"dry run {rec}")
-    detail = r["coll_detail"]
-    kinds = ", ".join(f"{k} {detail['counts'][k]} ({detail[k] / 1e6:.1f} MB)"
-                      for k in detail["counts"] if detail["counts"][k])
-    log(f"dry run {rec['cell']} ({secs:.1f} s in its subprocess: placing {rec['lower_s']} s, "
-        f"the first call {rec['compile_s']} s, the counted step {rec['step_s']} s; "
-        f"fuse={rec['fuse']}, fsdp={rec['fsdp']}): {rec['memory']['total_bytes_per_device'] / 1e9:.1f} GB a device "
-        f"against the card's {CARD_BYTES / 1e9:.0f} GB (shards {rec['memory']['args_bytes'] / 1e9:.2f}"
-        f" GB + the step's peak {rec['memory']['peak_step_bytes'] / 1e9:.1f} GB); roofline "
-        f"t_compute {r['t_compute']:.4f} s, t_memory {r['t_memory']:.4f} s, t_collective "
-        f"{r['t_collective']:.4f} s ({r['dominant']}); {r['hlo_flops'] / 1e12:.1f} TFLOP a device "
-        f"against the model's {r['model_flops'] / 1e12:.1f}; collectives: {kinds}; calibration "
-        f"{ {k: rec['calibration'].get(k) for k in ('flops', 'coll_bytes', 'error')} }")
-    per_layer = rec["calibration"]["per_unit"]
-    log(f"dry run {rec['cell']} a layer a device: {per_layer['flops']:.4g} FLOPs "
-        f"({per_layer['flops'] / DRYRUN_REF_LAYER_FLOPS:.2f}x the JAX package's "
-        f"{DRYRUN_REF_LAYER_FLOPS:.3g} at 2 layers, FSDP off), {per_layer['bytes']:.4g} bytes; "
-        f"{r['hlo_bytes']:.4g} bytes a device in all; FLOPs by op {rec['cost'].get('flops_by_op')}")
+    results = runs_.join()
+    for (code, _, err_, _) in results:
+        check(code == 0, f"dry run exited {code}: {err_[-2000:]}")
+    check(len(results) == len(DRYRUN_CELLS), f"{len(results)} of {len(DRYRUN_CELLS)} dry-run "
+          "cells ran")
+    records = json.load(open(path))
+    for (arch, shape), (_, _, _, secs) in zip(DRYRUN_CELLS, results):
+        rec = records[f"{arch}|{shape}|pod16x16"]
+        r = rec["roofline"]
+        check(rec["status"] == "ok" and r["chips"] == 256 and r["hlo_flops"] > 0,
+              f"dry run {rec}")
+        detail = r["coll_detail"]
+        kinds = ", ".join(f"{k} {detail['counts'][k]} ({detail[k] / 1e6:.1f} MB)"
+                          for k in detail["counts"] if detail["counts"][k])
+        log(f"dry run {rec['cell']} ({secs:.1f} s in its subprocess: placing {rec['lower_s']} s, "
+            f"the first call {rec['compile_s']} s, the counted step {rec['step_s']} s; "
+            f"fuse={rec['fuse']}, fsdp={rec['fsdp']}): "
+            f"{rec['memory']['total_bytes_per_device'] / 1e9:.1f} GB a device "
+            f"against the card's {CARD_BYTES / 1e9:.0f} GB (shards "
+            f"{rec['memory']['args_bytes'] / 1e9:.2f} GB + the step's peak "
+            f"{rec['memory']['peak_step_bytes'] / 1e9:.1f} GB); roofline "
+            f"t_compute {r['t_compute']:.4f} s, t_memory {r['t_memory']:.4f} s, t_collective "
+            f"{r['t_collective']:.4f} s ({r['dominant']}); {r['hlo_flops'] / 1e12:.1f} TFLOP a "
+            f"device against the model's {r['model_flops'] / 1e12:.1f}; collectives: {kinds}; "
+            f"calibration "
+            f"{ {k: rec['calibration'].get(k) for k in ('flops', 'coll_bytes', 'error')} }")
+        per_layer = rec["calibration"]["per_unit"]
+        vs_ref = (f" ({per_layer['flops'] / DRYRUN_REF_LAYER_FLOPS:.2f}x the JAX package's "
+                  f"{DRYRUN_REF_LAYER_FLOPS:.3g} at 2 layers, FSDP off)"
+                  if (arch, shape) == DRYRUN_CELLS[0] else "")
+        log(f"dry run {rec['cell']} a layer a device: {per_layer['flops']:.4g} FLOPs{vs_ref}, "
+            f"{per_layer['bytes']:.4g} bytes; {r['hlo_bytes']:.4g} bytes a device in all; "
+            f"FLOPs by op {rec['cost'].get('flops_by_op')}")
 
     # (d) tensor parallelism on the card, its ranks started with the phase
     return {"planned_apply": planned_apply, "planned_step": planned_step,

@@ -55,7 +55,8 @@ partitions the reference's products:
   each where the first input already is;
 * the other kernel and opaque ops: rows (dim 0 of their batch-major
   tensors) sharded in and out where the first input's rows already are,
-  or all replicated;
+  or all replicated; a backward op's gradient of a replicated argument
+  (the sLSTM loop's recurrent weight) is then a pending sum;
 
 any other input placement is redistributed to one of them.  Two plain
 ops the models reach that DTensor lacks a strategy for get one too
@@ -490,6 +491,15 @@ _ROW_OPS: Dict[str, Tuple[Optional[bool], ...]] = {
     "repro_torch::rms_norm": (True, False, None),  # x, w, eps
     # pre, r, c, n, h, m, live
     "forge_scan::slstm": (True, False, True, True, True, True, True),
+    # the same, then the gradients of (hs, c, n, h, m)
+    "forge_scan::slstm_backward": (True, False, True, True, True, True, True) + (True,) * 5,
+}
+#: row ops with outputs that are not batch-major -> per output: True for
+#: batch-major, False for the gradient of a replicated argument (a sum
+#: over the rows: a pending sum where the rows are sharded)
+_ROW_OUTPUTS: Dict[str, Tuple[bool, ...]] = {
+    # d pre, d r, d c, d n, d h, d m
+    "forge_scan::slstm_backward": (True, False, True, True, True, True),
 }
 #: head-major ops (every tensor argument and output (B, H, ...)) -> the
 #: index of their first non-tensor argument (the rest is static)
@@ -502,10 +512,11 @@ _HEAD_OPS: Dict[str, int] = {
 _REGISTERED: set = set()
 
 
-def _row_strategy(rows: Tuple[Optional[bool], ...], n_out: int):
+def _row_strategy(rows: Tuple[Optional[bool], ...], outputs: Tuple[bool, ...]):
     """The op's two layouts: every tensor replicated, or its batch-major
     tensors' rows sharded over the mesh dims on which the first input's
-    rows already are (the others replicated), outputs likewise.  Unlike
+    rows already are (the others replicated), batch-major outputs
+    likewise and the others (``outputs``) pending sums there.  Unlike
     ``register_sharding``, which lets each mesh dim pick a layout on its
     own, this never shards rows over a mesh dim that holds another dim
     (heads over ``model``): the plain backward's products would flatten
@@ -533,8 +544,9 @@ def _row_strategy(rows: Tuple[Optional[bool], ...], n_out: int):
                                    tensor_meta=arg.strategies[0].output_spec.tensor_meta)
                 ins.append(want)
                 costs.append(generate_redistribute_costs(arg, want))
-            outs = tuple(DTensorSpec(mesh, pl) for _ in range(n_out))
-            specs.append(OpSpec(output_specs=outs[0] if n_out == 1 else outs,
+            summed = tuple(Partial() if isinstance(p, Shard) else p for p in pl)
+            outs = tuple(DTensorSpec(mesh, pl if rowwise else summed) for rowwise in outputs)
+            specs.append(OpSpec(output_specs=outs[0] if len(outs) == 1 else outs,
                                 input_specs=tuple(ins), redistribute_cost=costs))
         return OpStrategy(specs)
 
@@ -706,7 +718,8 @@ def register_kernel_shardings() -> None:
         op = op_of(qualname)
         if len(rows) != len(op._schema.arguments):
             raise AssertionError(f"{qualname}: {len(rows)} rows for {op._schema}")
-        register(op, _row_strategy(rows, len(op._schema.returns)))
+        outputs = _ROW_OUTPUTS.get(qualname, (True,) * len(op._schema.returns))
+        register(op, _row_strategy(rows, outputs))
         _REGISTERED.add(qualname)
     tables = [(q, _head_strategy, n) for q, n in _HEAD_OPS.items()]
     tables.append(("repro_torch::fused_linear", _linear_strategy(_LINEAR_FWD), 3))
@@ -720,6 +733,41 @@ def register_kernel_shardings() -> None:
     if "constrain" not in _REGISTERED:
         actsharding.register_constrain_strategy()
         _REGISTERED.add("constrain")
+    if "strided_offsets" not in _REGISTERED:
+        _real_strided_offsets()
+        _REGISTERED.add("strided_offsets")
+
+
+def _real_strided_offsets() -> None:
+    """Make DTensor compute a strided shard's offsets on real tensors.
+
+    Flattening (B, S) where B is split over one mesh dim and S over a
+    later one (B / ``data`` smaller than ``model``: a prefill's 32 rows on
+    16 data shards, a multi-pod batch) gives a ``_StridedShard``.
+    DTensor plans a redistribution of one (and scores every strategy that
+    would need one) by listing the shard's indices: ``arange(B·S)`` split
+    and read back with ``tolist``.  Under ``FakeTensorMode`` (a dry run, a
+    planned body's capture) that ``arange`` is fake, and ``tolist`` makes
+    one unbacked symbol an element: minutes at S = 32768, and symbols that
+    a later ``torch.export`` finds pending.  The indices depend on sizes
+    only, so for a plain ``int`` size they are computed on a real tensor,
+    with the same result, outside every dispatch mode (the dry run's
+    counter sees no such op); a symbolic size is left to DTensor."""
+    from torch.distributed.tensor import placement_types
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    cls = getattr(placement_types, "_StridedShard", None)
+    inner = getattr(cls, "local_shard_size_and_offset", None)
+    if inner is None:
+        return
+
+    def local_shard_size_and_offset(self, curr_local_size, *args, **kwargs):
+        if not isinstance(curr_local_size, int):
+            return inner(self, curr_local_size, *args, **kwargs)
+        with _disable_current_modes():
+            return inner(self, curr_local_size, *args, **kwargs)
+
+    cls.local_shard_size_and_offset = local_shard_size_and_offset
 
 
 __all__ = ["P", "NamedSharding", "ShardingPlan", "plan_for", "safe_pspec", "dp_axes",

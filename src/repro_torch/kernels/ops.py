@@ -23,7 +23,7 @@ JAX package, never a Pallas kernel there either).
 from __future__ import annotations
 
 import inspect
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -43,57 +43,6 @@ _DEFAULT_Q_CHUNK = 1024
 def _check_impl(impl: Optional[str]) -> None:
     if impl not in _VALID_IMPLS:
         raise ValueError(f"impl must be one of {_VALID_IMPLS}, got {impl!r}")
-
-
-#: marks a tensor argument of an opaque op, kept by ``save_for_backward``
-_SAVED = object()
-
-
-def _opaque_op(qualname: str, fake: Optional[Callable]) -> Callable[[Callable], Callable]:
-    """Register ``fn`` as the custom op ``qualname`` with the fake
-    implementation ``fake`` (default: ``fn`` itself, run on fake
-    tensors): a ``torch.export`` capture then records a call as ONE node
-    and never looks inside.  ``fn`` must be annotated (the op's schema is
-    read from its signature) and must not return a view of an input.
-
-    The op's gradient is autograd through ``fn`` itself, rerun on the
-    saved inputs in backward (as ``jax.grad`` differentiates the JAX
-    package's ``forge_op`` and ``lax.scan`` bodies): training goes
-    through the opaque node, inference pays nothing for it."""
-
-    def deco(fn: Callable) -> Callable:
-        op = torch.library.custom_op(qualname, mutates_args=())(fn)
-        op.register_fake(fake or fn)
-
-        def setup_context(ctx, inputs, output):
-            ctx.args = [_SAVED if isinstance(a, torch.Tensor) else a for a in inputs]
-            ctx.save_for_backward(*(a for a in inputs if isinstance(a, torch.Tensor)))
-
-        def backward(ctx, *grads):
-            args, saved = list(ctx.args), iter(ctx.saved_tensors)
-            live = []
-            for i, a in enumerate(args):
-                if a is _SAVED:
-                    t = next(saved).detach()
-                    if t.is_floating_point():
-                        t.requires_grad_(True)
-                        live.append(i)
-                    args[i] = t
-            with torch.enable_grad():
-                outs = fn(*args)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
-            got = torch.autograd.grad([o for o, _ in pairs], [args[i] for i in live],
-                                      [g for _, g in pairs], allow_unused=True)
-            out = [None] * len(args)
-            for i, g in zip(live, got):
-                out[i] = g
-            return tuple(out)
-
-        op.register_autograd(backward, setup_context=setup_context)
-        return op
-
-    return deco
 
 
 def forge_op(name: str) -> Callable[[Callable], Callable]:
@@ -149,9 +98,67 @@ def scan_op(name: str, fake: Callable) -> Callable[[Callable], Callable]:
     node, outside the accelerator prefixes, so Phase 3 routes it to the
     host as the reference routes ``scan``.  ``fake`` builds the outputs
     directly: running the loop on fake tensors would cost a capture as
-    much host time as the loop's own ops.
-    """
-    return _opaque_op(f"forge_scan::{name}", fake)
+    much host time as the loop's own ops.  ``fn`` must be annotated (the
+    op's schema is read from its signature), return a tuple of tensors
+    and return no view of an input.
+
+    Its gradient is the op ``forge_scan::<name>_backward(*inputs, *grads)``
+    (a gradient of each output, or None): the vector-Jacobian product of
+    the loop on the saved inputs (as ``jax.grad`` differentiates the JAX
+    package's ``lax.scan``), one gradient for each tensor argument; an
+    optional tensor argument is a mask and gets none.  It is an op of its
+    own so that its sharding strategy (``distrib/sharding.py``) runs a
+    planned call's backward on each device's rows, and its fake builds
+    the gradients without the loop."""
+    qualname = f"forge_scan::{name}"
+
+    def deco(fn: Callable) -> Callable:
+        from torch._library.infer_schema import infer_schema
+
+        op = torch.library.custom_op(qualname, mutates_args=())(fn)
+        op.register_fake(fake)
+        args = op._opoverload._schema.arguments
+        n_out = len(op._opoverload._schema.returns)
+        masks = [str(a.type) == "Optional[Tensor]" for a in args]
+        diff = [i for i, m in enumerate(masks) if not m]
+        head = infer_schema(fn, mutates_args=()).split(" -> ")[0][1:-1]
+        schema = (f"({head}, {', '.join(f'Tensor? g{j}' for j in range(n_out))}) -> "
+                  f"({', '.join(['Tensor'] * len(diff))})")
+
+        def backward_impl(*a):
+            inputs, grads = a[:len(args)], a[len(args):]
+            return _scan_vjp(fn, inputs, diff, grads)
+
+        bwd = torch.library.custom_op(f"{qualname}_backward", backward_impl,
+                                      mutates_args=(), schema=schema)
+        bwd.register_fake(lambda *a: tuple(a[i].new_empty(a[i].shape) for i in diff))
+
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(*inputs)
+
+        def backward(ctx, *grads):
+            got = iter(bwd(*ctx.saved_tensors, *grads))
+            return tuple(next(got) if i in diff else None for i in range(len(args)))
+
+        op.register_autograd(backward, setup_context=setup_context)
+        return op
+
+    return deco
+
+
+def _scan_vjp(fn: Callable, inputs, diff, grads) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``fn``'s inputs at the indices ``diff`` against
+    ``grads`` (one an output, None for an output with none), contiguous."""
+    args = list(inputs)
+
+    def part(*live):
+        for i, t in zip(diff, live):
+            args[i] = t
+        return fn(*args)
+
+    used = [j for j, g in enumerate(grads) if g is not None]
+    return _ref.vjp(lambda *live: tuple(part(*live)[j] for j in used),
+                    [inputs[i] for i in diff], tuple(grads[j] for j in used))
 
 
 def _apply_scale(s, scale, scale_mode):

@@ -122,6 +122,7 @@ _KERNEL_FLOPS: Dict[str, Callable[..., int]] = {
     "repro_torch::forge_mlstm": _mlstm_flops,
     "repro_torch::forge_mlstm_backward": _rerun_and_vjp(_mlstm_flops),
     "forge_scan::slstm": _slstm_flops,
+    "forge_scan::slstm_backward": _rerun_and_vjp(_slstm_flops),
 }
 
 
@@ -540,6 +541,7 @@ def main(argv=None) -> int:
         cfg = get_config(arch)
         if args.layers:
             cfg = _with_layers(cfg, args.layers)
+        t0 = time.perf_counter()
         try:
             rec = run_cell(
                 arch, shape, multi_pod=mp, fuse=args.fuse, fsdp=fsdp,
@@ -549,6 +551,7 @@ def main(argv=None) -> int:
                 calibrate=not mp,  # single-pod roofline only
             )
             rec["tag"] = args.tag
+            rec["cell_s"] = round(time.perf_counter() - t0, 2)  # the whole cell, calibration too
             results[key] = rec
             n_ok += rec["status"] == "ok"
             n_skip += rec["status"] == "skipped"

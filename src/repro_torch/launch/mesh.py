@@ -19,6 +19,7 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator, Optional, Tuple
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -60,9 +61,11 @@ def fake_world(world_size: int, rank: int = 0) -> Iterator[None]:
     """A ``fake`` process group of ``world_size`` ranks in this process,
     destroyed on exit: meshes of any size with no device behind them, for
     plans and dry runs.  Refuses to replace a live group.  On exit
-    DTensor's sharding cache is emptied too: a later mesh of the same
-    shape compares equal to this one's, and a cached decision would lead
-    it to this group's destroyed subgroups."""
+    DTensor's sharding caches are emptied too, the Python one and, where
+    this torch has it, the C++ dispatch fast path's: a later mesh of the
+    same shape compares equal to this one's, and a cached decision would
+    lead it to this group's destroyed subgroups (the second cell of a
+    dry-run sweep in one process)."""
     from torch.distributed.tensor import DTensor
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -73,4 +76,7 @@ def fake_world(world_size: int, rank: int = 0) -> Iterator[None]:
         yield
     finally:
         DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
+        clear_native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+        if clear_native is not None:
+            clear_native()
         dist.destroy_process_group()

@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..distrib.actsharding import (constrain, head_layout, kv_heads_like, merged_heads,
-                                   shard_count, split_heads)
+                                   settled, shard_count, split_heads)
 from ..kernels import ops
 from . import layers as L
 
@@ -212,6 +212,12 @@ def attention(
     values are projected from it instead of ``x`` (cross-attention) and
     only the queries rotate.
     """
+    # a pending sum reaching a body's second attention (the residual
+    # after its first, which the compiled body's fused product settles)
+    # is settled here too, so that the capture's projections take the
+    # placements the compiled body's do and the head layout read from
+    # them is theirs (actsharding.settled; plain tensors pass)
+    x, kv = settled((x, kv))
     src = kv if kv is not None else x
     q = L.linear(x, p["wq"], p.get("bq"))
     k = L.linear(src, p["wk"], p.get("bk"))

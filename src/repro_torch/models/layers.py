@@ -103,7 +103,10 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def lm_head(x: torch.Tensor, table_or_w: torch.Tensor, *, transpose: bool) -> torch.Tensor:
     """Project to vocab; fp32 logits.  ``transpose=True`` -> tied
-    embedding (vocab, d), read through a transposed view (one tensor)."""
+    embedding (vocab, d), read through a transposed view (one tensor).
+    A planned call's pending sum (a MoE block's combine) is reduced
+    first, never scattered over the sequence (``settled``)."""
+    x = settled(x)
     table_or_w = fsdp_gathered(table_or_w)
     w = table_or_w.t() if transpose else table_or_w
     # keep logits vocab-sharded through the loss under a policy
@@ -392,6 +395,11 @@ def ffn_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
 
 
 def apply_ffn(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
+    """The dense FFN of ``kind``.  A pending sum reaching it (the residual
+    after a body's attention, which the compiled body's fused product
+    settles) is settled first, so that a planned body's capture takes the
+    compiled body's layouts (plain tensors pass)."""
+    x = settled(x)
     if kind == "swiglu":
         return swiglu_ffn(x, p)
     if kind == "geglu":

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from ..distrib.actsharding import settled
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_id: int = -1) -> torch.Tensor:
@@ -13,14 +15,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     to ``ignore_id`` count neither in the sum nor in the mean.
     """
     logits = logits.float()
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    # a plan's vocab-sharded logits leave each reduction over the vocab
+    # a pending max or sum: reduced where it is made (as GSPMD
+    # all-reduces them), never scattered over the sequence
+    m = settled(torch.amax(logits, dim=-1, keepdim=True).detach())
+    lse = torch.log(settled(torch.sum(torch.exp(logits - m), dim=-1))) + m[..., 0]
     # one_hot of an out-of-range id (ignore_id) is a row of zeros, as
     # jax.nn.one_hot gives it
     valid = (labels >= 0) & (labels < logits.shape[-1])
     onehot = _one_hot(torch.where(valid, labels, 0).long(), logits).to(logits.dtype)
     onehot = onehot * valid[..., None].to(logits.dtype)
-    label_logit = torch.sum(logits * onehot, dim=-1)
+    label_logit = settled(torch.sum(logits * onehot, dim=-1))
     ll = label_logit - lse
     mask = (labels != ignore_id).to(torch.float32)
     return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)

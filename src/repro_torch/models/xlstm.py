@@ -262,8 +262,11 @@ def _gates(c: torch.Tensor, p: Params, H: int) -> Tuple[torch.Tensor, torch.Tens
 
 def _mlstm_out(x: torch.Tensor, hm: torch.Tensor, g: torch.Tensor, p: Params) -> torch.Tensor:
     """The head norm, the silu output gate and the down projection.
-    hm: (B, H, S, hd)."""
-    hm = L.rms_norm(hm, p["norm_h"]["scale"])
+    hm: (B, H, S, hd).  A plan's cache shards the memory ``C`` on ``dv``
+    over ``model`` (``ShardingPlan.cache_spec``), and the recurrent step's
+    hm comes sharded so; it is gathered while heads and ``dv`` are still
+    apart: merged first, they would make a strided shard of (heads, dv)."""
+    hm = L.rms_norm(gathered(hm, -1), p["norm_h"]["scale"])
     B, H, S, hd = hm.shape
     hm = merged_heads(hm.transpose(1, 2).reshape(B, S, H * hd))
     return x + L.linear(hm * F.silu(g), p["w_down"])
@@ -390,8 +393,14 @@ def _slstm_in(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _slstm_out(p: Params, x: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
+    """The output projection of the loop's hs (B, S, H, hd), merged from
+    heads (a planned call's gradient pinned back to whole heads,
+    ``actsharding.merged_heads``).  A plan's cache shards the state on
+    ``hd`` over ``model``, and a decode step's hs comes sharded so: it is
+    gathered before the merge, as the mLSTM output is (:func:`_mlstm_out`)."""
     B, S, d = x.shape
-    return x + L.linear(hs.reshape(B, S, d).to(x.dtype), p["w_out"])
+    hs = gathered(hs, -1).reshape(B, S, d)
+    return x + L.linear(merged_heads(hs.to(x.dtype)), p["w_out"])
 
 
 def slstm_block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

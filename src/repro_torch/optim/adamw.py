@@ -7,6 +7,14 @@ updated as the reference updates them: no fp32 master copy).  The
 arithmetic runs leaf-wise through ``torch._foreach_*`` ops, in the
 reference's order of operations, and is out of place: ``update`` returns
 new parameter and moment tensors and writes none of its inputs.
+
+A sharding plan's DTensor leaves (a planned step, the dry run) take the
+same ops one leaf at a time (:func:`_ops_for`): DTensor plans a
+``_foreach`` op over the whole list at once, a plan its cache never
+serves again (the key is the list) and whose search grows with the
+mesh's dims; leaf by leaf, each op's plan is made once for the layers'
+alike leaves.  Each ``_foreach`` op is its op on each leaf (a norm may
+reduce in another order).
 """
 from __future__ import annotations
 
@@ -35,13 +43,52 @@ def leaves_like(params: Any, tree: Any) -> List[Any]:
     return [tree]
 
 
+class _PerLeaf:
+    """The ``torch._foreach_*`` ops the update uses, one leaf at a time
+    (``other``: a list of tensors, one tensor or a number)."""
+
+    @staticmethod
+    def _each(op, a, b):
+        if isinstance(b, (list, tuple)):
+            return [op(x, y) for x, y in zip(a, b)]
+        return [op(x, b) for x in a]
+
+    def _foreach_add(self, a, b):
+        return self._each(torch.add, a, b)
+
+    def _foreach_sub(self, a, b):
+        return self._each(torch.sub, a, b)
+
+    def _foreach_mul(self, a, b):
+        return self._each(torch.mul, a, b)
+
+    def _foreach_div(self, a, b):
+        return self._each(torch.div, a, b)
+
+    def _foreach_sqrt(self, a):
+        return [torch.sqrt(x) for x in a]
+
+    def _foreach_norm(self, a, ord):
+        return [torch.linalg.vector_norm(x, ord) for x in a]
+
+
+_PER_LEAF = _PerLeaf()
+
+
+def _ops_for(leaves: Sequence[Any]) -> Any:
+    """``torch`` for plain leaves; :data:`_PER_LEAF` where a leaf is a
+    DTensor (module docstring)."""
+    return _PER_LEAF if any(type(t) is not torch.Tensor and isinstance(t, torch.Tensor)
+                            and hasattr(t, "placements") for t in leaves) else torch
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """The L2 norm over every leaf of ``tree``, in fp32 (0-d tensor)."""
     return _norm([leaf.float() for leaf in pytree.tree_leaves(tree)])
 
 
 def _norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(leaves), 2)))
+    return torch.linalg.vector_norm(torch.stack(_ops_for(leaves)._foreach_norm(list(leaves), 2)))
 
 
 def clipped_fp32(leaves: Sequence[torch.Tensor], grad_clip: Optional[float]
@@ -53,7 +100,7 @@ def clipped_fp32(leaves: Sequence[torch.Tensor], grad_clip: Optional[float]
     if grad_clip is None:
         return g32
     scale = torch.clamp(grad_clip / (_norm(g32) + 1e-9), max=1.0)
-    return torch._foreach_mul(g32, scale)
+    return _ops_for(g32)._foreach_mul(g32, scale)
 
 
 @dataclass(frozen=True)
@@ -83,7 +130,7 @@ class AdamW:
         if not len(flat_g) == len(flat_m) == len(flat_v) == len(flat_p):
             raise ValueError(f"AdamW: {len(flat_p)} params, {len(flat_g)} grads, "
                              f"{len(flat_m)} / {len(flat_v)} moments")
-        f = torch
+        f = _ops_for(flat_p)
         g = clipped_fp32(flat_g, self.grad_clip)
         m2 = f._foreach_add(f._foreach_mul(flat_m, self.b1), f._foreach_mul(g, 1 - self.b1))
         v2 = f._foreach_add(f._foreach_mul(flat_v, self.b2),

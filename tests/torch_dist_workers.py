@@ -209,3 +209,92 @@ def dry_count_rank(rank, world, init, out, arch, shape_name):
                                 seq_shard_cache=True)
                 counts[shape, n] = {"flops": r["flops"], "flops_by_op": r["flops_by_op"]}
     torch.save(counts, os.path.join(out, "counts.pt"))
+
+
+def slstm_grad_rank(rank, world, init, out, shapes, params_file, data_file):
+    """For each (data, model) mesh shape of ``shapes``: xlstm-350m's f32
+    smoke sLSTM block (layer 2) on params and input placed by
+    ``plan_for``, the gradients of ``sum(out * cot)`` with respect to the
+    block's params and its input; rank 0 writes their full values and the
+    local shapes the loop's backward op ran at."""
+    from repro_torch.configs import get_config
+    from repro_torch.distrib.sharding import distribute_tree, plan_for, replicate_plain
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import xlstm
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    _init(rank, world, init)
+    seen = []
+    inner = ops._scan_vjp
+
+    def record(fn, inputs, diff, grads):
+        seen.append(tuple(tuple(t.shape) for t in inputs if isinstance(t, torch.Tensor)))
+        return inner(fn, inputs, diff, grads)
+
+    ops._scan_vjp = record
+    try:
+        cfg = get_config("xlstm-350m", smoke=True).with_(dtype="float32")
+        params, data = torch.load(params_file), torch.load(data_file)
+        results = {}
+        for shape in shapes:
+            mesh = make_mesh(tuple(shape), ("data", "model"))
+            plan = plan_for(cfg, mesh)
+            p = distribute_tree(params, plan.params_shardings(params))["blocks"][2]
+            x, cot = (distribute_tree(data[k], plan.batch_shardings(data[k])) for k in ("x", "cot"))
+            leaves, spec = pytree.tree_flatten(p)
+            leaves = [t.detach().requires_grad_(True) for t in leaves]
+            x = x.detach().requires_grad_(True)
+            del seen[:]
+            with replicate_plain():
+                y = xlstm.slstm_block_apply(pytree.tree_unflatten(leaves, spec), x, cfg)
+                grads = torch.autograd.grad((y * cot).sum(), leaves + [x])
+                grads = [g.full_tensor() if isinstance(g, DTensor) else g for g in grads]
+            results[tuple(shape)] = {"params": pytree.tree_unflatten(grads[:-1], spec),
+                                     "x": grads[-1], "backward_shapes": list(seen),
+                                     "fallbacks": list(plan.fallbacks)}
+        if rank == 0:
+            torch.save(results, os.path.join(out, "slstm.pt"))
+    finally:
+        ops._scan_vjp = inner
+        dist.destroy_process_group()
+
+
+def xlstm_decode_rank(rank, world, init, out, params_file, tokens_file, steps):
+    """xlstm-350m's f32 smoke greedy decode on a (1, world) mesh: params
+    and cache placed by ``plan_for`` (the mLSTM memory ``C`` sharded on
+    ``dv`` over ``model``), ``steps`` serve steps from the first tokens;
+    rank 0 writes every step's tokens and logits (full values) and the
+    placements of layer 0's ``C``."""
+    from repro_torch.configs import get_config
+    from repro_torch.distrib.sharding import distribute_tree, plan_for, replicate_plain
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import xlstm
+
+    _init(rank, world, init)
+    try:
+        cfg = get_config("xlstm-350m", smoke=True).with_(dtype="float32")
+        params, token = torch.load(params_file), torch.load(tokens_file)
+        mesh = make_mesh((1, world), ("data", "model"))
+        plan = plan_for(cfg, mesh)
+        dparams = distribute_tree(params, plan.params_shardings(params))
+        cache = xlstm.init_cache(cfg, token.shape[0], device="cpu")
+        cache = distribute_tree(cache, plan.cache_shardings(cache))
+        placed = str(cache["layers"][0]["cell"]["C"].placements)
+        step = make_serve_step(cfg, logits=True)
+        tokens, logits = [], []
+        with torch.no_grad(), replicate_plain():
+            for t in range(steps):
+                tok = distribute_tree(token, plan.batch_shardings(token))
+                pos = distribute_tree(torch.tensor(t), plan.scalar_sharding())
+                nxt, cache, last = step(dparams, cache, tok, pos)
+                token = nxt.full_tensor().long()
+                tokens.append(token)
+                logits.append(last.full_tensor())
+        if rank == 0:
+            torch.save({"tokens": tokens, "logits": logits, "C_placements": placed,
+                        "fallbacks": list(plan.fallbacks)}, os.path.join(out, "decode.pt"))
+    finally:
+        dist.destroy_process_group()

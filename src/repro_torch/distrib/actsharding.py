@@ -268,6 +268,15 @@ def fsdp_gathered(params: Any) -> Any:
     return pytree.tree_map(one, params)
 
 
+def pin(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    """The DTensor ``x`` placed with, per mesh dim, its dim ``dims[i]``
+    sharded there (-1: replicated), through ``repro_torch::constrain``:
+    DTensor redistributes it (a pending sum reduced, or scattered where a
+    dim is to be sharded), and the gradient comes back pinned as ``x``
+    was (a pending sum as replicated)."""
+    return _constrain_op(x, list(dims))
+
+
 def shard_dims(spec: Sequence[Any], mesh: Any) -> List[int]:
     """Per mesh dim, the tensor dim ``spec`` shards over it, or -1."""
     from torch.distributed.tensor import Shard

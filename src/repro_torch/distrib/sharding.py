@@ -57,6 +57,9 @@ partitions the reference's products:
   tensors) sharded in and out where the first input's rows already are,
   or all replicated; a backward op's gradient of a replicated argument
   (the sLSTM loop's recurrent weight) is then a pending sum;
+* the MoE's local ops (expert parallelism, ``models/moe.py``): one
+  layout each, per mesh dim by its role: the token rows sharded where
+  they are, the experts where the expert ids are (:data:`_MOE_OPS`);
 
 any other input placement is redistributed to one of them.  Two plain
 ops the models reach that DTensor lacks a strategy for get one too
@@ -303,11 +306,16 @@ class ShardingPlan:
         flat, spec = flatten_with_paths(params_tree)
         out = pytree.tree_unflatten(
             [NamedSharding(self.mesh, self.param_spec(path, leaf)) for path, leaf in flat], spec)
+        notes = []
         if self.attention_layout()["mode"] == "gathered":
-            note = (f"attention: n_heads {self.cfg.n_heads} % model({self._model_size()}) "
-                    "!= 0 -> heads gathered")
-            if note not in self.fallbacks:
-                self.fallbacks.append(note)
+            notes.append(f"attention: n_heads {self.cfg.n_heads} % model({self._model_size()}) "
+                         "!= 0 -> heads gathered")
+        if self.cfg.family == "moe" and self.cfg.n_experts % self._model_size():
+            # the expert stacks replicated: each device runs every expert
+            # on its share of the capacity (models/moe.py)
+            notes.append(f"moe: n_experts {self.cfg.n_experts} % model({self._model_size()}) "
+                         "!= 0 -> experts replicated")
+        self.fallbacks.extend(n for n in notes if n not in self.fallbacks)
         return out
 
     # -- optimizer states ------------------------------------------------------
@@ -683,6 +691,53 @@ def _pointwise_like_first(op_schema):
     return _per_dim_strategy(op_schema, per_dim)
 
 
+#: the MoE's local ops (``models/moe.py``, expert parallelism) -> (index
+#: of the argument whose dim 0 holds the token rows (entries), index of
+#: the expert ids or None, per tensor argument its placement on a rows
+#: mesh dim and on an experts mesh dim, the same per output, the index of
+#: the first non-tensor argument)
+_MOE_OPS: Dict[str, Tuple] = {
+    "repro_torch::moe_expert_counts": (0, None, ((_S0, _R),), ((_S0, _R),), 1),
+    "repro_torch::moe_positions": (0, None, ((_S0, _R), (_S0, _R)), ((_S0, _R),), 2),
+    # xf, e_flat, pos_c, keep, ids -> the buffer
+    "repro_torch::moe_dispatch": (
+        1, 4, ((_S0, _R), (_S0, _R), (_S0, _R), (_S0, _R), (_R, _S0)), ((_P, _S0),), 5),
+    # g_buf, e_flat, pos_c, keep, ids -> d xf
+    "repro_torch::moe_dispatch_backward": (
+        1, 4, ((_R, _S0), (_S0, _R), (_S0, _R), (_S0, _R), (_R, _S0)), ((_S0, _P),), 5),
+    # out_e, e_flat, pos_c, w, ids -> y
+    "repro_torch::moe_combine": (
+        1, 4, ((_R, _S0), (_S0, _R), (_S0, _R), (_S0, _R), (_R, _S0)), ((_S0, _P),), 5),
+    # g_y, out_e, e_flat, pos_c, w, ids -> d out_e, d w
+    "repro_torch::moe_combine_backward": (
+        2, 5, ((_S0, _R), (_R, _S0), (_S0, _R), (_S0, _R), (_S0, _R), (_R, _S0)),
+        ((_P, _S0), (_S0, _P)), 6),
+}
+
+
+def _moe_strategy(rows_arg: int, ids_arg: Optional[int], ins: Tuple, outs: Tuple):
+    """The one layout of a MoE local op: a mesh dim over which the
+    ``rows_arg`` argument's dim 0 is sharded is a rows dim, one over which
+    the ``ids_arg`` argument's is an experts dim, and each tensor takes
+    its placement for that role (:data:`_MOE_OPS`); replicated on the
+    other mesh dims."""
+
+    def strategy(op_schema):
+        rows = _placed(op_schema.args_schema[rows_arg])
+        ids = _placed(op_schema.args_schema[ids_arg]) if ids_arg is not None else None
+        per_dim = []
+        for i, rp in enumerate(rows):
+            role = 0 if _is_shard(rp, 0) else 1 if ids is not None and _is_shard(ids[i], 0) \
+                else None
+            if role is None:
+                per_dim.append([((_R,) * len(ins), (_R,) * len(outs))])
+            else:
+                per_dim.append([(tuple(p[role] for p in ins), tuple(p[role] for p in outs))])
+        return _per_dim_strategy(op_schema, per_dim)
+
+    return strategy
+
+
 #: plain ATen ops DTensor has no strategy for -> (strategy, static argnum)
 _ATEN_STRATEGIES = {
     "searchsorted.Tensor": (_searchsorted_strategy, 2),
@@ -700,7 +755,7 @@ def register_kernel_shardings() -> None:
     kernel and model modules are imported, which this does first."""
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
 
-    from .. import models  # noqa: F401  (defines the opaque ops)
+    from .. import models  # noqa: F401  (defines the opaque ops and the MoE's local ops)
     from ..kernels import (flash_attention, fused_linear, paged_attention,  # noqa: F401
                            rg_lru, rms_norm)
     from . import actsharding
@@ -724,6 +779,7 @@ def register_kernel_shardings() -> None:
     tables = [(q, _head_strategy, n) for q, n in _HEAD_OPS.items()]
     tables.append(("repro_torch::fused_linear", _linear_strategy(_LINEAR_FWD), 3))
     tables.append(("repro_torch::fused_linear_backward", _linear_strategy(_LINEAR_BWD), 4))
+    tables += [(q, _moe_strategy(*spec[:4]), spec[4]) for q, spec in _MOE_OPS.items()]
     tables += [(f"aten::{name}", fn, n) for name, (fn, n) in _ATEN_STRATEGIES.items()]
     for qualname, fn, static in tables:
         if qualname in _REGISTERED:

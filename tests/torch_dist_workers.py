@@ -298,3 +298,115 @@ def xlstm_decode_rank(rank, world, init, out, params_file, tokens_file, steps):
                         "fallbacks": list(plan.fallbacks)}, os.path.join(out, "decode.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def ep_rank(rank, world, init, out, runs, batch_file, ffn_file):
+    """For each ``(shape, cases)`` of ``runs``, a (data, model) mesh of
+    this world's size and ``(arch, params file, capacity factor)``
+    triples: the f32 smoke config (that capacity factor) on params and
+    batch placed by ``plan_for``: the planned ``apply`` logits, the loss
+    and every gradient; layer 0's ``moe_ffn`` on the input of
+    ``ffn_file`` (its routing through ``moe.ep_route``, its output and the
+    gradients of ``sum(out * cot)``); the local shapes of every
+    ``aten.bmm`` the loss and its gradients ran (below DTensor); the
+    plan's fallbacks.  Rank 0 writes their full values."""
+    from repro_torch.configs import get_config
+    from repro_torch.distrib.sharding import distribute_tree, plan_for, replicate_plain
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as M
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    _init(rank, world, init)
+    try:
+        batch, ffn = torch.load(batch_file), torch.load(ffn_file)
+        results = {}
+        for shape, cases in runs:
+            mesh = make_mesh(tuple(shape), ("data", "model"))
+            for arch, params_file, cf in cases:
+                cfg = get_config(arch, smoke=True).with_(dtype="float32", capacity_factor=cf)
+                params = torch.load(params_file)
+                plan = plan_for(cfg, mesh)
+                dparams = distribute_tree(params, plan.params_shardings(params))
+                dbatch = distribute_tree(batch, plan.batch_shardings(batch))
+                kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k, capacity_factor=cf)
+                with replicate_plain():
+                    with torch.no_grad():
+                        logits = full(get_model(cfg).apply(dparams, dbatch["tokens"], cfg))
+                    with _local_bmm_shapes() as seen:
+                        loss, grads = steps.loss_and_grads(steps.make_loss_fn(cfg), dparams,
+                                                           dbatch)
+                    loss, grads = full(loss), pytree.tree_map(full, grads)
+                    mp = dparams["blocks"][0]["moe"]
+                    x, cot = (distribute_tree(ffn[k], plan.batch_shardings(ffn[k]))
+                              for k in ("x", "cot"))
+                    top_idx, _, pos, keep, _ = M.ep_route(x, mp, **kw)
+                    leaves, spec = pytree.tree_flatten(mp)
+                    leaves = [t.detach().requires_grad_(True) for t in leaves]
+                    x = x.detach().requires_grad_(True)
+                    y = M.moe_ffn(x, pytree.tree_unflatten(leaves, spec), **kw)
+                    ffn_grads = torch.autograd.grad((y * cot).sum(), leaves + [x])
+                    ffn_out = {"top_idx": full(top_idx), "pos": full(pos), "keep": full(keep),
+                               "y": full(y), "grads": [full(g) for g in ffn_grads]}
+                results[(arch, tuple(shape), cf)] = {
+                    "logits": logits, "loss": loss, "grads": grads, "bmm_shapes": seen.seen,
+                    "ffn": ffn_out, "fallbacks": list(plan.fallbacks)}
+        if rank == 0:
+            torch.save(results, os.path.join(out, "ep.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+class _local_bmm_shapes:
+    """Records the local shapes of the ``aten.bmm`` calls made inside it
+    on real tensors (below DTensor), as a dispatch mode."""
+
+    def __enter__(self):
+        from torch._subclasses.fake_tensor import is_fake
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                # DTensor's sharding propagation runs ops on fake tensors of
+                # the global shapes: not a device's work
+                if func is torch.ops.aten.bmm.default and not is_fake(args[0]):
+                    seen.append((tuple(args[0].shape), tuple(args[1].shape)))
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def ep_count_rank(rank, world, init, out, cells, shapes):
+    """The dry run's counts of each ``(arch, shape name)`` smoke cell of
+    ``cells`` at 1 layer, FSDP off, on ``fake`` (data, model) meshes of
+    each of ``shapes`` (no gloo group): ``{(arch, shape name, mesh):
+    {flops_by_op, peak_bytes}}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
+    counts = {}
+    for arch, shape_name in cells:
+        cfg = dryrun._with_layers(get_config(arch, smoke=True), 1)
+        for shape in shapes:
+            with fake_world(shape[0] * shape[1]):
+                mesh = make_mesh(tuple(shape), ("data", "model"))
+                r = dryrun._run(cfg, shape_name, mesh, fsdp=False, seq_shard_cache=True)
+            counts[arch, shape_name, tuple(shape)] = {"flops_by_op": r["flops_by_op"],
+                                                      "peak_bytes": r["peak_bytes"]}
+    torch.save(counts, os.path.join(out, "counts.pt"))

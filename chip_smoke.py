@@ -65,11 +65,18 @@ Phases (any failure raises and the script exits non-zero):
 6. recurrentgemma-2b at full width, depth cut to 3 of its 26 layers (2
    RG-LRU blocks and 1 local-attention block, d 2560, vocab 256000, bf16,
    random weights from seed 0) through the contiguous forge fronts,
-   ``BatchedServer(mode="forge")`` on ``segment_jit``: warmup of the B4
-   decode program and the B4 x S32 prefill cell, then batch 4, prompt 32, 32 new tokens with
+   ``BatchedServer(mode="forge")`` on ``segment_jit`` (batch rungs 2 and
+   4, one S32 grid cell): warmup of the B2/B4 decode programs and the
+   B4 x S32 prefill cell, then batch 4, prompt 32, 32 new tokens with
    the chunked state-scan prefill (one dispatch: 2 RG-LRU launches) and
    again with ``prefill="sequential"`` on the same decode program (no
-   RG-LRU launch); the full-sequence ``apply`` at B=2, S=1024 through
+   RG-LRU launch); the contiguous ``SlotScheduler`` over phase 7's 8
+   requests (max_slots 4: swap-ins and rung resizes; every admission
+   wave through the slot-masked chunked prefill grid, the admitted rows
+   reset while the others keep their state): every request ends with its
+   budget, no compile, launches exact (2 RG-LRU launches a prefill
+   dispatch), the dispatch counts the fronts', and the same schedule on
+   the interpret twins bitwise equal; the full-sequence ``apply`` at B=2, S=1024 through
    the Forge bodies (2 launches) and its device time.  Launch counts
    exact, no compile after warmup; a continuation prefill (pos 32, ragged lengths) on copies of
    a served cache and ``apply`` against ``impl="ref"`` (relative L2
@@ -79,7 +86,17 @@ Phases (any failure raises and the script exits non-zero):
    reported); TTFT both ways, decode p50/p99, tok/s and the device busy
    share of steady decode steps under both backends.  Then the same
    prefill program and ``apply`` in f32 against ``impl="ref"``,
-   elementwise within rtol 1e-3 / atol 1e-3.
+   elementwise within rtol 1e-3 / atol 1e-3.  Before it, phase 10's (a)
+   and (b) contract on these fronts (``async_front``): rungs 2 and 4 and
+   one S16 cell, only rung 4 warm, phase 10's async workload on 4 slots
+   with two compile workers and a cache directory: at least one warm
+   fallback, at most 5 ms of compile wait, the service idle, the same
+   workload again on the exact rungs with no fallback; every memory tier
+   dropped, an inline server on the same directory warms every program
+   the async one built with zero full builds and serves the workload,
+   each async run's tokens equal to its, or held at the first differing
+   token by the measured-slack rule; the async run's RG-LRU launches
+   above 0.
 7. xlstm-350m at full width, depth cut to 8 of its 24 layers (7 mLSTM
    and 1 sLSTM, d 1024, 4 heads, vocab 50304, bf16, random weights from
    seed 0) through the contiguous forge fronts (batch rungs 2 and 4, one S32
@@ -212,7 +229,10 @@ Phases (any failure raises and the script exits non-zero):
    ``AutotuningCompiler().compile`` on the ``apply`` block body at B=1,
    S=1024: 47 candidates on copies of one capture, the winner's launches
    (one flash, its fused-linear nodes), within the bf16 kernel tolerance
-   of the default pipeline's body; per-candidate and export times.  After
+   of the default pipeline's body; per-candidate and export times.  (d)
+   Phase 6's async compile and restart contract on the paged fronts with
+   the paged-attention kernel at QWEN_PAGED_LAYERS (paged and fused
+   linear launches above 0, no page leaked).  After
    phase 11, (b) and (c) on forge-125m at full width (the CLI defaults;
    ``apply`` at B=4, S=1024).
 
@@ -359,6 +379,17 @@ Phases (any failure raises and the script exits non-zero):
    run's, each rank's expert products on its own (E / model, C / data)
    share and their device time (CUDA events), one flash and one fused
    linear (``fma``: f32) launch a layer on each rank.
+
+   After phase 15, the train CLI on two ranks: ``launch.train.main`` in
+   two spawned processes under the environment ``torchrun
+   --nproc-per-node 2`` sets (``main`` opens the gloo group), both on
+   this card (``--device cuda:0``), forge-125m at full size, B8 x S128,
+   4 steps, a checkpoint every 2 and a fault at step 3; run beside phases
+   16-17 and read after (e): each rank's step ``JitTrainStep``, the
+   losses bitwise equal on both, one failure and one restore from step 2
+   on each, steps 0, 2 and 4 on disk written by rank 0 alone, each rank's
+   launches its steps' forward and backward kernel nodes plus the first
+   call's eager forward.
 
 17. The examples on the card: ``examples/torch_quickstart.py`` and
    ``examples/torch_serve_batch.py --arch forge-125m --full --gen 8``,
@@ -2216,13 +2247,15 @@ def program_log(front, name):
 
 def phase_rglru(dev):
     """recurrentgemma-2b at full width, RG_LAYERS deep, through the
-    contiguous forge fronts, then ``apply``; returns the launches of each
-    path."""
+    contiguous forge fronts, the contiguous SlotScheduler on them, then
+    ``apply``, and the async compile and restart contract of phase 10 on
+    its contiguous fronts (:func:`async_front`); returns the launches of
+    each path."""
     import numpy as np
     import torch
     from torch.utils import _pytree as pytree
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.launch.serve import BatchedServer, SlotScheduler
     from repro_torch.models import _forge, get_model
 
     # d 2560, vocab 256000, bf16; 3 of the 26 layers
@@ -2235,8 +2268,12 @@ def phase_rglru(dev):
     n_params = sum(t.numel() for t in {id(t): t for t in pytree.tree_leaves(params)}.values())
     B, P, n_new, max_len = 4, 32, 32, 256
     prompts = np.random.default_rng(6).integers(0, cfg.vocab, (B, P)).astype(np.int32)
-    server = BatchedServer(cfg, params, max_len=max_len, mode="forge")
-    warm_s = warm_graphs("recurrentgemma-2b", lambda: server.warmup([B], [P]))
+    # batch rungs 2 and 4, one sequence cell (S32): the served cells only,
+    # the scheduler's resizes included (as phase 7's)
+    server = BatchedServer(cfg, params, max_len=max_len, mode="forge",
+                           bucket_policy="ladder:2,4", seq_bucket_policy="ladder:32")
+    warm_s = warm_graphs("recurrentgemma-2b",
+                         lambda: server.warmup([2]) + server.warmup([B], [P]))
     caps = captures_now()
     program_log(server.bucketed, "decode")
     program_log(server.prefill_bucketed, "prefill")
@@ -2283,6 +2320,7 @@ def phase_rglru(dev):
     res_seq, sequential = run("sequential")
     check(sequential["rg_lru"] == 0, "the decode program launched rg_lru")
     server.prefill_policy = "auto"
+    scheduled = rglru_scheduler(server, cfg, n_rec, compiles0, caps)
 
     Ba, S = 2, 1024
     tokens = torch.randint(0, cfg.vocab, (Ba, S), device=dev,
@@ -2350,10 +2388,74 @@ def phase_rglru(dev):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     contiguous_backends("recurrentgemma-2b", server, prompts, n_new,
                         floor_ms=2 * n_params / HBM_BYTES_PER_S * 1e3)
-    del server, params
+    del server
+    release_device_memory()
+    asynced = async_front(dev, cfg, params, "recurrentgemma-2b")
+    del params
     release_device_memory()
     phase_f32_deep(dev, cfg)
-    return {"rglru_serve": served, "rglru_sequential": sequential, "rglru_apply": applied}
+    return {"rglru_serve": served, "rglru_sequential": sequential, "rglru_sched": scheduled,
+            "rglru_apply": applied, "rglru_async": asynced}
+
+
+def rglru_scheduler(server, cfg, n_rec, compiles0, caps):
+    """Phase 6's contiguous SlotScheduler: recurrentgemma-2b over the
+    warmed fronts (rungs 2 and 4, the B4 x S32 cell), phase 7's workload:
+    every admission wave through the slot-masked chunked prefill grid
+    (the admitted rows reset, the others keep their state).  Every
+    request ends with its budget, swaps and resizes happen, nothing
+    compiles; launches exact (rg_lru = rec layers x prefill dispatches,
+    fused linear = the programs' linear nodes x dispatches); the same
+    schedule with the fronts on the interpret twins bitwise equal, token
+    for token and dispatch for dispatch.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import SlotScheduler
+
+    fronts = (server.bucketed, server.prefill_bucketed)
+    calls0 = [dict(f.stats.per_bucket_calls) for f in fronts]
+    reqs = contiguous_sched_workload(cfg.vocab)
+    reset_counts()
+    sres = SlotScheduler(server, max_slots=4).run(reqs)
+    torch.cuda.synchronize()
+    launched = counts()
+    dispatches = [{k: f.stats.per_bucket_calls.get(k, 0) - c0.get(k, 0)
+                   for k in f.stats.per_bucket_calls} for f, c0 in zip(fronts, calls0)]
+    s_dec, s_pre = (sum(d.values()) for d in dispatches)
+    for r in reqs:
+        got = sres["results"][r.rid]
+        check("error" not in got and len(got["tokens"]) == r.max_new,
+              f"recurrentgemma-2b scheduler request {r.rid}: {got.get('error')} "
+              f"{len(got['tokens'])} tokens, budget {r.max_new}")
+    check(sres["swaps"] >= 1 and sres["resizes"] >= 1 and sres["compiles"] == 0
+          and [f.stats.compiles for f in fronts] == compiles0 and captures_now() == caps,
+          f"recurrentgemma-2b scheduler: swaps {sres['swaps']}, resizes {sres['resizes']}, "
+          f"compiles {sres['compiles']} (a program compiled or captured after warmup?)")
+    check(s_pre == sres["prefill_dispatches"] > 0 and s_dec == sres["decode_dispatches"],
+          "recurrentgemma-2b scheduler dispatch counts disagree with the fronts' stats")
+    want_fl = sum(linear_nodes(mod) * d.get(str(key), 0)
+                  for f, d in zip(fronts, dispatches) for key, mod in f.programs.items())
+    check(launched["rg_lru"] == n_rec * s_pre and launched["fused_linear"] == want_fl > 0,
+          f"recurrentgemma-2b scheduler: rg_lru {launched['rg_lru']} != {n_rec} x {s_pre} "
+          f"prefill dispatches, or fused_linear {launched['fused_linear']} != {want_fl}")
+    check(launched["flash_attention"] == 0 and launched["paged_attention"] == 0,
+          f"recurrentgemma-2b scheduler launched {launched}")
+    with serving_with(fronts, interpret_twins(fronts)):
+        ires = SlotScheduler(server, max_slots=4).run(contiguous_sched_workload(cfg.vocab))
+    bad = [r.rid for r in reqs if not np.array_equal(sres["results"][r.rid]["tokens"],
+                                                     ires["results"][r.rid]["tokens"])]
+    same = ("decode_dispatches", "prefill_dispatches", "swaps", "resizes", "real_tokens")
+    check(not bad and all(sres[k] == ires[k] for k in same),
+          f"recurrentgemma-2b scheduler: segment_jit against interpret, requests {bad} differ; "
+          f"{ {k: (sres[k], ires[k]) for k in same} }")
+    log(f"contiguous SlotScheduler recurrentgemma-2b (max_slots 4, rungs 2/4, B4 x S32 cell): "
+        f"{len(reqs)} requests, {sres['real_tokens']} tokens, {sres['tok_per_s']:.1f} tok/s, "
+        f"tick p50 {sres['tick_ms_p50']:.2f} ms p99 {sres['tick_ms_p99']:.2f} ms, TTFT p50 "
+        f"{sres['ttft_p50_ticks']:.1f} ticks {sres['ttft_p50_s'] * 1e3:.2f} ms; decode "
+        f"dispatches {s_dec}, prefill dispatches {s_pre}, swaps {sres['swaps']}, resizes "
+        f"{sres['resizes']}, occupancy {sres['occupancy']:.3f}; launches {launched}; the same "
+        f"schedule on the interpret twins bitwise equal ({ires['tok_per_s']:.1f} tok/s)")
+    return launched
 
 
 def continuation(model, cfg, params, server, programs, dev, eager=True):
@@ -2586,8 +2688,8 @@ def compare_greedy_tokens(model, cfg, params, prompts, tokens, dev, server, ref_
         f"(first tokens {int((ref[:, 0] == tokens[:, 0]).sum())}/{B})")
 
 
-def xlstm_workload(vocab):
-    """8 requests with ragged prompts of 17 to 32 tokens (one S32 grid
+def contiguous_sched_workload(vocab):
+    """Phases 6 and 7's scheduler workload: 8 requests with ragged prompts of 17 to 32 tokens (one S32 grid
     cell): four at tick 0, then two at tick 12 and two at tick 14, after
     the early budgets (6 to 18 tokens) have left two slots active — so
     the B4 rung shrinks to B2 and grows back, and later requests swap
@@ -2629,7 +2731,7 @@ def phase_xlstm(dev):
     server = BatchedServer(cfg, params, max_len=max_len, mode="forge",
                            bucket_policy="ladder:2,4", seq_bucket_policy="ladder:32")
     sched = SlotScheduler(server, max_slots=4)
-    reqs = xlstm_workload(cfg.vocab)
+    reqs = contiguous_sched_workload(cfg.vocab)
     # decode rungs 2 and 4, and the B4 x S32 cell: the schedule admits on
     # rung 4 only, so a B2 x S32 cell would never run
     warm_s = warm_graphs("xlstm-350m", lambda: server.warmup([2]) + server.warmup([4], [P]))
@@ -3496,25 +3598,7 @@ def phase_compile_cost(dev, cli_runs):
         f"{sorted(map(str, srv_as.bucketed.programs))}, {res_sw['resizes']} resizes, no "
         f"fallback; tick p50 {res_sw['tick_ms_p50']:.3f} ms p99 {res_sw['tick_ms_p99']:.3f} "
         f"ms max {res_sw['tick_ms_max']:.3f} ms")
-    diverged = []
-    for r in reqs:
-        a = res_in["results"][r.rid]["tokens"]
-        for run, res in (("async", res_as), ("async after the switch", res_sw)):
-            b = res["results"][r.rid]["tokens"]
-            if not np.array_equal(a, b):
-                j = int(np.argmax(a != b)) if len(a) == len(b) else min(len(a), len(b))
-                diverged.append((r, j, a, b))
-    for r, j, a, b in diverged:
-        ctx = np.concatenate([r.prompt, a[:j]])
-        spread, slack, margins = first_token_slack(
-            model, cfg, params, ctx, [int(a[j]), int(b[j])], dev,
-            f"request {r.rid} token {j}")
-        log(f"  request {r.rid} diverged at token {j} (inline {a[j]}, async {b[j]}): both "
-            f"top choices of the plain path, margins {[round(m, 4) for m in margins]}, "
-            f"kernel-free spread {spread:.4f}, slack {slack:.4f}")
-    log(f"async against inline, both async runs: {2 * len(reqs) - len(diverged)}/"
-        f"{2 * len(reqs)} requests' tokens bitwise equal, {len(diverged)} diverged (each "
-        f"first differing token held by the measured-slack rule)")
+    hold_async_tokens(model, cfg, params, reqs, res_in, (res_as, res_sw), dev, "forge-125m")
 
     # -- (d) the buffer pool: a second generate at one batch reuses the cache --
     prompts = np.random.default_rng(3).integers(0, cfg.vocab, (8, 8)).astype(np.int32)
@@ -3547,6 +3631,150 @@ def phase_compile_cost(dev, cli_runs):
     del params, model
     release_device_memory()
     return {"async_serve": served_async, "bucketed_call": called}
+
+
+def hold_async_tokens(model, cfg, params, reqs, res_in, async_runs, dev, what):
+    """Every request's tokens of each async run equal the inline run's,
+    or a request that diverges is held at its first differing token by
+    the measured-slack rule (:func:`first_token_slack`): a row computed
+    padded into a larger warm rung may round differently at a near-tie."""
+    import numpy as np
+
+    diverged = []
+    for r in reqs:
+        a = res_in["results"][r.rid]["tokens"]
+        for res in async_runs:
+            b = res["results"][r.rid]["tokens"]
+            if not np.array_equal(a, b):
+                j = int(np.argmax(a != b)) if len(a) == len(b) else min(len(a), len(b))
+                diverged.append((r, j, a, b))
+    for r, j, a, b in diverged:
+        ctx = np.concatenate([r.prompt, a[:j]])
+        spread, slack, margins = first_token_slack(
+            model, cfg, params, ctx, [int(a[j]), int(b[j])], dev,
+            f"{what} request {r.rid} token {j}")
+        log(f"  {what} request {r.rid} diverged at token {j} (inline {a[j]}, async {b[j]}): "
+            f"both top choices of the plain path, margins {[round(m, 4) for m in margins]}, "
+            f"kernel-free spread {spread:.4f}, slack {slack:.4f}")
+    n = len(async_runs) * len(reqs)
+    log(f"{what} async against inline, {len(async_runs)} async runs: {n - len(diverged)}/{n} "
+        f"requests' tokens bitwise equal, {len(diverged)} diverged (each first differing "
+        f"token held by the measured-slack rule)")
+
+
+#: the async fronts of phases 6 and 12: rungs 2 and 4 (4 warm, 2 cold) and
+#: one sequence cell, which the async workload's 4-8 token prompts fill
+ASYNC_RUNGS, ASYNC_SEQ = "ladder:2,4", "ladder:16"
+
+
+def async_front(dev, cfg, params, what, paged=False):
+    """Phase 10's (a) and (b) contract on another front: ``cfg`` served
+    through ``SlotScheduler(max_slots=4)`` on ``BatchedServer(mode="forge",
+    async_compile=True, cache_dir=D)`` (the paged fronts with the
+    paged-attention kernel when ``paged``), only the top rung (B4 and its
+    B4 x S16 cell) warm, over phase 10's async workload, whose live count
+    walks down to the cold rung 2 once the queue is empty: at least one
+    warm fallback, at most 5 ms of compile wait, the service idle after
+    the run, then the same workload on the exact rungs with no fallback.
+    Every in-memory tier dropped, a server on D (inline) warms every
+    program the async server built with zero full builds and serves the
+    workload; each async run's tokens equal that inline run's, or meet
+    the measured-slack rule at their first difference.  Returns the
+    launches of the first async run (the workers' warm runs included)."""
+    import torch
+    from repro_torch.core import get_compile_cache
+    from repro_torch.core.metrics import bucket_report
+    from repro_torch.launch.serve import BatchedServer, SlotScheduler
+    from repro_torch.models import _forge, get_model
+
+    model = get_model(cfg)
+    scfg = cfg.with_(kv_kernel="pallas") if paged else cfg
+    kw = dict(max_len=256, mode="forge", bucket_policy=ASYNC_RUNGS, seq_bucket_policy=ASYNC_SEQ,
+              paged=paged, kv_page_size=16)
+    reqs = async_workload(cfg.vocab)
+    lens = sorted({len(r.prompt) for r in reqs})
+    g = get_compile_cache()
+    store0 = g.store
+    cache_dir = tempfile.mkdtemp(prefix="forge-async-cache-", dir=os.environ.get("TMPDIR"))
+
+    def restart():
+        _forge.clear_cache()
+        g.clear()
+        g.store = None
+
+    restart()
+    srv = BatchedServer(scfg, params, async_compile=True, compile_workers=2,
+                        cache_dir=cache_dir, **kw)
+    t0 = time.perf_counter()
+    srv.warmup([4], prompt_lens=lens)
+    warm_s = time.perf_counter() - t0
+    bs = srv.bucketed.stats
+    wait0 = bs.compile_wait_s
+    reset_counts()
+    res = SlotScheduler(srv, max_slots=4).run(reqs)
+    torch.cuda.synchronize()
+    launched = counts()
+    run_wait = bs.compile_wait_s - wait0
+    check(srv.compile_service.wait_idle(600.0), f"{what} async: the service did not go idle")
+    svc = srv.compile_service.stats.snapshot()
+    bad = [rid for rid, r in res["results"].items() if "error" in r]
+    check(not bad and len(res["results"]) == len(reqs), f"{what} async: requests failed {bad}")
+    check(res["warm_fallbacks"] >= 1, f"{what}: the async run never fell back to a warm rung")
+    check(run_wait <= 0.005 and bs.compile_wait_s <= 0.005,
+          f"{what}: the async run blocked {bs.compile_wait_s:.4f} s on compiles")
+    kernel = "paged_attention" if paged else "rg_lru"
+    check(launched[kernel] > 0 and launched["fused_linear"] > 0,
+          f"{what} async: launches {launched} (want {kernel} and fused_linear)")
+    res_sw = SlotScheduler(srv, max_slots=4).run(async_workload(cfg.vocab))
+    check(res_sw["warm_fallbacks"] == 0 and res_sw["compiles"] == 0,
+          f"{what} async after the builds landed: warm_fallbacks {res_sw['warm_fallbacks']}, "
+          f"compiles {res_sw['compiles']}")
+    decode_keys = sorted(srv.bucketed.programs, key=str)
+    cells = sorted(srv.prefill_bucketed.programs, key=str)
+    log(f"{what} async ({'paged, kv_kernel=pallas' if paged else 'contiguous'}, rungs 2/4, "
+        f"rung 4 warm): warmup {warm_s:.1f} s; {res['real_tokens']} tokens, "
+        f"{res['tok_per_s']:.1f} tok/s, tick p50 {res['tick_ms_p50']:.3f} ms p99 "
+        f"{res['tick_ms_p99']:.3f} ms max {res['tick_ms_max']:.3f} ms; compile_wait_s "
+        f"{run_wait:.4f} s in the run; warm_fallbacks {res['warm_fallbacks']}, fallback_calls "
+        f"{bs.fallback_calls}, resizes {res['resizes']}; background builds {svc['completed']} "
+        f"in {svc['busy_s']:.2f} busy s (submitted {svc['submitted']}); launches {launched}; "
+        f"again on the exact rungs {sorted(map(str, decode_keys))}: {res_sw['resizes']} "
+        f"resizes, no fallback, tick p50 {res_sw['tick_ms_p50']:.3f} ms")
+    log(f"  [{what} async] decode {bucket_report(bs)}")
+    if paged:
+        srv.page_pool.check()
+        check(srv.page_pool.pages_in_use == 1 + srv.prefix_tree.cached_pages,
+              f"{what} async: a page leaked")
+    srv.compile_service.shutdown()
+    del srv
+    release_device_memory()
+
+    restart()
+    srv = BatchedServer(scfg, params, cache_dir=cache_dir, **kw)
+    t0 = time.perf_counter()
+    srv.warmup([k.extents[0] for k in decode_keys])
+    for key in cells:
+        srv.warmup([key.extents[0]], prompt_lens=[key.extents[1]])
+    wall = time.perf_counter() - t0
+    cs = srv.compile_cache.stats
+    builds = cs.misses + g.stats.misses
+    n_prog = len(srv.bucketed.programs) + len(srv.prefill_bucketed.programs)
+    check(builds == 0 and cs.disk_hits >= 1 and n_prog == len(decode_keys) + len(cells),
+          f"{what} restart: {builds} full builds, {cs.disk_hits} disk hits, {n_prog} programs "
+          f"against the async server's {len(decode_keys) + len(cells)}")
+    res_in = SlotScheduler(srv, max_slots=4).run(async_workload(cfg.vocab))
+    check(res_in["resizes"] == res_sw["resizes"],
+          f"{what}: the inline run resized {res_in['resizes']} times, the async one "
+          f"{res_sw['resizes']}")
+    log(f"{what} restart on the same cache directory: {n_prog} programs warmed in {wall:.2f} s, "
+        f"0 full builds, {cs.disk_hits} disk hits; inline run {res_in['tok_per_s']:.1f} tok/s, "
+        f"tick p50 {res_in['tick_ms_p50']:.3f} ms, compiles {res_in['compiles']}")
+    hold_async_tokens(model, cfg, params, reqs, res_in, (res, res_sw), dev, what)
+    del srv
+    restart()
+    g.store = store0
+    release_device_memory()
+    return launched
 
 
 # The serve CLI's subprocesses (phase 10's restart pair, phase 11's
@@ -4108,7 +4336,9 @@ def phase12_qwen(dev, cfg, model, params, prompts):
     paged ``SlotScheduler`` with the paged-attention kernel at G = 5
     (depth QWEN_PAGED_LAYERS), (b)
     ``mode="jit"`` (depth QWEN_JIT_LAYERS), (c) the autotuner on the
-    ``apply`` block body at B=1, S=1024.  Returns the paths' launches."""
+    ``apply`` block body at B=1, S=1024, (d) phase 10's async compile and
+    restart contract on the paged fronts (:func:`async_front`, depth
+    QWEN_PAGED_LAYERS).  Returns the paths' launches."""
     t0 = time.perf_counter()
     out = {"qwen_paged": paged_path(dev, cfg.with_(n_layers=QWEN_PAGED_LAYERS),
                                     dict(params, blocks=params["blocks"][:QWEN_PAGED_LAYERS]),
@@ -4123,6 +4353,12 @@ def phase12_qwen(dev, cfg, model, params, prompts):
     out["jit_qwen"] = jit_path(dev, jcfg, model, jparams, prompts)
     release_device_memory()
     out["autotune_qwen"] = autotune_body(dev, cfg, params, 1, 1024)
+    release_device_memory()
+    t1 = time.perf_counter()
+    out["qwen_async"] = async_front(dev, cfg.with_(n_layers=QWEN_PAGED_LAYERS),
+                                    dict(params, blocks=params["blocks"][:QWEN_PAGED_LAYERS]),
+                                    "qwen2.5-14b paged", paged=True)
+    log(f"phase 12 (d) took {time.perf_counter() - t1:.1f} s")
     log(f"phase 12 on qwen2.5-14b took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -6227,6 +6463,119 @@ def ep_rank(rank, world, port, out):
         dist.destroy_process_group()
 
 
+#: the train CLI on two ranks (started after phase 15, whose CLI run left
+#: Inductor's caches warm for the same step, and joined after phase 17):
+#: forge-125m at full size, B8 x S128, 4 steps, a checkpoint every 2 and
+#: one fault at step 3
+TRAIN_RANKS_WORLD = 2
+TRAIN_RANKS_ARGS = ["--arch", "forge-125m", "--batch", "8", "--seq", "128", "--steps", "4",
+                    "--ckpt-every", "2", "--simulate-fault", "3"]
+
+
+def start_train_ranks():
+    """The train CLI's ranks (:func:`train_cli_rank`), spawned now:
+    ``(context, output directory, start time)``."""
+    import torch.multiprocessing as mp
+
+    out = tempfile.mkdtemp(prefix="forge-train-ranks-", dir=os.environ.get("TMPDIR"))
+    ctx = mp.start_processes(train_cli_rank, args=(TRAIN_RANKS_WORLD, free_port(), out),
+                             nprocs=TRAIN_RANKS_WORLD, start_method="spawn", join=False)
+    _SPAWNED.extend(ctx.processes)  # stop_children ends them if the script fails first
+    return ctx, out, time.perf_counter()
+
+
+def train_cli_rank(rank, world, port, out):
+    """A rank of the train CLI (spawned): ``launch.train.main`` in the
+    environment ``torchrun --nproc-per-node 2`` sets, so that ``main``
+    opens the group itself; both ranks on this card (``--device cuda:0``:
+    ``cuda`` names ``cuda:<local rank>``, and the machine has one).
+    Writes the run and the launches counted around ``main``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch import train
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = {}
+    t0 = time.perf_counter()
+    reset_counts()
+    code = train.main(TRAIN_RANKS_ARGS + ["--device", "cuda:0", "--ckpt-dir",
+                                          os.path.join(out, "ckpt")], out=run)
+    torch.cuda.synchronize()
+    launched = counts()
+    step, rep, ckpt = run["step"], run["report"], run["ckpt"]
+    torch.save({"code": code, "seconds": time.perf_counter() - t0,
+                "step_type": type(step).__name__, "device": str(step.device),
+                "history": rep.history, "failures": rep.failures, "restores": rep.restores,
+                "all_steps": ckpt.all_steps(), "timings": ckpt.timings,
+                "launches": dict(launched), "variants": launched.variants,
+                "kernel_nodes": step.kernel_nodes, "replays": step.replays,
+                "compile_s": step.compile_s, "step_s": run["step_s"]},
+               os.path.join(out, f"r{rank}.pt"))
+
+
+def phase_train_ranks(tr):
+    """The train CLI on two ranks of a gloo group it opened itself, both on
+    this card: each rank's step the compiled ``JitTrainStep``, the same
+    losses on both (bitwise: the same programs on the same batches), one
+    failure and one restore on each from the step-2 checkpoint, steps 0,
+    2 and 4 on disk written by rank 0 alone, each rank's launches the
+    steps' forward and backward kernel nodes plus the first call's eager
+    forward, equal on both.  Joins the ranks :func:`start_train_ranks`
+    started; returns rank 0's launches."""
+    import torch
+
+    ctx, out, t0 = tr
+    try:
+        deadline = time.monotonic() + 600
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            check(time.monotonic() < deadline, "the train CLI's ranks did not end in 600 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    secs = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"r{r}.pt"), weights_only=False)
+             for r in range(TRAIN_RANKS_WORLD)]
+    losses = [[h["loss"] for h in r["history"]] for r in ranks]
+    for i, r in enumerate(ranks):
+        check(r["code"] == 0 and r["step_type"] == "JitTrainStep" and r["device"] == "cuda:0",
+              f"train rank {i}: exit {r['code']}, step {r['step_type']} on {r['device']}")
+        check(r["failures"] == 1 and r["restores"] == 1
+              and [h["step"] for h in r["history"]] == [0, 1, 2, 2, 3]
+              and len(r["timings"]["restore_s"]) == 1,
+              f"train rank {i}: {r['failures']} failures, {r['restores']} restores, steps "
+              f"{[h['step'] for h in r['history']]}")
+        check(all(math.isfinite(x) for x in losses[i]), f"train rank {i}: losses {losses[i]}")
+        fwd, bwd = r["kernel_nodes"]["forward"], r["kernel_nodes"]["backward"]
+        for name in ("flash_attention", "fused_linear"):
+            want = (fwd.get(name, 0) + bwd.get(name, 0)) * len(r["history"]) + fwd.get(name, 0)
+            check(r["launches"][name] == want > 0,
+                  f"train rank {i}: {name} launches {r['launches'][name]} != {want}")
+    check(losses[0] == losses[1], f"the ranks' losses differ: {losses}")
+    check(ranks[0]["all_steps"] == ranks[1]["all_steps"] == [0, 2, 4]
+          and len(ranks[0]["timings"]["write_s"]) == 4
+          and ranks[1]["timings"]["snapshot_s"] == ranks[1]["timings"]["write_s"] == [],
+          f"checkpoints {ranks[0]['all_steps']}, rank 0 wrote {len(ranks[0]['timings']['write_s'])}, "
+          f"rank 1 {len(ranks[1]['timings']['write_s'])}")
+    check(ranks[0]["launches"] == ranks[1]["launches"],
+          f"the ranks launched {ranks[0]['launches']} and {ranks[1]['launches']}")
+    r0 = ranks[0]
+    log(f"train CLI on two gloo ranks, both on this card ({secs:.1f} s with the ranks' start; "
+        f"rank runs {ranks[0]['seconds']:.1f} / {ranks[1]['seconds']:.1f} s, step builds "
+        f"{ranks[0]['compile_s']:.1f} / {ranks[1]['compile_s']:.1f} s): {' '.join(TRAIN_RANKS_ARGS)}; "
+        f"each step JitTrainStep, {r0['replays']} replays; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses[0])} bitwise equal on both ranks; one fault at "
+        f"step 3 restored from step 2 on each (restore {r0['timings']['restore_s'][0]:.2f} / "
+        f"{ranks[1]['timings']['restore_s'][0]:.2f} s); checkpoints {r0['all_steps']} written "
+        f"by rank 0 alone (snapshots {[round(x, 2) for x in r0['timings']['snapshot_s']]} s); "
+        f"median step {1e3 * sorted(r0['step_s'])[len(r0['step_s']) // 2]:.1f} ms; launches a "
+        f"rank {r0['launches']}, {r0['variants']}")
+    return Counts(r0["launches"], r0["variants"])
+
+
 def load_example(name):
     """The module ``examples/torch_<name>.py``, loaded from its file."""
     import importlib.util
@@ -6383,13 +6732,23 @@ def main(argv=None):
     launches.update(timed("phase 13", phase13, dev))
     launches.update(timed("phase 14", phase14, dev))
     launches.update(timed("phase 15", phase15, dev))
+    # the train CLI's two ranks run beside phases 16-17 (phase 15 left
+    # Inductor's caches warm for their step)
+    train_ranks = start_train_ranks()
     planned, ep = timed("phase 16", phase16, dev, dryrun)
     launches.update(planned)
     timed("phase 17", phase17, dev)
     launches.update(timed("phase 16 (e) after phase 17", phase16_ep, ep))
+    launches["train_ranks"] = timed("the train CLI's ranks after phase 17", phase_train_ranks,
+                                    train_ranks)
     # no path of the JAX package reaches rms_norm_pallas, nor does one here
     check(not any(n["rms_norm"] for n in launches.values()),
           f"rms_norm launched on a served path: {launches}")
+    # the kernels the rank, scheduler and async paths must launch
+    for path, name in (("rglru_sched", "rg_lru"), ("rglru_async", "rg_lru"),
+                       ("qwen_async", "paged_attention"), ("qwen_async", "fused_linear"),
+                       ("train_ranks", "fused_linear"), ("train_ranks", "flash_attention")):
+        check(launches[path][name] > 0, f"{name} launched no time on {path}")
     check_variants(launches)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s: {json.dumps(took)}")
 
@@ -6437,6 +6796,8 @@ def main(argv=None):
              "rglru_serve": fl_rows[("rglru", 128)],
              "rglru_sequential": fl_rows[("rglru", 4)],
              "rglru_apply": fl_rows[("rglru", 2048)],
+             "rglru_sched": fl_rows[("rglru", 4)], "rglru_async": fl_rows[("rglru", 4)],
+             "qwen_async": fl_rows[("qwen", 4)], "train_ranks": fl_rows[TRAIN_ROWS],
              "xlstm_serve": fl_rows[("xlstm", 128)],
              "xlstm_sequential": fl_rows[("xlstm", 4)],
              "xlstm_sched": fl_rows[("xlstm", 4)],
@@ -6461,13 +6822,16 @@ def main(argv=None):
              "phi_apply": fa_rows["phi"], "vl_apply": fa_rows["vl"],
              "kimi_apply": fa_rows["kimi"], "encdec_apply": fa_rows["encdec_enc"],
              "encdec_serve": fa_rows["encdec_decode"], "train": fa_rows["train"],
-             "train_step": fa_rows["train"], "planned_apply": fa_rows["apply"],
+             "train_step": fa_rows["train"], "train_ranks": fa_rows["train"],
+             "planned_apply": fa_rows["apply"],
              "planned_step": fa_rows["train"], "tp_apply": fa_rows["tp"]}),
         row("paged_attention", "src/repro/kernels/paged_attention.py:190", "paged",
             {"paged": pa_rows["served"], "qwen_paged": pa_rows["qwen_served"],
+             "qwen_async": pa_rows["qwen_served"],
              "phi_paged": pa_rows["phi_served"]}),
         row("rg_lru", "src/repro/kernels/rg_lru.py:130", "rglru_serve",
-            {"rglru_serve": rg_rows[(4, 32)], "rglru_apply": rg_rows[(2, 1024)],
+            {"rglru_serve": rg_rows[(4, 32)], "rglru_sched": rg_rows[(4, 32)],
+             "rglru_apply": rg_rows[(2, 1024)],
              "rglru_train": rg_rows[(8, 128)]}),
     ]
     # phase 2's further shapes: flash bf16 D=128 with GQA; paged at long

@@ -13,15 +13,21 @@ The step is :class:`JitTrainStep`, the counterpart of the reference's
 ``jax.jit(step, donate_argnums=(0, 1))``: the loss compiled with its
 backward, the clipping and the optimizer update compiled beside it, on
 the card one CUDA graph a step; it owns the parameters and the optimizer
-state and writes each step's values into them in place.  With more than
-one rank in a live process group the step stays the eager
-``make_train_step`` (a planned step is DTensor under ``torch.compile``,
-not ported yet).  The step runs on CUDA unless ``--device cpu`` is
-given.
+state and writes each step's values into them in place.  The step runs
+on CUDA unless ``--device cpu`` is given.
+
+On more than one rank (``torchrun``, or a process group the caller
+opened) every rank compiles the same step on its own device (``cuda``
+names ``cuda:<local rank>``) and trains on the same global batch, as
+the reference's one process does whatever its device count: the host
+mesh and the family's sharding plan are built and bound to nothing, as
+there.  Rank 0 alone writes checkpoints; a barrier after its write and
+before any restore makes every rank restore the same complete step.
 
 Usage (training a ~100M model; ``--smoke --device cpu`` on a CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch forge-125m \\
       --steps 200 --batch 8 --seq 128
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -46,8 +52,7 @@ from ..optim import AdamW
 from ..optim.adamw import AdamWState, leaves_like
 from ..runtime import SimulatedFault, Supervisor
 from .mesh import make_host_mesh
-from .steps import (checked_optimizer, dealias_tree, default_optimizer, make_loss_fn,
-                    make_train_step)
+from .steps import checked_optimizer, dealias_tree, default_optimizer, make_loss_fn
 
 #: the kernel custom ops: a node of one launches its kernel once a run
 KERNEL_OPS = ("fused_linear", "flash_attention", "paged_attention", "rg_lru", "rg_lru_chunked",
@@ -179,8 +184,12 @@ class JitTrainStep:
             return out
 
         # AOTAutograd's cache would skip the partition and the inner
-        # compiles that count the programs (Inductor's own cache still serves)
-        with torch._inductor.config.patch(emulate_precision_casts=True), \
+        # compiles that count the programs (Inductor's own cache still
+        # serves).  Deterministic: no kernel config is chosen by timing it
+        # where the choice moves the numerics (a reduction's split), so the
+        # same step gives the same bits in every process (the ranks of a
+        # group train replicas, as the reference's jitted step does)
+        with torch._inductor.config.patch(emulate_precision_casts=True, deterministic=True), \
                 torch._functorch.config.patch(enable_autograd_cache=False):
             out = compile_fx(gm, example_inputs, inner_compile=inner)
         self._add("aot", time.perf_counter() - t0 - inner_s[0])
@@ -352,25 +361,36 @@ class JitTrainStep:
         return params, opt_state, {"loss": loss}
 
 
+def rank_device(device: Union[str, torch.device] = "cuda") -> torch.device:
+    """The device this rank trains on: in a live group of more than one
+    rank, ``cuda`` without an index names the rank's own card,
+    ``cuda:<local rank>`` (``LOCAL_RANK`` as ``torchrun`` sets it, else
+    the rank modulo the cards); any other device as given."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        local = os.environ.get("LOCAL_RANK")
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 1
+        d = torch.device("cuda", int(local) if local is not None else dist.get_rank() % n)
+    return d
+
+
 def build_trainer(cfg, *, lr: float = 3e-4, use_mesh: bool = True, donate: bool = True,
                   device: str = "cuda"):
     """``(model, optimizer, step_fn)``: AdamW at ``lr`` below 1e9
     parameters, else :func:`default_optimizer`; the step is
-    :class:`JitTrainStep` (parameters and state donated unless
-    ``donate=False``), as the reference returns ``jax.jit(step,
-    donate_argnums=(0, 1))``.  With more than one rank in the live process
-    group it builds the host mesh and the family's sharding plan, as the
-    reference does (which binds neither to the step either), and the step
-    is the eager ``make_train_step``: a planned step compiled whole is
-    DTensor under ``torch.compile``, a part of the port still to come
-    (nothing falls back to it: the choice is made here, by the mesh)."""
+    :class:`JitTrainStep` on this rank's device (:func:`rank_device`;
+    parameters and state donated unless ``donate=False``), as the
+    reference returns ``jax.jit(step, donate_argnums=(0, 1))`` whatever
+    its device count.  With more than one rank in the live process group
+    it builds the host mesh and the family's sharding plan, as the
+    reference does, and binds neither to the step, as the reference
+    does."""
     model = get_model(cfg)
     optimizer = AdamW(lr=lr) if cfg.param_count() < 1e9 else default_optimizer(cfg)
-    multi = use_mesh and dist.is_initialized() and dist.get_world_size() > 1
-    mesh = make_host_mesh(device_type=torch.device(device).type) if multi else None
-    if mesh is not None:
-        plan_for(cfg, mesh)
-        return model, optimizer, make_train_step(cfg, optimizer)
+    device = rank_device(device)
+    if use_mesh and dist.is_initialized() and dist.get_world_size() > 1:
+        plan_for(cfg, make_host_mesh(device_type=device.type))
     return model, optimizer, JitTrainStep(cfg, optimizer, donate=donate, device=device)
 
 
@@ -407,26 +427,59 @@ def main(argv=None, *, params: Optional[Dict[str, Any]] = None,
     cfg = get_config(args.arch, smoke=args.smoke).with_(fuse=args.fuse)
     if cfg.family in ("encdec", "vlm"):
         raise SystemExit("the train CLI covers LM families; use examples/")
+    own_group = join_group()
+    try:
+        return _train(args, cfg, device, params, out)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def join_group() -> bool:
+    """Open the process group ``torchrun`` describes (``WORLD_SIZE`` above
+    1 in the environment, no group live yet); returns whether it opened
+    one.  The group carries only the checkpoint barriers, on the host:
+    gloo, whatever the device."""
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    dist.init_process_group("gloo")
+    return True
+
+
+def _train(args, cfg, device, params, out) -> int:
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if ranks > 1 else 0
+    device = rank_device(device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
     model, optimizer, step_fn = build_trainer(cfg, lr=args.lr, device=str(device))
+
+    def barrier() -> None:
+        if ranks > 1:
+            dist.barrier()
 
     data = TokenDataset(DataConfig(
         seq_len=args.seq, global_batch=args.batch, vocab=cfg.vocab, seed=args.seed,
     ))
     ckpt = CheckpointManager(args.ckpt_dir, keep_last=3)
+    writer = rank == 0  # the one rank that writes checkpoints
 
     if params is None:
         params = model.init(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     params = dealias_tree(params)
     opt_state = dealias_tree(optimizer.init(params))
     n_params = sum(p.numel() for p in pytree.tree_leaves(params))
-    print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, 1 device(s)")
+    print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, {ranks} device(s)"
+          + (f" (rank {rank} on {device})" if ranks > 1 else ""))
 
     state = (params, opt_state)
     start = 0
-    if ckpt.latest_step() is not None:
-        state, start = ckpt.restore(state)
+    latest = ckpt.latest_step()
+    barrier()  # every rank has read the directory before the writer adds to it
+    if latest is not None:
+        state, start = ckpt.restore(state, step=latest)
         print(f"[train] restored from step {start}")
-    else:
+    elif writer:
         # step-0 checkpoint: restart-from-nothing falls back here
         ckpt.save(0, state)
         ckpt.wait()
@@ -449,18 +502,30 @@ def main(argv=None, *, params: Optional[Dict[str, Any]] = None,
         t_hist.append(dt)
         return (params, opt_state), {"loss": loss, "dt_s": dt}
 
+    def save(step: int, st) -> None:
+        if writer:
+            ckpt.save(step, st)
+
+    def restore():
+        # the writer's last save lands (restore waits for its thread)
+        # before any rank reads the directory
+        ckpt.wait()
+        barrier()
+        return ckpt.restore(state)
+
     sup = Supervisor(
         step_fn=wrapped_step,
         data_fn=data.batch,
-        save_fn=lambda s, st: ckpt.save(s, st),
-        restore_fn=lambda: ckpt.restore(state),
+        save_fn=save,
+        restore_fn=restore,
         checkpoint_every=args.ckpt_every,
         fault_hook=fault_hook if args.simulate_fault >= 0 else None,
     )
     state, report = sup.run(state, start, args.steps)
     ckpt.wait()
-    ckpt.save(start + args.steps, state)
+    save(start + args.steps, state)
     ckpt.wait()
+    barrier()  # no rank ends before the last checkpoint is on disk
     if out is not None:
         out.update(report=report, step_s=t_hist, state=state, ckpt=ckpt, step=step_fn)
 

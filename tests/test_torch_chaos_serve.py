@@ -10,7 +10,8 @@ forge-125m with the JAX package's parameters and ``backend="interpret"``
 match backend against the same backend only, and the JAX package's
 ``segment_jit`` fails on jax 0.9.0).  Held equal under one plan seed:
 every request's tokens, typed outcome and ticks, and the containment
-metrics; the fault_recovery soak also on qwen2.5-14b smoke, paged.  Port-only: ``segment_jit`` survivors on the CPU bitwise equal
+metrics; the fault_recovery soak also on qwen2.5-14b smoke, paged, and
+with the SLO workload on recurrentgemma-2b smoke, contiguous.  Port-only: ``segment_jit`` survivors on the CPU bitwise equal
 to the clean run, a mid-program dispatch fault retried state-safely, the
 watchdog and the abort giving typed outcomes, and the CLI's ``--chaos``.
 """
@@ -206,6 +207,53 @@ def test_fault_recovery_soak_qwen_paged_matches_jax(qwen_setup):
         else:
             np.testing.assert_array_equal(r["tokens"], clean["results"][rid]["tokens"])
     _assert_no_leaks(srv, 16, got)
+
+
+@pytest.fixture(scope="module")
+def rg_servers():
+    """recurrentgemma-2b smoke f32 in both packages, one warmed contiguous
+    server per package (the RG-LRU rows reset at admission)."""
+    cfg = get_config("recurrentgemma-2b", smoke=True).with_(dtype="float32")
+    jcfg = jax_get_config("recurrentgemma-2b", smoke=True).with_(dtype="float32")
+    jp = jax_params(jcfg)
+    rg_setup = {"port": (serve, chaos, cfg, port_params(jp)), "jax": (jserve, jchaos, jcfg, jp)}
+    return rg_setup, _server_factory(rg_setup)
+
+
+@pytest.mark.parametrize("case", ["soak", "slo", "fifo"])
+def test_recurrent_contiguous_matches_jax(rg_servers, case):
+    """recurrentgemma-2b over the contiguous cache, against the JAX
+    scheduler: the fault_recovery soak under FaultPlan(seed=11) (the same
+    faults at the same calls, every outcome equal, survivors bitwise the
+    clean run's), and the background-plus-burst workload with SLO
+    admission (preemption parks recurrent rows and resumes them) and
+    without it."""
+    rg_setup, servers = rg_servers
+    if case == "soak":
+        clean, _, _ = _serve(rg_setup, servers, "port", False, _fr)
+        assert all("error" not in r for r in clean["results"].values())
+        want, _, jplan = _serve(rg_setup, servers, "jax", False, _fr, soak_plan)
+        got, _, plan = _serve(rg_setup, servers, "port", False, _fr, soak_plan)
+        _assert_same(got, want)
+        assert plan.log == jplan.log and got["faults_injected"] == plan.faults_injected >= 1
+        assert got["dispatch_retries"] >= 1
+        for rid, r in got["results"].items():
+            if "error" in r:
+                assert r["error_type"] in ("RequestError", "SystemError")
+            else:
+                np.testing.assert_array_equal(r["tokens"], clean["results"][rid]["tokens"])
+        return
+    slo = case == "slo"
+    want, _, _ = _serve(rg_setup, servers, "jax", False, _bg_plus_burst, max_slots=2, slo=slo)
+    got, srv, _ = _serve(rg_setup, servers, "port", False, _bg_plus_burst, max_slots=2, slo=slo)
+    _assert_same(got, want)
+    if slo:
+        assert got["preemptions"] >= 1 and got["resumes"] >= 1
+    else:
+        assert got["preemptions"] == 0 and got["shed"] == 0
+    pool = srv.bucketed.pool
+    assert not any(isinstance(k, tuple) and k[:1] == ("parked",) and pool.pooled(k)
+                   for k in list(pool._free))
 
 
 def _abort_plan(ch):

@@ -410,3 +410,28 @@ def ep_count_rank(rank, world, init, out, cells, shapes):
             counts[arch, shape_name, tuple(shape)] = {"flops_by_op": r["flops_by_op"],
                                                       "peak_bytes": r["peak_bytes"]}
     torch.save(counts, os.path.join(out, "counts.pt"))
+
+
+def train_cli_rank(rank, world, init, out, port, argv, params_file):
+    """The port's train CLI (``launch.train.main``) on this rank, its
+    process group opened by ``main`` itself from the environment
+    ``torchrun`` would set; writes the run: the step's type, the
+    supervisor's report, the checkpoints on disk, this rank's checkpoint
+    timings and the ``[train]`` lines it printed."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    run, printed = {}, io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        code = train.main(argv, params=torch.load(params_file), out=run)
+    rep = run["report"]
+    torch.save({"code": code, "step_type": type(run["step"]).__name__,
+                "history": rep.history, "failures": rep.failures, "restores": rep.restores,
+                "all_steps": run["ckpt"].all_steps(), "timings": run["ckpt"].timings,
+                "opt_step": int(run["state"][1].step), "group_closed": not dist.is_initialized(),
+                "printed": printed.getvalue()},
+               os.path.join(out, f"r{rank}.pt"))
